@@ -1,0 +1,114 @@
+"""The port stands alone: it imports ``torch`` and ``numpy``, never
+``jax`` and nothing of the ``repro`` package, and it does not run on the
+CPU unasked."""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+ONE_TICK = r"""
+import sys
+import repro_torch
+from repro_torch.core import BigRootsAnalyzer, Forecaster, JAX_FEATURES
+from repro_torch.models import ForecastConfig, forecast_init
+from repro_torch.serve import Diagnosis, FleetAggregator
+from repro_torch.telemetry import StepTelemetry
+import repro_torch.convert, repro_torch.kernels, repro_torch.kernels.build
+
+schema = JAX_FEATURES
+agg = FleetAggregator(schema, BigRootsAnalyzer(schema, device="cpu"),
+                      attribution=True)
+cfg = ForecastConfig(features=len(schema))
+diag = Diagnosis.fleet(agg, forecaster=Forecaster(
+    forecast_init(cfg, 0), cfg, schema, device="cpu"))
+telems = [StepTelemetry(f"h{i}", wire=True, boot=1) for i in range(6)]
+for i, t in enumerate(telems):
+    with t.step(0) as s:
+        s.add("read_bytes", 10.0 if i else 1000.0)
+for t in telems[1:]:
+    agg.ingest(t.drain_delta().to_bytes())
+fresh = diag.tick(telems[0], step_time=1.0)
+assert agg.rows_ingested == 6, agg.rows_ingested
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_one_tick_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", ONE_TICK], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
+NO_CUDA = r"""
+import torch
+from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,
+                              WhatIfReplayer)
+from repro_torch.models import ForecastConfig, forecast_init
+from repro_torch.serve import FleetAggregator
+assert not torch.cuda.is_available()
+cfg = ForecastConfig(features=len(JAX_FEATURES))
+params = forecast_init(cfg, 0)
+for make in (lambda: BigRootsAnalyzer(JAX_FEATURES),
+             lambda: WhatIfReplayer(JAX_FEATURES),
+             lambda: Forecaster(params, cfg, JAX_FEATURES),
+             lambda: FleetAggregator(JAX_FEATURES)):
+    try:
+        make()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise SystemExit("ran on the CPU unasked")
+# The numpy oracle is host only: it needs no GPU and no device argument.
+Forecaster(params, cfg, JAX_FEATURES, backend="numpy")
+print("RAISED")
+"""
+
+
+def test_default_device_raises_without_cuda():
+    env = {**ENV, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", NO_CUDA], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert "RAISED" in out.stdout
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)"
+    r"|from\s+repro(\.|\s))", re.M)
+
+
+def port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def test_source_scan_finds_no_jax_or_repro_import():
+    files = port_sources()
+    assert len(files) > 20
+    for path in files:
+        hits = FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import jax", True), ("from jax import numpy", True),
+    ("    import jax.numpy as jnp", True), ("import repro", True),
+    ("from repro.core import x", True), ("from repro import core", True),
+    ("import repro_torch", False), ("from repro_torch.core import x", False),
+    ("import torch", False), ("# import jax is not done here", False),
+])
+def test_the_scan_pattern_itself(line, bad):
+    assert bool(FORBIDDEN.search(line)) is bad
