@@ -4,16 +4,25 @@
 Run from the repository root on a machine with one NVIDIA Hopper GPU, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA::
 
-    python3 chip_smoke.py [--seed 0] [--ticks 5]
+    python3 chip_smoke.py [--seed 0] [--ticks 5] [--f32-layers 4]
 
 What it does, in phases (one JSON line each; any failure raises and the
 process exits non-zero):
 
 1. ``env``      torch / CUDA / nvcc versions, the GPU's name and power limit.
-2. ``build``    compiles every CUDA kernel of the package from ``csrc/``.
+2. ``build``    compiles every CUDA kernel of the package from ``csrc/``,
+                one ``nvcc`` per source, all started together.
 3. ``kernels``  holds each kernel against its plain PyTorch version on the
-                GPU (``torch.equal`` on the int8 gate bits: tolerance 0) at
-                the full-incident shape and on a corner batch.
+                GPU: the Eq. 5 gate kernel (``torch.equal`` on the int8 gate
+                bits: tolerance 0) at the full-incident shape and on corner
+                batches; flash attention (K2) and decode attention (K3) at
+                the serving path's shapes and corners (ragged lengths, n_rep
+                1 and 16, head_dim 64 and 128, cache_len at 0, a split edge
+                and the last position) in bfloat16 and float32, with the JAX
+                package's kernel-test tolerances (2e-2 and 2e-5, rtol = atol:
+                sums in another order, and bf16 keeps 8 bits); K2 and K3 are
+                timed at the serving path's shapes beside their plain
+                versions and ``scaled_dot_product_attention``.
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -22,8 +31,20 @@ process exits non-zero):
                 causes against a second run of the same package with the
                 numpy gate oracle and everything else on the CPU.  Launch
                 counters are zeroed just before and read just after.
-5. the kernels at the main path's own last packed batch: compare, then time
-   kernel, plain version and bound.
+5. the gate kernel at the main path's own last packed batch: compare, then
+   time kernel, plain version and bound.
+6. ``serve_path`` serves glm4-9b at full width and depth (40 layers, random
+                weights from a seeded generator, float32 parameters served
+                in bfloat16) through ``ServeEngine`` with streaming telemetry
+                and ``Diagnosis.local``: 8 requests x 1024 prompt tokens,
+                32 greedy new tokens each.  Launch counters are zeroed just
+                before the run and read just after: K2 once per layer of the
+                prefill, K3 once per layer of every decode step.  The same
+                prompts then go through the reference's dense attention form
+                teacher-forced with the run's tokens, and every step's
+                logits are compared; a float32 variant cut to
+                ``--f32-layers`` layers (full width) must give the dense
+                form's greedy tokens exactly.
 
 The last three lines of standard output are the GPU's name and power limit
 as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
@@ -38,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -52,17 +74,40 @@ from repro_torch.core import (  # noqa: E402
     JAX_FEATURES,
     cause_to_wire,
 )
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
-from repro_torch.kernels import bigroots_gates, build  # noqa: E402
-from repro_torch.models import ForecastConfig, forecast_init  # noqa: E402
-from repro_torch.serve import Diagnosis, FleetAggregator  # noqa: E402
-from repro_torch.telemetry import StageDelta, StepDelta, StepTelemetry  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    bigroots_gates,
+    build,
+    decode_attention,
+    flash_attention,
+)
+from repro_torch.models import (  # noqa: E402
+    ForecastConfig,
+    Model,
+    forecast_init,
+)
+from repro_torch.serve import (  # noqa: E402
+    Diagnosis,
+    FleetAggregator,
+    Request,
+    ServeEngine,
+)
+from repro_torch.telemetry import (  # noqa: E402
+    ResourceTimeline,
+    StageDelta,
+    StepDelta,
+    StepTelemetry,
+)
 
 #: Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, and
 #: the float64 rate outside the tensor cores (half the 67 TFLOP/s float32
 #: rate) for the operations bound.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 33.5e12
+#: Dense peaks for the attention kernels' operations bound: bf16 on the
+#: tensor cores, float32 outside them.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: sub, div, mul for each of the two peer means, and seven comparisons.
 GATE_OPS_PER_ELEMENT = 13
 #: The fleet: 64 live stage windows (the aggregator's default retention) of
@@ -75,6 +120,28 @@ FRESH_SENDERS = 4
 FRESH_ROWS = 64
 NODE_NAMES = 512
 RISK_TOL = 1e-12
+#: The serving path: glm4-9b, batch 8 of 1024-token prompts, 32 new tokens
+#: each, and a cache of prompt + new + 8 positions (as ``launch/serve.py``
+#: sizes it).
+SERVE_ARCH = "glm4_9b"
+SERVE_BATCH = 8
+PROMPT_LEN = 1024
+MAX_NEW = 32
+MAX_LEN = PROMPT_LEN + MAX_NEW + 8
+#: The JAX package's kernel-test tolerances (rtol = atol), by dtype.
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: The bf16 kernel path's logits are held to the float32 model (the
+#: reference's dense form in float32 on the same f32 weights, teacher-forced
+#: with the same tokens): their relative RMS error may be at most this
+#: factor times that of the reference's own bf16 dense form.  A fixed bound
+#: would not do: the two bf16 forms round at different places (the dense
+#: form rounds logits and probabilities to bf16, the kernels keep f32
+#: logits) in each of 40 layers, bf16 keeps 8 bits, and how far that
+#: carries to the logits is a property of the weights, not of the kernels.
+SERVE_BF16_MARGIN = 1.5
+#: float32 logits of the kernel path against the dense form, relative RMS:
+#: the same arithmetic summed in another order, through 4 layers.
+SERVE_F32_REL_RMS = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -380,11 +447,25 @@ def gate_bound(W: int, R: int, F: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def measure(tensors, peer_mean: float, flush, rounds: int = 4) -> dict:
-    """Kernel and plain version, timed in turns (``rounds`` times each,
-    order reversed every other round): at a batch this small one block of
+def measure_fns(fns: dict, flush, rounds: int = 4, reps: int = 25) -> dict:
+    """CUDA-event times of each function, timed in turns (``rounds`` times
+    each, order reversed every other round): at a small size one block of
     launches can sit ~40 % off the next, so each number is the median over
     all rounds and the round medians are kept beside it."""
+    samples = {k: [] for k in fns}
+    per_round = {k: [] for k in fns}
+    for rnd in range(rounds):
+        order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
+        for k in order:
+            got = time_ms(fns[k], flush, reps)
+            samples[k] += got
+            per_round[k].append(statistics.median(got))
+    return {**{k: statistics.median(v) for k, v in samples.items()},
+            "round_medians": per_round}
+
+
+def measure(tensors, peer_mean: float, flush) -> dict:
+    """The gate kernel and its plain version, timed in turns."""
     W, R, F = tensors[0].shape
     out = torch.empty((W, R, F), dtype=torch.int8, device=tensors[0].device)
     fns = {
@@ -393,17 +474,393 @@ def measure(tensors, peer_mean: float, flush, rounds: int = 4) -> dict:
         "plain_ms": lambda: bigroots_gates.eval_gates_torch(
             *tensors, peer_mean=peer_mean),
     }
-    samples = {k: [] for k in fns}
-    per_round = {k: [] for k in fns}
-    for rnd in range(rounds):
-        order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
-        for k in order:
-            got = time_ms(fns[k], flush)
-            samples[k] += got
-            per_round[k].append(statistics.median(got))
-    return {"shape": [W, R, F],
-            **{k: statistics.median(v) for k, v in samples.items()},
-            "round_medians": per_round, **gate_bound(W, R, F)}
+    return {"shape": [W, R, F], **measure_fns(fns, flush),
+            **gate_bound(W, R, F)}
+
+
+# -- the attention kernels against their plain versions -------------------------
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def attn_compare(got, want, dtype) -> dict:
+    err = (got.float() - want.float()).abs()
+    tol = ATTN_TOL[dtype]
+    bad = int((err > tol + tol * want.float().abs()).sum().item())
+    check(bool(torch.isfinite(got.float()).all()), "non-finite attention out")
+    return {"max_abs_err": float(err.max().item()), "tolerance": tol,
+            "outside_tolerance": bad}
+
+
+def flash_case(gen, B, S, H, KV, D, dtype, causal, device, bhsd=False):
+    """Kernel against plain version on one shape.  ``bhsd``: the inputs are
+    the JAX kernel's ``[B*H, S, D]`` layout seen as ``[1, S, B*H, D]``
+    views (strided, not copied)."""
+    if bhsd:
+        q = _randn(gen, (B * H, S, D), dtype, device).permute(1, 0, 2)[None]
+        k = _randn(gen, (B * KV, S, D), dtype, device).permute(1, 0, 2)[None]
+        v = _randn(gen, (B * KV, S, D), dtype, device).permute(1, 0, 2)[None]
+    else:
+        q = _randn(gen, (B, S, H, D), dtype, device)
+        k = _randn(gen, (B, S, KV, D), dtype, device)
+        v = _randn(gen, (B, S, KV, D), dtype, device)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_torch(q, k, v, causal=causal)
+    res = {"kernel": "flash_attention", "shape": list(q.shape), "kv": KV,
+           "dtype": str(dtype).removeprefix("torch."), "causal": causal,
+           "bhsd_view": bhsd, **attn_compare(got, want, dtype)}
+    check(res["outside_tolerance"] == 0, f"flash_attention differs: {res}")
+    return res
+
+
+def decode_case(gen, B, S, H, KV, D, dtype, cache_len, device):
+    q = _randn(gen, (B, H, D), dtype, device)
+    k = _randn(gen, (B, S, KV, D), dtype, device)
+    v = _randn(gen, (B, S, KV, D), dtype, device)
+    n = torch.tensor(cache_len, dtype=torch.int32, device=device)
+    got = decode_attention.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    want = decode_attention.decode_attention_torch(q, k, v, n)
+    res = {"kernel": "decode_attention", "cache": list(k.shape), "heads": H,
+           "dtype": str(dtype).removeprefix("torch."),
+           "cache_len": cache_len, **attn_compare(got, want, dtype)}
+    check(res["outside_tolerance"] == 0, f"decode_attention differs: {res}")
+    return res
+
+
+def attention_checks(device, seed: int) -> list[dict]:
+    """The serving path's shapes and the corners around them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(SERVE_ARCH)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = []
+    for dtype in (bf, f32):
+        out.append(flash_case(gen, SERVE_BATCH, PROMPT_LEN, H, KV, D, dtype,
+                              True, device))
+        out.append(flash_case(gen, 2, 1000, H, KV, D, dtype, True, device))
+        out.append(flash_case(gen, 2, 1000, H, KV, D, dtype, False, device))
+        out.append(flash_case(gen, 2, 256, 8, 8, 128, dtype, True, device))
+        out.append(flash_case(gen, 2, 300, 16, 1, 64, dtype, True, device))
+        out.append(flash_case(gen, 2, 200, 8, 2, 64, dtype, False, device,
+                              bhsd=True))
+        for cache_len in (0, 511, 512, PROMPT_LEN + MAX_NEW - 1, MAX_LEN - 1):
+            out.append(decode_case(gen, SERVE_BATCH, MAX_LEN, H, KV, D, dtype,
+                                   cache_len, device))
+        out.append(decode_case(gen, 2, MAX_LEN, 8, 8, 128, dtype, 700,
+                               device))
+        out.append(decode_case(gen, 2, MAX_LEN, 16, 1, 64, dtype, 64, device))
+        out.append(decode_case(gen, 2, 100, 16, 1, 64, dtype, 99, device))
+    return out
+
+
+def flash_bound(B, Sq, Sk, H, KV, D, dtype, causal) -> dict:
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    flops = 4 * B * H * D * pairs
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * D * (2 * B * Sq * H + 2 * B * Sk * KV)
+    return _bound(flops, nbytes, dtype)
+
+
+def decode_bound(B, H, KV, D, valid, dtype) -> dict:
+    flops = 4 * B * H * D * valid
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * D * (2 * B * valid * KV + 2 * B * H)
+    return _bound(flops, nbytes, dtype)
+
+
+def _bound(flops, nbytes, dtype) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def attention_timings(device, seed: int, flush) -> dict:
+    """K2 and K3 at the serving path's shapes (bf16): the prefill's
+    ``[8, 1024, 32, 128]`` causal attention over 2 kv heads, and the last
+    decode step's one-token attention over a ``[8, 1064, 2, 128]`` cache
+    holding 1056 valid positions."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cfg = get_config(SERVE_ARCH)
+    B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim, torch.bfloat16
+    q = _randn(gen, (B, PROMPT_LEN, H, D), dt, device)
+    k = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
+    v = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash = measure_fns({
+        "ms": lambda: flash_attention.flash_attention(q, k, v, causal=True),
+        "plain_ms": lambda: flash_attention.flash_attention_torch(
+            q, k, v, causal=True),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+    }, flush, rounds=2)
+    flash.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
+                 **flash_bound(B, PROMPT_LEN, PROMPT_LEN, H, KV, D, dt, True))
+    del q, k, v, qt, kt, vt
+
+    last = PROMPT_LEN + MAX_NEW - 1     # the last decode step's cache_len
+    q = _randn(gen, (B, H, D), dt, device)
+    kc = _randn(gen, (B, MAX_LEN, KV, D), dt, device)
+    vc = _randn(gen, (B, MAX_LEN, KV, D), dt, device)
+    n = torch.tensor(last, dtype=torch.int32, device=device)
+    valid = (torch.arange(MAX_LEN, device=device) <= n)[None, None, None, :]
+    q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+    dec = measure_fns({
+        "ms": lambda: decode_attention.decode_attention(q, kc, vc, n),
+        "plain_ms": lambda: decode_attention.decode_attention_torch(
+            q, kc, vc, n),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=valid, enable_gqa=True),
+    }, flush, rounds=4)
+    dec.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
+               dtype="bfloat16", **decode_bound(B, H, KV, D, last + 1, dt))
+    return {"flash_attention": flash, "decode_attention": dec}
+
+
+# -- the serving path ------------------------------------------------------------
+
+class Recorder:
+    """Wraps a model's ``prefill`` / ``decode`` to keep each call's input
+    tokens and output logits, CUDA events around each call and the host
+    time each call takes to enqueue its work."""
+
+    def __init__(self, model) -> None:
+        self.tokens: list = []
+        self.logits: list = []
+        self.events: list = []
+        self.host_ms: list = []
+        for name in ("prefill", "decode"):
+            fn = getattr(model, name)
+            setattr(model, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def call(params, inputs, cache):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            logits, cache = fn(params, inputs, cache)
+            self.host_ms.append((name, (time.perf_counter() - t0) * 1e3))
+            end.record()
+            tokens = inputs["tokens"] if name == "prefill" else inputs
+            self.tokens.append(tokens.clone())
+            self.logits.append(logits.clone())
+            self.events.append((name, start, end))
+            return logits, cache
+        return call
+
+    def reset(self) -> None:
+        self.tokens.clear()
+        self.logits.clear()
+        self.events.clear()
+        self.host_ms.clear()
+
+    def ms(self, name: str) -> list[float]:
+        return [a.elapsed_time(b) for n, a, b in self.events if n == name]
+
+    def enqueue_ms(self, name: str) -> list[float]:
+        return [t for n, t in self.host_ms if n == name]
+
+
+def profile_decode(model, params, tokens: list) -> dict:
+    """One decode step of the kernel path under ``torch.profiler``: the
+    device time of its kernels against the step's wall time (host clock to
+    a synchronisation), after a prefill and one unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": tokens[0]}
+    cache = model.init_cache(params, batch, MAX_LEN)
+    _, cache = model.prefill(params, batch, cache)
+    _, cache = model.decode(params, tokens[1], cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode(params, tokens[2], cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    if not busy:
+        return {"device_busy_ms": "not measured", "step_wall_ms": wall_ms}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "kernel_launches": sum(1 for e in prof.events() if e.device_type
+                                   == torch.autograd.DeviceType.CUDA),
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def serve_requests(cfg, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [Request(f"r{i}", rng.integers(0, cfg.vocab, PROMPT_LEN).astype(
+        np.int32), max_new_tokens=MAX_NEW) for i in range(SERVE_BATCH)]
+
+
+def teacher_forced(model, params, tokens: list) -> list:
+    """Prefill ``tokens[0]``, then decode each later entry; the logits."""
+    batch = {"tokens": tokens[0]}
+    cache = model.init_cache(params, batch, MAX_LEN)
+    logits, cache = model.prefill(params, batch, cache)
+    out = [logits]
+    for tok in tokens[1:]:
+        logits, cache = model.decode(params, tok, cache)
+        out.append(logits)
+    return out
+
+
+def logit_errors(got: list, want: list) -> dict:
+    """Per-step relative RMS error, max abs error, argmax agreement."""
+    check(len(got) == len(want), f"{len(got)} steps vs {len(want)}")
+    rel, max_abs, agree = [], 0.0, []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), "non-finite logits")
+        d = g - w
+        rel.append(float(d.norm() / w.norm()))
+        max_abs = max(max_abs, float(d.abs().max()))
+        agree.append(float((g.argmax(-1) == w.argmax(-1)).float().mean()))
+    return {"steps": len(got), "max_rel_rms": max(rel),
+            "rel_rms_per_step": rel, "max_abs_err": max_abs,
+            "argmax_agreement_min": min(agree)}
+
+
+def cut_params(params, cfg, layers: int):
+    """The first ``layers`` layers of a stacked parameter tree (views)."""
+    blocks = {k: {n: t[:layers] for n, t in slot.items()}
+              for k, slot in params["blocks"].items()}
+    return {**params, "blocks": blocks}, replace(cfg, n_layers=layers)
+
+
+def phase_serve(args, card: str, device) -> dict:
+    cfg = get_config(SERVE_ARCH)
+    check(cfg.attention_impl == "cuda", "the default is not the kernel path")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    model = Model(cfg)
+    rec = Recorder(model)
+    timeline = ResourceTimeline()
+    telem = StepTelemetry("host0", timeline=timeline, window=64,
+                          streaming=True)
+    engine = ServeEngine(
+        model, params, max_len=MAX_LEN, batch_size=SERVE_BATCH,
+        telemetry=telem, device=device,
+        diagnosis=Diagnosis.local(BigRootsAnalyzer(
+            JAX_FEATURES, timelines=timeline, device=device)))
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0 - init_s
+    # Warm-up (cuBLAS handles, the kernels' libraries): 2 new tokens.
+    engine.run([Request(r.request_id, r.prompt, 2)
+                for r in serve_requests(cfg, args.seed + 1)])
+    rec.reset()
+
+    requests = serve_requests(cfg, args.seed)
+    flash_attention.LAUNCHES = 0
+    decode_attention.LAUNCHES = 0
+    bigroots_gates.LAUNCHES = 0
+    t0 = time.perf_counter()
+    engine.run(requests, step_offset=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.LAUNCHES,
+                "decode_attention": decode_attention.LAUNCHES}
+    steps = len(rec.ms("decode"))
+    check(steps == MAX_NEW, f"{steps} decode steps")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in a prefill of {cfg.n_layers} layers")
+    check(launches["decode_attention"] == cfg.n_layers * steps,
+          f"decode_attention launched {launches['decode_attention']} times "
+          f"over {steps} steps of {cfg.n_layers} layers")
+    check(list(rec.tokens[0].shape) == [SERVE_BATCH, PROMPT_LEN],
+          "prefill batch shape")
+    toks = sum(len(r.output) for r in requests)
+    check(toks == SERVE_BATCH * MAX_NEW, f"{toks} tokens generated")
+    check(all(0 <= t < cfg.vocab for r in requests for t in r.output),
+          "a token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = rec.ms("decode")
+    run = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+        "served_dtype": cfg.dtype, "requests": len(requests),
+        "prompt_len": PROMPT_LEN, "new_tokens": MAX_NEW, "max_len": MAX_LEN,
+        "gpu": card, "init_s": init_s, "cast_s": cast_s,
+        "prefill_ms": rec.ms("prefill")[0],
+        "prefill_engine_s": engine.last_prefill_seconds,
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_enqueue_ms_median": statistics.median(
+            rec.enqueue_ms("decode")),
+        "decode_ms_per_step": decode_ms, "wall_s": wall,
+        "tokens_per_s": toks / wall,
+        "peak_memory_gb": peak / 1e9, "launches": launches,
+        "live_root_causes": len(engine.live_root_causes),
+    }
+
+    # The reference's dense form on the same weights, teacher-forced with
+    # the kernel path's own tokens (prompt, then each step's input): in
+    # bf16 on the engine's weights, and in float32 on the f32 weights.
+    dense16 = teacher_forced(Model(replace(cfg, attention_impl="dense")),
+                             engine.params, rec.tokens)
+    check(flash_attention.LAUNCHES == launches["flash_attention"]
+          and decode_attention.LAUNCHES == launches["decode_attention"],
+          "the dense form launched an attention kernel")
+    run["decode_profile"] = profile_decode(Model(cfg), engine.params,
+                                           rec.tokens)
+    del engine
+    torch.cuda.empty_cache()
+    ref32 = teacher_forced(
+        Model(replace(cfg, attention_impl="dense", dtype="float32")),
+        params, rec.tokens)
+    kernel_err = logit_errors(rec.logits, ref32)
+    dense_err = logit_errors(dense16, ref32)
+    run["bf16_vs_f32"] = {
+        "kernel_path": kernel_err, "dense_form": dense_err,
+        "kernel_vs_dense": logit_errors(rec.logits, dense16),
+        "margin": SERVE_BF16_MARGIN}
+    check(kernel_err["max_rel_rms"]
+          <= SERVE_BF16_MARGIN * dense_err["max_rel_rms"],
+          f"bf16 kernel path further from float32 than the dense form: "
+          f"{run['bf16_vs_f32']}")
+    del dense16, ref32, rec
+    torch.cuda.empty_cache()
+
+    # float32, depth cut: greedy tokens must equal the dense form's.
+    p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
+                            args.f32_layers)
+    tokens = {}
+    for impl in ("cuda", "dense"):
+        m = Model(replace(cfg32, attention_impl=impl))
+        r32 = Recorder(m)
+        reqs = serve_requests(cfg, args.seed)
+        ServeEngine(m, p32, max_len=MAX_LEN, batch_size=SERVE_BATCH,
+                    device=device).run(reqs)
+        tokens[impl] = ([r.output for r in reqs], r32.logits)
+    check(tokens["cuda"][0] == tokens["dense"][0],
+          "float32 greedy tokens differ between the kernels and dense")
+    f32 = logit_errors(tokens["cuda"][1], tokens["dense"][1])
+    run["f32_variant"] = {"layers": args.f32_layers, "tokens_equal": True,
+                          "tolerance_rel_rms": SERVE_F32_REL_RMS, **f32}
+    check(f32["max_rel_rms"] <= SERVE_F32_REL_RMS,
+          f"float32 logits differ: {run['f32_variant']}")
+    return run
 
 
 # -- phases -------------------------------------------------------------------
@@ -424,10 +881,14 @@ def phase_env() -> str:
     return card.splitlines()[0]
 
 
+KERNEL_SOURCES = ("bigroots_gates", "flash_attention", "decode_attention")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = build.build(["bigroots_gates"], verbose=True)
-    build.load("bigroots_gates")
+    paths = build.build(KERNEL_SOURCES, verbose=True)
+    for name in KERNEL_SOURCES:
+        build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(str(v), ROOT)
                         for k, v in paths.items()},
@@ -452,6 +913,11 @@ def run(args) -> None:
     emit({"phase": "kernels", "name": "bigroots_gates",
           "tolerance": "exact (int8 gate bits, torch.equal)",
           "checks": checks, "full_incident": full_timing})
+    attn_checks = attention_checks(device, args.seed)
+    for c in attn_checks:
+        emit({"phase": "kernels", **c})
+    attn_timing = attention_timings(device, args.seed, flush)
+    emit({"phase": "kernels", "timings": attn_timing})
 
     t0 = time.perf_counter()
     stream = make_stream(args)
@@ -482,6 +948,27 @@ def run(args) -> None:
 
     at_path = hold_against_plain(last, peer_mean)
     path_timing = measure(last, peer_mean, flush)
+    del flush, stream, got, want, analyzer, agg, last
+    torch.cuda.empty_cache()
+
+    serve = phase_serve(args, card, device)
+    emit({"phase": "serve_path", "ok": True, **serve})
+
+    def attn_entry(name: str, replaces: str, per: str) -> dict:
+        t = attn_timing[name]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": serve["launches"][name],
+            "launches_per": per,
+            "max_abs_err": max(c["max_abs_err"] for c in attn_checks
+                               if c["kernel"] == name),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "flops", "bytes",
+                                 "round_medians")},
+            "shape": t.get("shape") or t.get("cache"),
+        }
+
     print(card, flush=True)
     emit({"kernels": [{
         "name": "bigroots_gates", "route": "cuda",
@@ -497,7 +984,12 @@ def run(args) -> None:
             t["gate_kernel_ms"] for t in timings),
         "round_medians": path_timing["round_medians"],
         "full_incident": full_timing,
-    }]})
+    }, attn_entry("flash_attention",
+                  "src/repro/kernels/flash_attention.py:27",
+                  "one per layer of the prefill"),
+        attn_entry("decode_attention",
+                   "src/repro/kernels/decode_attention.py:27",
+                   "one per layer of every decode step")]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
@@ -508,6 +1000,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=5,
                     help="driven ticks (the fleet's size is fixed)")
+    ap.add_argument("--f32-layers", type=int, default=4,
+                    help="depth of the serving path's float32 variant (the "
+                         "bf16 run is always glm4-9b's full 40 layers)")
     run(ap.parse_args())
 
 

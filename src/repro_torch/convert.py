@@ -2,8 +2,9 @@
 
 The numpy forms are the canonical storage layout shared with the JAX
 package (``forecast_init``'s parameter dict, the forecaster's carried
-state arrays, the packed gate batch), so the same arrays can be handed
-to both packages and must produce the same results.
+state arrays, the packed gate batch, a language model's parameter tree),
+so the same arrays can be handed to both packages and must produce the
+same results.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from .device import resolve_device
 from .models.forecast_ssd import ForecastCell
+from .models.lm import param_shapes
 
 _GATE_FIELDS = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
                 "vsum", "q", "numok", "floor")
@@ -60,3 +62,38 @@ def gate_batch_from_numpy(batch_like, device=None) -> tuple:
     :func:`repro_torch.kernels.bigroots_gates.gates_launch`."""
     dev = resolve_device(device)
     return tuple(_tensor(getattr(batch_like, f), dev) for f in _GATE_FIELDS)
+
+
+def _lm_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy: the port owns its tensors
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch twin
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(params, cfg, device=None) -> dict:
+    """A language model's parameter tree from the JAX package
+    (``jax.tree.map(np.asarray, params)``: nested dicts of numpy arrays)
+    as the port's nested dict of tensors on ``device``, key for key, in the
+    same dtypes.  Raises when a key or a shape differs from what
+    :func:`repro_torch.models.lm.init_params` makes for ``cfg``."""
+    dev = resolve_device(device)
+
+    def carry(tree, shapes, path):
+        if set(tree) != set(shapes):
+            raise ValueError(f"{path or 'params'}: keys {sorted(tree)} != "
+                             f"{sorted(shapes)}")
+        out = {}
+        for key, want in shapes.items():
+            if isinstance(want, dict):
+                out[key] = carry(tree[key], want, f"{path}{key}/")
+                continue
+            t = _lm_tensor(tree[key], dev)
+            if tuple(t.shape) != want:
+                raise ValueError(f"{path}{key}: shape {tuple(t.shape)} != "
+                                 f"{want}")
+            out[key] = t
+        return out
+
+    return carry(params, param_shapes(cfg), "")

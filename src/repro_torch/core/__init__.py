@@ -13,6 +13,7 @@ Public API (what this package holds so far):
         straggler_mask, straggler_scale,
         FleetGateBatch, GateStaging, pack_windows, eval_gates_np,
         Forecaster,
+        TraceSummary, summarize, render_markdown, per_stage_table,
     )
 """
 from .analyzer import (
@@ -51,6 +52,7 @@ from .fleet import (
 from .forecast import PREDICTED_STRAGGLER, Forecaster
 from .frame import StageFrame, TraceStore
 from .records import StageRecord, TaskRecord, Trace
+from .report import TraceSummary, per_stage_table, render_markdown, summarize
 from .sketch import MIN_SKETCH_SAMPLES, P2ColumnSketch, P2Quantile
 from .straggler import DEFAULT_STRAGGLER_THRESHOLD, straggler_mask, straggler_scale
 from .whatif import WhatIfReplayer
@@ -92,6 +94,7 @@ __all__ = [
     "TimelineStore",
     "Trace",
     "TraceStore",
+    "TraceSummary",
     "WhatIfReplayer",
     "attribution_from_wire",
     "attribution_to_wire",
@@ -104,7 +107,10 @@ __all__ = [
     "normalize_features",
     "pack_sequences",
     "pack_windows",
+    "per_stage_table",
+    "render_markdown",
     "synthesize_cause",
     "straggler_mask",
     "straggler_scale",
+    "summarize",
 ]

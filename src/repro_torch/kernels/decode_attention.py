@@ -1,0 +1,141 @@
+"""One-token GQA attention against a KV cache (split-K) — the Hopper kernel.
+
+Replaces the TPU kernel ``_decode_kernel`` of the JAX package and its
+wrapper's cross-split combine (``src/repro/kernels/decode_attention.py``,
+reached through ``decode_attention`` and ``ops.mha_decode``).  Every decode
+step runs it once per attention layer when
+``ModelConfig.attention_impl == "cuda"``.
+
+Layout: ``q [B, H, D]``, the caches in the model layout ``[B, S_max, KV,
+D]`` (read through their strides, never copied or transposed), and
+``cache_len``, the index of the current token: positions ``<= cache_len``
+are valid, as in the reference (``decode_attention.py:43``).  On the GPU
+``cache_len`` is a device int32 scalar that the kernel reads through a
+pointer, so a decode loop never brings it to the host.  ``S_max`` need not
+be a multiple of the split (the reference asserts a multiple of 512).
+
+- :func:`decode_attention_torch` — the plain PyTorch version (the JAX
+  package's ``ref.decode_attention_ref`` with the kernel's f32 logits).
+- :func:`decode_attention` — CUDA tensors launch the two kernels of
+  ``csrc/decode_attention.cu`` (split partials, then the combine; float32
+  or bfloat16, D 64 or 128) on the current stream or raise; CPU tensors
+  take the plain version.  ``LAUNCHES`` counts calls that launched them.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF
+
+#: Number of times :func:`decode_attention` launched the CUDA kernels.
+LAUNCHES = 0
+
+#: Cache positions per split in the CUDA kernel (the reference's is 512).
+SPLIT = 64
+
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        lib = build.load("decode_attention")
+        lib.decode_attention_split.restype = ctypes.c_int
+        if lib.decode_attention_split() != SPLIT:
+            raise RuntimeError("decode_attention.cu and its wrapper disagree "
+                               "on the split size")
+        fn = lib.decode_attention_fwd
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def decode_attention_torch(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """Plain PyTorch version: f32 logits over the whole cache, positions
+    ``> cache_len`` masked to ``-1e30``, f32 softmax, ``p`` rounded to the
+    value dtype, P·V in f32, cast to q's dtype."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    kk = k_cache.repeat_interleave(H // KV, dim=2)
+    vv = v_cache.repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), kk.float())
+    logits = logits * (1.0 / math.sqrt(D))
+    valid = torch.arange(S, device=q.device) <= cache_len
+    logits = torch.where(valid, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
+    return torch.einsum("bhk,bkhd->bhd", p, vv.float()).to(q.dtype)
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q must be [B, H, D] and the caches [B, S, KV, D]")
+    B, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(
+            f"caches {tuple(k.shape)} / {tuple(v.shape)} do not fit q "
+            f"{tuple(q.shape)}"
+        )
+    if H % k.shape[2]:
+        raise ValueError(f"{H} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q and the caches lie on different devices")
+
+
+def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """One-token attention on the tensors' own device.  ``cache_len`` is
+    a 0-d int32 tensor on that device (on the CPU an ``int`` will do)."""
+    global LAUNCHES
+    _check(q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return decode_attention_torch(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
+        raise ValueError("the head dimension must be contiguous")
+    if (not isinstance(cache_len, torch.Tensor)
+            or cache_len.dtype != torch.int32 or cache_len.numel() != 1
+            or cache_len.device != q.device):
+        raise ValueError("cache_len must be one int32 on q's device")
+    # Scratch for the split partials.  It is freed when this returns, before
+    # the kernels have run: the caching allocator hands the memory only to
+    # later work on the same stream, which runs after them.
+    n_s = -(-S // SPLIT)
+    m = torch.empty((B, H, n_s), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((B, H, n_s, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    strides = (q.stride(0), q.stride(1),
+               *(t.stride(i) for t in (k_cache, v_cache) for i in range(3)),
+               out.stride(0), out.stride(1))
+    with torch.cuda.device(q.device):
+        rc = _kernel_fn()(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_len.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), B, S, H, KV, D, DTYPES[q.dtype],
+            1.0 / math.sqrt(D), *strides,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"decode_attention_fwd launch failed: CUDA error {rc}"
+        )
+    LAUNCHES += 1
+    return out

@@ -1,4 +1,7 @@
-"""Models of the package: the straggle-risk forecast cell."""
+"""Models of the package: the straggle-risk forecast cell, and the model
+zoo's configs, layers and decoder-only assembly behind :class:`Model`."""
+from .api import Model
+from .config import LayerSlot, ModelConfig, smoke_variant
 from .forecast_ssd import (
     ForecastCell,
     ForecastConfig,
@@ -11,8 +14,12 @@ from .forecast_ssd import (
 __all__ = [
     "ForecastCell",
     "ForecastConfig",
+    "LayerSlot",
+    "Model",
+    "ModelConfig",
     "forecast_init",
     "forecast_logits",
     "forecast_score",
     "forecast_step",
+    "smoke_variant",
 ]

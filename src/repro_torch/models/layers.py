@@ -1,0 +1,264 @@
+"""Shared model layers: RMSNorm, RoPE, GQA attention (kernel / dense /
+blocked / decode), SwiGLU MLP.  Plain functions over nested dicts of
+tensors with the JAX package's keys, so parameters carry across key for
+key.
+
+``cfg.attention_impl`` picks the attention form: ``"cuda"`` calls the
+hand-written kernels through :mod:`repro_torch.kernels.ops` (flash
+attention for a full sequence, split-K decode attention against the
+cache), ``"dense"`` and ``"blocked"`` are the JAX package's own plain forms.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+Params = dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` and so on."""
+    return getattr(torch, name)
+
+
+def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device).mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
+    """Apply RoPE. x: [B, S, H, D]; positions: [B, S] (absolute indices)."""
+    half = x.shape[-1] // 2
+    freq = 1.0 / (theta ** (
+        torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., None].float() * freq  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def attention_shapes(cfg) -> dict[str, tuple]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"norm_scale": (d,), "wq": (d, h * hd), "wk": (d, kv * hd),
+              "wv": (d, kv * hd), "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(h * hd,), bk=(kv * hd,), bv=(kv * hd,))
+    return shapes
+
+
+def attention_init(gen, cfg, n_blocks: int, device) -> Params:
+    """Parameters of ``n_blocks`` attention layers, stacked on axis 0."""
+    pdt = dtype_of(cfg.param_dtype)
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    p: Params = {}
+    for name, shape in attention_shapes(cfg).items():
+        shape = (n_blocks, *shape)
+        if name == "norm_scale":
+            p[name] = torch.ones(shape, dtype=pdt, device=device)
+        elif name.startswith("b"):
+            p[name] = torch.zeros(shape, dtype=pdt, device=device)
+        else:
+            p[name] = _normal(gen, shape, out_scale if name == "wo" else 0.02,
+                              pdt, device)
+    return p
+
+
+def _project_qkv(p: Params, x, x_kv, cfg):
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = dtype_of(cfg.dtype)
+    q = x @ p["wq"].to(cdt)
+    k = x_kv @ p["wk"].to(cdt)
+    v = x_kv @ p["wv"].to(cdt)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    B, S = x.shape[0], x.shape[1]
+    Skv = x_kv.shape[1]
+    return (q.reshape(B, S, h, hd), k.reshape(B, Skv, kv, hd),
+            v.reshape(B, Skv, kv, hd))
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    B, S, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, kv, n_rep, hd).reshape(
+        B, S, kv * n_rep, hd)
+
+
+def dense_attention(q, k, v, causal: bool, q_offset: int = 0):
+    """Reference O(S²) attention. q: [B,Sq,H,D], k/v: [B,Sk,H,D]."""
+    Sq, D = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        logits = torch.where(qpos >= kpos, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def blocked_attention(q, k, v, causal: bool, kv_chunk: int = 1024,
+                      q_offset: int = 0):
+    """Flash-style attention in plain PyTorch: a loop over KV chunks with
+    an online softmax (running max / denominator), numerically the same as
+    :func:`dense_attention` (same f32 softmax)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if Sk % kv_chunk:
+        kv_chunk = math.gcd(Sk, kv_chunk) or Sk
+    scale = 1.0 / math.sqrt(D)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    for start in range(0, Sk, kv_chunk):
+        kb = k[:, start:start + kv_chunk]
+        vb = v[:, start:start + kv_chunk]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        if causal:
+            kpos = start + torch.arange(kv_chunk, device=q.device)[None, :]
+            logits = torch.where(qpos >= kpos, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)  # [B, Sq, H, D]
+
+
+def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
+                    x_kv=None, kv_positions=None, use_rope: bool = True):
+    """Full-sequence attention (prefill without cache, forward)."""
+    x_kv = x if x_kv is None else x_kv
+    q, k, v = _project_qkv(p, x, x_kv, cfg)
+    if use_rope:
+        kv_pos = positions if kv_positions is None else kv_positions
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_pos, cfg.rope_theta)
+    out = attend(q, k, v, cfg, causal)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(out.dtype)
+
+
+def attend(q, k, v, cfg, causal: bool):
+    """q ``[B,S,H,D]``, k/v ``[B,S,KV,D]`` (not repeated) through the form
+    ``cfg.attention_impl`` names."""
+    if cfg.attention_impl == "cuda":
+        return ops.mha_flash(q, k, v, causal=causal)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if cfg.attention_impl == "dense":
+        return dense_attention(q, k, v, causal)
+    return blocked_attention(q, k, v, causal)
+
+
+def check_cache_index(cache_len, s_max: int) -> None:
+    """Raise ``IndexError`` where the JAX package's ``dynamic_update_slice``
+    would clamp: a write at ``cache_len`` outside ``[0, s_max)``.  Checks an
+    ``int`` or a host tensor; a device tensor is the caller's to check on
+    its host mirror (reading it here would synchronise every decode step)."""
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.device.type != "cpu":
+            return
+        cache_len = int(cache_len)
+    if not 0 <= cache_len < s_max:
+        raise IndexError(
+            f"cache index {cache_len} is outside a cache of {s_max} positions"
+        )
+
+
+def attention_decode(p: Params, x, cfg, k_cache, v_cache, cache_len, *,
+                     use_rope: bool = True, update_cache: bool = True):
+    """Single-token decode against a KV cache.  ``x [B, 1, d]``, caches
+    ``[B, S_max, kv, hd]``, ``cache_len`` a 0-d int32 tensor on x's device
+    (the current fill level).  Writes the new K/V into the caches in place
+    at ``cache_len`` and returns ``(out, k_cache, v_cache)``."""
+    B = x.shape[0]
+    S_max = k_cache.shape[1]
+    q, k, v = _project_qkv(p, x, x, cfg)          # q: [B,1,H,hd], k/v: [B,1,kv,hd]
+    if use_rope:
+        pos = cache_len.reshape(1, 1).expand(B, 1)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    if update_cache:
+        check_cache_index(cache_len, S_max)
+        index = cache_len.reshape(1).long()
+        k_cache.index_copy_(1, index, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, index, v.to(v_cache.dtype))
+    if cfg.attention_impl == "cuda":
+        out = ops.mha_decode(q, k_cache, v_cache, cache_len)
+    else:
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        kk = _repeat_kv(k_cache, n_rep)
+        vv = _repeat_kv(v_cache, n_rep)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+        valid = torch.arange(S_max, device=x.device) <= cache_len
+        logits = torch.where(valid, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(out.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple]:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {"norm_scale": (d,), "w_gate": (d, ff), "w_up": (d, ff),
+            "w_down": (ff, d)}
+
+
+def mlp_init(gen, cfg, n_blocks: int, device, d_ff: int | None = None):
+    pdt = dtype_of(cfg.param_dtype)
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    p: Params = {}
+    for name, shape in mlp_shapes(cfg, d_ff).items():
+        shape = (n_blocks, *shape)
+        if name == "norm_scale":
+            p[name] = torch.ones(shape, dtype=pdt, device=device)
+        else:
+            p[name] = _normal(gen, shape,
+                              out_scale if name == "w_down" else 0.02,
+                              pdt, device)
+    return p
+
+
+def mlp_apply(p: Params, x):
+    cdt = x.dtype
+    g = x @ p["w_gate"].to(cdt)
+    u = x @ p["w_up"].to(cdt)
+    return (F.silu(g) * u) @ p["w_down"].to(cdt)

@@ -1,0 +1,260 @@
+"""Decoder-only LM assembly (dense / GQA attention + SwiGLU MLP).
+
+Layers run as a Python loop over *pattern blocks* (``cfg.pattern()``
+repeated ``cfg.n_blocks`` times) with per-slot parameters stacked on a
+leading ``[n_blocks]`` axis — the JAX package's layout, so its parameters
+carry across key for key (:func:`repro_torch.convert.lm_params_from_numpy`).
+``ssm`` and ``moe`` slots come with the Mamba2 / MoE kernels (K4 / K5) in a
+later slice of the port and raise here.
+
+Entry points:
+  init_params(cfg, generator, device)     → params dict
+  forward(params, cfg, tokens, ...)       → (logits, MoeAux)
+  init_cache(cfg, batch, max_len, device) → decode cache dict
+  prefill(params, cfg, tokens, cache, ...)→ (logits, cache)
+  decode_step(params, cfg, tokens, cache) → (logits, cache)
+
+The cache holds ``"len"`` (a 0-d int32 tensor on the device, the fill
+level the kernels read), ``"pos"`` (the same number on the host, which
+bounds the writes without reading the device) and ``"slots"``; prefill and
+decode write the K/V caches in place and return the same dict.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from .config import ModelConfig
+from .layers import (
+    _project_qkv,
+    attend,
+    attention_apply,
+    attention_decode,
+    attention_init,
+    attention_shapes,
+    check_cache_index,
+    dtype_of,
+    mlp_apply,
+    mlp_init,
+    mlp_shapes,
+    rmsnorm,
+    rope,
+)
+
+Params = dict[str, Any]
+
+
+class MoeAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+    expert_load: torch.Tensor
+
+
+def _slot_keys(cfg: ModelConfig) -> list[tuple[str, str, str]]:
+    """[(key, kind, role)] per pattern slot: mixer then ffn."""
+    out = []
+    for i, slot in enumerate(cfg.pattern()):
+        out.append((f"L{i}_{slot.mixer}", slot.mixer, "mixer"))
+        if slot.ffn:
+            out.append((f"L{i}_{slot.ffn}", slot.ffn, "ffn"))
+    return out
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{kind!r} layers come with the K4 (ssd_intra_chunk) / K5 "
+        "(grouped_matmul) slice of the port"
+    )
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes, keyed as :func:`init_params` keys it."""
+    shapes: dict = {"embed": (cfg.vocab_padded, cfg.d_model),
+                    "final_norm": (cfg.d_model,), "blocks": {}}
+    if not cfg.tie_embeddings:
+        shapes["head"] = (cfg.d_model, cfg.vocab_padded)
+    by_kind = {"attn": attention_shapes, "mlp": mlp_shapes}
+    for skey, kind, _role in _slot_keys(cfg):
+        if kind not in by_kind:
+            raise _unported(kind)
+        shapes["blocks"][skey] = {
+            k: (cfg.n_blocks, *s) for k, s in by_kind[kind](cfg).items()
+        }
+    return shapes
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device) -> Params:
+    """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
+    ``generator`` (whose device must be ``device``).  The JAX package draws
+    from ``jax.random``: the two give different numbers from one seed."""
+    pdt = dtype_of(cfg.param_dtype)
+    params: Params = {
+        "embed": torch.randn((cfg.vocab_padded, cfg.d_model),
+                             generator=generator, device=device)
+        .mul_(0.02).to(pdt),
+        "final_norm": torch.ones(cfg.d_model, dtype=pdt, device=device),
+        "blocks": {},
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = torch.randn(
+            (cfg.d_model, cfg.vocab_padded), generator=generator,
+            device=device).mul_(0.02).to(pdt)
+    init_by_kind = {"attn": attention_init, "mlp": mlp_init}
+    for skey, kind, _role in _slot_keys(cfg):
+        if kind not in init_by_kind:
+            raise _unported(kind)
+        params["blocks"][skey] = init_by_kind[kind](
+            generator, cfg, cfg.n_blocks, device)
+    return params
+
+
+def _block(params: Params, i: int) -> Params:
+    return {k: {n: t[i] for n, t in slot.items()}
+            for k, slot in params["blocks"].items()}
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (evaluation)
+# ---------------------------------------------------------------------------
+def head_logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Final projection; padded vocab columns are masked to -1e30."""
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = x @ head.to(x.dtype)
+    if cfg.vocab_padded != cfg.vocab:
+        col = torch.arange(cfg.vocab_padded, device=x.device)
+        logits = torch.where(col >= cfg.vocab,
+                             torch.tensor(-1e30, dtype=logits.dtype,
+                                          device=x.device), logits)
+    return logits
+
+
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embedding; modality frontends prepend precomputed embeddings.
+    Rows are gathered before the cast (the same values as the reference's
+    cast-then-gather, without casting the whole table)."""
+    cdt = dtype_of(cfg.dtype)
+    x = params["embed"][tokens.long()].to(cdt)
+    if embeds is not None:
+        x = torch.cat([embeds.to(cdt), x], dim=1)
+    return x
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            embeds: torch.Tensor | None = None):
+    x = embed_inputs(params, cfg, tokens, embeds)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    for i in range(cfg.n_blocks):
+        bp = _block(params, i)
+        for skey, kind, _role in _slot_keys(cfg):
+            p = bp[skey]
+            h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
+            if kind == "attn":
+                x = x + attention_apply(p, h, cfg, positions=positions)
+            elif kind == "mlp":
+                x = x + mlp_apply(p, h)
+            else:
+                raise _unported(kind)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = MoeAux(zero, zero, torch.zeros(max(cfg.moe_experts, 1),
+                                         device=x.device))
+    return head_logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device) -> dict:
+    cdt = dtype_of(cfg.dtype)
+    cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device),
+                   "pos": 0, "slots": {}}
+    for skey, kind, _role in _slot_keys(cfg):
+        if kind == "attn":
+            shape = (cfg.n_blocks, batch_size, max_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            cache["slots"][skey] = {
+                "k": torch.zeros(shape, dtype=cdt, device=device),
+                "v": torch.zeros(shape, dtype=cdt, device=device),
+            }
+        elif kind != "mlp":
+            raise _unported(kind)
+    return cache
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: dict, embeds: torch.Tensor | None = None):
+    """Run the prompt through the model, filling the cache. Returns logits
+    of the last position and the cache (written in place: K/V at
+    ``[:S]``, zeros after, as the reference's padded copy)."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    for slot in cache["slots"].values():
+        if S > slot["k"].shape[2]:
+            raise ValueError(f"prompt of {S} tokens does not fit a cache of "
+                             f"{slot['k'].shape[2]}")
+    for i in range(cfg.n_blocks):
+        bp = _block(params, i)
+        for skey, kind, _role in _slot_keys(cfg):
+            p = bp[skey]
+            h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
+            if kind == "attn":
+                q, k, v = _project_qkv(p, h, h, cfg)
+                q = rope(q, positions, cfg.rope_theta)
+                k = rope(k, positions, cfg.rope_theta)
+                out = attend(q, k, v, cfg, causal=True)
+                out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+                x = x + out @ p["wo"].to(out.dtype)
+                c = cache["slots"][skey]
+                for name, t in (("k", k), ("v", v)):
+                    c[name][i, :, :S] = t
+                    c[name][i, :, S:] = 0
+            elif kind == "mlp":
+                x = x + mlp_apply(p, h)
+            else:
+                raise _unported(kind)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = head_logits(params, cfg, x[:, -1:, :])
+    cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
+    cache["pos"] = S
+    return logits, cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: dict):
+    """One decode step. tokens: [B, 1] → logits [B, 1, V], the cache with
+    the new K/V written at ``len`` and ``len`` advanced by one.  Raises
+    ``IndexError`` when the cache is full (the JAX package clamps the
+    write index instead)."""
+    for slot in cache["slots"].values():
+        check_cache_index(cache["pos"], slot["k"].shape[2])
+    x = embed_inputs(params, cfg, tokens)
+    cache_len = cache["len"]
+    for i in range(cfg.n_blocks):
+        bp = _block(params, i)
+        for skey, kind, _role in _slot_keys(cfg):
+            p = bp[skey]
+            h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
+            if kind == "attn":
+                c = cache["slots"][skey]
+                out, _, _ = attention_decode(p, h, cfg, c["k"][i], c["v"][i],
+                                             cache_len)
+                x = x + out
+            elif kind == "mlp":
+                x = x + mlp_apply(p, h)
+            else:
+                raise _unported(kind)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = head_logits(params, cfg, x)
+    cache["len"] = cache_len + 1
+    cache["pos"] += 1
+    return logits, cache

@@ -1,0 +1,216 @@
+"""Batched serving engine: prefill once, decode step-by-step.
+
+The engine batches concurrent requests into a fixed decode batch, runs the
+model's decode step (greedy or temperature sampling), and emits BigRoots
+telemetry per step (the serve analog of per-step train tasks: stragglers
+here are slow hosts in a multi-host serving fleet).
+
+With the default ``ModelConfig.attention_impl == "cuda"`` every prefill
+runs the flash-attention kernel once per attention layer and every decode
+step the split-K decode-attention kernel once per layer
+(:mod:`repro_torch.kernels`); the matrix products are PyTorch's.
+
+The engine holds the weight matrices, biases and embeddings cast once to
+``cfg.dtype`` on its device (the norm scales stay in their own dtype, as
+the model reads them in float32): the same values the JAX package's
+per-use ``.astype`` gives, read once per step instead of cast again.  The
+KV cache's fill level stays a device int32 that the kernels read, so the
+decode loop's one host read per step is the tokens'.
+
+In-loop diagnosis is wired through one object: pass
+``diagnosis=``\\ :class:`~repro_torch.serve.diagnosis.Diagnosis` built for
+the role this engine plays —
+
+- ``Diagnosis.local(analyzer)`` with ``StepTelemetry(streaming=True)``:
+  per-host diagnosis, newly confirmed root causes land in
+  ``engine.live_root_causes`` while the batch is still decoding;
+- ``Diagnosis.fleet(aggregator)`` with ``StepTelemetry(wire=True)``: the
+  engine drains its per-step delta into the shared
+  :class:`~repro_torch.serve.fleet.FleetAggregator` (or a
+  :class:`~repro_torch.serve.fleet.TreeAggregator` mid-tier) and, when
+  ``drive=True``, runs the *fleet-wide* merged sweep.  When several
+  engines share an aggregator, exactly one party should drive;
+- ``Diagnosis.forward(sink)`` with ``StepTelemetry(wire=True)``: the
+  engine only ships its delta to another process.
+
+``diagnosis=`` is the only wiring surface: the pre-facade kwargs
+(``live_analyzer`` / ``fleet`` / ``fleet_step`` / ``delta_sink`` /
+``policy``) are not accepted — passing them raises ``TypeError`` like any
+unknown kwarg.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.api import Model
+from ..models.layers import dtype_of
+from ..telemetry.events import StepTelemetry
+from .diagnosis import Diagnosis
+
+#: Parameters the model reads in float32 whatever ``cfg.dtype`` is.
+_KEEP_DTYPE = ("norm_scale", "final_norm")
+
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, temperature: float = 0.0) -> Callable:
+    """Greedy decoding takes the argmax; sampling draws from ``generator``
+    by the Gumbel-max rule, which is what ``jax.random.categorical`` does
+    (a ``torch.Generator`` does not give ``jax.random``'s bits)."""
+    if temperature > 0:
+        def decode_step(params, tokens, cache, generator):
+            logits, cache = model.decode(params, tokens, cache)
+            scaled = logits[:, 0, :].float() / temperature
+            u = torch.rand(scaled.shape, generator=generator,
+                           device=scaled.device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+            nxt = torch.argmax(scaled + gumbel, dim=-1)
+            return nxt.to(torch.int32)[:, None], cache
+    else:
+        def decode_step(params, tokens, cache):
+            logits, cache = model.decode(params, tokens, cache)
+            nxt = torch.argmax(logits[:, 0, :], dim=-1)
+            return nxt.to(torch.int32)[:, None], cache
+
+    return decode_step
+
+
+def cast_params(params, cfg, device: torch.device):
+    """``params`` on ``device`` with every tensor but the norm scales in
+    ``cfg.dtype`` (a tensor already so placed and typed is kept, not
+    copied)."""
+    cdt = dtype_of(cfg.dtype)
+
+    def walk(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = walk(val)
+            elif key in _KEEP_DTYPE:
+                out[key] = val.to(device)
+            else:
+                out[key] = val.to(device=device, dtype=cdt)
+        return out
+
+    return walk(params)
+
+
+@dataclass
+class Request:
+    request_id: str
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int = 32
+    output: list = field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        model: Model,
+        params,
+        *,
+        max_len: int = 512,
+        batch_size: int = 8,
+        temperature: float = 0.0,
+        telemetry: StepTelemetry | None = None,
+        eos_id: int | None = None,
+        diagnosis: Diagnosis | None = None,
+        device=None,
+    ) -> None:
+        self.model = model
+        self.device = resolve_device(device)
+        self.params = cast_params(params, model.cfg, self.device)
+        self.max_len = max_len
+        self.batch_size = batch_size
+        self.temperature = temperature
+        self.telemetry = telemetry
+        self.eos_id = eos_id
+        self._prefill = make_prefill_step(model)
+        self._decode = make_decode_step(model, temperature)
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        self.live_root_causes: list = []
+        # The one wiring surface: what happens to each step's telemetry
+        # (see repro_torch.serve.diagnosis).  bind() validates the telemetry
+        # mode up front so misconfiguration fails at construction.
+        self.diagnosis = diagnosis
+        if diagnosis is not None:
+            diagnosis.bind(telemetry)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _decode_once(self, nxt, cache):
+        """One decode step; draws random numbers only when sampling."""
+        if self.temperature > 0:
+            return self._decode(self.params, nxt, cache, self._generator)
+        return self._decode(self.params, nxt, cache)
+
+    def _pad_batch(self, requests: list[Request]) -> np.ndarray:
+        """Left-align prompts into a rectangular [B, S_max] batch."""
+        s_max = max(len(r.prompt) for r in requests)
+        toks = np.zeros((self.batch_size, s_max), np.int32)
+        for i, r in enumerate(requests):
+            toks[i, : len(r.prompt)] = r.prompt  # simple equal-length demo path
+        return toks
+
+    def run(self, requests: list[Request], step_offset: int = 0) -> list[Request]:
+        """Serve up to batch_size requests to completion (batch-synchronous)."""
+        if not 0 < len(requests) <= self.batch_size:
+            raise ValueError(f"{len(requests)} requests for a batch of "
+                             f"{self.batch_size}")
+        live = list(requests)
+        while len(live) < self.batch_size:  # pad with a dummy clone
+            live.append(Request("_pad", live[0].prompt, live[0].max_new_tokens))
+        toks = torch.from_numpy(self._pad_batch(live)).to(self.device)
+        batch = {"tokens": toks}
+
+        cache = self.model.init_cache(self.params, batch, self.max_len)
+        t0 = time.time()
+        logits, cache = self._prefill(self.params, batch, cache)
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)[:, None]
+        self._sync()
+        prefill_s = time.time() - t0
+
+        max_new = max(r.max_new_tokens for r in requests)
+        for step in range(max_new):
+            if self.telemetry is not None:
+                step_t0 = time.time()
+                with self.telemetry.step(step_offset + step) as scope:
+                    with scope.phase("compute"):
+                        nxt, cache = self._decode_once(nxt, cache)
+                        self._sync()
+                    scope.add("read_bytes", float(nxt.numel() * 4))
+                if self.diagnosis is not None:
+                    self.live_root_causes.extend(self.diagnosis.tick(
+                        self.telemetry, step_time=time.time() - step_t0,
+                    ))
+            else:
+                nxt, cache = self._decode_once(nxt, cache)
+            out = nxt[:, 0].cpu().numpy()
+            for i, r in enumerate(requests):
+                if r.done or len(r.output) >= r.max_new_tokens:
+                    r.done = True
+                    continue
+                tok = int(out[i])
+                r.output.append(tok)
+                if self.eos_id is not None and tok == self.eos_id:
+                    r.done = True
+            if all(r.done for r in requests):
+                break
+        for r in requests:
+            r.done = True
+        self.last_prefill_seconds = prefill_s
+        return requests

@@ -1,0 +1,201 @@
+"""The attention kernels' plain versions and model-layout wrappers against
+the JAX package's Pallas kernels (interpret mode) and oracles.
+
+``repro.kernels`` cannot be imported on every jax build (its ``__init__``
+pulls in the float64 gate kernel), so the three modules used here are
+loaded by file path.  Inputs are made from a seed with numpy and handed to
+both packages; float32, rtol/atol 2e-5 (sums are taken in another order).
+On the CPU the port's wrappers take the kernels' plain versions, so the
+CUDA kernels themselves are held against those versions by
+``chip_smoke.py`` on the GPU.
+"""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as port_decode
+from repro_torch.kernels import flash_attention as port_flash
+from repro_torch.kernels import ops
+
+KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro" / "kernels"
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _load(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"_jax_kernel_{name}", KERNELS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+pallas_flash = _load("flash_attention").flash_attention
+pallas_decode = _load("decode_attention").decode_attention
+ref = _load("ref")
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _bhsd_to_model(a):
+    """The JAX kernels' ``[BH, S, D]`` as the port's ``[1, S, BH, D]``
+    (a permuted view: the kernels read strides, nothing is copied)."""
+    return _t(a).permute(1, 0, 2)[None]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K2)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep,d", [(1, 64), (4, 16), (16, 64)])
+def test_flash_plain_matches_pallas(causal, n_rep, d):
+    rng = np.random.default_rng([1, n_rep, d, causal])
+    kv, s = 2 if n_rep < 16 else 1, 64
+    q = _normal(rng, kv * n_rep, s, d)
+    k, v = _normal(rng, kv, s, d), _normal(rng, kv, s, d)
+    want = np.asarray(pallas_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=32, block_k=32, n_rep=n_rep, interpret=True))
+    got = port_flash.flash_attention(
+        _bhsd_to_model(q), _bhsd_to_model(k), _bhsd_to_model(v),
+        causal=causal)
+    np.testing.assert_allclose(got[0].permute(1, 0, 2).numpy(), want, **TOL)
+
+
+def test_flash_model_layout_wrapper_matches_pallas():
+    rng = np.random.default_rng(2)
+    B, S, H, KV, D = 2, 64, 8, 2, 16
+    q = _normal(rng, B, S, H, D)
+    k, v = _normal(rng, B, S, KV, D), _normal(rng, B, S, KV, D)
+
+    def bhsd(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(-1, S, D))
+
+    want = np.asarray(pallas_flash(
+        bhsd(q), bhsd(k), bhsd(v), causal=True, block_q=32, block_k=32,
+        n_rep=H // KV, interpret=True))
+    got = ops.mha_flash(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(
+        got.numpy().transpose(0, 2, 1, 3).reshape(-1, S, D), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ragged_tail_matches_ref(causal):
+    """S = 50 is no multiple of any tile (the Pallas kernel refuses it)."""
+    rng = np.random.default_rng(3)
+    q = _normal(rng, 8, 50, 16)
+    k, v = _normal(rng, 2, 50, 16), _normal(rng, 2, 50, 16)
+    want = np.asarray(ref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        n_rep=4))
+    got = port_flash.flash_attention(
+        _bhsd_to_model(q), _bhsd_to_model(k), _bhsd_to_model(v),
+        causal=causal)
+    np.testing.assert_allclose(got[0].permute(1, 0, 2).numpy(), want, **TOL)
+
+
+def test_flash_wrapper_refuses_what_does_not_fit():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError):
+        port_flash.flash_attention(q, torch.zeros(1, 8, 3, 16),
+                                   torch.zeros(1, 8, 3, 16))
+    with pytest.raises(ValueError):
+        port_flash.flash_attention(q, torch.zeros(1, 8, 2, 8),
+                                   torch.zeros(1, 8, 2, 8))
+    with pytest.raises(TypeError):
+        port_flash.flash_attention(q, torch.zeros(1, 8, 2, 16).double(),
+                                   torch.zeros(1, 8, 2, 16).double())
+    assert port_flash.LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# decode attention (K3)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_rep,d,cache_len", [
+    (1, 64, 0),      # one valid position
+    (4, 16, 31),     # the last position of the first split
+    (4, 16, 32),     # the first position of the second split
+    (16, 64, 95),    # the last position of the cache
+    (16, 16, 50),
+])
+def test_decode_plain_matches_pallas(n_rep, d, cache_len):
+    rng = np.random.default_rng([4, n_rep, d, cache_len])
+    kv, s = 2, 96
+    q = _normal(rng, kv * n_rep, d)
+    k, v = _normal(rng, kv, s, d), _normal(rng, kv, s, d)
+    want = np.asarray(pallas_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.int32(cache_len), block_k=32, n_rep=n_rep, interpret=True))
+    got = port_decode.decode_attention(
+        _t(q)[None], _bhsd_to_model(k), _bhsd_to_model(v),
+        torch.tensor(cache_len, dtype=torch.int32))
+    np.testing.assert_allclose(got[0].numpy(), want, **TOL)
+
+
+def test_decode_model_layout_wrapper_matches_pallas():
+    rng = np.random.default_rng(5)
+    B, S, H, KV, D, cache_len = 2, 64, 8, 2, 16, 40
+    q = _normal(rng, B, 1, H, D)
+    k, v = _normal(rng, B, S, KV, D), _normal(rng, B, S, KV, D)
+
+    def bhsd(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(-1, S, D))
+
+    want = np.asarray(pallas_decode(
+        jnp.asarray(q.reshape(B * H, D)), bhsd(k), bhsd(v),
+        jnp.int32(cache_len), block_k=32, n_rep=H // KV, interpret=True))
+    got = ops.mha_decode(_t(q), _t(k), _t(v),
+                         torch.tensor(cache_len, dtype=torch.int32))
+    assert got.shape == (B, 1, H, D)
+    np.testing.assert_allclose(got.numpy().reshape(B * H, D), want, **TOL)
+
+
+def test_decode_ragged_cache_matches_ref():
+    """S_max = 70 is no multiple of any split (the Pallas kernel refuses
+    it)."""
+    rng = np.random.default_rng(6)
+    q = _normal(rng, 8, 16)
+    k, v = _normal(rng, 2, 70, 16), _normal(rng, 2, 70, 16)
+    for cache_len in (0, 63, 64, 69):
+        want = np.asarray(ref.decode_attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cache_len,
+            n_rep=4))
+        got = port_decode.decode_attention(
+            _t(q)[None], _bhsd_to_model(k), _bhsd_to_model(v),
+            torch.tensor(cache_len, dtype=torch.int32))
+        np.testing.assert_allclose(got[0].numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("cache_len", [0, 5])
+def test_decode_mask_is_inclusive(cache_len):
+    """Position ``cache_len`` holds the new token and is attended: with a
+    key that dominates every logit there, the output is its value row.
+    A ``<`` mask would miss it and fail this."""
+    B, S, H, KV, D = 1, 16, 4, 1, 16
+    q = torch.ones(B, H, D)
+    k = torch.zeros(B, S, KV, D)
+    v = torch.arange(S, dtype=torch.float32)[None, :, None, None].expand(
+        B, S, KV, D).contiguous()
+    k[:, cache_len] = 10.0
+    got = port_decode.decode_attention(
+        q, k, v, torch.tensor(cache_len, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.full((B, H, D), cache_len),
+                               atol=1e-6)
+    k[:, cache_len] = 0.0
+    got = port_decode.decode_attention(
+        q, k, v, torch.tensor(cache_len, dtype=torch.int32))
+    # uniform over positions 0..cache_len inclusive
+    np.testing.assert_allclose(got.numpy(), np.full((B, H, D), cache_len / 2),
+                               atol=1e-5)
+    assert port_decode.LAUNCHES == 0

@@ -51,6 +51,35 @@ def test_one_tick_imports_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+SERVE = r"""
+import sys
+import numpy as np
+from repro_torch.configs import get_config
+from repro_torch.models import Model, smoke_variant
+from repro_torch.serve import Request, ServeEngine
+
+cfg = smoke_variant(get_config("glm4_9b"))
+model = Model(cfg)
+engine = ServeEngine(model, model.init(device="cpu"), max_len=16,
+                     batch_size=2, device="cpu")
+prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 6))
+done = engine.run([Request(f"r{i}", p.astype(np.int32), max_new_tokens=2)
+                   for i, p in enumerate(prompts)])
+assert [len(r.output) for r in done] == [2, 2]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_serving_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", SERVE], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 NO_CUDA = r"""
 import torch
 from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,
@@ -72,6 +101,23 @@ for make in (lambda: BigRootsAnalyzer(JAX_FEATURES),
         raise SystemExit("ran on the CPU unasked")
 # The numpy oracle is host only: it needs no GPU and no device argument.
 Forecaster(params, cfg, JAX_FEATURES, backend="numpy")
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models import Model, smoke_variant
+from repro_torch.serve import ServeEngine
+model = Model(smoke_variant(get_config("glm4_9b")))
+host_params = model.init(device="cpu")
+for make in (lambda: model.init(),
+             lambda: ServeEngine(model, host_params),
+             lambda: serve.main(["--smoke", "--requests", "1",
+                                 "--prompt-len", "4", "--max-new", "1"])):
+    try:
+        make()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise SystemExit("served on the CPU unasked")
 print("RAISED")
 """
 
