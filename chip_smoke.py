@@ -22,7 +22,19 @@ process exits non-zero):
                 package's kernel-test tolerances (2e-2 and 2e-5, rtol = atol:
                 sums in another order, and bf16 keeps 8 bits); K2 and K3 are
                 timed at the serving path's shapes beside their plain
-                versions and ``scaled_dot_product_attention``.
+                versions and ``scaled_dot_product_attention``; the MoE
+                grouped matmul (K5: 3e-2 / 1e-4, the reference's tolerances
+                for it) at granite-moe-1b-a400m's prefill and decode shapes
+                and corners (empty experts, one row, one expert holding 5x
+                the mean, row counts and widths off the tiles) and the SSD
+                intra-chunk kernel (K4: 2e-2 / 2e-5; the float32 kernel
+                against a float64 plain version) at mamba2-130m's prefill
+                shape and corners (G > 1, one chunk, one chunk of 12 and of
+                100 steps that ``ssd_chunked_cuda`` pads to 16-step tiles,
+                an initial state, N 16), also through ``ssd_chunked_cuda``;
+                K5 and K4 (its float32 ``y``, as served) are timed at the
+                serving shapes beside their plain versions and, for K5,
+                ``torch._grouped_mm``.
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -33,18 +45,27 @@ process exits non-zero):
                 counters are zeroed just before and read just after.
 5. the gate kernel at the main path's own last packed batch: compare, then
    time kernel, plain version and bound.
-6. ``serve_path`` serves glm4-9b at full width and depth (40 layers, random
-                weights from a seeded generator, float32 parameters served
-                in bfloat16) through ``ServeEngine`` with streaming telemetry
-                and ``Diagnosis.local``: 8 requests x 1024 prompt tokens,
-                32 greedy new tokens each.  Launch counters are zeroed just
-                before the run and read just after: K2 once per layer of the
-                prefill, K3 once per layer of every decode step.  The same
-                prompts then go through the reference's dense attention form
-                teacher-forced with the run's tokens, and every step's
-                logits are compared; a float32 variant cut to
-                ``--f32-layers`` layers (full width) must give the dense
-                form's greedy tokens exactly.
+6. ``serve_path``, once for each of glm4-9b (dense GQA: K2, K3),
+                granite-moe-1b-a400m (GQA + MoE: K2, K3, K5) and mamba2-130m
+                (SSM: K4), each at full width and depth (random weights from
+                a seeded generator, float32 parameters served in bfloat16),
+                through ``ServeEngine`` with streaming telemetry and
+                ``Diagnosis.local``: 8 requests x 1024 prompt tokens, 32
+                greedy new tokens each.  Launch counters are zeroed just
+                before the run and read after every call: K2 once per
+                attention layer of the prefill, K3 once per attention layer
+                of every decode step, K4 once per SSM layer of the prefill
+                (none in decode: the recurrent step is plain), K5 three
+                times per MoE layer of the prefill and of every step.  The
+                same prompts then go through the reference's plain forms
+                (dense attention, ragged MoE, chunked SSD) teacher-forced
+                with the run's tokens and, through ``moe.routing_hook``,
+                its routing (flips counted and limited): in bf16, where
+                the kernel path must lie within a limit of them that a
+                lower-precision control exceeds, and in float32, the model
+                both are held to.  A float32 variant cut to
+                ``--f32-layers`` layers (full width) must give the greedy
+                tokens of the plain forms with float64 activations.
 
 The last three lines of standard output are the GPU's name and power limit
 as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
@@ -53,6 +74,7 @@ as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -81,12 +103,17 @@ from repro_torch.kernels import (  # noqa: E402
     build,
     decode_attention,
     flash_attention,
+    moe_gmm,
+    ssd_chunked_cuda,
+    ssd_scan,
 )
 from repro_torch.models import (  # noqa: E402
     ForecastConfig,
     Model,
     forecast_init,
 )
+from repro_torch.models import moe as moe_layer  # noqa: E402
+from repro_torch.models.ssd import ssd_chunked as ssd_chunked_plain  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Diagnosis,
     FleetAggregator,
@@ -128,19 +155,45 @@ SERVE_BATCH = 8
 PROMPT_LEN = 1024
 MAX_NEW = 32
 MAX_LEN = PROMPT_LEN + MAX_NEW + 8
-#: The JAX package's kernel-test tolerances (rtol = atol), by dtype.
+#: The JAX package's kernel-test tolerances (rtol = atol), by dtype: the
+#: attention and SSD kernels', and the grouped matmul's.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+GMM_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: The MoE (K5) and Mamba2 (K4) serving paths, at the same batch, prompt
+#: and new tokens as glm4-9b's.
+MOE_ARCH = "granite_moe_1b_a400m"
+SSM_ARCH = "mamba2_130m"
 #: The bf16 kernel path's logits are held to the float32 model (the
-#: reference's dense form in float32 on the same f32 weights, teacher-forced
-#: with the same tokens): their relative RMS error may be at most this
-#: factor times that of the reference's own bf16 dense form.  A fixed bound
-#: would not do: the two bf16 forms round at different places (the dense
-#: form rounds logits and probabilities to bf16, the kernels keep f32
-#: logits) in each of 40 layers, bf16 keeps 8 bits, and how far that
-#: carries to the logits is a property of the weights, not of the kernels.
+#: reference's plain forms in float32 on the same f32 weights, teacher-forced
+#: with the same tokens and the kernel run's routing): their relative RMS
+#: error may be at most this factor times that of the plain forms in bf16.
+#: A fixed bound would not do: the two bf16 forms round at different places
+#: (the dense form rounds logits and probabilities to bf16, the kernels keep
+#: f32 logits) in each layer, bf16 keeps 8 bits, and how far that carries
+#: to the logits is a property of the weights, not of the kernels.
 SERVE_BF16_MARGIN = 1.5
-#: float32 logits of the kernel path against the dense form, relative RMS:
-#: the same arithmetic summed in another order, through 4 layers.
+#: The bf16 kernel path against the bf16 plain forms (teacher-forced with
+#: its tokens and routing), relative RMS of the worst step, by arch.  Each
+#: limit lies between the readings of sound runs and those of a control:
+#: the plain forms on weights whose products feed the kernels (attention
+#: q/k/v, the experts, the SSD's x and B/C projections) rounded to
+#: ``CONTROL_BITS`` significant bits, three fewer than bf16's, as a kernel
+#: that lost precision would be.  Every run checks that its control lies
+#: past the limit.  Readings on an H100 (sound / control at 5 bits):
+#: glm4-9b 0.080 / 0.206, mamba2-130m 0.018 / 0.086; granite-moe-1b-a400m
+#: 0.034 / 0.065 with its control at 6 bits, which 5 bits only widens.
+SERVE_BF16_KERNEL_VS_PLAIN = {"glm4_9b": 0.12, "granite_moe_1b_a400m": 0.055,
+                              "mamba2_130m": 0.04}
+CONTROL_BITS = 5
+#: A replayed routing slot (token x k) is a flip where the replaying run's
+#: own top-k differs from the recorded one.  Their share may be at most
+#: this, by the replaying run's dtype.  bf16 readings on granite-moe: 4.6 %
+#: of 1 622 016 slots against both the bf16 plain forms and float32 (bf16
+#: moves the router's inputs by ~3 %); float32: 0.  Routing by an unrelated
+#: top-8 of 32 would flip ~75 %.
+ROUTING_FLIP_SHARE = {"bfloat16": 0.08, "float32": 1e-3}
+#: float32 logits of the kernel path against the plain forms in float64,
+#: relative RMS: float32 rounding through 4 layers.
 SERVE_F32_REL_RMS = 1e-4
 
 
@@ -484,13 +537,15 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-def attn_compare(got, want, dtype) -> dict:
+def compare(got, want, tol: float, what: str) -> dict:
+    """Elementwise ``|got - want| <= tol + tol * |want|`` (rtol = atol)."""
     err = (got.float() - want.float()).abs()
-    tol = ATTN_TOL[dtype]
     bad = int((err > tol + tol * want.float().abs()).sum().item())
-    check(bool(torch.isfinite(got.float()).all()), "non-finite attention out")
-    return {"max_abs_err": float(err.max().item()), "tolerance": tol,
-            "outside_tolerance": bad}
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite")
+    res = {"max_abs_err": float(err.max().item()) if err.numel() else 0.0,
+           "tolerance": tol, "outside_tolerance": bad}
+    check(bad == 0, f"{what} differs: {res}")
+    return res
 
 
 def flash_case(gen, B, S, H, KV, D, dtype, causal, device, bhsd=False):
@@ -510,9 +565,9 @@ def flash_case(gen, B, S, H, KV, D, dtype, causal, device, bhsd=False):
     want = flash_attention.flash_attention_torch(q, k, v, causal=causal)
     res = {"kernel": "flash_attention", "shape": list(q.shape), "kv": KV,
            "dtype": str(dtype).removeprefix("torch."), "causal": causal,
-           "bhsd_view": bhsd, **attn_compare(got, want, dtype)}
-    check(res["outside_tolerance"] == 0, f"flash_attention differs: {res}")
-    return res
+           "bhsd_view": bhsd}
+    return {**res, **compare(got, want, ATTN_TOL[dtype],
+                             f"flash_attention {res}")}
 
 
 def decode_case(gen, B, S, H, KV, D, dtype, cache_len, device):
@@ -525,9 +580,9 @@ def decode_case(gen, B, S, H, KV, D, dtype, cache_len, device):
     want = decode_attention.decode_attention_torch(q, k, v, n)
     res = {"kernel": "decode_attention", "cache": list(k.shape), "heads": H,
            "dtype": str(dtype).removeprefix("torch."),
-           "cache_len": cache_len, **attn_compare(got, want, dtype)}
-    check(res["outside_tolerance"] == 0, f"decode_attention differs: {res}")
-    return res
+           "cache_len": cache_len}
+    return {**res, **compare(got, want, ATTN_TOL[dtype],
+                             f"decode_attention {res}")}
 
 
 def attention_checks(device, seed: int) -> list[dict]:
@@ -624,6 +679,215 @@ def attention_timings(device, seed: int, flush) -> dict:
     return {"flash_attention": flash, "decode_attention": dec}
 
 
+# -- the MoE grouped matmul (K5) and the SSD intra-chunk kernel (K4) -------------
+
+def routed_sizes(gen, rows: int, experts: int, device) -> torch.Tensor:
+    """Group sizes of ``rows`` routed slots drawn from a random router's
+    softmax over ``experts`` (uneven, as real routing is), int64 on the
+    device."""
+    logits = torch.randn((rows, experts), generator=gen, device=device)
+    ids = torch.multinomial(torch.softmax(logits, -1), 1, generator=gen)[:, 0]
+    return torch.bincount(ids, minlength=experts)
+
+
+def gmm_case(gen, sizes, K, N, dtype, device, label: str) -> dict:
+    sizes = torch.as_tensor(sizes, dtype=torch.int64, device=device)
+    M, E = int(sizes.sum()), sizes.numel()
+    xs = _randn(gen, (M, K), dtype, device)
+    w = (torch.randn((E, K, N), generator=gen, device=device)
+         / K ** 0.5).to(dtype)
+    got = moe_gmm.grouped_matmul(xs, w, sizes)
+    torch.cuda.synchronize()
+    want = moe_gmm.grouped_matmul_torch(xs, w, sizes)
+    return {"kernel": "moe_gmm", "case": label, "rows": M, "experts": E,
+            "K": K, "N": N, "dtype": str(dtype).removeprefix("torch."),
+            **compare(got, want, GMM_TOL[dtype], f"moe_gmm {label}")}
+
+
+def gmm_checks(device, seed: int) -> list[dict]:
+    """K5 at granite-moe-1b-a400m's shapes (prefill and decode, gate/up and
+    down) and the corners: empty experts, one row, one expert holding five
+    times the mean, row counts and widths off the tiles."""
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+    slots = SERVE_BATCH * PROMPT_LEN * cfg.moe_top_k
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        prefill = routed_sizes(gen, slots, E, device)
+        decode = routed_sizes(gen, SERVE_BATCH * cfg.moe_top_k, E, device)
+        out.append(gmm_case(gen, prefill, d, f, dtype, device, "prefill gate"))
+        out.append(gmm_case(gen, prefill, f, d, dtype, device, "prefill down"))
+        out.append(gmm_case(gen, decode, d, f, dtype, device, "decode gate"))
+        out.append(gmm_case(gen, [0, 300, 0, 0, 77, 1000, 0, 1], 1000, 200,
+                            dtype, device, "empty experts, ragged widths"))
+        out.append(gmm_case(gen, [0] * 5 + [1] + [0] * 26, d, f, dtype,
+                            device, "one row"))
+        out.append(gmm_case(gen, [50] * 7 + [5 * 57 + 1], 256, 128, dtype,
+                            device, "one expert 5x the mean"))
+    return out
+
+
+def ssd_inputs(gen, B, S, H, G, N, dtype, device, P=64):
+    """x, dt (softplus of a shifted normal: 0.02-0.2), A (-1..-H, as
+    ``A_log = log(1..H)``), and B/C as strided views of one [B, S, 2GN]
+    tensor, as the model slices them."""
+    x = _randn(gen, (B, S, H, P), dtype, device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=device) * 0.5 - 3.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    bc = _randn(gen, (B, S, 2 * G * N), dtype, device)
+    return (x, dt, A, bc[..., :G * N].view(B, S, G, N),
+            bc[..., G * N:].view(B, S, G, N))
+
+
+def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False) -> dict:
+    """The kernel against its plain version (where the chunk is whole
+    16-step tiles: a shorter one-chunk S reaches the kernel padded, through
+    ``ssd_chunked_cuda`` only), and ``ssd_chunked_cuda`` (kernel +
+    recurrence) against the reference's plain chunked form."""
+    inputs = ssd_inputs(gen, B, S, H, G, N, dtype, device)
+    # The float32 kernel is held to the plain version in float64: seg
+    # reaches a few hundred, and a float32 plain version's own rounding of
+    # the decays' seg differences (~1e-4) would exceed the 2e-5 tolerance.
+    ref_in = (tuple(t.double() for t in inputs) if dtype == torch.float32
+              else inputs)
+    Q = min(chunk, S)
+    tol = ATTN_TOL[dtype]
+    label = f"B{B} S{S} H{H} G{G} N{N} Q{Q}" + (" h0" if h0 else "")
+    res = {"kernel": "ssd_scan", "case": label,
+           "dtype": str(dtype).removeprefix("torch.")}
+    if Q % ssd_scan.CHUNK_MULTIPLE == 0:
+        got = ssd_scan.ssd_intra_chunk(*inputs, Q)
+        torch.cuda.synchronize()
+        check(got[0].dtype == torch.float32, "y_intra is not float32")
+        want = ssd_scan.ssd_intra_chunk_torch(*ref_in, Q)
+        for name, g, w in zip(("y", "states", "seg"), got, want):
+            res[name] = compare(g, w, tol, f"ssd_intra_chunk {label} {name}")
+    init = (torch.randn((B, H, 64, N), generator=gen, device=device)
+            if h0 else None)
+    y, h = ssd_chunked_cuda(*inputs, chunk, h0=init)
+    torch.cuda.synchronize()
+    h0_ref = init.double() if init is not None and ref_in is not inputs \
+        else init                      # the f32 state as it is, for bf16
+    y_ref, h_ref = ssd_chunked_plain(*ref_in, chunk, h0=h0_ref)
+    res["chunked_y"] = compare(y, y_ref, tol, f"ssd_chunked_cuda {label} y")
+    res["chunked_state"] = compare(h, h_ref, tol,
+                                   f"ssd_chunked_cuda {label} state")
+    res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
+                             if isinstance(v, dict))
+    return res
+
+
+def ssd_checks(device, seed: int) -> list[dict]:
+    """K4 at mamba2-130m's prefill shape and the corners: G > 1, one chunk
+    (chunk > S, also of 12 and 100 steps, which ``ssd_chunked_cuda`` pads
+    to the kernel's 16-step tiles), a nonzero initial state, N 16 (jamba),
+    Q 64."""
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    cfg = get_config(SSM_ARCH)
+    H, G, N, Q = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        out.append(ssd_case(gen, SERVE_BATCH, PROMPT_LEN, H, G, N, Q, dtype,
+                            device))
+        out.append(ssd_case(gen, 2, 512, 8, 2, 64, 256, dtype, device,
+                            h0=True))
+        out.append(ssd_case(gen, 2, 128, 4, 1, N, 256, dtype, device,
+                            h0=True))
+        out.append(ssd_case(gen, 2, 256, 4, 4, 16, 64, dtype, device))
+        out.append(ssd_case(gen, 2, 12, 4, 1, N, 256, dtype, device))
+        out.append(ssd_case(gen, 2, 100, 8, 2, 64, 256, dtype, device,
+                            h0=True))
+    return out
+
+
+def gmm_bound(sizes, K, N, dtype) -> dict:
+    """Every routed row read once, the weights of the experts that have
+    rows read once, every output written once; 2·M·K·N operations."""
+    elt = torch.finfo(dtype).bits // 8
+    M = int(sizes.sum())
+    active = int((sizes > 0).sum())
+    return _bound(2 * M * K * N, elt * (M * K + active * K * N + M * N),
+                  dtype)
+
+
+def ssd_bound(B, S, H, G, N, Q, dtype, P=64) -> dict:
+    """Inputs read once (x, B, C in x's dtype, dt in f32), outputs written
+    once (y, states and seg, all f32); the causal products C·Bᵀ and scores·x
+    over j <= i and the chunk state Bᵀ·xw."""
+    elt = torch.finfo(dtype).bits // 8
+    Nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    flops = B * H * Nc * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
+    nbytes = (elt * B * S * H * P + 4 * B * S * H * P + 4 * B * S * H
+              + elt * 2 * B * S * G * N + 4 * B * H * Nc * N * P
+              + 4 * B * H * S)
+    return _bound(flops, nbytes, dtype)
+
+
+def grouped_mm_library(xs, w, sizes):
+    """PyTorch's own grouped product (``torch._grouped_mm``) where this
+    build has it, else a per-expert ``torch.matmul`` loop; returns
+    (callable, name)."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        return (lambda: torch._grouped_mm(xs, w, offs=offs)), \
+            "torch._grouped_mm"
+    bounds = [0] + torch.cumsum(sizes, 0).tolist()
+    groups = [(e, bounds[e], bounds[e + 1]) for e in range(sizes.numel())
+              if bounds[e + 1] > bounds[e]]
+
+    def loop():
+        return [xs[a:b] @ w[e] for e, a, b in groups]
+    return loop, "torch.matmul per expert"
+
+
+def moe_ssd_timings(device, seed: int, flush) -> dict:
+    """K5 at granite-moe-1b-a400m's prefill gate/up launch (65536 routed
+    rows over 32 experts, 1024 → 512, bf16) and at a decode step's (64
+    rows), and K4 at mamba2-130m's prefill (8 × 1024 steps, 24 heads, P 64,
+    N 128, chunk 256, bf16)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    bf = torch.bfloat16
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+    out = {}
+    for label, rows in (("prefill", SERVE_BATCH * PROMPT_LEN),
+                        ("decode", SERVE_BATCH)):
+        sizes = routed_sizes(gen, rows * cfg.moe_top_k, E, device)
+        xs = _randn(gen, (int(sizes.sum()), d), bf, device)
+        w = (torch.randn((E, d, f), generator=gen, device=device)
+             / d ** 0.5).to(bf)
+        lib, lib_name = grouped_mm_library(xs, w, sizes)
+        t = measure_fns({
+            "ms": lambda: moe_gmm.grouped_matmul(xs, w, sizes),
+            "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
+            "library_ms": lib,
+        }, flush, rounds=2 if label == "prefill" else 4)
+        t.update(rows=int(sizes.sum()), experts=E, K=d, N=f,
+                 active_experts=int((sizes > 0).sum()),
+                 largest_group=int(sizes.max()), library=lib_name,
+                 dtype="bfloat16", **gmm_bound(sizes, d, f, bf))
+        out[f"moe_gmm_{label}"] = t
+        del xs, w
+    scfg = get_config(SSM_ARCH)
+    H, G, N, Q = scfg.ssm_heads, scfg.ssm_groups, scfg.ssm_state, \
+        scfg.ssm_chunk
+    x, dt, A, Bm, Cm = ssd_inputs(gen, SERVE_BATCH, PROMPT_LEN, H, G, N, bf,
+                                  device)
+    t = measure_fns({
+        "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
+        "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
+            x, dt, A, Bm, Cm, Q),
+    }, flush, rounds=2)
+    t.update(shape=[SERVE_BATCH, PROMPT_LEN, H, 64], groups=G, state=N,
+             chunk=Q, dtype="bfloat16", library_ms=None,
+             **ssd_bound(SERVE_BATCH, PROMPT_LEN, H, G, N, Q, bf))
+    out["ssd_scan"] = t
+    return out
+
+
 # -- the serving path ------------------------------------------------------------
 
 class Recorder:
@@ -636,6 +900,7 @@ class Recorder:
         self.logits: list = []
         self.events: list = []
         self.host_ms: list = []
+        self.counts: list = []
         for name in ("prefill", "decode"):
             fn = getattr(model, name)
             setattr(model, name, self._wrap(name, fn))
@@ -653,6 +918,7 @@ class Recorder:
             self.tokens.append(tokens.clone())
             self.logits.append(logits.clone())
             self.events.append((name, start, end))
+            self.counts.append(kernel_counts())
             return logits, cache
         return call
 
@@ -661,6 +927,15 @@ class Recorder:
         self.logits.clear()
         self.events.clear()
         self.host_ms.clear()
+        self.counts.clear()
+
+    def launches_per_call(self) -> list[dict]:
+        """Kernel launches of each recorded call (counter differences)."""
+        out, prev = [], {k: 0 for k in self.counts[0]}
+        for now in self.counts:
+            out.append({k: now[k] - prev[k] for k in now})
+            prev = now
+        return out
 
     def ms(self, name: str) -> list[float]:
         return [a.elapsed_time(b) for n, a, b in self.events if n == name]
@@ -720,12 +995,14 @@ def teacher_forced(model, params, tokens: list) -> list:
     return out
 
 
-def logit_errors(got: list, want: list) -> dict:
-    """Per-step relative RMS error, max abs error, argmax agreement."""
+def logit_errors(got: list, want: list, vocab: int) -> dict:
+    """Per-step relative RMS error, max abs error, argmax agreement over the
+    first ``vocab`` columns (the padded columns hold the -1e30 mask, which
+    bf16 and float32 round differently)."""
     check(len(got) == len(want), f"{len(got)} steps vs {len(want)}")
     rel, max_abs, agree = [], 0.0, []
     for g, w in zip(got, want):
-        g, w = g.float(), w.float()
+        g, w = g[..., :vocab].float(), w[..., :vocab].float()
         check(bool(torch.isfinite(g).all()), "non-finite logits")
         d = g - w
         rel.append(float(d.norm() / w.norm()))
@@ -743,9 +1020,109 @@ def cut_params(params, cfg, layers: int):
     return {**params, "blocks": blocks}, replace(cfg, n_layers=layers)
 
 
-def phase_serve(args, card: str, device) -> dict:
-    cfg = get_config(SERVE_ARCH)
-    check(cfg.attention_impl == "cuda", "the default is not the kernel path")
+SERVING_KERNELS = (flash_attention, decode_attention, ssd_scan, moe_gmm)
+#: The reference's plain forms of the three kernel paths.
+PLAIN_FORMS = dict(attention_impl="dense", moe_impl="ragged",
+                   ssm_impl="chunked")
+
+
+def kernel_counts() -> dict:
+    return {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
+            for m in SERVING_KERNELS}
+
+
+def zero_counts() -> None:
+    for m in (*SERVING_KERNELS, bigroots_gates):
+        m.LAUNCHES = 0
+
+
+def expected_launches(cfg) -> tuple[dict, dict]:
+    """Kernel launches of one prefill and of one decode step: K2 and K3
+    once per attention layer, K4 once per SSM layer of the prefill (the
+    decode step is the plain recurrent update), K5 three times per MoE
+    layer of both."""
+    nb, pattern = cfg.n_blocks, cfg.pattern()
+    attn = nb * sum(s.mixer == "attn" for s in pattern)
+    ssm = nb * sum(s.mixer == "ssm" for s in pattern)
+    moe = nb * sum(s.ffn == "moe" for s in pattern)
+    prefill = {"flash_attention": attn, "decode_attention": 0,
+               "ssd_scan": ssm, "moe_gmm": 3 * moe}
+    step = {"flash_attention": 0, "decode_attention": attn, "ssd_scan": 0,
+            "moe_gmm": 3 * moe}
+    return prefill, step
+
+
+class Routing:
+    """Records one run's routing through ``moe.routing_hook`` and replays
+    it in another.  Top-k routing is discontinuous: two runs that differ
+    only by rounding pick other experts wherever the k-th and (k+1)-th
+    router probabilities nearly tie, and one such token moves every later
+    position's logits.  Replayed, both runs route alike, so their logits
+    measure the kernels; the replaying run's own top-k choices that differ
+    from the recorded ones (flips) are counted and held to
+    ``ROUTING_FLIP_SHARE``, since a kernel error upstream of a router
+    would flip many."""
+
+    def __init__(self) -> None:
+        self.recorded: list = []
+
+    def record(self):
+        def keep(probs, experts):
+            self.recorded.append(experts)
+            return experts
+        return moe_layer.routing_hook(keep)
+
+    @contextlib.contextmanager
+    def replay(self):
+        """Yields ``{"routings": slots replayed, "flips": ...}``."""
+        tally = {"routings": 0, "flips": 0}
+        calls = iter(self.recorded)
+
+        def pin(probs, experts):
+            pinned = next(calls, None)
+            check(pinned is not None and pinned.shape == experts.shape,
+                  "the replaying run routes other tokens than the recorded")
+            tally["routings"] += pinned.numel()
+            tally["flips"] += int((experts.sort(-1).values
+                                   != pinned.sort(-1).values).sum())
+            return pinned
+        with moe_layer.routing_hook(pin):
+            yield tally
+        check(next(calls, None) is None,
+              "the replaying run routed fewer times than the recorded")
+
+
+def flip_share(tally: dict) -> float:
+    return tally["flips"] / tally["routings"] if tally["routings"] else 0.0
+
+
+#: Per slot kind, the weights whose products feed the kernels.
+CONTROL_WEIGHTS = {"attn": ("wq", "wk", "wv"),
+                   "moe": ("w_gate", "w_up", "w_down"), "ssm": ("wx", "wbc")}
+
+
+def coarse_params(params, bits: int):
+    """``params`` with the ``CONTROL_WEIGHTS`` rounded to ``bits``
+    significant bits (the rest shared, not copied)."""
+    def coarse(t):
+        m, e = torch.frexp(t.float())
+        return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits,
+                           e).to(t.dtype)
+    blocks = {}
+    for key, slot in params["blocks"].items():
+        names = CONTROL_WEIGHTS.get(key.rsplit("_", 1)[-1], ())
+        blocks[key] = {n: coarse(t) if n in names else t
+                       for n, t in slot.items()}
+    return {**params, "blocks": blocks}
+
+
+def phase_serve(args, card: str, device, arch: str) -> dict:
+    """Serve ``arch`` at full size through ``ServeEngine``, with the launch
+    counters zeroed just before the run and read after every call; then
+    hold the logits to the plain forms and to a float32 model."""
+    cfg = get_config(arch)
+    check((cfg.attention_impl, cfg.moe_impl, cfg.ssm_impl)
+          == ("cuda", "gmm", "cuda"), "the default is not the kernel path")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init(
@@ -771,23 +1148,23 @@ def phase_serve(args, card: str, device) -> dict:
     rec.reset()
 
     requests = serve_requests(cfg, args.seed)
-    flash_attention.LAUNCHES = 0
-    decode_attention.LAUNCHES = 0
-    bigroots_gates.LAUNCHES = 0
+    routing = Routing()
+    zero_counts()
     t0 = time.perf_counter()
-    engine.run(requests, step_offset=1000)
+    with routing.record():
+        engine.run(requests, step_offset=1000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.LAUNCHES,
-                "decode_attention": decode_attention.LAUNCHES}
+    launches = kernel_counts()
     steps = len(rec.ms("decode"))
     check(steps == MAX_NEW, f"{steps} decode steps")
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"in a prefill of {cfg.n_layers} layers")
-    check(launches["decode_attention"] == cfg.n_layers * steps,
-          f"decode_attention launched {launches['decode_attention']} times "
-          f"over {steps} steps of {cfg.n_layers} layers")
+    per_call = rec.launches_per_call()
+    want_prefill, want_step = expected_launches(cfg)
+    check(per_call[0] == want_prefill,
+          f"{arch} prefill launched {per_call[0]}, expected {want_prefill}")
+    for n, got in enumerate(per_call[1:]):
+        check(got == want_step, f"{arch} decode step {n} launched {got}, "
+                                f"expected {want_step}")
     check(list(rec.tokens[0].shape) == [SERVE_BATCH, PROMPT_LEN],
           "prefill batch shape")
     toks = sum(len(r.output) for r in requests)
@@ -798,8 +1175,10 @@ def phase_serve(args, card: str, device) -> dict:
     decode_ms = rec.ms("decode")
     run = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-        "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+        "pattern": [s.name for s in cfg.pattern()],
+        "params": cfg.param_count(),
+        "active_params": cfg.param_count(active_only=True),
+        "param_dtype": cfg.param_dtype,
         "served_dtype": cfg.dtype, "requests": len(requests),
         "prompt_len": PROMPT_LEN, "new_tokens": MAX_NEW, "max_len": MAX_LEN,
         "gpu": card, "init_s": init_s, "cast_s": cast_s,
@@ -811,55 +1190,90 @@ def phase_serve(args, card: str, device) -> dict:
         "decode_ms_per_step": decode_ms, "wall_s": wall,
         "tokens_per_s": toks / wall,
         "peak_memory_gb": peak / 1e9, "launches": launches,
+        "launches_per_prefill": want_prefill,
+        "launches_per_decode_step": want_step,
         "live_root_causes": len(engine.live_root_causes),
     }
 
-    # The reference's dense form on the same weights, teacher-forced with
-    # the kernel path's own tokens (prompt, then each step's input): in
-    # bf16 on the engine's weights, and in float32 on the f32 weights.
-    dense16 = teacher_forced(Model(replace(cfg, attention_impl="dense")),
-                             engine.params, rec.tokens)
-    check(flash_attention.LAUNCHES == launches["flash_attention"]
-          and decode_attention.LAUNCHES == launches["decode_attention"],
-          "the dense form launched an attention kernel")
+    # The reference's plain forms, teacher-forced with the kernel path's
+    # own tokens (prompt, then each step's input) and its routing: in bf16
+    # on the engine's weights and on the control's, and in float32 on the
+    # f32 weights.
+    plain = replace(cfg, **PLAIN_FORMS)
+    with routing.replay() as flips16:
+        plain16 = teacher_forced(Model(plain), engine.params, rec.tokens)
+    with routing.replay():
+        control16 = teacher_forced(
+            Model(plain), coarse_params(engine.params, CONTROL_BITS),
+            rec.tokens)
+    check(kernel_counts() == launches, "the plain forms launched a kernel")
     run["decode_profile"] = profile_decode(Model(cfg), engine.params,
                                            rec.tokens)
     del engine
     torch.cuda.empty_cache()
-    ref32 = teacher_forced(
-        Model(replace(cfg, attention_impl="dense", dtype="float32")),
-        params, rec.tokens)
-    kernel_err = logit_errors(rec.logits, ref32)
-    dense_err = logit_errors(dense16, ref32)
-    run["bf16_vs_f32"] = {
-        "kernel_path": kernel_err, "dense_form": dense_err,
-        "kernel_vs_dense": logit_errors(rec.logits, dense16),
-        "margin": SERVE_BF16_MARGIN}
-    check(kernel_err["max_rel_rms"]
-          <= SERVE_BF16_MARGIN * dense_err["max_rel_rms"],
-          f"bf16 kernel path further from float32 than the dense form: "
-          f"{run['bf16_vs_f32']}")
-    del dense16, ref32, rec
+    with routing.replay() as flips32:
+        ref32 = teacher_forced(Model(replace(plain, dtype="float32")),
+                               params, rec.tokens)
+    limit = SERVE_BF16_KERNEL_VS_PLAIN[arch]
+    bf16 = run["bf16_vs_f32"] = {
+        "kernel_path": logit_errors(rec.logits, ref32, cfg.vocab),
+        "plain_forms": logit_errors(plain16, ref32, cfg.vocab),
+        "kernel_vs_plain": logit_errors(rec.logits, plain16, cfg.vocab),
+        "control_vs_plain": logit_errors(control16, plain16, cfg.vocab),
+        "control_bits": CONTROL_BITS, "margin": SERVE_BF16_MARGIN,
+        "kernel_vs_plain_limit": limit,
+        "routing_flips": {"plain_forms": flips16, "float32": flips32},
+        "routing_flip_limit": ROUTING_FLIP_SHARE["bfloat16"]}
+    del plain16, control16, ref32, rec
     torch.cuda.empty_cache()
 
-    # float32, depth cut: greedy tokens must equal the dense form's.
+    # float32, depth cut: greedy tokens must equal those of the plain forms
+    # with float64 activations (the oracle of the kernel path's numerics:
+    # the chunked SSD then scans in float64, as K4 does), replaying the
+    # kernel run's routing; the logits agree to 1e-4.
     p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
                             args.f32_layers)
-    tokens = {}
-    for impl in ("cuda", "dense"):
-        m = Model(replace(cfg32, attention_impl=impl))
+    routing = Routing()
+    runs = {}
+    for name, mcfg in (("kernel", cfg32),
+                       ("plain", replace(cfg32, dtype="float64",
+                                         **PLAIN_FORMS))):
+        m = Model(mcfg)
         r32 = Recorder(m)
         reqs = serve_requests(cfg, args.seed)
-        ServeEngine(m, p32, max_len=MAX_LEN, batch_size=SERVE_BATCH,
-                    device=device).run(reqs)
-        tokens[impl] = ([r.output for r in reqs], r32.logits)
-    check(tokens["cuda"][0] == tokens["dense"][0],
-          "float32 greedy tokens differ between the kernels and dense")
-    f32 = logit_errors(tokens["cuda"][1], tokens["dense"][1])
-    run["f32_variant"] = {"layers": args.f32_layers, "tokens_equal": True,
-                          "tolerance_rel_rms": SERVE_F32_REL_RMS, **f32}
-    check(f32["max_rel_rms"] <= SERVE_F32_REL_RMS,
-          f"float32 logits differ: {run['f32_variant']}")
+        with (routing.record() if name == "kernel" else routing.replay()) \
+                as tally:
+            ServeEngine(m, p32, max_len=MAX_LEN, batch_size=SERVE_BATCH,
+                        device=device).run(reqs)
+        runs[name] = ([r.output for r in reqs], r32.logits, tally)
+    f32 = run["f32_variant"] = {
+        "layers": args.f32_layers,
+        "tokens_equal": runs["kernel"][0] == runs["plain"][0],
+        "tolerance_rel_rms": SERVE_F32_REL_RMS,
+        "routing_flips": runs["plain"][2],
+        "routing_flip_limit": ROUTING_FLIP_SHARE["float32"],
+        **logit_errors(runs["kernel"][1], runs["plain"][1], cfg.vocab)}
+
+    # Every reading is taken before any is judged.
+    failed = [msg for ok, msg in (
+        (bf16["kernel_path"]["max_rel_rms"]
+         <= SERVE_BF16_MARGIN * bf16["plain_forms"]["max_rel_rms"],
+         "bf16 kernel path further from float32 than the plain forms"),
+        (bf16["kernel_vs_plain"]["max_rel_rms"] <= limit,
+         "bf16 kernel path further from the plain forms than the limit"),
+        (bf16["control_vs_plain"]["max_rel_rms"] > limit,
+         "the control lies inside the limit: the check cannot tell"),
+        (max(flip_share(flips16), flip_share(flips32))
+         <= ROUTING_FLIP_SHARE["bfloat16"], "bf16 routing flips"),
+        (f32["tokens_equal"], "float32 greedy tokens differ between the "
+                              "kernels and the plain forms"),
+        (f32["max_rel_rms"] <= SERVE_F32_REL_RMS, "float32 logits differ"),
+        (flip_share(f32["routing_flips"]) <= ROUTING_FLIP_SHARE["float32"],
+         "float32 routing flips"),
+    ) if not ok]
+    if failed:
+        emit({"phase": "serve_path", "ok": False, **run})
+    check(not failed, f"{arch}: " + "; ".join(failed))
     return run
 
 
@@ -881,7 +1295,8 @@ def phase_env() -> str:
     return card.splitlines()[0]
 
 
-KERNEL_SOURCES = ("bigroots_gates", "flash_attention", "decode_attention")
+KERNEL_SOURCES = ("bigroots_gates", "flash_attention", "decode_attention",
+                  "moe_gmm", "ssd_scan")
 
 
 def phase_build() -> None:
@@ -918,6 +1333,12 @@ def run(args) -> None:
         emit({"phase": "kernels", **c})
     attn_timing = attention_timings(device, args.seed, flush)
     emit({"phase": "kernels", "timings": attn_timing})
+    moe_ssd_checks = gmm_checks(device, args.seed) + ssd_checks(
+        device, args.seed)
+    for c in moe_ssd_checks:
+        emit({"phase": "kernels", **c})
+    moe_ssd_timing = moe_ssd_timings(device, args.seed, flush)
+    emit({"phase": "kernels", "timings": moe_ssd_timing})
 
     t0 = time.perf_counter()
     stream = make_stream(args)
@@ -951,22 +1372,28 @@ def run(args) -> None:
     del flush, stream, got, want, analyzer, agg, last
     torch.cuda.empty_cache()
 
-    serve = phase_serve(args, card, device)
-    emit({"phase": "serve_path", "ok": True, **serve})
+    serve = {}
+    for arch in (SERVE_ARCH, MOE_ARCH, SSM_ARCH):
+        serve[arch] = phase_serve(args, card, device, arch)
+        emit({"phase": "serve_path", "ok": True, **serve[arch]})
+        torch.cuda.empty_cache()
 
-    def attn_entry(name: str, replaces: str, per: str) -> dict:
-        t = attn_timing[name]
+    def entry(name: str, replaces: str, per: str, arch: str, t: dict,
+              checked: list) -> dict:
+        """One kernel's line: launches from ``arch``'s serving run, the
+        largest error of its checks, its timing at that path's shapes."""
         return {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": serve["launches"][name],
-            "launches_per": per,
-            "max_abs_err": max(c["max_abs_err"] for c in attn_checks
+            "replaces": replaces, "launches": serve[arch]["launches"][name],
+            "launches_per": per, "path": get_config(arch).name,
+            "max_abs_err": max(c["max_abs_err"] for c in checked
                                if c["kernel"] == name),
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "flops", "bytes",
                                  "round_medians")},
-            "shape": t.get("shape") or t.get("cache"),
+            "shape": t.get("shape") or t.get("cache") or [t["rows"], t["K"],
+                                                          t["N"]],
         }
 
     print(card, flush=True)
@@ -984,12 +1411,21 @@ def run(args) -> None:
             t["gate_kernel_ms"] for t in timings),
         "round_medians": path_timing["round_medians"],
         "full_incident": full_timing,
-    }, attn_entry("flash_attention",
-                  "src/repro/kernels/flash_attention.py:27",
-                  "one per layer of the prefill"),
-        attn_entry("decode_attention",
-                   "src/repro/kernels/decode_attention.py:27",
-                   "one per layer of every decode step")]})
+    }, entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
+             "one per layer of the prefill", SERVE_ARCH,
+             attn_timing["flash_attention"], attn_checks),
+        entry("decode_attention", "src/repro/kernels/decode_attention.py:27",
+              "one per layer of every decode step", SERVE_ARCH,
+              attn_timing["decode_attention"], attn_checks),
+        entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
+              "one per SSM layer of the prefill", SSM_ARCH,
+              moe_ssd_timing["ssd_scan"], moe_ssd_checks),
+        {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
+                 "three per MoE layer of the prefill and of every decode "
+                 "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
+                 moe_ssd_checks),
+         "library": moe_ssd_timing["moe_gmm_prefill"]["library"],
+         "decode_launch": moe_ssd_timing["moe_gmm_decode"]}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
@@ -1001,8 +1437,8 @@ def main() -> None:
     ap.add_argument("--ticks", type=int, default=5,
                     help="driven ticks (the fleet's size is fixed)")
     ap.add_argument("--f32-layers", type=int, default=4,
-                    help="depth of the serving path's float32 variant (the "
-                         "bf16 run is always glm4-9b's full 40 layers)")
+                    help="depth of the serving paths' float32 variants (the "
+                         "bf16 runs are always at full depth)")
     run(ap.parse_args())
 
 

@@ -1,0 +1,123 @@
+"""Ragged grouped matrix product over expert-sorted rows — the Hopper kernel.
+
+Replaces the TPU kernel ``_gmm_kernel`` of the JAX package
+(``src/repro/kernels/moe_gmm.py``, reached through ``grouped_matmul`` and
+``ops.moe_gmm_ffn``).  Every MoE layer runs it three times (gate, up, down)
+in the prefill and in every decode step when ``ModelConfig.moe_impl ==
+"gmm"``.
+
+Layout: ``xs [M, K]`` holds the routed rows sorted by expert,
+``group_sizes [E]`` (integers on xs's device) how many rows each expert
+has, ``w [E, K, N]`` the experts' weights → ``[M, N]`` in xs's dtype, row
+``r`` of expert ``e`` times ``w[e]``, accumulated in float32.  The
+reference's padded ``[E, Cap, K]`` signature is the special case of ``E``
+groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
+
+- :func:`grouped_matmul_torch` — the plain PyTorch version: one float32
+  ``torch.matmul`` per expert (it reads the group sizes on the host).  The
+  CPU tests use it, and the kernel is held against it on the GPU.
+- :func:`grouped_matmul` — CUDA tensors launch the kernel
+  (``csrc/moe_gmm.cu``: tensor cores for bfloat16, scalar FMAs for float32)
+  on the current stream or raise; the kernel reads the group sizes from
+  device memory, so the host never waits on them.  CPU tensors take the
+  plain version.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .flash_attention import DTYPES
+
+#: Number of times :func:`grouped_matmul` launched the CUDA kernel.
+LAUNCHES = 0
+
+#: Experts the CUDA kernel takes (its ``MAX_EXPERTS``: one shared int each).
+MAX_EXPERTS = 1024
+
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = build.load("moe_gmm").moe_gmm_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def grouped_matmul_torch(xs, w, group_sizes) -> torch.Tensor:
+    """Plain PyTorch version: ``xs[rows of e] @ w[e]`` in float32 for every
+    expert ``e``, cast to xs's dtype."""
+    sizes = [int(n) for n in group_sizes.tolist()]
+    if sum(sizes) != xs.shape[0] or min(sizes, default=0) < 0:
+        raise ValueError(f"group sizes {sizes} do not split {xs.shape[0]} "
+                         "rows")
+    out = torch.empty((xs.shape[0], w.shape[2]), dtype=xs.dtype,
+                      device=xs.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[start:start + n] = (xs[start:start + n].float()
+                                    @ w[e].float()).to(xs.dtype)
+        start += n
+    return out
+
+
+def _check(xs, w, group_sizes) -> None:
+    if xs.dim() != 2 or w.dim() != 3 or group_sizes.dim() != 1:
+        raise ValueError("xs must be [M, K], w [E, K, N], group_sizes [E]")
+    if w.shape[1] != xs.shape[1] or w.shape[0] != group_sizes.shape[0]:
+        raise ValueError(f"w {tuple(w.shape)} does not fit xs "
+                         f"{tuple(xs.shape)} and {group_sizes.shape[0]} "
+                         "groups")
+    if xs.dtype != w.dtype:
+        raise TypeError(f"dtypes differ: {xs.dtype}, {w.dtype}")
+    if group_sizes.dtype.is_floating_point:
+        raise TypeError("group_sizes must be integers")
+    if not (xs.device == w.device == group_sizes.device):
+        raise ValueError("xs, w, group_sizes lie on different devices")
+
+
+def grouped_matmul(xs, w, group_sizes) -> torch.Tensor:
+    """The grouped product on the tensors' own device: the hand-written
+    kernel for CUDA tensors (no synchronisation, no host read of
+    ``group_sizes``), the plain version for CPU tensors."""
+    global LAUNCHES
+    _check(xs, w, group_sizes)
+    if xs.device.type == "cpu":
+        return grouped_matmul_torch(xs, w, group_sizes)
+    if xs.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs.device}")
+    if xs.dtype not in DTYPES:
+        raise TypeError(f"dtype {xs.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if not (xs.is_contiguous() and w.is_contiguous()):
+        raise ValueError("xs and w must be contiguous")
+    M, K = xs.shape
+    E, _, N = w.shape
+    if xs.dtype == torch.bfloat16 and (
+            K % 8 or N % 8 or xs.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("bfloat16 rows must be multiples of 8 elements on "
+                         "16-byte boundaries (the kernel copies 16 bytes at "
+                         "a time)")
+    if E > MAX_EXPERTS:
+        raise ValueError(f"{E} experts: the kernel takes at most "
+                         f"{MAX_EXPERTS}")
+    out = torch.empty((M, N), dtype=xs.dtype, device=xs.device)
+    if M == 0:
+        return out
+    sizes = group_sizes.to(torch.int32).contiguous()
+    with torch.cuda.device(xs.device):
+        rc = _kernel_fn()(xs.data_ptr(), w.data_ptr(), sizes.data_ptr(),
+                out.data_ptr(), M, K, N, E, DTYPES[xs.dtype],
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm_fwd launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out

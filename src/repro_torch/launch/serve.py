@@ -1,10 +1,11 @@
 """Serving entry point: batched requests through prefill + decode with telemetry.
 
-On the GPU (the default device), glm4-9b at full size:
+On the GPU (the default device), any decoder-only arch at full size —
+dense (glm4_9b), MoE (granite_moe_1b_a400m), SSM (mamba2_130m), hybrid:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b
 CPU-sized example (the smoke variant, on the host):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --smoke \\
-      --device cpu --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+      --smoke --device cpu --requests 8 --max-new 16
 """
 from __future__ import annotations
 

@@ -6,9 +6,9 @@
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, tokens, cache)
 
-Decoder-only configs with attention + MLP layers run; encoder-decoder
-configs raise (they wait for a later slice of the port, as do the ``ssm``
-and ``moe`` layers, which raise from :mod:`repro_torch.models.lm`).
+Decoder-only configs run — dense / GQA attention, MoE, Mamba2 (SSM) and
+hybrid layer patterns; encoder-decoder configs raise (they wait for a
+later slice of the port).
 """
 from __future__ import annotations
 

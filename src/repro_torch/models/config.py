@@ -7,10 +7,20 @@ stacked per slot over pattern repetitions (blocks), and the assemblies loop
 over the blocks.
 
 The same dataclass as the JAX package's, with one deliberate difference:
-``attention_impl`` takes ``"cuda" | "blocked" | "dense"`` and defaults to
-``"cuda"``, the hand-written Hopper kernels (flash attention for the
-prefill, split-K decode attention for each decode step).  ``"pallas"``,
-the JAX package's name for its kernel path, is read as ``"cuda"``.
+the implementation switches default to the hand-written Hopper kernels, so
+that the normal entry points run them.
+
+- ``attention_impl`` takes ``"cuda" | "blocked" | "dense"`` and defaults to
+  ``"cuda"`` (flash attention for the prefill, split-K decode attention for
+  each decode step).  ``"pallas"``, the JAX package's name for its kernel
+  path, is read as ``"cuda"``.
+- ``moe_impl`` takes ``"gmm" | "ragged" | "dense" | "gathered"`` and
+  defaults to ``"gmm"``, the grouped-matmul kernel over expert-sorted rows
+  (the reference defaults to ``"ragged"``, which reaches no kernel).
+  ``"ep"`` (expert parallelism) raises until ``parallel/`` is ported.
+- ``ssm_impl`` (new) takes ``"cuda" | "chunked"`` and defaults to
+  ``"cuda"``, the SSD intra-chunk kernel; ``"chunked"`` is the reference's
+  plain chunked form.
 """
 from __future__ import annotations
 
@@ -19,6 +29,10 @@ from dataclasses import dataclass, field, replace
 
 #: ``"cuda"``: the hand-written kernels; the other two are plain PyTorch.
 ATTENTION_IMPLS = ("cuda", "blocked", "dense")
+#: ``"gmm"``: the hand-written grouped matmul; the others are plain PyTorch.
+MOE_IMPLS = ("gmm", "ragged", "dense", "gathered")
+#: ``"cuda"``: the hand-written SSD intra-chunk kernel; ``"chunked"`` plain.
+SSM_IMPLS = ("cuda", "chunked")
 
 
 @dataclass(frozen=True)
@@ -71,7 +85,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     attention_impl: str = "cuda"     # cuda | blocked | dense
-    moe_impl: str = "ragged"         # ragged | dense
+    moe_impl: str = "gmm"            # gmm | ragged | dense | gathered
+    ssm_impl: str = "cuda"           # cuda | chunked
     remat: bool = True
     # Dry-run cost extraction: XLA cost analysis counts while-loop bodies
     # once, so depth-linear extrapolation compiles small UNROLLED variants
@@ -155,6 +170,15 @@ class ModelConfig:
                 f"{self.name}: attention_impl={self.attention_impl!r} is not "
                 f"one of {ATTENTION_IMPLS}"
             )
+        if self.moe_impl == "ep":
+            raise NotImplementedError(
+                f"{self.name}: moe_impl='ep' waits for the port of parallel/"
+            )
+        for name, value, allowed in (("moe_impl", self.moe_impl, MOE_IMPLS),
+                                     ("ssm_impl", self.ssm_impl, SSM_IMPLS)):
+            if value not in allowed:
+                raise ValueError(f"{self.name}: {name}={value!r} is not one "
+                                 f"of {allowed}")
         if self.family in ("dense", "moe", "hybrid", "encdec", "vlm") and not self.n_heads:
             raise ValueError(f"{self.name}: attention family requires n_heads")
         if self.n_heads and self.n_kv_heads and self.n_heads % self.n_kv_heads:
@@ -222,6 +246,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         attention_impl="dense",
         moe_impl="ragged",
+        ssm_impl="chunked",
         remat=False,
     )
     if cfg.n_heads:

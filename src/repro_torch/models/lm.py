@@ -1,11 +1,10 @@
-"""Decoder-only LM assembly (dense / GQA attention + SwiGLU MLP).
+"""Decoder-only LM assembly (dense / GQA / MoE / SSM / hybrid).
 
 Layers run as a Python loop over *pattern blocks* (``cfg.pattern()``
 repeated ``cfg.n_blocks`` times) with per-slot parameters stacked on a
 leading ``[n_blocks]`` axis — the JAX package's layout, so its parameters
 carry across key for key (:func:`repro_torch.convert.lm_params_from_numpy`).
-``ssm`` and ``moe`` slots come with the Mamba2 / MoE kernels (K4 / K5) in a
-later slice of the port and raise here.
+A slot is a mixer (``attn`` or ``ssm``) or an FFN (``mlp`` or ``moe``).
 
 Entry points:
   init_params(cfg, generator, device)     → params dict
@@ -16,12 +15,14 @@ Entry points:
 
 The cache holds ``"len"`` (a 0-d int32 tensor on the device, the fill
 level the kernels read), ``"pos"`` (the same number on the host, which
-bounds the writes without reading the device) and ``"slots"``; prefill and
-decode write the K/V caches in place and return the same dict.
+bounds the writes without reading the device) and ``"slots"``: K/V caches
+for attention slots, the conv shift registers and the float32 SSD state
+for SSM slots.  Prefill and decode write them in place and return the same
+dict.  Only attention slots bound the length.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any
 
 import torch
 
@@ -41,14 +42,15 @@ from .layers import (
     rmsnorm,
     rope,
 )
+from .moe import MoeAux, moe_apply, moe_init, moe_shapes
+from .ssd import SsmState, ssm_apply, ssm_decode, ssm_init, ssm_shapes
 
 Params = dict[str, Any]
 
-
-class MoeAux(NamedTuple):
-    load_balance_loss: torch.Tensor
-    router_z_loss: torch.Tensor
-    expert_load: torch.Tensor
+_SHAPES = {"attn": attention_shapes, "mlp": mlp_shapes, "moe": moe_shapes,
+           "ssm": ssm_shapes}
+_INIT = {"attn": attention_init, "mlp": mlp_init, "moe": moe_init,
+         "ssm": ssm_init}
 
 
 def _slot_keys(cfg: ModelConfig) -> list[tuple[str, str, str]]:
@@ -61,25 +63,15 @@ def _slot_keys(cfg: ModelConfig) -> list[tuple[str, str, str]]:
     return out
 
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind!r} layers come with the K4 (ssd_intra_chunk) / K5 "
-        "(grouped_matmul) slice of the port"
-    )
-
-
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, keyed as :func:`init_params` keys it."""
     shapes: dict = {"embed": (cfg.vocab_padded, cfg.d_model),
                     "final_norm": (cfg.d_model,), "blocks": {}}
     if not cfg.tie_embeddings:
         shapes["head"] = (cfg.d_model, cfg.vocab_padded)
-    by_kind = {"attn": attention_shapes, "mlp": mlp_shapes}
     for skey, kind, _role in _slot_keys(cfg):
-        if kind not in by_kind:
-            raise _unported(kind)
         shapes["blocks"][skey] = {
-            k: (cfg.n_blocks, *s) for k, s in by_kind[kind](cfg).items()
+            k: (cfg.n_blocks, *s) for k, s in _SHAPES[kind](cfg).items()
         }
     return shapes
 
@@ -101,12 +93,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["head"] = torch.randn(
             (cfg.d_model, cfg.vocab_padded), generator=generator,
             device=device).mul_(0.02).to(pdt)
-    init_by_kind = {"attn": attention_init, "mlp": mlp_init}
     for skey, kind, _role in _slot_keys(cfg):
-        if kind not in init_by_kind:
-            raise _unported(kind)
-        params["blocks"][skey] = init_by_kind[kind](
-            generator, cfg, cfg.n_blocks, device)
+        params["blocks"][skey] = _INIT[kind](generator, cfg, cfg.n_blocks,
+                                             device)
     return params
 
 
@@ -148,9 +137,14 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: torch.Tensor | None = None):
+    """Full-sequence logits and the MoE aux terms, averaged over the MoE
+    layers (zeros when there are none)."""
     x = embed_inputs(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = MoeAux(zero, zero, torch.zeros(max(cfg.moe_experts, 1),
+                                         device=x.device))
     for i in range(cfg.n_blocks):
         bp = _block(params, i)
         for skey, kind, _role in _slot_keys(cfg):
@@ -158,14 +152,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
             if kind == "attn":
                 x = x + attention_apply(p, h, cfg, positions=positions)
+            elif kind == "ssm":
+                x = x + ssm_apply(p, h, cfg)
             elif kind == "mlp":
                 x = x + mlp_apply(p, h)
             else:
-                raise _unported(kind)
+                y, a = moe_apply(p, h, cfg)
+                x = x + y
+                aux = MoeAux(*(s + t for s, t in zip(aux, a)))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = MoeAux(zero, zero, torch.zeros(max(cfg.moe_experts, 1),
-                                         device=x.device))
+    n_moe = sum(s.ffn == "moe" for s in cfg.pattern()) * cfg.n_blocks
+    if n_moe:
+        aux = MoeAux(*(t / n_moe for t in aux))
     return head_logits(params, cfg, x), aux
 
 
@@ -177,28 +175,45 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     cdt = dtype_of(cfg.dtype)
     cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device),
                    "pos": 0, "slots": {}}
+    nb = cfg.n_blocks
     for skey, kind, _role in _slot_keys(cfg):
         if kind == "attn":
-            shape = (cfg.n_blocks, batch_size, max_len, cfg.n_kv_heads,
-                     cfg.head_dim)
+            shape = (nb, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
             cache["slots"][skey] = {
                 "k": torch.zeros(shape, dtype=cdt, device=device),
                 "v": torch.zeros(shape, dtype=cdt, device=device),
             }
-        elif kind != "mlp":
-            raise _unported(kind)
+        elif kind == "ssm":
+            gn2 = 2 * cfg.ssm_groups * cfg.ssm_state
+            cache["slots"][skey] = {
+                "conv_x": torch.zeros(
+                    (nb, batch_size, cfg.ssm_conv - 1, cfg.d_inner),
+                    dtype=cdt, device=device),
+                "conv_bc": torch.zeros(
+                    (nb, batch_size, cfg.ssm_conv - 1, gn2), dtype=cdt,
+                    device=device),
+                "ssm": torch.zeros(
+                    (nb, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), dtype=torch.float32, device=device),
+            }
     return cache
+
+
+def _kv_slots(cache: dict) -> list[dict]:
+    """The attention slots of a cache: the only ones with a length."""
+    return [slot for slot in cache["slots"].values() if "k" in slot]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: dict, embeds: torch.Tensor | None = None):
     """Run the prompt through the model, filling the cache. Returns logits
     of the last position and the cache (written in place: K/V at
-    ``[:S]``, zeros after, as the reference's padded copy)."""
+    ``[:S]``, zeros after, as the reference's padded copy; SSM slots hold
+    the state after the last prompt step)."""
     x = embed_inputs(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
-    for slot in cache["slots"].values():
+    for slot in _kv_slots(cache):
         if S > slot["k"].shape[2]:
             raise ValueError(f"prompt of {S} tokens does not fit a cache of "
                              f"{slot['k'].shape[2]}")
@@ -218,15 +233,26 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 for name, t in (("k", k), ("v", v)):
                     c[name][i, :, :S] = t
                     c[name][i, :, S:] = 0
+            elif kind == "ssm":
+                out, st = ssm_apply(p, h, cfg, return_state=True)
+                x = x + out
+                _write_state(cache["slots"][skey], i, st)
             elif kind == "mlp":
                 x = x + mlp_apply(p, h)
             else:
-                raise _unported(kind)
+                x = x + moe_apply(p, h, cfg)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(params, cfg, x[:, -1:, :])
     cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
     cache["pos"] = S
     return logits, cache
+
+
+def _write_state(slot: dict, i: int, st: SsmState) -> None:
+    """Block ``i``'s SSM state into its cache slot, in place."""
+    slot["conv_x"][i] = st.conv_x
+    slot["conv_bc"][i] = st.conv_bc
+    slot["ssm"][i] = st.ssm
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -235,7 +261,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the new K/V written at ``len`` and ``len`` advanced by one.  Raises
     ``IndexError`` when the cache is full (the JAX package clamps the
     write index instead)."""
-    for slot in cache["slots"].values():
+    for slot in _kv_slots(cache):
         check_cache_index(cache["pos"], slot["k"].shape[2])
     x = embed_inputs(params, cfg, tokens)
     cache_len = cache["len"]
@@ -249,10 +275,16 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 out, _, _ = attention_decode(p, h, cfg, c["k"][i], c["v"][i],
                                              cache_len)
                 x = x + out
+            elif kind == "ssm":
+                c = cache["slots"][skey]
+                out, st = ssm_decode(p, h, cfg, SsmState(
+                    c["conv_x"][i], c["conv_bc"][i], c["ssm"][i]))
+                x = x + out
+                _write_state(c, i, st)
             elif kind == "mlp":
                 x = x + mlp_apply(p, h)
             else:
-                raise _unported(kind)
+                x = x + moe_apply(p, h, cfg)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(params, cfg, x)
     cache["len"] = cache_len + 1

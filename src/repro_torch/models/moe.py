@@ -1,0 +1,200 @@
+"""Mixture-of-Experts layer: top-k router + expert SwiGLU FFNs.
+
+The JAX package's ``models/moe.py`` over PyTorch tensors, with one more
+execution path.  ``cfg.moe_impl`` picks it:
+
+- ``gmm`` (the port's default): rows sorted by expert, then the expert FFN
+  as three launches of the hand-written grouped-matmul kernel
+  (:func:`repro_torch.kernels.ops.moe_gmm_ffn`).  The group sizes stay on
+  the device: nothing on this path reads them on the host.
+- ``ragged`` (the reference's default): the same sort, then one plain
+  ``torch.matmul`` per expert — the reference's ``jax.lax.ragged_dot``;
+  it reads the group sizes on the host.
+- ``dense``: every expert processes every token, combined by routing
+  weight (E/k the FLOPs).
+- ``gathered``: each token gathers its k experts' weights (tiny batches).
+
+Each returns ``(output, MoeAux)``: the load-balancing and router-z losses
+and the expert load vector, as the reference computes them.
+
+:func:`routing_hook` lets a caller see every routing decision and replace
+it, to hold two runs to one routing (top-k is discontinuous: two runs that
+differ only by rounding pick other experts wherever two router
+probabilities nearly tie).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.moe_gmm import grouped_matmul_torch
+from .layers import _normal, dtype_of
+
+Params = dict[str, Any]
+
+
+class MoeAux(NamedTuple):
+    load_balance_loss: torch.Tensor   # scalar
+    router_z_loss: torch.Tensor       # scalar
+    expert_load: torch.Tensor         # [E] fraction of routed (token, k) slots
+
+
+def moe_shapes(cfg) -> dict[str, tuple]:
+    E, d, ffe = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+    return {"norm_scale": (d,), "router": (d, E), "w_gate": (E, d, ffe),
+            "w_up": (E, d, ffe), "w_down": (E, ffe, d)}
+
+
+def moe_init(gen, cfg, n_blocks: int, device) -> Params:
+    """Parameters of ``n_blocks`` MoE layers, stacked on axis 0: N(0, 0.02)
+    weights and unit norm scales, as the reference draws them."""
+    pdt = dtype_of(cfg.param_dtype)
+    p: Params = {}
+    for name, shape in moe_shapes(cfg).items():
+        shape = (n_blocks, *shape)
+        if name == "norm_scale":
+            p[name] = torch.ones(shape, dtype=pdt, device=device)
+        else:
+            p[name] = _normal(gen, shape, 0.02, pdt, device)
+    return p
+
+
+#: ``fn(probs [T, E] float32, experts [T, k]) -> experts [T, k]`` or None;
+#: set by :func:`routing_hook`.
+_routing_hook: Callable | None = None
+
+
+@contextlib.contextmanager
+def routing_hook(fn: Callable):
+    """Inside the block every router call passes ``fn`` its probabilities
+    and its own top-k experts, in call order, and routes to the experts
+    ``fn`` returns, weighted by their renormalised probabilities.  ``fn``
+    may keep what it is given (to record a run) or return other experts
+    (to replay one).  Without a hook, routing is the reference's."""
+    global _routing_hook
+    prev, _routing_hook = _routing_hook, fn
+    try:
+        yield
+    finally:
+        _routing_hook = prev
+
+
+def _route(p: Params, x2d: torch.Tensor, cfg):
+    """Router: top-k expert ids ``[T, k]`` and renormalised weights
+    ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``."""
+    logits = (x2d @ p["router"].to(x2d.dtype)).float()          # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    weights, experts = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    if _routing_hook is not None:
+        experts = _routing_hook(probs, experts)
+        weights = probs.gather(-1, experts)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    E = cfg.moe_experts
+    onehot = F.one_hot(experts, E).float()                      # [T, k, E]
+    load = onehot.sum(dim=(0, 1)) / onehot.sum().clamp_min(1.0)
+    importance = probs.mean(dim=0)
+    lb = E * torch.sum(load * importance)
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return experts, weights, MoeAux(lb, z, load)
+
+
+def _ragged_ffn(p: Params, xs, group_sizes, cdt):
+    """The reference's ``_ragged_ffn``: one plain product per expert."""
+    g = grouped_matmul_torch(xs, p["w_gate"].to(cdt), group_sizes)
+    u = grouped_matmul_torch(xs, p["w_up"].to(cdt), group_sizes)
+    return grouped_matmul_torch(F.silu(g) * u, p["w_down"].to(cdt),
+                                group_sizes)
+
+
+def _gmm_ffn(p: Params, xs, group_sizes, cdt):
+    return ops.moe_gmm_ffn(xs, group_sizes, p["w_gate"].to(cdt),
+                           p["w_up"].to(cdt), p["w_down"].to(cdt))
+
+
+def _sorted_apply(p: Params, x, cfg, ffn):
+    """Token-sorted MoE: route, sort the ``T·k`` routed slots by expert
+    (stable, as ``jnp.argsort``), run ``ffn`` over the sorted rows, put the
+    rows back and combine them by routing weight."""
+    shape = x.shape
+    d = shape[-1]
+    x2d = x.reshape(-1, d)
+    T, k = x2d.shape[0], cfg.moe_top_k
+    experts, weights, aux = _route(p, x2d, cfg)
+    flat_expert = experts.reshape(T * k)
+    order = torch.argsort(flat_expert, stable=True)
+    xs = x2d[order // k]                                    # [T·k, d] sorted
+    # torch.bincount(minlength=E), counted without it: on CUDA bincount
+    # reads the largest id on the host to size its output.
+    group_sizes = torch.zeros(cfg.moe_experts, dtype=torch.int64,
+                              device=x.device).index_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
+    ys = ffn(p, xs, group_sizes, x.dtype)
+    out_rows = torch.empty_like(ys)
+    out_rows[order] = ys                                    # back to (t, k)
+    out = torch.einsum("tkd,tk->td", out_rows.reshape(T, k, d),
+                       weights.to(x.dtype))
+    return out.reshape(shape), aux
+
+
+def moe_apply_ragged(p: Params, x, cfg):
+    """Token-sorted grouped-matmul MoE, plain products. x: [B, S, d]."""
+    return _sorted_apply(p, x, cfg, _ragged_ffn)
+
+
+def moe_apply_gmm(p: Params, x, cfg):
+    """Token-sorted MoE through the grouped-matmul kernel (three launches;
+    no host read of the group sizes)."""
+    return _sorted_apply(p, x, cfg, _gmm_ffn)
+
+
+def moe_apply_dense(p: Params, x, cfg):
+    """All-experts dense MoE (E/k FLOPs inflation)."""
+    shape = x.shape
+    d = shape[-1]
+    x2d = x.reshape(-1, d)
+    T = x2d.shape[0]
+    experts, weights, aux = _route(p, x2d, cfg)
+    cdt = x.dtype
+    comb = torch.zeros((T, cfg.moe_experts), dtype=torch.float32,
+                       device=x.device)
+    comb.scatter_add_(1, experts, weights)
+    g = torch.einsum("td,edf->tef", x2d, p["w_gate"].to(cdt))
+    u = torch.einsum("td,edf->tef", x2d, p["w_up"].to(cdt))
+    y = torch.einsum("tef,efd->ted", F.silu(g) * u, p["w_down"].to(cdt))
+    out = torch.einsum("ted,te->td", y, comb.to(cdt))
+    return out.reshape(shape), aux
+
+
+def moe_apply_gathered(p: Params, x, cfg):
+    """Tiny-batch decode path: gather only the top-k experts' weights."""
+    shape = x.shape
+    d = shape[-1]
+    x2d = x.reshape(-1, d)
+    experts, weights, aux = _route(p, x2d, cfg)          # [T, k]
+    cdt = x.dtype
+    wg = p["w_gate"].to(cdt)[experts]                    # [T, k, d, f]
+    wu = p["w_up"].to(cdt)[experts]
+    wd = p["w_down"].to(cdt)[experts]                    # [T, k, f, d]
+    g = torch.einsum("td,tkdf->tkf", x2d, wg)
+    u = torch.einsum("td,tkdf->tkf", x2d, wu)
+    y = torch.einsum("tkf,tkfd->tkd", F.silu(g) * u, wd)
+    out = torch.einsum("tkd,tk->td", y, weights.to(cdt))
+    return out.reshape(shape), aux
+
+
+_BY_IMPL = {"gmm": moe_apply_gmm, "ragged": moe_apply_ragged,
+            "dense": moe_apply_dense, "gathered": moe_apply_gathered}
+
+
+def moe_apply(p: Params, x, cfg):
+    if cfg.moe_impl not in _BY_IMPL:
+        raise NotImplementedError(
+            f"moe_impl={cfg.moe_impl!r} is not ported (expert parallelism "
+            "waits for parallel/)")
+    return _BY_IMPL[cfg.moe_impl](p, x, cfg)
+

@@ -1,0 +1,253 @@
+"""Mamba2 mixer: state-space duality (SSD) layer [arXiv:2405.21060].
+
+The JAX package's ``models/ssd.py`` over PyTorch tensors.  Prefill uses the
+chunked dual form: within a chunk of Q steps the recurrence is a masked,
+decayed attention-like product, and the chunk-boundary states are carried
+by a short loop over the chunks.  Decode is the O(1) recurrent step, plain
+tensor code in both packages.
+
+``cfg.ssm_impl`` picks the chunked form: ``"cuda"`` runs the intra-chunk
+part as the hand-written kernel
+(:func:`repro_torch.kernels.ops.ssd_chunked_cuda`), ``"chunked"`` is the
+reference's plain :func:`ssd_chunked`.  :func:`ssd_reference` is the
+sequential oracle.
+
+Shapes: x [B,S,H,P] (H = d_inner/P SSD heads), dt [B,S,H], A [H] (negative),
+B/C [B,S,G,N] with G groups broadcast over heads.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import _normal, dtype_of, rmsnorm
+
+Params = dict[str, Any]
+
+
+class SsmState(NamedTuple):
+    conv_x: torch.Tensor   # [B, K-1, d_inner] shift register (x channels)
+    conv_bc: torch.Tensor  # [B, K-1, 2·G·N] shift register (B|C channels)
+    ssm: torch.Tensor      # [B, H, P, N] float32
+
+
+def ssm_shapes(cfg) -> dict[str, tuple]:
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn2 = 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"norm_scale": (d,), "wz": (d, di), "wx": (d, di),
+            "wbc": (d, gn2), "wdt": (d, H),
+            "conv_x_w": (cfg.ssm_conv, di), "conv_x_b": (di,),
+            "conv_bc_w": (cfg.ssm_conv, gn2), "conv_bc_b": (gn2,),
+            "A_log": (H,), "D": (H,), "dt_bias": (H,),
+            "inner_norm": (di,), "out_proj": (di, d)}
+
+
+def ssm_init(gen, cfg, n_blocks: int, device) -> Params:
+    """Parameters of ``n_blocks`` Mamba2 mixers, stacked on axis 0, drawn as
+    the reference draws them: N(0, 0.02) projections, N(0, 0.1) conv
+    weights, ``A_log = log(1..H)`` in float32 whatever ``param_dtype`` is,
+    and ``dt_bias`` the inverse softplus of a log-uniform dt in
+    [1e-3, 1e-1]."""
+    pdt = dtype_of(cfg.param_dtype)
+    H = cfg.ssm_heads
+    p: Params = {}
+    for name, shape in ssm_shapes(cfg).items():
+        full = (n_blocks, *shape)
+        if name in ("norm_scale", "inner_norm", "D"):
+            p[name] = torch.ones(full, dtype=pdt, device=device)
+        elif name in ("conv_x_b", "conv_bc_b"):
+            p[name] = torch.zeros(full, dtype=pdt, device=device)
+        elif name == "A_log":
+            p[name] = torch.log(torch.arange(
+                1, H + 1, dtype=torch.float32, device=device)).expand(
+                    full).clone()
+        elif name == "dt_bias":
+            u = torch.rand(full, generator=gen, device=device)
+            dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                           + math.log(1e-3))
+            p[name] = (dt + torch.log(-torch.expm1(-dt))).to(pdt)
+        else:
+            scale = 0.1 if name.startswith("conv") else 0.02
+            p[name] = _normal(gen, full, scale, pdt, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv1d
+# ---------------------------------------------------------------------------
+def causal_conv1d(x, w, b, prepend=None):
+    """x: [B, S, C]; w: [K, C]; causal (left) padding or supplied state."""
+    K = w.shape[0]
+    if prepend is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = prepend.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                        # [B, S+K-1, C]
+    S = x.shape[1]
+    out = xp[:, 0:S, :] * w[0].to(x.dtype)
+    for i in range(1, K):
+        out = out + xp[:, i:i + S, :] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked SSD (dual form), plain
+# ---------------------------------------------------------------------------
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Returns (y [B,S,H,P] in x's dtype, final_state [B,H,P,N] f32).
+    Computes in float32 (in float64 for float64 inputs, an oracle for
+    float32 kernels)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq len {S} not divisible by chunk {Q}")
+    Nc = S // Q
+
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xc = x.reshape(B_, Nc, Q, H, P).to(f32)
+    dtc = dt.reshape(B_, Nc, Q, H).to(f32)
+    Bc = Bm.reshape(B_, Nc, Q, G, N).repeat_interleave(rep, dim=3).to(f32)
+    Cc = Cm.reshape(B_, Nc, Q, G, N).repeat_interleave(rep, dim=3).to(f32)
+
+    a = dtc * A.to(f32)[None, None, None, :]             # [B,Nc,Q,H]
+    seg = torch.cumsum(a, dim=2)
+
+    # intra-chunk: decay(i <- j) = exp(seg_i - seg_j), valid for i >= j
+    decay = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask[None, None, :, :, None], decay, 0.0)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * decay
+    scores = scores * dtc[:, :, None, :, :]              # dt_j weighting
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
+
+    # per-chunk boundary states
+    chunk_sum = seg[:, :, -1, :]                         # [B,Nc,H]
+    state_decay = torch.exp(chunk_sum[:, :, None, :] - seg)
+    weighted = xc * (dtc * state_decay)[..., None]
+    S_c = torch.einsum("bcjhn,bcjhp->bchpn", Bc, weighted)   # [B,Nc,H,P,N]
+
+    # inter-chunk recurrence
+    h = (torch.zeros((B_, H, P, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    chunk_decay = torch.exp(chunk_sum)                   # [B,Nc,H]
+    h_before = []
+    for c in range(Nc):
+        h_before.append(h)                               # state BEFORE chunk
+        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    h_before = torch.stack(h_before, dim=1)              # [B,Nc,H,P,N]
+
+    in_decay = torch.exp(seg)
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", Cc * in_decay[..., None],
+                           h_before)
+    y = (y_intra + y_inter).reshape(B_, S, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_reference(x, dt, A, Bm, Cm, h0=None):
+    """O(S) sequential-scan oracle for ssd_chunked (tests)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=2).float()
+    Ch = Cm.repeat_interleave(rep, dim=2).float()
+    a = dt.float() * A.float()[None, None, :]
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(a[:, t])[:, :, None, None] + (
+            dt[:, t].float()[:, :, None, None] * x[:, t].float()[..., None]
+            * Bh[:, t][:, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# layer apply: full-sequence (prefill) and one-token decode
+# ---------------------------------------------------------------------------
+def _project(p: Params, x, cdt):
+    return (x @ p["wz"].to(cdt), x @ p["wx"].to(cdt), x @ p["wbc"].to(cdt),
+            x @ p["wdt"].to(cdt))
+
+
+def _shift_reg(prev, cur, K: int):
+    """The last K-1 rows of ``prev ++ cur`` (``prev`` None: zeros)."""
+    if prev is None:
+        prev = torch.zeros((cur.shape[0], K - 1, cur.shape[-1]),
+                           dtype=cur.dtype, device=cur.device)
+    return torch.cat([prev.to(cur.dtype), cur], dim=1)[:, -(K - 1):, :]
+
+
+def ssm_apply(p: Params, x, cfg, state: SsmState | None = None,
+              return_state: bool = False):
+    """Full-sequence mixer. x: [B, S, d] → [B, S, d] (and the state after
+    the last step when ``return_state``).  A_log, dt_bias and inner_norm
+    are read in float32, as the reference reads them."""
+    B, S, _ = x.shape
+    cdt = x.dtype
+    z, xr, bc, dt = _project(p, x, cdt)
+    xc = F.silu(causal_conv1d(xr, p["conv_x_w"], p["conv_x_b"],
+                              prepend=None if state is None else state.conv_x))
+    bcc = F.silu(causal_conv1d(bc, p["conv_bc_w"], p["conv_bc_b"],
+                               prepend=None if state is None else state.conv_bc))
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    xs = xc.reshape(B, S, cfg.ssm_heads, cfg.ssm_head_dim)
+    Bm = bcc[..., :gn].reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
+    Cm = bcc[..., gn:].reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    chunked = ops.ssd_chunked_cuda if cfg.ssm_impl == "cuda" else ssd_chunked
+    y, h_final = chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk,
+                         h0=None if state is None else state.ssm)
+    y = y + p["D"].to(cdt)[None, None, :, None] * xs
+    y = y.reshape(B, S, di)
+    y = rmsnorm(y * F.silu(z), p["inner_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(cdt)
+    if not return_state:
+        return out
+    K = cfg.ssm_conv
+    return out, SsmState(
+        conv_x=_shift_reg(None if state is None else state.conv_x, xr, K),
+        conv_bc=_shift_reg(None if state is None else state.conv_bc, bc, K),
+        ssm=h_final,
+    )
+
+
+def ssm_decode(p: Params, x, cfg, state: SsmState):
+    """One-token recurrent step. x: [B, 1, d] → (out [B, 1, d], new state);
+    ``state`` is not modified."""
+    B = x.shape[0]
+    cdt = x.dtype
+    z, xr, bc, dt = _project(p, x, cdt)                  # [B, 1, *]
+    win_x = torch.cat([state.conv_x.to(cdt), xr], dim=1)    # [B, K, di]
+    win_bc = torch.cat([state.conv_bc.to(cdt), bc], dim=1)  # [B, K, 2gn]
+    xc = F.silu(torch.einsum("bkc,kc->bc", win_x, p["conv_x_w"].to(cdt))
+                + p["conv_x_b"].to(cdt))
+    bcc = F.silu(torch.einsum("bkc,kc->bc", win_bc, p["conv_bc_w"].to(cdt))
+                 + p["conv_bc_b"].to(cdt))
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    xs = xc.reshape(B, cfg.ssm_heads, cfg.ssm_head_dim)
+    Bm = bcc[..., :gn].reshape(B, cfg.ssm_groups, cfg.ssm_state)
+    Cm = bcc[..., gn:].reshape(B, cfg.ssm_groups, cfg.ssm_state)
+    rep = cfg.ssm_heads // cfg.ssm_groups
+    Bh = Bm.repeat_interleave(rep, dim=1).float()
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    dt = F.softplus(dt[:, 0, :].float() + p["dt_bias"].float())    # [B, H]
+    A = -torch.exp(p["A_log"].float())
+    h = state.ssm.float()
+    h = h * torch.exp(dt * A[None, :])[:, :, None, None] + (
+        dt[:, :, None, None] * xs.float()[..., None] * Bh[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h).to(cdt)
+    y = y + p["D"].to(cdt)[None, :, None] * xs
+    y = y.reshape(B, 1, di)
+    y = rmsnorm(y * F.silu(z), p["inner_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(cdt)
+    return out, SsmState(conv_x=win_x[:, 1:, :], conv_bc=win_bc[:, 1:, :],
+                         ssm=h)

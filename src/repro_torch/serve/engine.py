@@ -5,14 +5,18 @@ model's decode step (greedy or temperature sampling), and emits BigRoots
 telemetry per step (the serve analog of per-step train tasks: stragglers
 here are slow hosts in a multi-host serving fleet).
 
-With the default ``ModelConfig.attention_impl == "cuda"`` every prefill
-runs the flash-attention kernel once per attention layer and every decode
-step the split-K decode-attention kernel once per layer
-(:mod:`repro_torch.kernels`); the matrix products are PyTorch's.
+With the default implementation switches every prefill runs the
+flash-attention kernel once per attention layer, the SSD intra-chunk
+kernel once per SSM layer and the grouped-matmul kernel three times per
+MoE layer; every decode step runs the split-K decode-attention kernel once
+per attention layer and the grouped-matmul kernel three times per MoE
+layer (:mod:`repro_torch.kernels`).  The SSM decode step is the plain
+recurrent update, and the dense matrix products are PyTorch's.
 
 The engine holds the weight matrices, biases and embeddings cast once to
-``cfg.dtype`` on its device (the norm scales stay in their own dtype, as
-the model reads them in float32): the same values the JAX package's
+``cfg.dtype`` on its device (the norm scales and the SSD decay parameters
+stay in their own dtype, as the model reads them in float32): the same
+values the JAX package's
 per-use ``.astype`` gives, read once per step instead of cast again.  The
 KV cache's fill level stays a device int32 that the kernels read, so the
 decode loop's one host read per step is the tokens'.
@@ -53,8 +57,13 @@ from ..models.layers import dtype_of
 from ..telemetry.events import StepTelemetry
 from .diagnosis import Diagnosis
 
-#: Parameters the model reads in float32 whatever ``cfg.dtype`` is.
-_KEEP_DTYPE = ("norm_scale", "final_norm")
+#: Parameters the model reads in float32 whatever ``cfg.dtype`` is: the
+#: norm scales (``rmsnorm`` casts its scale to float32, as the reference's
+#: ``models/layers.py:32`` does, ``inner_norm`` included) and the SSD
+#: decay parameters ``A_log`` / ``dt_bias`` (the reference's
+#: ``models/ssd.py:227-228`` reads them in float32).  Rounding them to bf16
+#: would serve another function than the reference.
+_KEEP_DTYPE = ("norm_scale", "final_norm", "inner_norm", "A_log", "dt_bias")
 
 
 def make_prefill_step(model: Model) -> Callable:
@@ -87,8 +96,8 @@ def make_decode_step(model: Model, temperature: float = 0.0) -> Callable:
 
 
 def cast_params(params, cfg, device: torch.device):
-    """``params`` on ``device`` with every tensor but the norm scales in
-    ``cfg.dtype`` (a tensor already so placed and typed is kept, not
+    """``params`` on ``device`` with every tensor but those of
+    ``_KEEP_DTYPE`` in ``cfg.dtype`` (a tensor already so placed and typed is kept, not
     copied)."""
     cdt = dtype_of(cfg.dtype)
 

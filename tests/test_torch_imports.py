@@ -53,19 +53,25 @@ def test_one_tick_imports_neither_jax_nor_repro():
 
 SERVE = r"""
 import sys
+from dataclasses import replace
 import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.models import Model, smoke_variant
 from repro_torch.serve import Request, ServeEngine
 
-cfg = smoke_variant(get_config("glm4_9b"))
-model = Model(cfg)
-engine = ServeEngine(model, model.init(device="cpu"), max_len=16,
-                     batch_size=2, device="cpu")
-prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 6))
-done = engine.run([Request(f"r{i}", p.astype(np.int32), max_new_tokens=2)
-                   for i, p in enumerate(prompts)])
-assert [len(r.output) for r in done] == [2, 2]
+import repro_torch.kernels.ops, repro_torch.models.moe, repro_torch.models.ssd
+
+for arch in ("glm4_9b", "granite_moe_1b_a400m", "mamba2_130m"):
+    # the kernel paths (their plain versions on CPU tensors)
+    cfg = replace(smoke_variant(get_config(arch)), attention_impl="cuda",
+                  moe_impl="gmm", ssm_impl="cuda")
+    model = Model(cfg)
+    engine = ServeEngine(model, model.init(device="cpu"), max_len=24,
+                         batch_size=2, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 8))
+    done = engine.run([Request(f"r{i}", p.astype(np.int32), max_new_tokens=2)
+                       for i, p in enumerate(prompts)])
+    assert [len(r.output) for r in done] == [2, 2]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))

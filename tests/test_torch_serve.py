@@ -1,7 +1,8 @@
 """The serving path — ``Model`` prefill / decode and ``ServeEngine`` —
 against the JAX package on the same parameters, at the smoke size of
 glm4-9b (2 layers, d 64, 4 heads over 1 kv head, head_dim 16, qkv bias) in
-float32.
+float32, and of the MoE, SSM and hybrid archs (granite-moe-1b-a400m,
+mamba2-130m, jamba-v0.1-52b: attention, SSM, MLP and MoE in one period).
 
 The JAX model's parameters (biases and norm scales perturbed, so that they
 count) are handed to the port through ``lm_params_from_numpy``.  The
@@ -317,8 +318,10 @@ def test_pallas_name_reads_as_cuda_and_default_is_the_kernel():
         replace(cfg, attention_impl="flash").validate()
     with pytest.raises(NotImplementedError):
         Model(get_config("seamless_m4t_medium"))
-    with pytest.raises(NotImplementedError):
-        Model(smoke_variant(get_config("mamba2_130m"))).init(device="cpu")
+    # MoE and SSM layers are ported: their kernel paths are the defaults
+    assert (cfg.moe_impl, cfg.ssm_impl) == ("gmm", "cuda")
+    params = Model(smoke_variant(get_config("mamba2_130m"))).init(device="cpu")
+    assert params["blocks"]["L0_ssm"]["A_log"].dtype == torch.float32
 
 
 def test_bf16_params_carry_bit_for_bit(carried):
@@ -331,3 +334,155 @@ def test_bf16_params_carry_bit_for_bit(carried):
     assert wq.dtype == torch.bfloat16
     want = bf["blocks"]["L0_attn"]["wq"].astype(np.float32)
     np.testing.assert_array_equal(wq.float().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# MoE, SSM and hybrid archs: the K5 / K4 paths' models
+# ---------------------------------------------------------------------------
+NEW_ARCHS = ["granite_moe_1b_a400m", "mamba2_130m", "jamba_v0_1_52b"]
+#: the kernel entry points (plain versions on CPU tensors) and the
+#: reference's plain forms
+IMPLS = {"kernel": dict(attention_impl="cuda", moe_impl="gmm",
+                        ssm_impl="cuda"),
+         "plain": dict(attention_impl="dense", moe_impl="ragged",
+                       ssm_impl="chunked")}
+#: prompts of 16 tokens: a multiple of the smoke SSM chunk (8)
+ARCH_PROMPT = 16
+ARCH_MAX_LEN = ARCH_PROMPT + 8 + 8
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def arch_run(request):
+    """(arch, JAX model, jax params, numpy params, port params, JAX
+    teacher-forced logits and fed tokens) for one arch's smoke variant;
+    norm scales, SSD D and conv biases perturbed so that they count."""
+    arch = request.param
+    cfg = ref_smoke_variant(ref_get_config(arch))
+    model = RefModel(cfg)
+    np_params = jax.tree.map(np.asarray, model.init(jax.random.key(1)))
+    rng = np.random.default_rng(1)
+    for slot in np_params["blocks"].values():
+        for name in list(slot):
+            if name in ("norm_scale", "inner_norm", "D", "conv_x_b",
+                        "conv_bc_b"):
+                slot[name] = (slot[name] + rng.normal(
+                    0.0, 0.1, slot[name].shape)).astype(np.float32)
+    params = lm_params_from_numpy(np_params, smoke_variant(get_config(arch)),
+                                  device="cpu")
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    tokens = np.random.default_rng(2).integers(
+        0, 256, (2, ARCH_PROMPT)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(tokens)}
+    cache = model.init_cache(jparams, batch, ARCH_MAX_LEN)
+    logits, cache = model.prefill(jparams, batch, cache)
+    want, feed = [np.asarray(logits)], []
+    for _ in range(STEPS):
+        nxt = jnp.argmax(logits[:, 0, :], axis=-1).astype(jnp.int32)[:, None]
+        feed.append(np.array(nxt))
+        logits, cache = model.decode(jparams, nxt, cache)
+        want.append(np.asarray(logits))
+    return arch, model, jparams, np_params, params, tokens, want, feed
+
+
+def _port_cfg(arch, impl):
+    return replace(smoke_variant(get_config(arch)), **IMPLS[impl])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_new_archs_prefill_and_decode_match_jax(arch_run, impl):
+    arch, _, _, _, params, tokens, want, feed = arch_run
+    model = Model(_port_cfg(arch, impl))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    cache = model.init_cache(params, batch, ARCH_MAX_LEN)
+    logits, cache = model.prefill(params, batch, cache)
+    got = [logits.numpy()]
+    for nxt in feed:
+        logits, cache = model.decode(params, torch.from_numpy(nxt), cache)
+        got.append(logits.numpy())
+    assert cache["pos"] == ARCH_PROMPT + STEPS
+    for step, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, **LOGIT_TOL,
+                                   err_msg=f"{arch} {impl} step {step}")
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_new_archs_forward_and_aux_match_jax(arch_run, impl):
+    arch, model, jparams, _, params, tokens, _, _ = arch_run
+    want, want_aux = model.forward(jparams, {"tokens": jnp.asarray(tokens)})
+    got, aux = Model(_port_cfg(arch, impl)).forward(
+        params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    for g, w in zip(aux, want_aux):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_new_archs_greedy_tokens_match_jax_engine(arch_run):
+    arch, model, jparams, _, params, _, _, _ = arch_run
+    prompts = np.random.default_rng(3).integers(
+        0, 256, (2, ARCH_PROMPT)).astype(np.int32)
+    want = RefEngine(model, jparams, max_len=ARCH_MAX_LEN, batch_size=2).run(
+        [RefRequest(f"r{i}", p, max_new_tokens=8)
+         for i, p in enumerate(prompts)])
+    got = ServeEngine(Model(_port_cfg(arch, "kernel")), params,
+                      max_len=ARCH_MAX_LEN, batch_size=2, device="cpu").run(
+        [Request(f"r{i}", p, max_new_tokens=8)
+         for i, p in enumerate(prompts)])
+    assert [r.output for r in got] == [r.output for r in want]
+
+
+def test_new_archs_params_carry_key_for_key(arch_run):
+    arch, _, _, np_params, params, _, _, _ = arch_run
+    flat = jax.tree_util.tree_flatten_with_path(np_params)[0]
+    assert len(flat) == len(np_params) - 1 + sum(
+        len(s) for s in params["blocks"].values())
+    for path, leaf in flat:
+        node = params
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == leaf.shape
+        assert str(node.dtype).removeprefix("torch.") == str(leaf.dtype)
+
+
+def test_bf16_engine_keeps_the_float32_reads_float32(arch_run):
+    """The reference reads A_log, dt_bias (models/ssd.py:227-228) and every
+    norm scale, inner_norm included (models/layers.py:32), in float32."""
+    arch, _, _, _, params, _, _, _ = arch_run
+    cfg = replace(_port_cfg(arch, "kernel"), dtype="bfloat16")
+    eng = ServeEngine(Model(cfg), params, device="cpu")
+    for slot in eng.params["blocks"].values():
+        for name, t in slot.items():
+            keep = name in ("norm_scale", "inner_norm", "A_log", "dt_bias")
+            assert t.dtype == (torch.float32 if keep else torch.bfloat16), \
+                name
+    assert torch.equal(eng.params["final_norm"], params["final_norm"])
+
+
+def test_ssm_cache_has_no_length_limit():
+    """Only attention slots bound a cache: an SSM-only model decodes past
+    ``max_len``, as in the reference, and gives the same logits."""
+    cfg = smoke_variant(get_config("mamba2_130m"))
+    model = Model(cfg)
+    params = model.init(device="cpu")
+    batch = {"tokens": torch.from_numpy(_prompts(2)[:, :8])}
+    runs = []
+    for max_len in (4, 64):
+        cache = model.init_cache(params, batch, max_len)
+        logits, cache = model.prefill(params, batch, cache)
+        out = [logits]
+        for _ in range(6):
+            logits, cache = model.decode(
+                params, logits.argmax(-1).to(torch.int32), cache)
+            out.append(logits)
+        runs.append(torch.cat(out, dim=1))
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "mamba2_130m"])
+def test_launch_serve_runs_new_archs_on_the_cpu(arch, capsys):
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "8",
+                       "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert f"BigRoots serve report — {get_config(arch).name}-smoke" in out
+    assert '"generated_tokens": 6' in out
