@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py [--seed 0] [--ticks 5] [--f32-layers 4]
+                          [--replaced DIR]
 
 What it does, in phases (one JSON line each; any failure raises and the
 process exits non-zero):
@@ -17,24 +18,33 @@ process exits non-zero):
                 bits: tolerance 0) at the full-incident shape and on corner
                 batches; flash attention (K2) and decode attention (K3) at
                 the serving path's shapes and corners (ragged lengths, n_rep
-                1 and 16, head_dim 64 and 128, cache_len at 0, a split edge
+                1 and 16, head_dim 64 and 128, Sq 1, 17 and 129 at the
+                bf16 kernel's 128-row tiles, cache_len at 0, a split edge
                 and the last position) in bfloat16 and float32, with the JAX
                 package's kernel-test tolerances (2e-2 and 2e-5, rtol = atol:
                 sums in another order, and bf16 keeps 8 bits); K2 and K3 are
-                timed at the serving path's shapes beside their plain
+                timed at the serving path's shapes (K2 at glm4-9b's and
+                granite-moe-1b-a400m's prefill) beside their plain
                 versions and ``scaled_dot_product_attention``; the MoE
                 grouped matmul (K5: 3e-2 / 1e-4, the reference's tolerances
                 for it) at granite-moe-1b-a400m's prefill and decode shapes
                 and corners (empty experts, one row, one expert holding 5x
-                the mean, row counts and widths off the tiles) and the SSD
+                the mean, row counts and widths off the tiles, groups of
+                exactly one tile, boundaries inside tiles, fewer rows than
+                a tile, one expert, both tile heights forced) and the SSD
                 intra-chunk kernel (K4: 2e-2 / 2e-5; the float32 kernel
                 against a float64 plain version) at mamba2-130m's prefill
                 shape and corners (G > 1, one chunk, one chunk of 12 and of
                 100 steps that ``ssd_chunked_cuda`` pads to 16-step tiles,
                 an initial state, N 16), also through ``ssd_chunked_cuda``;
-                K5 and K4 (its float32 ``y``, as served) are timed at the
-                serving shapes beside their plain versions and, for K5,
-                ``torch._grouped_mm``.
+                K5 (prefill gate/up and down, decode) and K4 (its
+                float32 ``y``, as served) are timed at the serving shapes
+                beside their plain versions and, for K5,
+                ``torch._grouped_mm``.  With ``--replaced DIR`` (a
+                ``csrc`` holding the K2 / K5 bodies this version replaced,
+                e.g. the parent commit's) those bodies are built too,
+                held against the current kernels and timed in the same
+                turns (``replaced_ms``; null without the option).
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -466,13 +476,21 @@ def hold_against_plain(tensors, peer_mean: float) -> dict:
             "fired": int((want != 0).sum().item())}
 
 
+#: Device cycles (~0.5 ms) the card spins before each timed launch, so that
+#: the host has enqueued the launch before the start event is reached.
+HOST_LEAD_CYCLES = 1_000_000
+
+
 def time_ms(fn, flush, reps: int = 25) -> list[float]:
     """Device times of ``reps`` launches of ``fn`` (CUDA events), with the
     50 MB L2 cache displaced before each launch by *reading* a larger buffer
     (writing one would leave dirty lines whose write-back competes with the
-    timed launch).  The warm-up keeps the card busy for a quarter of a second
-    first: the main path leaves it idle most of the time, and an idle card
-    clocks down."""
+    timed launch).  A spin of ``HOST_LEAD_CYCLES`` on the device follows
+    the flush: without it the start event is passed as soon as the flush
+    ends, and a wrapper whose host work (checks, tensor maps) outlasts the
+    flush would add the device's wait for its launch to the reading.  The
+    warm-up keeps the card busy for a quarter of a second first: the main
+    path leaves it idle most of the time, and an idle card clocks down."""
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < 0.25:
         flush.sum()
@@ -481,6 +499,7 @@ def time_ms(fn, flush, reps: int = 25) -> list[float]:
     out = []
     for _ in range(reps):
         flush.sum()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -601,6 +620,12 @@ def attention_checks(device, seed: int) -> list[dict]:
         out.append(flash_case(gen, 2, 300, 16, 1, 64, dtype, True, device))
         out.append(flash_case(gen, 2, 200, 8, 2, 64, dtype, False, device,
                               bhsd=True))
+        # The bf16 kernel's 128-row query and key tiles: one row, a partial
+        # tile, one row past a whole tile; both head dims.
+        for S in (1, 17, 129):
+            for causal in (True, False):
+                out.append(flash_case(gen, 2, S, 8, 2, 128 if S != 17 else 64,
+                                      dtype, causal, device))
         for cache_len in (0, 511, 512, PROMPT_LEN + MAX_NEW - 1, MAX_LEN - 1):
             out.append(decode_case(gen, SERVE_BATCH, MAX_LEN, H, KV, D, dtype,
                                    cache_len, device))
@@ -635,30 +660,119 @@ def _bound(flops, nbytes, dtype) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def attention_timings(device, seed: int, flush) -> dict:
-    """K2 and K3 at the serving path's shapes (bf16): the prefill's
-    ``[8, 1024, 32, 128]`` causal attention over 2 kv heads, and the last
-    decode step's one-token attention over a ``[8, 1064, 2, 128]`` cache
-    holding 1056 valid positions."""
+class Replaced:
+    """The kernel bodies this version replaced, for timing in turns with the
+    current ones in the same call: ``flash_attention.cu`` and ``moe_gmm.cu``
+    from another tree's ``csrc`` (``--replaced DIR``; e.g. the parent
+    commit's, unpacked with ``git archive``), built with the package's
+    flags under their own library names.  Their C entry points are the
+    ones that tree had: flash attention's as now, the grouped matmul's
+    without the tile height."""
+
+    NAMES = ("flash_attention", "moe_gmm")
+
+    def __init__(self, src_dir: str) -> None:
+        out = os.path.join(build.build_dir(), "replaced")
+        os.makedirs(out, exist_ok=True)
+        nvcc = build.find_nvcc()
+        procs = {n: subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{n}.so"),
+             os.path.join(src_dir, f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in self.NAMES}
+        for n, proc in procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"replaced {n} did not build: {log}")
+        import ctypes
+        self.src_dir = src_dir
+        self._flash = ctypes.CDLL(
+            os.path.join(out, "libflash_attention.so")).flash_attention_fwd
+        self._flash.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+        self._gmm = ctypes.CDLL(os.path.join(out, "libmoe_gmm.so")).moe_gmm_fwd
+        self._gmm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                              + [ctypes.c_void_p])
+
+    def flash(self, q, k, v, causal=True):
+        B, Sq, H, D = q.shape
+        out = torch.empty_like(q)
+        st = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+        rc = self._flash(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), B, Sq, k.shape[1], H, k.shape[2], D,
+                         int(causal), 1, 1.0 / D ** 0.5, *st,
+                         torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"replaced flash_attention_fwd: CUDA error {rc}")
+        return out
+
+    def gmm(self, xs, w, sizes):
+        out = torch.empty((xs.shape[0], w.shape[2]), dtype=xs.dtype,
+                          device=xs.device)
+        gs = sizes.to(torch.int32)
+        rc = self._gmm(xs.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                       out.data_ptr(), xs.shape[0], xs.shape[1], w.shape[2],
+                       w.shape[0], 1, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"replaced moe_gmm_fwd: CUDA error {rc}")
+        return out
+
+
+def with_replaced(fns: dict, replaced_fn, current, what: str) -> dict:
+    """``fns`` plus ``replaced_ms`` when a replaced body is given: it is first
+    held against the current kernel's output (same tolerance as the plain
+    version), then timed in the same turns."""
+    if replaced_fn is None:
+        return fns
+    got = replaced_fn()
+    torch.cuda.synchronize()
+    compare(got, current(), ATTN_TOL[torch.bfloat16] if "flash" in what
+            else GMM_TOL[torch.bfloat16], f"replaced {what}")
+    return {**fns, "replaced_ms": replaced_fn}
+
+
+def flash_timing(gen, device, flush, arch: str, replaced) -> dict:
+    """K2 at ``arch``'s prefill: ``[8, 1024, H, D]`` causal over its kv
+    heads, bf16, beside its plain version, SDPA and (``replaced``) the body
+    it replaced."""
     F = torch.nn.functional
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim, torch.bfloat16
     q = _randn(gen, (B, PROMPT_LEN, H, D), dt, device)
     k = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
     v = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flash = measure_fns({
-        "ms": lambda: flash_attention.flash_attention(q, k, v, causal=True),
+
+    def kernel():
+        return flash_attention.flash_attention(q, k, v, causal=True)
+    fns = {
+        "ms": kernel,
         "plain_ms": lambda: flash_attention.flash_attention_torch(
             q, k, v, causal=True),
         "library_ms": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
-    }, flush, rounds=2)
-    flash.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
-                 **flash_bound(B, PROMPT_LEN, PROMPT_LEN, H, KV, D, dt, True))
-    del q, k, v, qt, kt, vt
+    }
+    fns = with_replaced(fns, replaced and (lambda: replaced.flash(q, k, v)),
+                        kernel, "flash_attention")
+    t = measure_fns(fns, flush, rounds=2)
+    t.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
+             path=cfg.name,
+             work_items=H * B * -(-PROMPT_LEN // flash_attention.BF16_BQ),
+             **flash_bound(B, PROMPT_LEN, PROMPT_LEN, H, KV, D, dt, True))
+    return t
+
+
+def attention_timings(device, seed: int, flush, replaced=None) -> dict:
+    """K2 at glm4-9b's prefill (``[8, 1024, 32, 128]`` causal over 2 kv
+    heads) and granite-moe-1b-a400m's (``[8, 1024, 16, 64]`` over 8), and
+    K3 at the last decode step of glm4-9b: one-token attention over a
+    ``[8, 1064, 2, 128]`` cache holding 1056 valid positions; bf16."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cfg = get_config(SERVE_ARCH)
+    B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim, torch.bfloat16
+    flash = flash_timing(gen, device, flush, SERVE_ARCH, replaced)
+    flash_moe = flash_timing(gen, device, flush, MOE_ARCH, replaced)
 
     last = PROMPT_LEN + MAX_NEW - 1     # the last decode step's cache_len
     q = _randn(gen, (B, H, D), dt, device)
@@ -676,7 +790,8 @@ def attention_timings(device, seed: int, flush) -> dict:
     }, flush, rounds=4)
     dec.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
                dtype="bfloat16", **decode_bound(B, H, KV, D, last + 1, dt))
-    return {"flash_attention": flash, "decode_attention": dec}
+    return {"flash_attention": flash, "flash_attention_granite": flash_moe,
+            "decode_attention": dec}
 
 
 # -- the MoE grouped matmul (K5) and the SSD intra-chunk kernel (K4) -------------
@@ -690,17 +805,20 @@ def routed_sizes(gen, rows: int, experts: int, device) -> torch.Tensor:
     return torch.bincount(ids, minlength=experts)
 
 
-def gmm_case(gen, sizes, K, N, dtype, device, label: str) -> dict:
+def gmm_case(gen, sizes, K, N, dtype, device, label: str,
+             rows_per_tile=None) -> dict:
     sizes = torch.as_tensor(sizes, dtype=torch.int64, device=device)
     M, E = int(sizes.sum()), sizes.numel()
     xs = _randn(gen, (M, K), dtype, device)
     w = (torch.randn((E, K, N), generator=gen, device=device)
          / K ** 0.5).to(dtype)
-    got = moe_gmm.grouped_matmul(xs, w, sizes)
+    got = moe_gmm.grouped_matmul(xs, w, sizes, rows_per_tile=rows_per_tile)
     torch.cuda.synchronize()
     want = moe_gmm.grouped_matmul_torch(xs, w, sizes)
     return {"kernel": "moe_gmm", "case": label, "rows": M, "experts": E,
             "K": K, "N": N, "dtype": str(dtype).removeprefix("torch."),
+            "rows_per_tile": (rows_per_tile or moe_gmm.tile_rows(M, E)
+                              if dtype == torch.bfloat16 else None),
             **compare(got, want, GMM_TOL[dtype], f"moe_gmm {label}")}
 
 
@@ -725,6 +843,20 @@ def gmm_checks(device, seed: int) -> list[dict]:
                             device, "one row"))
         out.append(gmm_case(gen, [50] * 7 + [5 * 57 + 1], 256, 128, dtype,
                             device, "one expert 5x the mean"))
+        # The bf16 kernel's 64- and 128-row tiles: groups of exactly one
+        # tile, group boundaries inside a tile, fewer rows than a tile, one
+        # expert, and each tile height forced once against its usual choice.
+        out.append(gmm_case(gen, [128, 64, 0, 128], d, f, dtype, device,
+                            "groups of exactly one tile"))
+        out.append(gmm_case(gen, [100, 90, 37, 200], d, f, dtype, device,
+                            "boundaries inside tiles"))
+        out.append(gmm_case(gen, [5, 0, 20], d, f, dtype, device,
+                            "fewer rows than a tile"))
+        out.append(gmm_case(gen, [300], f, d, dtype, device, "one expert"))
+        out.append(gmm_case(gen, prefill, d, f, dtype, device,
+                            "prefill gate, 64-row tiles", rows_per_tile=64))
+        out.append(gmm_case(gen, decode, d, f, dtype, device,
+                            "decode gate, 128-row tiles", rows_per_tile=128))
     return out
 
 
@@ -843,32 +975,42 @@ def grouped_mm_library(xs, w, sizes):
     return loop, "torch.matmul per expert"
 
 
-def moe_ssd_timings(device, seed: int, flush) -> dict:
+def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
     """K5 at granite-moe-1b-a400m's prefill gate/up launch (65536 routed
-    rows over 32 experts, 1024 → 512, bf16) and at a decode step's (64
-    rows), and K4 at mamba2-130m's prefill (8 × 1024 steps, 24 heads, P 64,
-    N 128, chunk 256, bf16)."""
+    rows over 32 experts, 1024 → 512, bf16), its prefill down launch
+    (512 → 1024) and a decode step's gate/up (64 rows), each beside its
+    plain version, ``torch._grouped_mm`` and (``replaced``) the body it
+    replaced; and K4 at mamba2-130m's prefill (8 × 1024 steps, 24 heads,
+    P 64, N 128, chunk 256, bf16)."""
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     bf = torch.bfloat16
     cfg = get_config(MOE_ARCH)
     E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
     out = {}
-    for label, rows in (("prefill", SERVE_BATCH * PROMPT_LEN),
-                        ("decode", SERVE_BATCH)):
+    for label, rows, K, N in (("prefill", SERVE_BATCH * PROMPT_LEN, d, f),
+                              ("prefill_down", SERVE_BATCH * PROMPT_LEN, f, d),
+                              ("decode", SERVE_BATCH, d, f)):
         sizes = routed_sizes(gen, rows * cfg.moe_top_k, E, device)
-        xs = _randn(gen, (int(sizes.sum()), d), bf, device)
-        w = (torch.randn((E, d, f), generator=gen, device=device)
-             / d ** 0.5).to(bf)
+        xs = _randn(gen, (int(sizes.sum()), K), bf, device)
+        w = (torch.randn((E, K, N), generator=gen, device=device)
+             / K ** 0.5).to(bf)
         lib, lib_name = grouped_mm_library(xs, w, sizes)
-        t = measure_fns({
-            "ms": lambda: moe_gmm.grouped_matmul(xs, w, sizes),
+
+        def kernel():
+            return moe_gmm.grouped_matmul(xs, w, sizes)
+        fns = with_replaced({
+            "ms": kernel,
             "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
             "library_ms": lib,
-        }, flush, rounds=2 if label == "prefill" else 4)
-        t.update(rows=int(sizes.sum()), experts=E, K=d, N=f,
+        }, replaced and (lambda: replaced.gmm(xs, w, sizes)), kernel,
+            "moe_gmm")
+        t = measure_fns(fns, flush, rounds=4 if label == "decode" else 2)
+        M = int(sizes.sum())
+        t.update(rows=M, experts=E, K=K, N=N,
                  active_experts=int((sizes > 0).sum()),
                  largest_group=int(sizes.max()), library=lib_name,
-                 dtype="bfloat16", **gmm_bound(sizes, d, f, bf))
+                 rows_per_tile=moe_gmm.tile_rows(M, E),
+                 dtype="bfloat16", **gmm_bound(sizes, K, N, bf))
         out[f"moe_gmm_{label}"] = t
         del xs, w
     scfg = get_config(SSM_ARCH)
@@ -1331,13 +1473,14 @@ def run(args) -> None:
     attn_checks = attention_checks(device, args.seed)
     for c in attn_checks:
         emit({"phase": "kernels", **c})
-    attn_timing = attention_timings(device, args.seed, flush)
+    replaced = Replaced(args.replaced) if args.replaced else None
+    attn_timing = attention_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": attn_timing})
     moe_ssd_checks = gmm_checks(device, args.seed) + ssd_checks(
         device, args.seed)
     for c in moe_ssd_checks:
         emit({"phase": "kernels", **c})
-    moe_ssd_timing = moe_ssd_timings(device, args.seed, flush)
+    moe_ssd_timing = moe_ssd_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": moe_ssd_timing})
 
     t0 = time.perf_counter()
@@ -1392,6 +1535,7 @@ def run(args) -> None:
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "flops", "bytes",
                                  "round_medians")},
+            "replaced_ms": t.get("replaced_ms"),
             "shape": t.get("shape") or t.get("cache") or [t["rows"], t["K"],
                                                           t["N"]],
         }
@@ -1411,9 +1555,10 @@ def run(args) -> None:
             t["gate_kernel_ms"] for t in timings),
         "round_medians": path_timing["round_medians"],
         "full_incident": full_timing,
-    }, entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
-             "one per layer of the prefill", SERVE_ARCH,
-             attn_timing["flash_attention"], attn_checks),
+    }, {**entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
+                "one per layer of the prefill", SERVE_ARCH,
+                attn_timing["flash_attention"], attn_checks),
+        "granite_prefill": attn_timing["flash_attention_granite"]},
         entry("decode_attention", "src/repro/kernels/decode_attention.py:27",
               "one per layer of every decode step", SERVE_ARCH,
               attn_timing["decode_attention"], attn_checks),
@@ -1425,7 +1570,9 @@ def run(args) -> None:
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
                  moe_ssd_checks),
          "library": moe_ssd_timing["moe_gmm_prefill"]["library"],
-         "decode_launch": moe_ssd_timing["moe_gmm_decode"]}]})
+         "prefill_down_launch": moe_ssd_timing["moe_gmm_prefill_down"],
+         "decode_launch": moe_ssd_timing["moe_gmm_decode"]}],
+        "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
@@ -1436,6 +1583,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=5,
                     help="driven ticks (the fleet's size is fixed)")
+    ap.add_argument("--replaced", metavar="DIR",
+                    help="a csrc directory holding the flash_attention.cu "
+                         "and moe_gmm.cu bodies this version replaced: "
+                         "they are built and timed in turns with the "
+                         "current ones (replaced_ms)")
     ap.add_argument("--f32-layers", type=int, default=4,
                     help="depth of the serving paths' float32 variants (the "
                          "bf16 runs are always at full depth)")

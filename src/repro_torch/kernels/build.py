@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) at first use into a
 shared library under ``build/`` at the repository root (git-ignored),
-keyed on a hash of the source so an edit rebuilds, and loaded with
-``ctypes``.  Nothing but the
+keyed on a hash of the source and of every shared header ``csrc/*.cuh``
+(``hopper.cuh``: mbarrier, TMA and wgmma helpers) so an edit to either
+rebuilds, and loaded with ``ctypes``.  Nothing but the
 sources of this package goes into the build, and no PyTorch header is
 included, so a build takes seconds.
 
@@ -53,12 +54,27 @@ def find_nvcc() -> str:
     )
 
 
+#: Offset of the error codes the C entry points return when a TMA tensor
+#: map cannot be encoded (``hopper::TMAP_ERROR`` in ``csrc/hopper.cuh``):
+#: ``TMAP_ERROR + CUresult``.  CUDA runtime errors lie below it.
+TMAP_ERROR = 10000
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lives: named by a hash of the
+    source, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def describe_error(rc: int) -> str:
+    """A C entry point's non-zero return code, in words."""
+    if rc >= TMAP_ERROR:
+        return f"TMA tensor map not encoded: CUresult {rc - TMAP_ERROR}"
+    return f"CUDA error {rc}"
 
 
 def build(names: Sequence[str], *, verbose: bool = False) -> dict[str, Path]:

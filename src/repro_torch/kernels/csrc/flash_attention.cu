@@ -1,7 +1,7 @@
 // Causal / full GQA attention forward (flash attention) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_flash_kernel` of the JAX package
-// (src/repro/kernels/flash_attention.py, reached through `flash_attention`
+// (src/repro/kernels/flash_attention.py:27, reached through `flash_attention`
 // and the model-layout wrapper `ops.mha_flash`).
 //
 // What it computes, for every batch b, query head h and query row i:
@@ -11,28 +11,45 @@
 // in f32, p rounded to the value dtype before the P.V product, and
 // out = acc / max(l, 1e-30) cast to q's dtype.
 //
-// What bounds it on an H100: operations.  At the serving path's prefill
-// (B=8, S=1024, H=32, KV=2, D=128, bf16, causal) it does 68.7 GFLOP and
-// moves 142.6 MB: 0.069 ms at the 989 TFLOP/s bf16 tensor-core peak against
-// 0.043 ms at 3.35 TB/s.
+// What bounds it on an H100: operations.  At glm4-9b's prefill (B=8,
+// S=1024, H=32, KV=2, D=128, bf16, causal) it does 68.7 GFLOP and moves
+// 142.6 MB: 0.069 ms at the 989 TFLOP/s bf16 tensor-core peak against
+// 0.043 ms at 3.35 TB/s; granite-moe's (H=16, KV=8, D=64) likewise.  The
+// body it replaces (mma.sync, synchronous 64-key tile loads between two
+// barriers, scalar shared loads for the V fragments) reached 6 % of that
+// bound: its loads never overlapped the tensor cores.
 //
-// Design.  Two bodies, one per dtype, both simple rather than fast (no TMA,
-// no wgmma, no pipelining of the tile loads), with the same structure: one
-// block per (64-query tile, query head, batch); the Q tile and one 64-key
-// K/V tile at a time sit in shared memory; a loop inside the block over the
-// K/V tiles takes the place of the TPU's sequential grid axis, and on the
-// causal path it stops at the diagonal tile instead of masking the tiles
-// past it; each thread keeps the running max / denominator / output of its
-// rows in registers.
+// Design.  Two bodies, one per dtype.
 //
-// - bfloat16 (`flash_fwd_bf16`, the serving path): tensor cores through
-//   `mma.sync.m16n8k16` (bf16 in, f32 accumulate).  4 warps, 16 query rows
-//   each; Q's fragments stay in registers for the whole K/V loop; the score
-//   fragment of S = Q K^T is turned into the A fragment of P.V in registers
-//   (p rounded to bf16 on the way, as the reference rounds it); tiles are
-//   loaded with 16-byte loads into rows padded by 8 elements so that the
-//   fragment loads of neighbouring rows fall in distinct banks.  Row
-//   reductions run over the 4 threads of a quad with shuffles.
+// - bfloat16 (`flash_fwd_bf16`, the serving path): warp-specialised,
+//   wgmma + TMA, persistent.  A work item is a (128-query tile, query head,
+//   batch); at most one block per SM walks the items in strides of the
+//   grid, heaviest causal tiles first.  Warpgroup 0 is the producer: one
+//   thread loads each item's Q tile (once the consumers have released the
+//   last one) and its 128-key K and V tiles into a two-stage ring, by TMA,
+//   each stage with a "full" mbarrier for K, one for V, and an "empty" one
+//   the consumers release it on (the producer keeps 40 registers); the
+//   ring runs on across items, so the next item's loads overlap the
+//   current one's last tiles and stores.  Warpgroups 1 and 2 are
+//   consumers of 64 query rows each: S = Q K^T as wgmma m64n128k16 from
+//   128-byte-swizzled shared tiles; the online softmax on the
+//   accumulator's registers, in the log2 domain (scale * log2(e) folded
+//   into the FMA before each ex2.approx, so a score costs one FMA, one
+//   ex2, a max and an add);
+//   p rounded to bf16 in registers, where it is already the A fragment of
+//   O += P V, a wgmma with A from registers and V (D-contiguous) as the
+//   transposed shared B operand.  TMA's 4-D maps over [B, S, heads, D]
+//   (inner box 64 values: D 128 is two boxes) read any strides with a
+//   contiguous head dimension, so the reference's [BH, S, D] layout is the
+//   special case B = 1 of a permuted view.  Rows past Sq are loaded as
+//   zeros and not stored; keys past Sk are loaded as zeros and masked.
+//   Shared memory at D 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one
+//   block per SM.  -Xptxas -v on the H100 (nvcc 12.9): 168 registers at D
+//   64 and 128 (384 threads; setmaxnreg 40 / 232), no spills.  ptxas keeps
+//   the consumer branch within the launch's 168 whatever setmaxnreg asks,
+//   so a form that overlapped each tile's softmax with the previous tile's
+//   P V (FA3's intra-warpgroup pipelining, ~190 registers) spilled and ran
+//   slower on the H100: the two consumers only overlap each other.
 // - float32 (`flash_fwd_f32`): scalar FMAs (the tensor cores' TF32 would
 //   not keep float32's digits).  256 threads, each owning a 4 x 4 piece of
 //   the 64 x 64 score tile (rows ty + 16i, keys tx + 16j) and the same four
@@ -40,27 +57,24 @@
 //   shared loads of neighbouring rows fall in distinct banks; row reductions
 //   over the 16 threads of a half-warp.
 //
-// Query head h reads kv head h / n_rep by index (no repeated K/V), and the
-// kernels read [B, S, heads, D] tensors through their strides (the last
-// axis must be contiguous; the bf16 body also needs 16-byte aligned rows),
-// so the reference's [BH, S, D] layout is the special case B = 1.  Ragged
-// tails (S not a multiple of 64) are masked: rows past Sq are computed on
-// zeros and not stored, keys past Sk are zero and get logit -1e30.
+// Query head h reads kv head h / n_rep by index (no repeated K/V).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per K/V tile
-static_assert(BQ == BK, "load_tile moves 64-row tiles of Q, K and V alike");
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------- float32
+
+constexpr int BQ = 64;       // queries per block
+constexpr int BK = 64;       // keys per K/V tile
+constexpr int THREADS = 256;
 
 template <int D>
 constexpr int smem_bytes_f32() {
@@ -226,21 +240,30 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // --------------------------------------------------------------- bfloat16
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int BF16_BQ = 128;        // queries per block: 2 consumers x 64
+constexpr int BF16_BK = 128;        // keys per K/V tile
+constexpr int BF16_STAGES = 2;      // K/V ring depth
+constexpr int BF16_THREADS = 384;   // producer + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 384 x 168
+constexpr float LOG2E = 1.4426950408889634f;
+// One TMA box: 128 rows of 64 bf16 values (128 bytes).
+constexpr uint32_t BOX_BYTES = 128 * 64 * 2;
 
 template <int D>
-constexpr int smem_bytes_bf16() {
-    return 3 * BQ * (D + 8) * 2;
-}
+struct FlashSmem {
+    bf16 q[D / 64][BF16_BQ * 64];
+    bf16 k[BF16_STAGES][D / 64][BF16_BK * 64];
+    bf16 v[BF16_STAGES][D / 64][BF16_BK * 64];
+    uint64_t q_full, q_empty;
+    uint64_t k_full[BF16_STAGES], v_full[BF16_STAGES], empty[BF16_STAGES];
+};
 
-// c += a (16 x 16, row-major) . b (16 x 8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // Two floats rounded to bf16, the first in the low half.
@@ -249,209 +272,298 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-    return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
-         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// One work item: a 128-query tile of one (query head, batch).  Items are
+// numbered heaviest first (the last query tiles of a causal mask see the
+// most keys), heads fastest, so blocks that walk them in strides of the
+// grid get even shares and neighbouring items share a kv head in L2.
+struct FlashItem {
+    int q0, h, b, n_tiles;
+};
+
+__device__ __forceinline__ FlashItem flash_item(int item, int H, int B,
+                                                int n_qt, int Sq, int Sk,
+                                                int causal) {
+    FlashItem it;
+    it.h = item % H;
+    it.b = (item / H) % B;
+    it.q0 = (n_qt - 1 - item / (H * B)) * BF16_BQ;
+    it.n_tiles = (Sk + BF16_BK - 1) / BF16_BK;
+    if (causal)
+        it.n_tiles = min(it.n_tiles,
+                         (min(it.q0 + BF16_BQ, Sq) - 1) / BF16_BK + 1);
+    return it;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows x D tile from a [S, D]-strided source into shared rows of LDS
-// elements, 16 bytes at a time; rows at or past `limit` are zero.
-template <int D, int LDS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int first,
-                                          int limit, int tid) {
-    constexpr int CH = D / 8;
-    for (int i = tid; i < BQ * CH; i += MMA_THREADS) {
-        const int r = i / CH, c = (i % CH) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (first + r < limit)
-            val = *reinterpret_cast<const uint4*>(src + (first + r) * stride + c);
-        *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-    }
-}
-
+// Persistent: gridDim.x blocks (at most one per SM) walk the items
+// blockIdx.x, blockIdx.x + gridDim.x, ...; the K/V ring and the Q buffer
+// carry on from one item to the next, so the producer loads the next
+// item's Q and first tiles while the consumers finish the current one.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out,
-               int Sq, int Sk, int n_rep, int causal, float scale,
-               long long q_sb, long long q_ss, long long q_sh,
-               long long k_sb, long long k_ss, long long k_sh,
-               long long v_sb, long long v_ss, long long v_sh,
-               long long o_sb, long long o_ss, long long o_sh) {
-    constexpr int LDS = D + 8;    // padded shared row, in elements
-    constexpr int KD = D / 16;    // k-steps of Q K^T
-    constexpr int NS = BK / 8;    // n-tiles of the score tile
-    constexpr int ND = D / 8;     // n-tiles of the output
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Ks = Qs + BQ * LDS;
-    bf16* Vs = Ks + BK * LDS;
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               bf16* __restrict__ out, int B, int H, int Sq, int Sk,
+               int n_rep, int causal, float scale_log2, long long o_sb,
+               long long o_ss, long long o_sh) {
+    using namespace hopper;
+    constexpr int NB = D / 64;        // 64-wide boxes per row
+    extern __shared__ unsigned char smem_raw[];
+    FlashSmem<D>& sm = *reinterpret_cast<FlashSmem<D>*>(align1024(smem_raw));
+    const int n_qt = (Sq + BF16_BQ - 1) / BF16_BQ;
+    const int n_items = n_qt * H * B;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-    const int q0 = blockIdx.x * BQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int kvh = h / n_rep;
-    const bf16* kb = k + b * k_sb + kvh * k_sh;
-    const bf16* vb = v + b * v_sb + kvh * v_sh;
-
-    load_tile<D, LDS>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, Sq, tid);
+    if (threadIdx.x == 0) {
+        mbar_init(&sm.q_full, 1);
+        mbar_init(&sm.q_empty, CONSUMER_WARPS);
+        for (int s = 0; s < BF16_STAGES; ++s) {
+            mbar_init(&sm.k_full[s], 1);
+            mbar_init(&sm.v_full[s], 1);
+            mbar_init(&sm.empty[s], CONSUMER_WARPS);
+        }
+        fence_barrier_init();
+    }
     __syncthreads();
-    const int r0 = warp * 16;
-    uint32_t qf[KD][4];
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-        const bf16* base = Qs + (r0 + g) * LDS + kk * 16 + 2 * t;
-        qf[kk][0] = ld32(base);
-        qf[kk][1] = ld32(base + 8 * LDS);
-        qf[kk][2] = ld32(base + 8);
-        qf[kk][3] = ld32(base + 8 * LDS + 8);
-    }
-    const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
 
-    float o[ND][4];
+    if (threadIdx.x < 128) {
+        // ------------------------------------------------------ producer
+        setmaxnreg_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            int tile = 0, round = 0;    // ring position, items so far
+            for (int item = blockIdx.x; item < n_items;
+                 item += gridDim.x, ++round) {
+                const FlashItem it = flash_item(item, H, B, n_qt, Sq, Sk,
+                                                causal);
+                const int kvh = it.h / n_rep;
+                mbar_wait(&sm.q_empty, (round & 1) ^ 1);
+                mbar_arrive_expect_tx(&sm.q_full, NB * BOX_BYTES);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+                for (int c = 0; c < NB; ++c)
+                    tma_load_4d(sm.q[c], &tm_q, &sm.q_full, 64 * c, it.h,
+                                it.q0, it.b);
+                for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+                    const int s = tile % BF16_STAGES;
+                    const uint32_t phase = (tile / BF16_STAGES) & 1;
+                    mbar_wait(&sm.empty[s], phase ^ 1);
+                    mbar_arrive_expect_tx(&sm.k_full[s], NB * BOX_BYTES);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-    float m_run[2] = {NEG_INF, NEG_INF};
-    float l_run[2] = {0.f, 0.f};  // this thread's columns; quad-summed at the end
-
-    int n_tiles = (Sk + BK - 1) / BK;
-    if (causal) {
-        const int last_q = min(q0 + BQ, Sq) - 1;
-        n_tiles = min(n_tiles, last_q / BK + 1);
-    }
-
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int k0 = tile * BK;
-        __syncthreads();  // the previous tile's readers of Ks / Vs are done
-        load_tile<D, LDS>(Ks, kb, k_ss, k0, Sk, tid);
-        load_tile<D, LDS>(Vs, vb, v_ss, k0, Sk, tid);
-        __syncthreads();
-
-        float s[NS][4];
+                    for (int c = 0; c < NB; ++c)
+                        tma_load_4d(sm.k[s][c], &tm_k, &sm.k_full[s], 64 * c,
+                                    kvh, t * BF16_BK, it.b);
+                    mbar_arrive_expect_tx(&sm.v_full[s], NB * BOX_BYTES);
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < KD; ++kk) {
-                const bf16* kp = Ks + (8 * j + g) * LDS + kk * 16 + 2 * t;
-                mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+                    for (int c = 0; c < NB; ++c)
+                        tma_load_4d(sm.v[s][c], &tm_v, &sm.v_full[s], 64 * c,
+                                    kvh, t * BF16_BK, it.b);
+                }
             }
         }
+    } else {
+        // ----------------------------------------------------- consumers
+        setmaxnreg_inc<CONSUMER_REGS>();
+        const int cw = threadIdx.x / 128 - 1;    // rows 64 cw .. 64 cw + 63
+        const int warp = (threadIdx.x / 32) % 4;
+        const int lane = threadIdx.x % 32;
+        const int g = lane / 4, tq = lane % 4;   // accumulator row, column pair
+        int tile = 0, round = 0;
+        for (int item = blockIdx.x; item < n_items;
+             item += gridDim.x, ++round) {
+            const FlashItem it = flash_item(item, H, B, n_qt, Sq, Sk, causal);
+            const int first_row = it.q0 + 64 * cw;
+            const int rows[2] = {first_row + 16 * warp + g,
+                                 first_row + 16 * warp + g + 8};
 
-        // c0, c1 of a fragment are row g, columns 2t and 2t + 1; c2, c3 row g + 8.
-        float mx[2] = {NEG_INF, NEG_INF};
+            float o[D / 2];      // O accumulator, m64nD layout
+            float s[64];         // S tile, m64n128 layout
 #pragma unroll
-        for (int j = 0; j < NS; ++j)
+            for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = k0 + 8 * j + 2 * t + (e & 1);
-                float x = s[j][e] * scale;
-                if (key >= Sk || (causal && key > qrow[e >> 1])) x = NEG_INF;
-                s[j][e] = x;
-                mx[e >> 1] = fmaxf(mx[e >> 1], x);
-            }
-        float corr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m_run[r], mx[r]);
-            corr[r] = expf(m_run[r] - m_new);
-            m_run[r] = m_new;
-            l_run[r] *= corr[r];
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float p = expf(s[j][e] - m_run[e >> 1]);
-                s[j][e] = p;
-                l_run[e >> 1] += p;
-            }
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-            o[nd][0] *= corr[0];
-            o[nd][1] *= corr[0];
-            o[nd][2] *= corr[1];
-            o[nd][3] *= corr[1];
-        }
+            for (int i = 0; i < 64; ++i) s[i] = 0.f;
+            float m_run[2] = {NEG_INF, NEG_INF};
+            float l_run[2] = {0.f, 0.f};  // own columns; quad-summed last
 
-        // O += P V: the score fragments of keys 16kt .. 16kt + 15 are the A
-        // fragment (p rounded to bf16 here, as the reference rounds it).
+            mbar_wait(&sm.q_full, round & 1);
+            for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+                const int st = tile % BF16_STAGES;
+                const uint32_t phase = (tile / BF16_STAGES) & 1;
+                const int k0 = t * BF16_BK;
+
+                // S = Q K^T: D/16 k-steps, 32 bytes apart inside a 64-wide
+                // box.  After the last tile's, Q may be replaced.
+                mbar_wait(&sm.k_full[st], phase);
+                fence_operand(s);
+                wgmma_fence();
 #pragma unroll
-        for (int kt = 0; kt < BK / 16; ++kt) {
-            const uint32_t a[4] = {
-                pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]),
-            };
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t off = (kk % 4) * 32;
+                    const uint64_t da = sw128_desc(
+                        smem_u32(sm.q[kk / 4]) + cw * 64 * 128 + off, 16, 1024);
+                    const uint64_t db = sw128_desc(
+                        smem_u32(sm.k[st][kk / 4]) + off, 16, 1024);
+                    wgmma_m64n128k16_ss<0>(s, da, db, kk > 0);
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_operand(s);
+                if (t + 1 == it.n_tiles) {
+                    __syncwarp();
+                    if (lane == 0) mbar_arrive(&sm.q_empty);
+                }
+
+                // Online softmax in the log2 domain.  s[4j + e] is row
+                // rows[e / 2], key k0 + 8j + 2tq + e % 2.  The scale
+                // c = D^-1/2 log2(e) > 0 is folded in: max(c s) = c max(s),
+                // and p = 2^(c s - m) is one FMA and one ex2.
+                const bool edge = k0 + BF16_BK > Sk
+                    || (causal && k0 + BF16_BK - 1 > first_row);
+                float mx[2] = {NEG_INF, NEG_INF};
+                if (edge) {
 #pragma unroll
-            for (int nd = 0; nd < ND; ++nd) {
-                const bf16* vp = Vs + (kt * 16 + 2 * t) * LDS + 8 * nd + g;
-                mma_bf16(o[nd], a, pack_bf16(vp[0], vp[LDS]),
-                         pack_bf16(vp[8 * LDS], vp[9 * LDS]));
+                    for (int j = 0; j < 16; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int key = k0 + 8 * j + 2 * tq + (e & 1);
+                            if (key >= Sk || (causal && key > rows[e >> 1]))
+                                s[4 * j + e] = NEG_INF;
+                        }
+                }
+#pragma unroll
+                for (int i = 0; i < 64; ++i)
+                    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+                float corr[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    mx[r] = fmaxf(mx[r],
+                                  __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                    mx[r] = fmaxf(mx[r],
+                                  __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+                    corr[r] = ex2(m_run[r] - m_new);
+                    m_run[r] = m_new;
+                    l_run[r] *= corr[r];
+                }
+                // p, rounded to bf16: the n8 blocks 2kt, 2kt + 1 of the
+                // score accumulator are the A fragment of k-step kt of P V.
+                uint32_t pf[8][4];
+#pragma unroll
+                for (int kt = 0; kt < 8; ++kt) {
+                    float p[8];
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) {
+                        p[e] = ex2(fmaf(s[8 * kt + e], scale_log2,
+                                        -m_run[(e >> 1) & 1]));
+                        l_run[(e >> 1) & 1] += p[e];
+                    }
+                    pf[kt][0] = pack_bf16(p[0], p[1]);
+                    pf[kt][1] = pack_bf16(p[2], p[3]);
+                    pf[kt][2] = pack_bf16(p[4], p[5]);
+                    pf[kt][3] = pack_bf16(p[6], p[7]);
+                }
+#pragma unroll
+                for (int i = 0; i < D / 8; ++i) {
+                    o[4 * i + 0] *= corr[0];
+                    o[4 * i + 1] *= corr[0];
+                    o[4 * i + 2] *= corr[1];
+                    o[4 * i + 3] *= corr[1];
+                }
+
+                // O += P V: V is [keys][D], D-contiguous, so the transposed
+                // (N-major) B operand; a k16 step is 16 rows = 2048 bytes,
+                // and the second 64-wide box of D 128 lies one box further.
+                mbar_wait(&sm.v_full[st], phase);
+                fence_operand(o);
+                wgmma_fence();
+#pragma unroll
+                for (int kt = 0; kt < 8; ++kt) {
+                    const uint64_t db = sw128_desc(
+                        smem_u32(sm.v[st][0]) + kt * 2048, BOX_BYTES, 1024);
+                    if constexpr (D == 128)
+                        wgmma_m64n128k16_rs<1>(o, pf[kt], db, 1);
+                    else
+                        wgmma_m64n64k16_rs<1>(o, pf[kt], db, 1);
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_operand(o);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(&sm.empty[st]);
             }
-        }
-    }
 
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-        if (qrow[r] >= Sq) continue;
-        const float den = fmaxf(l_run[r], 1e-30f);
-        bf16* ob = out + b * o_sb + qrow[r] * o_ss + h * o_sh + 2 * t;
+            for (int r = 0; r < 2; ++r) {
+                l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+                l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+                if (rows[r] >= Sq) continue;
+                const float den = fmaxf(l_run[r], 1e-30f);
+                bf16* ob = out + it.b * o_sb + rows[r] * o_ss + it.h * o_sh
+                    + 2 * tq;
 #pragma unroll
-        for (int nd = 0; nd < ND; ++nd)
-            *reinterpret_cast<__nv_bfloat162*>(ob + 8 * nd) = __floats2bfloat162_rn(
-                o[nd][2 * r] / den, o[nd][2 * r + 1] / den);
+                for (int i = 0; i < D / 8; ++i)
+                    *reinterpret_cast<__nv_bfloat162*>(ob + 8 * i) =
+                        __floats2bfloat162_rn(o[4 * i + 2 * r] / den,
+                                              o[4 * i + 2 * r + 1] / den);
+            }
+        }
     }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+int launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int Sq, int Sk, int H, int KV, int causal,
                        float scale, const long long* st, cudaStream_t stream) {
     constexpr int smem = smem_bytes_f32<D>();
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd_f32<D><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk,
         H / KV, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11]);
-    return cudaGetLastError();
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One 4-D tensor map over a bf16 [B, S, heads, D] tensor (element strides
+// st[0..2] of the batch, sequence and head axes), box {64, 1, 128, 1}.
+inline int flash_map(CUtensorMap* map, const void* base, int B, int S,
+                     int heads, int D, const long long* st) {
+    const uint64_t sizes[4] = {static_cast<uint64_t>(D),
+                               static_cast<uint64_t>(heads),
+                               static_cast<uint64_t>(S),
+                               static_cast<uint64_t>(B)};
+    const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 2,
+                                 static_cast<uint64_t>(st[1]) * 2,
+                                 static_cast<uint64_t>(st[0]) * 2};
+    const uint32_t box[4] = {64, 1, 128, 1};
+    return hopper::encode_tiled(map, base, 4, sizes, strides, box);
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Sk, int H, int KV,
-                        int causal, float scale, const long long* st,
-                        cudaStream_t stream) {
-    constexpr int smem = smem_bytes_bf16<D>();
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int H, int KV, int causal,
+                float scale, const long long* st, cudaStream_t stream) {
+    CUtensorMap tm_q, tm_k, tm_v;
+    int rc = flash_map(&tm_q, q, B, Sq, H, D, st);
+    if (rc == 0) rc = flash_map(&tm_k, k, B, Sk, KV, D, st + 3);
+    if (rc == 0) rc = flash_map(&tm_v, v, B, Sk, KV, D, st + 6);
+    if (rc != 0) return rc;
+    constexpr int smem = sizeof(FlashSmem<D>) + 1024;
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_bf16<D><<<dim3((Sq + BQ - 1) / BQ, H, B), MMA_THREADS, smem,
-                        stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk,
-        H / KV, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5],
-        st[6], st[7], st[8], st[9], st[10], st[11]);
-    return cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long items =
+        static_cast<long long>((Sq + BF16_BQ - 1) / BF16_BQ) * H * B;
+    const int grid = static_cast<int>(items < sms ? items : sms);
+    flash_fwd_bf16<D><<<grid, BF16_THREADS, smem, stream>>>(
+        tm_q, tm_k, tm_v, static_cast<bf16*>(out), B, H, Sq, Sk, H / KV,
+        causal, scale * LOG2E, st[9], st[10], st[11]);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -460,8 +572,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // to float, as the reference multiplies its f32 logits by it.  Strides are
 // in elements, for the batch, sequence and head axes of q, k, v and out in
 // that order; the head dimension D (64 or 128) is contiguous, and for
-// bfloat16 every row starts on 16 bytes.  Returns the CUDA error of the
-// launch (0 on success); the wrapper checks everything else.
+// bfloat16 the base addresses and strides are multiples of 16 bytes (TMA).
+// Returns the CUDA error of the launch (0 on success), or
+// hopper::TMAP_ERROR + the driver's CUresult if a tensor map cannot be
+// encoded; the wrapper checks everything else.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int H, int KV, int D, int causal, int dtype, float scale,

@@ -2,7 +2,7 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_gmm_kernel` of the JAX package
-// (src/repro/kernels/moe_gmm.py, reached through `grouped_matmul` and the
+// (src/repro/kernels/moe_gmm.py:23, reached through `grouped_matmul` and the
 // wrapper `ops.moe_gmm_ffn`).
 //
 // What it computes: xs [M, K] holds the routed rows sorted by expert, and
@@ -13,33 +13,60 @@
 //
 // What it does not do: the reference copies the rows into a zero-padded
 // [E, Cap, K] block so that the TPU's matrix unit sees fixed 128-row tiles,
-// and its wrapper drops every row past Cap.  Here each 128-row tile lies
-// inside one expert's group: block x finds its (expert, first row) from the
-// group sizes itself, so nothing is padded, copied or dropped, and the host
-// never reads the group sizes.  The grid is the upper bound
-// ceil(M / BT) + E row tiles (every group adds at most one partial tile);
-// the blocks past the last tile exit at once.
+// and its wrapper drops every row past Cap.  Here each BM-row tile lies
+// inside one expert's group, found from the group sizes on the device, so
+// nothing is padded, copied or dropped, and the host never reads the group
+// sizes.  Row tiles number at most ceil(M / BM) + E (every group adds at
+// most one partial tile): the float32 body launches that many blocks
+// (block x finds its tile, those past the last exit at once); the bf16
+// body's persistent blocks walk that many work items per column tile and
+// stop at the real count.
 //
 // What bounds it on an H100: at granite-moe-1b-a400m's prefill (M = 65536
 // routed rows, K 1024, N 512, bf16) it does 68.7 GFLOP and moves ~235 MB:
 // 0.069 ms at the 989 TFLOP/s bf16 tensor-core peak against 0.070 ms at
 // 3.35 TB/s, so both about equally.  In a decode step (64 rows over ~28
-// experts) only the active experts' weights move: bytes, ~9 us.
+// experts) only the active experts' weights move: bytes, ~9 us.  The body
+// it replaces (mma.sync + ldmatrix, 32-deep K slices in a two-stage
+// cp.async ring) reached 20 % of that bound: one slice in flight could not
+// hide the loads' latency.
 //
-// Design, simple rather than fast (no TMA, no wgmma, no persistent blocks):
-// - bfloat16 (`gmm_bf16`): 128 x 128 output tile per block, 8 warps of
-//   32 x 64 each, `mma.sync.m16n8k16` (bf16 in, f32 accumulate); A and B
-//   fragments come from shared memory through `ldmatrix` (B transposed on
-//   load, since w is K-major); the 32-deep K slices are double-buffered
-//   with 16-byte `cp.async` copies that zero-fill rows outside the tile's
-//   group and columns past N; shared rows are padded by 8 elements so that
-//   the eight row addresses of an `ldmatrix` fall in distinct banks.
+// Design:
+// - bfloat16 (`gmm_bf16`): warp-specialised, wgmma + TMA, persistent.  At
+//   most one block per SM walks the work items (row tile, column tile) of
+//   an output cut into BM x BN tiles, the row tiles looked up in a map of
+//   the group sizes each block builds once (a prefix scan, then a binary
+//   search per item).  Warpgroup 0 is the producer (one thread issues the
+//   loads), BM / 64 consumer warpgroups own 64 rows each.  K slices are 64
+//   deep (128 bytes, the swizzle span) in a four-stage ring paced by "full"
+//   and "empty" mbarriers that runs on across items, so the next item's
+//   first slices load while the consumers store the current one: A (xs,
+//   K-major) by a 2-D tensor map, box {64, BM}; B (w[e], N-contiguous) by a
+//   3-D map over [E, K, N], BN / 64 boxes of {64, 64, 1}, used as wgmma's
+//   transposed B operand.  Each slice is four wgmma m64nBNk16 per consumer,
+//   the next slice's products issued before the previous slice's stage is
+//   released.  Two forms, chosen by the wrapper from M and E alone:
+//     prefill (BM 128, BN 256): two consumers; 4 x 48 KB of stages.  A
+//       128 x 128 tile reads 512 KB of A and B from L2 per 33.5 MFLOP at
+//       K 1024; 128 x 256 halves the A traffic per product and cuts all
+//       reads by a quarter.
+//     decode (BM 64, BN 128, where rows per expert are few: 64 rows over
+//       ~27 experts): one consumer, and twice the blocks to read weights.
+//   TMA fills rows past M and columns past K or N with zeros; rows of the
+//   tile past its group's end (the next expert's) are computed but not
+//   stored, so the epilogue stores from registers with a row mask, not by
+//   a TMA store.  -Xptxas -v on the H100 (nvcc 12.9): 168 registers at
+//   BM 128 (384 threads; setmaxnreg 40 / 232), 90 at BM 64, no spills.
+//   At granite's prefill gate/up launch on an H100, 128 x 256 tiles ran
+//   faster than 128 x 128, and persistent blocks faster again (PERF.md).
 // - float32 (`gmm_f32`): scalar FMAs (TF32 would not keep float32's
 //   digits), 64 x 64 tile, each of 256 threads owning 4 x 4 outputs,
 //   16-deep K slices in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -84,160 +111,249 @@ __device__ Tile find_tile(const int* __restrict__ group_sizes, int E, int M,
 
 // ---------------------------------------------------------------- bfloat16
 
-constexpr int BT = 128;   // rows per tile
-constexpr int BN = 128;   // output columns per tile
-constexpr int BK = 32;    // K slice per pipeline stage
-constexpr int LDA = BK + 8;
-constexpr int LDB = BN + 8;
+constexpr int TILE_ROWS_SMALL = 64;    // kernels/moe_gmm.py TILE_ROWS
+constexpr int TILE_ROWS_LARGE = 128;
+constexpr int BKS = 64;                // K slice per stage (128 bytes)
+constexpr int STAGES = 4;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;     // 128 x 40 + 256 x 232 = 384 x 168
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Output columns per tile: 256 beside 128-row tiles (each slice's A and B
+// serve twice the products a 128 x 128 tile gets from them), 128 beside
+// 64-row ones, where the weights are what moves and more blocks read them.
+template <int BM>
+constexpr int TILE_COLS = BM == TILE_ROWS_LARGE ? 256 : 128;
+
+template <int BM>
+struct GmmSmem {
+    bf16 a[STAGES][BM * BKS];                  // BM rows x 64 k
+    bf16 b[STAGES][TILE_COLS<BM> / 64][BKS * 64];   // 64 k x 64 n boxes
+    uint64_t full[STAGES], empty[STAGES];
+};
+
+// The row tiles of one launch, for a persistent block to look up: expert e
+// owns tiles first_tile[e] .. first_tile[e + 1] - 1, whose rows start at
+// first_row[e].  Built once per block (the sizes loaded by every thread,
+// then scanned by warp 0, 32 experts a lane), read by every thread.
+struct TileMap {
+    int sizes[MAX_EXPERTS];
+    int first_row[MAX_EXPERTS];
+    int first_tile[MAX_EXPERTS];
+    int total;     // row tiles in all
+};
+
+template <int BM>
+__device__ void build_tile_map(TileMap& map, const int* __restrict__ gs,
+                               int E) {
+    for (int e = threadIdx.x; e < E; e += blockDim.x) map.sizes[e] = gs[e];
+    __syncthreads();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32) {
+        constexpr int PER = MAX_EXPERTS / 32;
+        int rows = 0, tiles = 0;
+        for (int i = 0; i < PER; ++i) {
+            const int e = lane * PER + i;
+            const int g = e < E ? map.sizes[e] : 0;
+            rows += g;
+            tiles += (g + BM - 1) / BM;
+        }
+        int rows_in = rows, tiles_in = tiles;   // inclusive scan over lanes
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int r = __shfl_up_sync(0xffffffffu, rows_in, off);
+            const int t = __shfl_up_sync(0xffffffffu, tiles_in, off);
+            if (lane >= off) {
+                rows_in += r;
+                tiles_in += t;
+            }
+        }
+        rows = rows_in - rows;
+        tiles = tiles_in - tiles;
+        for (int i = 0; i < PER; ++i) {
+            const int e = lane * PER + i;
+            if (e >= E) break;
+            map.first_row[e] = rows;
+            map.first_tile[e] = tiles;
+            rows += map.sizes[e];
+            tiles += (map.sizes[e] + BM - 1) / BM;
+        }
+        if (lane == 31) map.total = tiles_in;
+    }
+    __syncthreads();
 }
 
-// 16 bytes global -> shared, zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+// Row tile x (< map.total): the last expert whose first tile is <= x owns
+// it (an empty expert shares its first tile with the next one).
+template <int BM>
+__device__ __forceinline__ Tile lookup_tile(const TileMap& map, int x, int E,
+                                            int M) {
+    int lo = 0, hi = E - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (map.first_tile[mid] <= x) lo = mid; else hi = mid - 1;
+    }
+    Tile t;
+    t.e = lo;
+    t.row0 = map.first_row[lo] + (x - map.first_tile[lo]) * BM;
+    t.row1 = min(min(map.first_row[lo] + map.sizes[lo], t.row0 + BM), M);
+    return t;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row-major) . b (16 x 8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-gmm_bf16(const bf16* __restrict__ xs, const bf16* __restrict__ w,
+// Persistent: gridDim.x blocks (at most one per SM) walk the work items
+// (row tile, column tile) blockIdx.x, blockIdx.x + gridDim.x, ...; the
+// ring runs on across items, so the producer loads the next item's first
+// slices while the consumers store the current one.
+template <int BM>
+__global__ void __launch_bounds__(128 * (1 + BM / 64), 1)
+gmm_bf16(const __grid_constant__ CUtensorMap tm_a,
+         const __grid_constant__ CUtensorMap tm_b,
          const int* __restrict__ group_sizes, bf16* __restrict__ out,
          int M, int K, int N, int E) {
-    __shared__ int s_gs[MAX_EXPERTS];
-    __shared__ __align__(16) bf16 As[2][BT * LDA];
-    __shared__ __align__(16) bf16 Bs[2][BK * LDB];
+    using namespace hopper;
+    constexpr int BN = TILE_COLS<BM>;
+    constexpr int CONSUMERS = BM / 64;
+    constexpr uint32_t STAGE_BYTES = (BM + BN) * BKS * 2;
+    __shared__ TileMap map;
+    extern __shared__ unsigned char smem_raw[];
+    GmmSmem<BM>& sm = *reinterpret_cast<GmmSmem<BM>*>(align1024(smem_raw));
 
-    const Tile tile = find_tile(group_sizes, E, M, BT, s_gs);
-    if (tile.row0 < 0) return;
-    const int rows = tile.row1 - tile.row0;
-    const int n0 = blockIdx.y * BN;
-    const bf16* xa = xs + static_cast<long long>(tile.row0) * K;
-    const bf16* wb = w + static_cast<long long>(tile.e) * K * N;
-
-    const int tid = threadIdx.x;
-    const int lane = tid % 32, warp = tid / 32;
-    const int wm = warp % 4;   // rows 32 wm .. 32 wm + 31
-    const int wn = warp / 4;   // columns 64 wn .. 64 wn + 63
-    const int g = lane / 4, t = lane % 4;
-
-    auto load_stage = [&](int s, int k0) {
-        // A: 128 rows x 32 columns = 512 chunks of 8; B: 32 x 128 = 512.
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int i = tid + q * THREADS;
-            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-            const bool ok = r < rows && k0 + c < K;
-            cp_async16(&As[s][r * LDA + c],
-                       ok ? xa + static_cast<long long>(r) * K + k0 + c : xs,
-                       ok);
+    if (threadIdx.x == 32) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&sm.full[s], 1);
+            mbar_init(&sm.empty[s], 4 * CONSUMERS);
         }
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int i = tid + q * THREADS;
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            const bool ok = k0 + r < K && n0 + c < N;
-            cp_async16(&Bs[s][r * LDB + c],
-                       ok ? wb + static_cast<long long>(k0 + r) * N + n0 + c
-                          : w,
-                       ok);
-        }
-    };
+        fence_barrier_init();
+    }
+    build_tile_map<BM>(map, group_sizes, E);   // ends in __syncthreads
+    const int n_cols = (N + BN - 1) / BN;
+    const int items = map.total * n_cols;
+    const int nk = (K + BKS - 1) / BKS;
 
-    float acc[2][8][4];
+    if (threadIdx.x < 128) {
+        // ------------------------------------------------------ producer
+        if constexpr (CONSUMERS == 2) setmaxnreg_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            int slice = 0;
+            for (int item = blockIdx.x; item < items; item += gridDim.x) {
+                const Tile tile = lookup_tile<BM>(map, item / n_cols, E, M);
+                if (tile.row0 >= M) continue;
+                const int n0 = (item % n_cols) * BN;
+                for (int kt = 0; kt < nk; ++kt, ++slice) {
+                    const int s = slice % STAGES;
+                    mbar_wait(&sm.empty[s], ((slice / STAGES) & 1) ^ 1);
+                    mbar_arrive_expect_tx(&sm.full[s], STAGE_BYTES);
+                    tma_load_2d(sm.a[s], &tm_a, &sm.full[s], kt * BKS,
+                                tile.row0);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    const int nk = (K + BK - 1) / BK;
-    load_stage(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-        if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-        cp_async_commit();
-        cp_async_wait_one();   // stage kt has landed
-        __syncthreads();
-        const bf16* as = As[kt & 1];
-        const bf16* bs = Bs[kt & 1];
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[2][4];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-                ldmatrix_x4(a[mi], as + (wm * 32 + mi * 16 + lane % 16) * LDA
-                                       + kk + (lane / 16) * 8);
-            // One x4.trans gives b0, b1 of two neighbouring n8 tiles:
-            // matrices (k 0-7 | 8-15) x (n 0-7 | 8-15).
-            const int m = lane / 8, r = lane % 8;
-#pragma unroll
-            for (int np = 0; np < 4; ++np) {
-                uint32_t b[4];
-                ldmatrix_x4_trans(b, bs + (kk + r + (m & 1) * 8) * LDB
-                                         + wn * 64 + np * 16 + (m >> 1) * 8);
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
-                    mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-                    mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+                    for (int c = 0; c < BN / 64; ++c)
+                        tma_load_3d(sm.b[s][c], &tm_b, &sm.full[s],
+                                    n0 + 64 * c, kt * BKS, tile.e);
                 }
             }
         }
-        __syncthreads();   // readers of this stage are done before reuse
-    }
+    } else {
+        // ----------------------------------------------------- consumers
+        if constexpr (CONSUMERS == 2) setmaxnreg_inc<CONSUMER_REGS>();
+        const int cw = threadIdx.x / 128 - 1;    // rows 64 cw .. 64 cw + 63
+        const int warp = (threadIdx.x / 32) % 4;
+        const int lane = threadIdx.x % 32;
+        int slice = 0;
+        for (int item = blockIdx.x; item < items; item += gridDim.x) {
+            const Tile tile = lookup_tile<BM>(map, item / n_cols, E, M);
+            if (tile.row0 >= M) continue;
+            const int n0 = (item % n_cols) * BN;
+            float acc[BN / 2];
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
+            fence_operand(acc);
+            for (int kt = 0; kt < nk; ++kt, ++slice) {
+                const int s = slice % STAGES;
+                mbar_wait(&sm.full[s], (slice / STAGES) & 1);
+                wgmma_fence();
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+                for (int kk = 0; kk < BKS / 16; ++kk) {
+                    const uint64_t da = sw128_desc(
+                        smem_u32(sm.a[s]) + cw * 64 * 128 + kk * 32, 16, 1024);
+                    const uint64_t db = sw128_desc(
+                        smem_u32(sm.b[s][0]) + kk * 16 * 128, BKS * 128, 1024);
+                    if constexpr (BN == 256)
+                        wgmma_m64n256k16_ss<1>(acc, da, db, 1);
+                    else
+                        wgmma_m64n128k16_ss<1>(acc, da, db, 1);
+                }
+                wgmma_commit();
+                // The previous slice's products are done: release its stage.
+                wgmma_wait<1>();
+                if (kt > 0) {
+                    __syncwarp();
+                    if (lane == 0)
+                        mbar_arrive(&sm.empty[(slice - 1) % STAGES]);
+                }
+            }
+            wgmma_wait<0>();
+            fence_operand(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.empty[(slice - 1) % STAGES]);
+
+            // acc[4j + e]: row 16 warp + lane / 4 (+ 8 for e >= 2), column
+            // 8j + 2 (lane % 4) + e % 2.
+            const int rows = tile.row1 - tile.row0;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = wm * 32 + mi * 16 + g + 8 * h;
-            if (row >= rows) continue;
-            bf16* orow = out + static_cast<long long>(tile.row0 + row) * N;
+            for (int hr = 0; hr < 2; ++hr) {
+                const int row = 64 * cw + 16 * warp + lane / 4 + 8 * hr;
+                if (row >= rows) continue;
+                bf16* orow = out + static_cast<long long>(tile.row0 + row) * N;
 #pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-                const int col = n0 + wn * 64 + ni * 8 + 2 * t;
-                if (col < N)
-                    *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                        __floats2bfloat162_rn(acc[mi][ni][2 * h],
-                                              acc[mi][ni][2 * h + 1]);
+                for (int j = 0; j < BN / 8; ++j) {
+                    const int col = n0 + 8 * j + 2 * (lane % 4);
+                    if (col < N)
+                        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                            __floats2bfloat162_rn(acc[4 * j + 2 * hr],
+                                                  acc[4 * j + 2 * hr + 1]);
+                }
             }
         }
+    }
+}
+
+template <int BM>
+int launch_bf16(const void* xs, const void* w, const int* group_sizes,
+                void* out, int M, int K, int N, int E, cudaStream_t stream) {
+    constexpr int BN = TILE_COLS<BM>;
+    CUtensorMap tm_a, tm_b;
+    const uint64_t a_sizes[2] = {static_cast<uint64_t>(K),
+                                 static_cast<uint64_t>(M)};
+    const uint64_t a_strides[1] = {static_cast<uint64_t>(K) * 2};
+    const uint32_t a_box[2] = {BKS, BM};
+    int rc = hopper::encode_tiled(&tm_a, xs, 2, a_sizes, a_strides, a_box);
+    if (rc != 0) return rc;
+    const uint64_t b_sizes[3] = {static_cast<uint64_t>(N),
+                                 static_cast<uint64_t>(K),
+                                 static_cast<uint64_t>(E)};
+    const uint64_t b_strides[2] = {static_cast<uint64_t>(N) * 2,
+                                   static_cast<uint64_t>(K) * N * 2};
+    const uint32_t b_box[3] = {64, BKS, 1};
+    rc = hopper::encode_tiled(&tm_b, w, 3, b_sizes, b_strides, b_box);
+    if (rc != 0) return rc;
+    constexpr int smem = sizeof(GmmSmem<BM>) + 1024;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_bf16<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int device = 0, sms = 0;
+    cudaError_t e2 = cudaGetDevice(&device);
+    if (e2 == cudaSuccess)
+        e2 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    // Work items: at most ceil(M / BM) + E row tiles (each group adds at
+    // most one partial tile) times the column tiles.
+    const long long items = static_cast<long long>((M + BM - 1) / BM + E)
+        * ((N + BN - 1) / BN);
+    const int grid = static_cast<int>(items < sms ? items : sms);
+    gmm_bf16<BM><<<grid, 128 * (1 + BM / 64), smem, stream>>>(
+        tm_a, tm_b, group_sizes, static_cast<bf16*>(out), M, K, N, E);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- float32
@@ -313,29 +429,27 @@ gmm_f32(const float* __restrict__ xs, const float* __restrict__ w,
 
 // dtype: 0 = float32, 1 = bfloat16.  xs [M, K], w [E, K, N] and out [M, N]
 // are contiguous; group_sizes is E int32 values on the device that sum to
-// M.  For bfloat16, K and N are multiples of 8 and the pointers 16-byte
-// aligned.  Returns the CUDA error of the launch (0 on success); the
-// wrapper checks everything else.
+// M.  For bfloat16, K and N are multiples of 8, the pointers 16-byte
+// aligned, and tile_rows (rows per output tile) is 64 or 128; float32
+// ignores it.  Returns the CUDA error of the launch (0 on success), or
+// hopper::TMAP_ERROR + the driver's CUresult if a tensor map cannot be
+// encoded; the wrapper checks everything else.
 extern "C" int moe_gmm_fwd(const void* xs, const void* w,
                            const void* group_sizes, void* out, int M, int K,
-                           int N, int E, int dtype, void* stream) {
+                           int N, int E, int dtype, int tile_rows,
+                           void* stream) {
     if (E < 1 || E > MAX_EXPERTS || M < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) {
-        const dim3 grid((M + BT - 1) / BT + E, (N + BN - 1) / BN);
-        gmm_bf16<<<grid, THREADS, 0, s>>>(
-            static_cast<const bf16*>(xs), static_cast<const bf16*>(w),
-            static_cast<const int*>(group_sizes), static_cast<bf16*>(out),
-            M, K, N, E);
-    } else if (dtype == 0) {
-        const dim3 grid((M + FT - 1) / FT + E, (N + FN - 1) / FN);
-        gmm_f32<<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(xs), static_cast<const float*>(w),
-            static_cast<const int*>(group_sizes), static_cast<float*>(out),
-            M, K, N, E);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const int* gs = static_cast<const int*>(group_sizes);
+    if (dtype == 1 && tile_rows == TILE_ROWS_LARGE)
+        return launch_bf16<TILE_ROWS_LARGE>(xs, w, gs, out, M, K, N, E, s);
+    if (dtype == 1 && tile_rows == TILE_ROWS_SMALL)
+        return launch_bf16<TILE_ROWS_SMALL>(xs, w, gs, out, M, K, N, E, s);
+    if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((M + FT - 1) / FT + E, (N + FN - 1) / FN);
+    gmm_f32<<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(xs), static_cast<const float*>(w), gs,
+        static_cast<float*>(out), M, K, N, E);
     return static_cast<int>(cudaGetLastError());
 }

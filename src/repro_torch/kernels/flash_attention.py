@@ -20,9 +20,10 @@ Two functions:
   package's ``ref.flash_attention_ref`` with the kernel's f32 logits).  The
   CPU tests use it, and the kernel is held against it on the GPU.
 - :func:`flash_attention` — CUDA tensors launch the kernel
-  (``csrc/flash_attention.cu``: tensor cores for bfloat16, scalar FMAs for
+  (``csrc/flash_attention.cu``: wgmma + TMA for bfloat16, scalar FMAs for
   float32; D 64 or 128) on the current stream or raise; CPU tensors take
-  the plain version.
+  the plain version.  bfloat16 inputs must suit a TMA tensor map
+  (:mod:`.tma`) and are refused, never copied, where they do not.
   ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ import math
 import torch
 
 from . import build
+from .tma import check_tma, tma_strides
 
 #: Number of times :func:`flash_attention` launched the CUDA kernel.
 LAUNCHES = 0
@@ -41,6 +43,10 @@ NEG_INF = -1e30
 #: Head dimensions the CUDA kernel is built for (every config of the repo).
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Query rows per work item of the bfloat16 kernel (``BF16_BQ`` in the
+#: source: two consumer warpgroups of 64 rows).  Its ``ceil(Sq / BF16_BQ)
+#: * H * B`` items are walked by at most one persistent block per SM.
+BF16_BQ = 128
 
 _fn = None
 
@@ -94,6 +100,23 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v lie on different devices")
 
 
+def check_kernel_inputs(q, k, v) -> None:
+    """What the CUDA kernel takes beyond :func:`_check`: D 64 or 128,
+    float32 or bfloat16, a contiguous head dimension, and for bfloat16 a
+    layout TMA can describe.  Raises; never copies."""
+    D = q.shape[3]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the head dimension must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma(t, name)
+
+
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Attention forward on the tensors' own device: the hand-written
     kernel for CUDA tensors (no synchronisation), the plain version for
@@ -104,22 +127,15 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         return flash_attention_torch(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    check_kernel_inputs(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("the head dimension must be contiguous")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in (q, k, v)):
-        raise ValueError("bfloat16 rows must start on 16 bytes (the kernel "
-                         "loads 8 elements at a time)")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    if out.numel() == 0 or Sk == 0:
+        return out.zero_()      # no keys: the plain version's zeros
+    strides = [st for t in (q, k, v) for st in (
+        tma_strides(t) if t.dtype == torch.bfloat16 else t.stride()[:3])]
+    strides += out.stride()[:3]
     with torch.cuda.device(q.device):
         rc = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -128,6 +144,7 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention_fwd launch failed: "
+                           f"{build.describe_error(rc)}")
     LAUNCHES += 1
     return out

@@ -17,10 +17,12 @@ groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
   ``torch.matmul`` per expert (it reads the group sizes on the host).  The
   CPU tests use it, and the kernel is held against it on the GPU.
 - :func:`grouped_matmul` — CUDA tensors launch the kernel
-  (``csrc/moe_gmm.cu``: tensor cores for bfloat16, scalar FMAs for float32)
+  (``csrc/moe_gmm.cu``: wgmma + TMA for bfloat16, scalar FMAs for float32)
   on the current stream or raise; the kernel reads the group sizes from
-  device memory, so the host never waits on them.  CPU tensors take the
-  plain version.  ``LAUNCHES`` counts kernel launches.
+  device memory, so the host never waits on them.  The bfloat16 kernel's
+  output tile is :func:`tile_rows` rows high, chosen from ``M`` and ``E``
+  alone, and its inputs must suit a TMA tensor map (:mod:`.tma`).  CPU
+  tensors take the plain version.  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -30,12 +32,17 @@ import torch
 
 from . import build
 from .flash_attention import DTYPES
+from .tma import check_tma
 
 #: Number of times :func:`grouped_matmul` launched the CUDA kernel.
 LAUNCHES = 0
 
 #: Experts the CUDA kernel takes (its ``MAX_EXPERTS``: one shared int each).
 MAX_EXPERTS = 1024
+#: Output tile heights of the bfloat16 kernel (``TILE_ROWS_SMALL`` and
+#: ``TILE_ROWS_LARGE`` in the source): one consumer warpgroup of 64 rows,
+#: or two.
+TILE_ROWS = (64, 128)
 
 _fn = None
 
@@ -44,11 +51,28 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = build.load("moe_gmm").moe_gmm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def tile_rows(M: int, E: int) -> int:
+    """The bfloat16 kernel's tile height for ``M`` routed rows over ``E``
+    experts, known on the host without reading the group sizes: 64 where
+    the mean group is under 64 rows (a decode step: 64 rows over ~27
+    experts, where a 128-row tile would be mostly empty), else 128."""
+    return TILE_ROWS[0] if M < TILE_ROWS[0] * E else TILE_ROWS[1]
+
+
+def row_tiles(M: int, E: int, bm: int) -> int:
+    """Row tiles the kernel provides for without reading the group sizes
+    (the float32 body's grid; the bf16 body's bound on work items per
+    column tile): ``ceil(M / bm) + E``, an upper bound on
+    ``sum(ceil(n_e / bm))`` for any group sizes ``n_e`` summing to ``M``,
+    since each group adds at most one partial tile."""
+    return -(-M // bm) + E
 
 
 def grouped_matmul_torch(xs, w, group_sizes) -> torch.Tensor:
@@ -84,40 +108,54 @@ def _check(xs, w, group_sizes) -> None:
         raise ValueError("xs, w, group_sizes lie on different devices")
 
 
-def grouped_matmul(xs, w, group_sizes) -> torch.Tensor:
-    """The grouped product on the tensors' own device: the hand-written
-    kernel for CUDA tensors (no synchronisation, no host read of
-    ``group_sizes``), the plain version for CPU tensors."""
-    global LAUNCHES
-    _check(xs, w, group_sizes)
-    if xs.device.type == "cpu":
-        return grouped_matmul_torch(xs, w, group_sizes)
-    if xs.device.type != "cuda":
-        raise ValueError(f"unsupported device {xs.device}")
+def check_kernel_inputs(xs, w) -> None:
+    """What the CUDA kernel takes beyond :func:`_check`: float32 or
+    bfloat16, contiguous xs and w, at most ``MAX_EXPERTS`` experts, and for
+    bfloat16 a layout TMA can describe (K and N multiples of 8, bases on 16
+    bytes).  Raises; never copies."""
     if xs.dtype not in DTYPES:
         raise TypeError(f"dtype {xs.dtype}: the kernel takes float32 or "
                         "bfloat16")
     if not (xs.is_contiguous() and w.is_contiguous()):
         raise ValueError("xs and w must be contiguous")
+    if xs.dtype == torch.bfloat16:
+        check_tma(xs, "xs")
+        check_tma(w, "w")
+    if w.shape[0] > MAX_EXPERTS:
+        raise ValueError(f"{w.shape[0]} experts: the kernel takes at most "
+                         f"{MAX_EXPERTS}")
+
+
+def grouped_matmul(xs, w, group_sizes, *,
+                   rows_per_tile: int | None = None) -> torch.Tensor:
+    """The grouped product on the tensors' own device: the hand-written
+    kernel for CUDA tensors (no synchronisation, no host read of
+    ``group_sizes``), the plain version for CPU tensors.
+    ``rows_per_tile`` (64 or 128) overrides :func:`tile_rows` for the
+    bfloat16 kernel; it changes how the work is cut, not the result."""
+    global LAUNCHES
+    _check(xs, w, group_sizes)
+    if rows_per_tile is not None and rows_per_tile not in TILE_ROWS:
+        raise ValueError(f"rows_per_tile {rows_per_tile}: the kernel takes "
+                         f"{TILE_ROWS}")
+    if xs.device.type == "cpu":
+        return grouped_matmul_torch(xs, w, group_sizes)
+    if xs.device.type != "cuda":
+        raise ValueError(f"unsupported device {xs.device}")
+    check_kernel_inputs(xs, w)
     M, K = xs.shape
     E, _, N = w.shape
-    if xs.dtype == torch.bfloat16 and (
-            K % 8 or N % 8 or xs.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("bfloat16 rows must be multiples of 8 elements on "
-                         "16-byte boundaries (the kernel copies 16 bytes at "
-                         "a time)")
-    if E > MAX_EXPERTS:
-        raise ValueError(f"{E} experts: the kernel takes at most "
-                         f"{MAX_EXPERTS}")
     out = torch.empty((M, N), dtype=xs.dtype, device=xs.device)
     if M == 0:
         return out
+    bm = rows_per_tile or tile_rows(M, E)
     sizes = group_sizes.to(torch.int32).contiguous()
     with torch.cuda.device(xs.device):
         rc = _kernel_fn()(xs.data_ptr(), w.data_ptr(), sizes.data_ptr(),
-                out.data_ptr(), M, K, N, E, DTYPES[xs.dtype],
+                out.data_ptr(), M, K, N, E, DTYPES[xs.dtype], bm,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"moe_gmm_fwd launch failed: "
+                           f"{build.describe_error(rc)}")
     LAUNCHES += 1
     return out

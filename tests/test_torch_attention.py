@@ -119,6 +119,62 @@ def test_flash_wrapper_refuses_what_does_not_fit():
     assert port_flash.LAUNCHES == 0
 
 
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A tensor of ``shape`` whose base lies 2 bytes past a 16-byte
+    boundary (torch's own allocations start on 64)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+def test_flash_kernel_refuses_what_tma_cannot_take():
+    """The CUDA branch's checks (run here on CPU tensors, as the wrapper
+    runs them on CUDA ones before a launch): a bf16 base address off 16
+    bytes, or a stride that is not a multiple of 16 bytes, is refused and
+    never copied; the JAX layout's permuted view is taken as it is."""
+    bf = torch.bfloat16
+    q = torch.zeros(2, 16, 8, 64, dtype=bf)
+    kv = torch.zeros(2, 16, 2, 64, dtype=bf)
+    port_flash.check_kernel_inputs(q, kv, kv)
+    with pytest.raises(ValueError, match="16 bytes"):
+        port_flash.check_kernel_inputs(_misaligned((2, 16, 8, 64)), kv, kv)
+    # 68 values a row: the sequence stride is 136 bytes.
+    odd = torch.zeros(2, 16, 2, 68, dtype=bf)[..., :64]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        port_flash.check_kernel_inputs(q, odd, kv)
+    view = torch.zeros(16, 16, 64, dtype=bf).permute(1, 0, 2)[None]
+    port_flash.check_kernel_inputs(view, view[:, :, :4], view[:, :, :4])
+    # float32 is not loaded by TMA: only the head dimension must be
+    # contiguous.
+    port_flash.check_kernel_inputs(_misaligned((2, 16, 8, 64), torch.float32),
+                                   kv.float(), kv.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        port_flash.check_kernel_inputs(
+            torch.zeros(2, 16, 8, 128, dtype=bf)[..., ::2], kv, kv)
+    assert port_flash.LAUNCHES == 0
+
+
+def test_tma_strides_fill_in_axes_of_one():
+    """A tensor map needs a 16-byte multiple for every stride, also of an
+    axis of one element, whose stride torch may report as anything."""
+    from repro_torch.kernels.tma import tma_strides
+    q = torch.zeros(2, 16, 8, 64, dtype=torch.bfloat16)
+    assert tma_strides(q) == [16 * 8 * 64, 8 * 64, 64]
+    one = torch.zeros(1, 16, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 16, 1, 64), (3, 64, 5, 1))
+    assert tma_strides(one) == [16 * 64, 64, 64]
+    assert all(s * 2 % 16 == 0 for s in tma_strides(one))
+
+
+def test_the_kernels_query_tile_is_the_wrappers():
+    """``BF16_BQ`` of ``csrc/flash_attention.cu`` (query rows per work
+    item of the bf16 kernel: two consumer warpgroups of 64) is the
+    wrapper's."""
+    src = (Path(port_flash.__file__).parent / "csrc"
+           / "flash_attention.cu").read_text()
+    assert f"constexpr int BF16_BQ = {port_flash.BF16_BQ};" in src
+    assert port_flash.BF16_BQ == 2 * 64
+
+
 # ---------------------------------------------------------------------------
 # decode attention (K3)
 # ---------------------------------------------------------------------------

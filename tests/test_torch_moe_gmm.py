@@ -97,6 +97,77 @@ def test_the_kernels_expert_limit_is_the_wrappers():
     assert f"constexpr int MAX_EXPERTS = {moe_gmm.MAX_EXPERTS};" in src
 
 
+def test_the_kernels_tile_heights_are_the_wrappers():
+    """``TILE_ROWS_SMALL`` / ``TILE_ROWS_LARGE`` of ``csrc/moe_gmm.cu``
+    (the bf16 kernel's template arguments) are the wrapper's
+    ``TILE_ROWS``."""
+    src = (Path(moe_gmm.__file__).parent / "csrc" / "moe_gmm.cu").read_text()
+    small, large = moe_gmm.TILE_ROWS
+    assert f"constexpr int TILE_ROWS_SMALL = {small};" in src
+    assert f"constexpr int TILE_ROWS_LARGE = {large};" in src
+
+
+@pytest.mark.parametrize("M,E,want", [
+    (8 * 1024 * 8, 32, 128),     # granite-moe prefill: 65536 rows / 32
+    (8 * 8, 32, 64),             # granite-moe decode: 64 rows / 32
+    (64 * 32, 32, 128),          # a mean of exactly 64 rows
+    (64 * 32 - 1, 32, 64),
+    (25, 1, 64),
+])
+def test_tile_height_follows_rows_per_expert(M, E, want):
+    assert moe_gmm.tile_rows(M, E) == want
+
+
+def test_grid_bounds_the_tiles_of_any_routing():
+    """``ceil(M / bm) + E`` row tiles cover every group's tiles for any
+    split of M rows, and the bound is met by groups of one tile plus one
+    row each."""
+    rng = np.random.default_rng(7)
+    for _ in range(200):
+        E = int(rng.integers(1, 40))
+        sizes = rng.multinomial(int(rng.integers(0, 5000)),
+                                rng.dirichlet(np.full(E, 0.3)))
+        M = int(sizes.sum())
+        for bm in moe_gmm.TILE_ROWS:
+            need = int(sum(-(-int(n) // bm) for n in sizes))
+            assert need <= moe_gmm.row_tiles(M, E, bm)
+    for bm in moe_gmm.TILE_ROWS:
+        sizes = [bm + 1] * bm          # M = bm (bm + 1): ceil(M / bm) = bm + 1
+        assert sum(-(-n // bm) for n in sizes) == 2 * bm
+        assert moe_gmm.row_tiles(sum(sizes), bm, bm) == 2 * bm + 1
+
+
+def test_gmm_kernel_refuses_what_tma_cannot_take():
+    """The CUDA branch's checks, run on CPU tensors: bf16 xs or w off 16
+    bytes, or K / N not multiples of 8 (a row stride off 16 bytes), is
+    refused, never copied; float32 needs only contiguity."""
+    bf = torch.bfloat16
+    xs, w = torch.zeros(10, 16, dtype=bf), torch.zeros(2, 16, 24, dtype=bf)
+    moe_gmm.check_kernel_inputs(xs, w)
+    flat = torch.zeros(10 * 16 + 8, dtype=bf)
+    with pytest.raises(ValueError, match="16 bytes"):
+        moe_gmm.check_kernel_inputs(flat[1:161].view(10, 16), w)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        moe_gmm.check_kernel_inputs(torch.zeros(10, 12, dtype=bf),
+                                    torch.zeros(2, 12, 24, dtype=bf))
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        moe_gmm.check_kernel_inputs(xs, torch.zeros(2, 16, 20, dtype=bf))
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.check_kernel_inputs(torch.zeros(16, 10, dtype=bf).t(), w)
+    moe_gmm.check_kernel_inputs(torch.zeros(10, 12), torch.zeros(2, 12, 20))
+    assert moe_gmm.LAUNCHES == 0
+
+
+def test_tile_height_override_is_checked_on_every_device():
+    xs, w = torch.zeros(10, 16), torch.zeros(2, 16, 24)
+    sizes = torch.tensor([4, 6])
+    with pytest.raises(ValueError, match="rows_per_tile"):
+        moe_gmm.grouped_matmul(xs, w, sizes, rows_per_tile=32)
+    for bm in moe_gmm.TILE_ROWS:
+        out = moe_gmm.grouped_matmul(xs, w, sizes, rows_per_tile=bm)
+        assert out.shape == (10, 24)
+
+
 # ---------------------------------------------------------------------------
 # ops.moe_gmm_ffn against the reference's ragged FFN; nothing is dropped
 # ---------------------------------------------------------------------------
