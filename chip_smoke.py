@@ -19,13 +19,16 @@ process exits non-zero):
                 batches; flash attention (K2) and decode attention (K3) at
                 the serving path's shapes and corners (ragged lengths, n_rep
                 1 and 16, head_dim 64 and 128, Sq 1, 17 and 129 at the
-                bf16 kernel's 128-row tiles, cache_len at 0, a split edge
-                and the last position) in bfloat16 and float32, with the JAX
+                bf16 kernel's 128-row tiles; for K3 cache_len at 0, at and
+                one past every split edge of the bf16 kernel's plan and the
+                last position, n_rep 1, 2, 16 and 32, caches off the
+                64-position tile) in bfloat16 and float32, with the JAX
                 package's kernel-test tolerances (2e-2 and 2e-5, rtol = atol:
                 sums in another order, and bf16 keeps 8 bits); K2 and K3 are
-                timed at the serving path's shapes (K2 at glm4-9b's and
-                granite-moe-1b-a400m's prefill) beside their plain
-                versions and ``scaled_dot_product_attention``; the MoE
+                timed at the serving path's shapes (glm4-9b's and
+                granite-moe-1b-a400m's prefill and last decode step) beside
+                their plain versions and ``scaled_dot_product_attention``;
+                the MoE
                 grouped matmul (K5: 3e-2 / 1e-4, the reference's tolerances
                 for it) at granite-moe-1b-a400m's prefill and decode shapes
                 and corners (empty experts, one row, one expert holding 5x
@@ -36,15 +39,17 @@ process exits non-zero):
                 against a float64 plain version) at mamba2-130m's prefill
                 shape and corners (G > 1, one chunk, one chunk of 12 and of
                 100 steps that ``ssd_chunked_cuda`` pads to 16-step tiles,
-                an initial state, N 16), also through ``ssd_chunked_cuda``;
+                an initial state, N 16, shapes whose bf16 blocks take 1, 2
+                or 3 heads of a G > 1 group, at N 16, Q 64 and in a
+                ragged second wave), also through ``ssd_chunked_cuda``;
                 K5 (prefill gate/up and down, decode) and K4 (its
                 float32 ``y``, as served) are timed at the serving shapes
                 beside their plain versions and, for K5,
                 ``torch._grouped_mm``.  With ``--replaced DIR`` (a
-                ``csrc`` holding the K2 / K5 bodies this version replaced,
-                e.g. the parent commit's) those bodies are built too,
-                held against the current kernels and timed in the same
-                turns (``replaced_ms``; null without the option).
+                ``csrc`` holding the K2, K3, K4 and K5 bodies this version
+                replaced, e.g. the parent commit's) those bodies are built
+                too, held against the current kernels and timed in the
+                same turns (``replaced_ms``; null without the option).
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -107,6 +112,7 @@ from repro_torch.core import (  # noqa: E402
     cause_to_wire,
 )
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bigroots_gates,
@@ -600,8 +606,21 @@ def decode_case(gen, B, S, H, KV, D, dtype, cache_len, device):
     res = {"kernel": "decode_attention", "cache": list(k.shape), "heads": H,
            "dtype": str(dtype).removeprefix("torch."),
            "cache_len": cache_len}
+    if dtype == torch.bfloat16:
+        res["splits"] = decode_attention.split_plan(B, KV, H // KV, S,
+                                                    sm_count(device))
     return {**res, **compare(got, want, ATTN_TOL[dtype],
                              f"decode_attention {res}")}
+
+
+def decode_corners(B, S, H, KV, device) -> list[int]:
+    """cache_len values at the bf16 kernel's edges for one cache shape: 0,
+    the last position of every split and the first of the next, and the
+    last position of the cache."""
+    n, length = decode_attention.split_plan(B, KV, H // KV, S,
+                                            sm_count(device))
+    edges = [e for s in range(1, n) for e in (s * length - 1, s * length)]
+    return sorted({0, *edges, S - 1})
 
 
 def attention_checks(device, seed: int) -> list[dict]:
@@ -626,13 +645,29 @@ def attention_checks(device, seed: int) -> list[dict]:
             for causal in (True, False):
                 out.append(flash_case(gen, 2, S, 8, 2, 128 if S != 17 else 64,
                                       dtype, causal, device))
-        for cache_len in (0, 511, 512, PROMPT_LEN + MAX_NEW - 1, MAX_LEN - 1):
+        for cache_len in sorted({511, 512, PROMPT_LEN + MAX_NEW - 1,
+                                 *decode_corners(SERVE_BATCH, MAX_LEN, H, KV,
+                                                 device)}):
             out.append(decode_case(gen, SERVE_BATCH, MAX_LEN, H, KV, D, dtype,
+                                   cache_len, device))
+        # granite-moe-1b-a400m's decode (n_rep 2, D 64) at its split edges.
+        mcfg = get_config(MOE_ARCH)
+        for cache_len in decode_corners(SERVE_BATCH, MAX_LEN, mcfg.n_heads,
+                                        mcfg.n_kv_heads, device):
+            out.append(decode_case(gen, SERVE_BATCH, MAX_LEN, mcfg.n_heads,
+                                   mcfg.n_kv_heads, mcfg.head_dim, dtype,
                                    cache_len, device))
         out.append(decode_case(gen, 2, MAX_LEN, 8, 8, 128, dtype, 700,
                                device))
         out.append(decode_case(gen, 2, MAX_LEN, 16, 1, 64, dtype, 64, device))
         out.append(decode_case(gen, 2, 100, 16, 1, 64, dtype, 99, device))
+        # n_rep 32: two groups of 16 query heads per kv head; S_max off the
+        # 64-position tile and off the 16-position split multiple.
+        for cache_len in decode_corners(2, 1000, 64, 2, device):
+            out.append(decode_case(gen, 2, 1000, 64, 2, 128, dtype,
+                                   cache_len, device))
+        out.append(decode_case(gen, 3, 70, 4, 2, 64, dtype, 69, device))
+        out.append(decode_case(gen, 1, 5, 4, 4, 128, dtype, 2, device))
     return out
 
 
@@ -662,14 +697,16 @@ def _bound(flops, nbytes, dtype) -> dict:
 
 class Replaced:
     """The kernel bodies this version replaced, for timing in turns with the
-    current ones in the same call: ``flash_attention.cu`` and ``moe_gmm.cu``
-    from another tree's ``csrc`` (``--replaced DIR``; e.g. the parent
-    commit's, unpacked with ``git archive``), built with the package's
-    flags under their own library names.  Their C entry points are the
-    ones that tree had: flash attention's as now, the grouped matmul's
-    without the tile height."""
+    current ones in the same call: ``flash_attention.cu``, ``moe_gmm.cu``,
+    ``decode_attention.cu`` and ``ssd_scan.cu`` from another tree's
+    ``csrc`` (``--replaced DIR``; e.g. the parent commit's, unpacked with
+    ``git archive``), built with the package's flags under their own
+    library names.  Their C entry points are the ones the parent tree (PR
+    14's) had: flash attention's and the grouped matmul's as now, decode
+    attention's with its f32 split scratch and no split plan, the SSD's
+    without the heads per block."""
 
-    NAMES = ("flash_attention", "moe_gmm")
+    NAMES = ("flash_attention", "moe_gmm", "decode_attention", "ssd_scan")
 
     def __init__(self, src_dir: str) -> None:
         out = os.path.join(build.build_dir(), "replaced")
@@ -684,15 +721,24 @@ class Replaced:
             log, _ = proc.communicate()
             check(proc.returncode == 0, f"replaced {n} did not build: {log}")
         import ctypes
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+        def lib(n):
+            return ctypes.CDLL(os.path.join(out, f"lib{n}.so"))
         self.src_dir = src_dir
-        self._flash = ctypes.CDLL(
-            os.path.join(out, "libflash_attention.so")).flash_attention_fwd
-        self._flash.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
-            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
-        self._gmm = ctypes.CDLL(os.path.join(out, "libmoe_gmm.so")).moe_gmm_fwd
-        self._gmm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                              + [ctypes.c_void_p])
+        self._flash = lib("flash_attention").flash_attention_fwd
+        self._flash.argtypes = ([ptr] * 4 + [i32] * 8 + [ctypes.c_float]
+                                + [i64] * 12 + [ptr])
+        self._gmm = lib("moe_gmm").moe_gmm_fwd
+        self._gmm.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        dec = lib("decode_attention")
+        dec.decode_attention_split.restype = i32
+        self._dec_split = dec.decode_attention_split()
+        self._dec = dec.decode_attention_fwd
+        self._dec.argtypes = ([ptr] * 8 + [i32] * 6 + [ctypes.c_float]
+                              + [i64] * 10 + [ptr])
+        self._ssd = lib("ssd_scan").ssd_intra_chunk_fwd
+        self._ssd.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 15 + [ptr]
 
     def flash(self, q, k, v, causal=True):
         B, Sq, H, D = q.shape
@@ -709,23 +755,64 @@ class Replaced:
         out = torch.empty((xs.shape[0], w.shape[2]), dtype=xs.dtype,
                           device=xs.device)
         gs = sizes.to(torch.int32)
+        M, E = xs.shape[0], w.shape[0]
         rc = self._gmm(xs.data_ptr(), w.data_ptr(), gs.data_ptr(),
-                       out.data_ptr(), xs.shape[0], xs.shape[1], w.shape[2],
-                       w.shape[0], 1, torch.cuda.current_stream().cuda_stream)
+                       out.data_ptr(), M, xs.shape[1], w.shape[2], E, 1,
+                       moe_gmm.tile_rows(M, E),
+                       torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"replaced moe_gmm_fwd: CUDA error {rc}")
         return out
 
+    def decode(self, q, kc, vc, n):
+        B, H, D = q.shape
+        S, KV = kc.shape[1], kc.shape[2]
+        n_s = -(-S // self._dec_split)
+        m = torch.empty((B, H, n_s), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        acc = torch.empty((B, H, n_s, D), dtype=torch.float32,
+                          device=q.device)
+        out = torch.empty_like(q)
+        st = (q.stride(0), q.stride(1),
+              *(t.stride(i) for t in (kc, vc) for i in range(3)),
+              out.stride(0), out.stride(1))
+        rc = self._dec(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                       n.data_ptr(), m.data_ptr(), l.data_ptr(),
+                       acc.data_ptr(), out.data_ptr(), B, S, H, KV, D, 1,
+                       1.0 / D ** 0.5, *st,
+                       torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"replaced decode_attention_fwd: CUDA error {rc}")
+        return out
 
-def with_replaced(fns: dict, replaced_fn, current, what: str) -> dict:
-    """``fns`` plus ``replaced_ms`` when a replaced body is given: it is first
-    held against the current kernel's output (same tolerance as the plain
-    version), then timed in the same turns."""
+    def ssd(self, x, dt, A, Bm, Cm, Q):
+        B_, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        y = torch.empty((B_, S, H, P), dtype=torch.float32, device=x.device)
+        states = torch.empty((B_, H, S // Q, N, P), dtype=torch.float32,
+                             device=x.device)
+        seg = torch.empty((B_, H, S // Q, Q), dtype=torch.float32,
+                          device=x.device)
+        st = [t.stride(i) for t in (x, dt, Bm, Cm, y) for i in range(3)]
+        rc = self._ssd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                       Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                       states.data_ptr(), seg.data_ptr(), B_, S, H, G, Q, N,
+                       P, 1, *st, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"replaced ssd_intra_chunk_fwd: CUDA error {rc}")
+        return y, states, seg
+
+
+def with_replaced(fns: dict, replaced_fn, current, what: str, tol: float
+                  ) -> dict:
+    """``fns`` plus ``replaced_ms`` when a replaced body is given: its
+    output (each of them, for a tuple) is first held against the current
+    kernel's with the plain version's tolerance ``tol``, then it is timed
+    in the same turns."""
     if replaced_fn is None:
         return fns
-    got = replaced_fn()
+    got, want = replaced_fn(), current()
     torch.cuda.synchronize()
-    compare(got, current(), ATTN_TOL[torch.bfloat16] if "flash" in what
-            else GMM_TOL[torch.bfloat16], f"replaced {what}")
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for g, w in pairs:
+        compare(g, w, tol, f"replaced {what}")
     return {**fns, "replaced_ms": replaced_fn}
 
 
@@ -752,7 +839,7 @@ def flash_timing(gen, device, flush, arch: str, replaced) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True),
     }
     fns = with_replaced(fns, replaced and (lambda: replaced.flash(q, k, v)),
-                        kernel, "flash_attention")
+                        kernel, "flash_attention", ATTN_TOL[dt])
     t = measure_fns(fns, flush, rounds=2)
     t.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
              path=cfg.name,
@@ -761,19 +848,14 @@ def flash_timing(gen, device, flush, arch: str, replaced) -> dict:
     return t
 
 
-def attention_timings(device, seed: int, flush, replaced=None) -> dict:
-    """K2 at glm4-9b's prefill (``[8, 1024, 32, 128]`` causal over 2 kv
-    heads) and granite-moe-1b-a400m's (``[8, 1024, 16, 64]`` over 8), and
-    K3 at the last decode step of glm4-9b: one-token attention over a
-    ``[8, 1064, 2, 128]`` cache holding 1056 valid positions; bf16."""
+def decode_timing(gen, device, flush, arch: str, replaced) -> dict:
+    """K3 at ``arch``'s last decode step: one-token attention over a
+    ``[8, 1064, KV, D]`` cache holding 1056 valid positions, bf16, beside
+    its plain version, SDPA and (``replaced``) the body it replaced."""
     F = torch.nn.functional
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim, torch.bfloat16
-    flash = flash_timing(gen, device, flush, SERVE_ARCH, replaced)
-    flash_moe = flash_timing(gen, device, flush, MOE_ARCH, replaced)
-
     last = PROMPT_LEN + MAX_NEW - 1     # the last decode step's cache_len
     q = _randn(gen, (B, H, D), dt, device)
     kc = _randn(gen, (B, MAX_LEN, KV, D), dt, device)
@@ -781,17 +863,42 @@ def attention_timings(device, seed: int, flush, replaced=None) -> dict:
     n = torch.tensor(last, dtype=torch.int32, device=device)
     valid = (torch.arange(MAX_LEN, device=device) <= n)[None, None, None, :]
     q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-    dec = measure_fns({
-        "ms": lambda: decode_attention.decode_attention(q, kc, vc, n),
+
+    def kernel():
+        return decode_attention.decode_attention(q, kc, vc, n)
+    fns = with_replaced({
+        "ms": kernel,
         "plain_ms": lambda: decode_attention.decode_attention_torch(
             q, kc, vc, n),
         "library_ms": lambda: F.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=valid, enable_gqa=True),
-    }, flush, rounds=4)
-    dec.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
-               dtype="bfloat16", **decode_bound(B, H, KV, D, last + 1, dt))
-    return {"flash_attention": flash, "flash_attention_granite": flash_moe,
-            "decode_attention": dec}
+    }, replaced and (lambda: replaced.decode(q, kc, vc, n)), kernel,
+        "decode_attention", ATTN_TOL[dt])
+    t = measure_fns(fns, flush, rounds=4)
+    t.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
+             dtype="bfloat16", path=cfg.name,
+             splits=decode_attention.split_plan(B, KV, H // KV, MAX_LEN,
+                                                sm_count(device)),
+             **decode_bound(B, H, KV, D, last + 1, dt))
+    return t
+
+
+def attention_timings(device, seed: int, flush, replaced=None) -> dict:
+    """K2 at glm4-9b's prefill (``[8, 1024, 32, 128]`` causal over 2 kv
+    heads) and granite-moe-1b-a400m's (``[8, 1024, 16, 64]`` over 8), and
+    K3 at the last decode step of each: a ``[8, 1064, 2, 128]`` cache for
+    32 heads and a ``[8, 1064, 8, 64]`` one for 16; bf16."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return {
+        "flash_attention": flash_timing(gen, device, flush, SERVE_ARCH,
+                                        replaced),
+        "flash_attention_granite": flash_timing(gen, device, flush, MOE_ARCH,
+                                                replaced),
+        "decode_attention": decode_timing(gen, device, flush, SERVE_ARCH,
+                                          replaced),
+        "decode_attention_granite": decode_timing(gen, device, flush,
+                                                  MOE_ARCH, replaced),
+    }
 
 
 # -- the MoE grouped matmul (K5) and the SSD intra-chunk kernel (K4) -------------
@@ -889,6 +996,9 @@ def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False) -> dict:
     label = f"B{B} S{S} H{H} G{G} N{N} Q{Q}" + (" h0" if h0 else "")
     res = {"kernel": "ssd_scan", "case": label,
            "dtype": str(dtype).removeprefix("torch.")}
+    if dtype == torch.bfloat16 and Q % ssd_scan.CHUNK_MULTIPLE == 0:
+        res["heads_per_block"] = ssd_scan.head_group_plan(
+            B, S, H, G, N, Q, sms=sm_count(device))
     if Q % ssd_scan.CHUNK_MULTIPLE == 0:
         got = ssd_scan.ssd_intra_chunk(*inputs, Q)
         torch.cuda.synchronize()
@@ -915,7 +1025,7 @@ def ssd_checks(device, seed: int) -> list[dict]:
     """K4 at mamba2-130m's prefill shape and the corners: G > 1, one chunk
     (chunk > S, also of 12 and 100 steps, which ``ssd_chunked_cuda`` pads
     to the kernel's 16-step tiles), a nonzero initial state, N 16 (jamba),
-    Q 64."""
+    Q 64; and shapes where the bf16 kernel's blocks take 2 or 3 heads."""
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     cfg = get_config(SSM_ARCH)
     H, G, N, Q = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
@@ -931,6 +1041,13 @@ def ssd_checks(device, seed: int) -> list[dict]:
         out.append(ssd_case(gen, 2, 12, 4, 1, N, 256, dtype, device))
         out.append(ssd_case(gen, 2, 100, 8, 2, 64, 256, dtype, device,
                             h0=True))
+        # Shapes where the bf16 kernel's plan puts several heads of a
+        # G > 1 group in a block: 2 heads at N 16 and Q 64 and at N 128 and
+        # Q 256, 3 heads at N 16 and Q 64 (the corners above take 1 head,
+        # mamba2's prefill 3 in 256 blocks: a ragged second wave).
+        out.append(ssd_case(gen, 3, 256, 12, 2, 16, 64, dtype, device))
+        out.append(ssd_case(gen, 3, PROMPT_LEN, 12, 2, N, Q, dtype, device))
+        out.append(ssd_case(gen, 3, PROMPT_LEN, 6, 2, 16, 64, dtype, device))
     return out
 
 
@@ -1003,7 +1120,7 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
             "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
             "library_ms": lib,
         }, replaced and (lambda: replaced.gmm(xs, w, sizes)), kernel,
-            "moe_gmm")
+            "moe_gmm", GMM_TOL[bf])
         t = measure_fns(fns, flush, rounds=4 if label == "decode" else 2)
         M = int(sizes.sum())
         t.update(rows=M, experts=E, K=K, N=N,
@@ -1018,13 +1135,19 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
         scfg.ssm_chunk
     x, dt, A, Bm, Cm = ssd_inputs(gen, SERVE_BATCH, PROMPT_LEN, H, G, N, bf,
                                   device)
-    t = measure_fns({
-        "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
+
+    def ssd_kernel():
+        return ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    t = measure_fns(with_replaced({
+        "ms": ssd_kernel,
         "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
             x, dt, A, Bm, Cm, Q),
-    }, flush, rounds=2)
+    }, replaced and (lambda: replaced.ssd(x, dt, A, Bm, Cm, Q)), ssd_kernel,
+        "ssd_scan", ATTN_TOL[bf]), flush, rounds=2)
     t.update(shape=[SERVE_BATCH, PROMPT_LEN, H, 64], groups=G, state=N,
              chunk=Q, dtype="bfloat16", library_ms=None,
+             heads_per_block=ssd_scan.head_group_plan(
+                 SERVE_BATCH, PROMPT_LEN, H, G, N, Q, sms=sm_count(device)),
              **ssd_bound(SERVE_BATCH, PROMPT_LEN, H, G, N, Q, bf))
     out["ssd_scan"] = t
     return out
@@ -1559,9 +1682,12 @@ def run(args) -> None:
                 "one per layer of the prefill", SERVE_ARCH,
                 attn_timing["flash_attention"], attn_checks),
         "granite_prefill": attn_timing["flash_attention_granite"]},
-        entry("decode_attention", "src/repro/kernels/decode_attention.py:27",
-              "one per layer of every decode step", SERVE_ARCH,
-              attn_timing["decode_attention"], attn_checks),
+        {**entry("decode_attention",
+                 "src/repro/kernels/decode_attention.py:27",
+                 "one per layer of every decode step", SERVE_ARCH,
+                 attn_timing["decode_attention"], attn_checks),
+         "granite_last_step": attn_timing["decode_attention_granite"],
+         "granite_launches": serve[MOE_ARCH]["launches"]["decode_attention"]},
         entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
               "one per SSM layer of the prefill", SSM_ARCH,
               moe_ssd_timing["ssd_scan"], moe_ssd_checks),
@@ -1584,10 +1710,11 @@ def main() -> None:
     ap.add_argument("--ticks", type=int, default=5,
                     help="driven ticks (the fleet's size is fixed)")
     ap.add_argument("--replaced", metavar="DIR",
-                    help="a csrc directory holding the flash_attention.cu "
-                         "and moe_gmm.cu bodies this version replaced: "
-                         "they are built and timed in turns with the "
-                         "current ones (replaced_ms)")
+                    help="a csrc directory holding the flash_attention.cu, "
+                         "moe_gmm.cu, decode_attention.cu and ssd_scan.cu "
+                         "bodies this version replaced: they are built and "
+                         "timed in turns with the current ones "
+                         "(replaced_ms)")
     ap.add_argument("--f32-layers", type=int, default=4,
                     help="depth of the serving paths' float32 variants (the "
                          "bf16 runs are always at full depth)")

@@ -8,7 +8,14 @@ nothing on the path probes for a GPU and quietly carries on without one.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+#: Streaming multiprocessors of an H100 SXM: the kernels' plans take the
+#: card's own count (:func:`sm_count`); this is their default for shapes
+#: planned off the card.
+H100_SMS = 132
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,3 +35,16 @@ def resolve_device(device=None) -> torch.device:
             f"device {device} requested but torch.cuda.is_available() is False"
         )
     return device
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (read once per
+    device)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -16,28 +16,63 @@ be a multiple of the split (the reference asserts a multiple of 512).
 
 - :func:`decode_attention_torch` — the plain PyTorch version (the JAX
   package's ``ref.decode_attention_ref`` with the kernel's f32 logits).
-- :func:`decode_attention` — CUDA tensors launch the two kernels of
-  ``csrc/decode_attention.cu`` (split partials, then the combine; float32
-  or bfloat16, D 64 or 128) on the current stream or raise; CPU tensors
-  take the plain version.  ``LAUNCHES`` counts calls that launched them.
+- :func:`decode_attention_splits_torch` — the same function cut as the
+  bfloat16 kernel cuts it (:func:`split_plan`): per-split partials and the
+  kernel's combine, in plain PyTorch, so the CPU tests reach the combine's
+  numerics.
+- :func:`decode_attention` — CUDA tensors launch ``csrc/decode_attention.cu``
+  on the current stream or raise (bfloat16: one launch, the splits of one
+  (batch, kv head) in one thread-block cluster that combines them; float32:
+  split partials through scratch, then a combine launch; D 64 or 128); CPU
+  tensors take the plain version.  ``LAUNCHES`` counts calls that launched.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
+from ..device import H100_SMS, sm_count
 from . import build
 from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF
 
 #: Number of times :func:`decode_attention` launched the CUDA kernels.
 LAUNCHES = 0
 
-#: Cache positions per split in the CUDA kernel (the reference's is 512).
+#: Cache positions per split in the float32 CUDA kernel (the reference's
+#: is 512).
 SPLIT = 64
 
+#: The bfloat16 kernel's plan (the constants of ``csrc/decode_attention.cu``
+#: of the same names): query heads per block at most (the 16 rows of an
+#: ``mma.sync`` tile), cache positions per tile of its ring, split lengths a
+#: multiple of ``SPLIT_MULTIPLE``, at most ``MAX_SPLITS`` splits (the blocks
+#: of one cluster, the portable maximum).
+HEAD_GROUP = 16
+TILE = 64
+SPLIT_MULTIPLE = 16
+MAX_SPLITS = 8
+
 _fn = None
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, KV: int, n_rep: int, S: int,
+               sms: int = H100_SMS) -> tuple[int, int]:
+    """``(n_splits, split_len)`` of the bfloat16 kernel for a cache of
+    ``S`` positions: as many splits per (batch, kv head, head group) as make
+    the grid about one wave of ``sms`` blocks, at most ``MAX_SPLITS`` and no
+    more than ``S`` has 64-position tiles; lengths a multiple of
+    ``SPLIT_MULTIPLE``, and ``n_splits = ceil(S / split_len)``.  It depends
+    on the shapes only, never on ``cache_len``: splits past it load
+    nothing."""
+    pairs = B * KV * -(-n_rep // HEAD_GROUP)
+    want = max(1, min(MAX_SPLITS, sms // pairs, -(-S // TILE)))
+    length = -(-S // want)
+    length = -(-length // SPLIT_MULTIPLE) * SPLIT_MULTIPLE
+    return -(-S // length), length
 
 
 def _kernel_fn():
@@ -51,7 +86,8 @@ def _kernel_fn():
         fn = lib.decode_attention_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -72,6 +108,63 @@ def decode_attention_torch(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     logits = torch.where(valid, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     return torch.einsum("bhk,bkhd->bhd", p, vv.float()).to(q.dtype)
+
+
+def decode_attention_splits_torch(q, k_cache, v_cache, cache_len,
+                                  split_len: int) -> torch.Tensor:
+    """The plain version cut into splits of ``split_len`` positions, as the
+    bfloat16 kernel cuts the cache: per split f32 partials ``m`` (max
+    logit, ``-1e30`` where the split holds no valid position), ``l = Σ p``
+    and ``acc = Σ round(p)·v`` with ``p = exp(logit − m)`` masked to 0,
+    then the kernel's combine ``w = exp(m − max m)``, ``Σ acc·w /
+    max(Σ l·w, 1e-30)``.  (The kernel also cuts each split into the
+    16-position slices of its warps, with an online softmax over its
+    tiles: more partials of the same form.)"""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    kk = k_cache.repeat_interleave(H // KV, dim=2).float()
+    vv = v_cache.repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), kk) * (1.0 / math.sqrt(D))
+    valid = torch.arange(S, device=q.device) <= cache_len
+    logits = torch.where(valid, logits, NEG_INF)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, S, split_len):
+        part = logits[..., s0:s0 + split_len]
+        m = part.max(dim=-1, keepdim=True).values
+        p = torch.where(valid[s0:s0 + split_len], torch.exp(part - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p.to(v_cache.dtype).float(),
+                                 vv[:, s0:s0 + split_len].float()))
+    m = torch.cat(ms, dim=-1)                          # [B, H, n_s]
+    w = torch.exp(m - m.max(dim=-1, keepdim=True).values)
+    num = (torch.stack(accs, dim=-1) * w[:, :, None, :]).sum(dim=-1)
+    den = (torch.cat(ls, dim=-1) * w).sum(dim=-1, keepdim=True)
+    return (num / den.clamp_min(1e-30)).to(q.dtype)
+
+
+def check_kernel_inputs(q, k_cache, v_cache) -> None:
+    """What the CUDA kernels take beyond :func:`_check`: D 64 or 128,
+    float32 or bfloat16, the head dimension contiguous; for bfloat16 every
+    base address and every stride of q and the caches a multiple of 16
+    bytes (the kernel copies K and V rows 16 bytes at a time and reads q in
+    aligned pairs).  Raises where they do not hold; nothing is copied."""
+    D = q.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
+        raise ValueError("the head dimension must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for t in (q, k_cache, v_cache):
+            if t.data_ptr() % 16:
+                raise ValueError("bfloat16 tensors must start on 16 bytes "
+                                 "(the kernel copies 16 bytes at a time)")
+            if any(st % 8 for st in t.stride()[:-1]):
+                raise ValueError(f"strides {t.stride()}: every stride must "
+                                 "be a multiple of 16 bytes")
 
 
 def _check(q, k, v) -> None:
@@ -103,34 +196,37 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
         raise ValueError(f"unsupported device {q.device}")
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
-    if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
-        raise ValueError("the head dimension must be contiguous")
+    check_kernel_inputs(q, k_cache, v_cache)
     if (not isinstance(cache_len, torch.Tensor)
             or cache_len.dtype != torch.int32 or cache_len.numel() != 1
             or cache_len.device != q.device):
         raise ValueError("cache_len must be one int32 on q's device")
-    # Scratch for the split partials.  It is freed when this returns, before
-    # the kernels have run: the caching allocator hands the memory only to
-    # later work on the same stream, which runs after them.
-    n_s = -(-S // SPLIT)
-    m = torch.empty((B, H, n_s), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    acc = torch.empty((B, H, n_s, D), dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:
+        n_splits, split_len = split_plan(B, KV, H // KV, S,
+                                         sm_count(q.device))
+        scratch = (None, None, None)
+    else:
+        # Scratch for the split partials.  It is freed when this returns,
+        # before the kernels have run: the caching allocator hands the
+        # memory only to later work on the same stream, which runs after
+        # them.
+        n_splits, split_len = 0, 0
+        n_s = -(-S // SPLIT)
+        m = torch.empty((B, H, n_s), dtype=torch.float32, device=q.device)
+        scratch = (m, torch.empty_like(m),
+                   torch.empty((B, H, n_s, D), dtype=torch.float32,
+                               device=q.device))
     strides = (q.stride(0), q.stride(1),
                *(t.stride(i) for t in (k_cache, v_cache) for i in range(3)),
                out.stride(0), out.stride(1))
     with torch.cuda.device(q.device):
         rc = _kernel_fn()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            cache_len.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in scratch),
             out.data_ptr(), B, S, H, KV, D, DTYPES[q.dtype],
-            1.0 / math.sqrt(D), *strides,
+            1.0 / math.sqrt(D), *strides, split_len, n_splits,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

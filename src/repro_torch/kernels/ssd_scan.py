@@ -22,17 +22,20 @@ and not yet rounded.
   in float32; float64 inputs make it a float64 oracle).  The CPU tests use
   it, and the kernel is held against it on the GPU.
 - :func:`ssd_intra_chunk` — CUDA tensors launch the kernel
-  (``csrc/ssd_scan.cu``: tensor cores for bfloat16, scalar FMAs for
-  float32; P 64, N 16 / 32 / 64 / 128, Q a multiple of 16 up to 256) on
-  the current stream or raise; CPU tensors take the plain version.
+  (``csrc/ssd_scan.cu``: tensor cores for bfloat16, one block per chunk
+  and group of :func:`head_group_plan` heads that share B and C; scalar
+  FMAs for float32; P 64, N 16 / 32 / 64 / 128, Q a multiple of 16 up to
+  256) on the current stream or raise; CPU tensors take the plain version.
   ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from ..device import H100_SMS, sm_count
 from . import build
 from .flash_attention import DTYPES
 
@@ -45,8 +48,41 @@ STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 #: The kernel's chunks are whole 16-step tiles.
 CHUNK_MULTIPLE = 16
+#: The bfloat16 kernel's plan (constants of ``csrc/ssd_scan.cu`` of the
+#: same names): heads per block at most, and the shared memory a block may
+#: have on an H100.
+MAX_HEADS_PER_BLOCK = 3
+SMEM_MAX = 232448
 
 _fn = None
+
+
+def smem_bytes(N: int, Q: int, heads: int, P: int = 64) -> int:
+    """Shared memory of a bfloat16 block (``smem_bytes_bf16`` of the
+    source): the chunk's B rows, and per head its x rows, seg (float64),
+    dt, the decay's column factors and the state weights (float32)."""
+    return Q * N * 2 + heads * Q * (P * 2 + 20)
+
+
+@functools.lru_cache(maxsize=256)
+def head_group_plan(B: int, S: int, H: int, G: int, N: int, Q: int,
+                    P: int = 64, sms: int = H100_SMS) -> int:
+    """Heads per bfloat16 block: a divisor of ``H / G`` (so a block never
+    spans two B/C groups) up to ``MAX_HEADS_PER_BLOCK`` whose shared memory
+    fits, chosen to make waves × a block's work least (one block per SM):
+    a block computes C·Bᵀ once (``Q²N/2``) and per head the scores·x and
+    state products with their hi/lo halves (``Q²P + 2QNP``).  Ties go to
+    more heads per block (fewer B/C reads)."""
+    rep, chunks = H // G, S // Q
+    best = None
+    for hb in range(1, MAX_HEADS_PER_BLOCK + 1):
+        if rep % hb or smem_bytes(N, Q, hb, P) > SMEM_MAX:
+            continue
+        waves = -(-(B * chunks * H // hb) // sms)
+        cost = waves * (Q * Q * N // 2 + hb * (Q * Q * P + 2 * Q * N * P))
+        if best is None or cost <= best[0]:
+            best = (cost, hb)
+    return best[1]
 
 
 def _kernel_fn():
@@ -54,7 +90,8 @@ def _kernel_fn():
     if _fn is None:
         fn = build.load("ssd_scan").ssd_intra_chunk_fwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 15 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -143,6 +180,8 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
         raise ValueError("bfloat16 rows must start on 16 bytes (the kernel "
                          "copies 16 bytes at a time)")
     Nc = S // chunk
+    hb = (head_group_plan(B_, S, H, G, N, chunk, P, sm_count(x.device))
+          if x.dtype == torch.bfloat16 else 1)
     A = A.contiguous()
     y = torch.empty((B_, S, H, P), dtype=torch.float32, device=x.device)
     states = torch.empty((B_, H, Nc, N, P), dtype=torch.float32,
@@ -154,7 +193,7 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
         rc = _kernel_fn()(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), states.data_ptr(), seg.data_ptr(),
-            B_, S, H, G, chunk, N, P, DTYPES[x.dtype], *strides,
+            B_, S, H, G, chunk, N, P, DTYPES[x.dtype], *strides, hb,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_intra_chunk_fwd launch failed: CUDA error "

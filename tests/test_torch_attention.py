@@ -255,3 +255,120 @@ def test_decode_mask_is_inclusive(cache_len):
     np.testing.assert_allclose(got.numpy(), np.full((B, H, D), cache_len / 2),
                                atol=1e-5)
     assert port_decode.LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 decode kernel's split plan and combine (K3)
+# ---------------------------------------------------------------------------
+def test_the_kernels_split_plan_is_the_wrappers():
+    """The plan constants of ``csrc/decode_attention.cu`` are the
+    wrapper's: the kernel checks the plan it is given against them, and
+    four warps of 16 positions make a tile."""
+    src = (Path(port_decode.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+    for name, value in (("TILE", port_decode.TILE),
+                        ("SPLIT_MULTIPLE", port_decode.SPLIT_MULTIPLE),
+                        ("MAX_SPLITS", port_decode.MAX_SPLITS),
+                        ("HG", port_decode.HEAD_GROUP),
+                        ("SPLIT", port_decode.SPLIT)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "constexpr int BF16_WARPS = 4;" in src
+    assert port_decode.TILE == 4 * 16
+
+
+@pytest.mark.parametrize("S", [1, 5, 16, 63, 64, 70, 100, 511, 1000, 1064,
+                               4096])
+@pytest.mark.parametrize("B,KV,n_rep", [(1, 1, 1), (2, 2, 4), (8, 2, 16),
+                                        (8, 8, 2), (2, 2, 32), (64, 8, 2)])
+def test_split_plan_covers_every_position_once(S, B, KV, n_rep):
+    n, length = port_decode.split_plan(B, KV, n_rep, S)
+    assert 1 <= n <= port_decode.MAX_SPLITS
+    assert length % port_decode.SPLIT_MULTIPLE == 0
+    seen = np.zeros(S, dtype=int)
+    for s in range(n):
+        seen[s * length:min((s + 1) * length, S)] += 1
+    assert (seen == 1).all()
+    assert (n - 1) * length < S <= n * length
+
+
+@pytest.mark.parametrize("arch,B,KV,n_rep", [
+    ("glm4-9b", 8, 2, 16), ("granite-moe-1b-a400m", 8, 8, 2)])
+def test_split_plan_is_about_one_wave_at_the_serving_shapes(arch, B, KV,
+                                                            n_rep):
+    """At the serving decode (cache 1064) the grid is within a sixth of one
+    wave of an H100's 132 SMs, never over it."""
+    n, length = port_decode.split_plan(B, KV, n_rep, 1064, sms=132)
+    blocks = B * KV * -(-n_rep // 16) * n
+    assert 110 <= blocks <= 132, (arch, n, length, blocks)
+
+
+@pytest.mark.parametrize("n_rep,d,cache_len,B", [
+    (1, 64, 0, 1), (4, 16, 31, 2), (4, 16, 32, 2), (16, 64, 95, 1),
+    (16, 16, 50, 2), (32, 16, 70, 1)])
+def test_split_combine_matches_plain_and_pallas(n_rep, d, cache_len, B):
+    """The partials and combine at the kernel's own plan (float32, where
+    the two forms differ only in the order of their sums) against the plain
+    version and the Pallas kernel."""
+    rng = np.random.default_rng([7, n_rep, d, cache_len, B])
+    kv, s = 2, 96
+    q = _normal(rng, B * kv * n_rep, d)
+    k, v = _normal(rng, B * kv, s, d), _normal(rng, B * kv, s, d)
+    want = np.asarray(pallas_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.int32(cache_len), block_k=32, n_rep=n_rep, interpret=True))
+    tq = _t(q).view(B, kv * n_rep, d)
+    tk = _t(k).view(B, kv, s, d).permute(0, 2, 1, 3)
+    tv = _t(v).view(B, kv, s, d).permute(0, 2, 1, 3)
+    n = torch.tensor(cache_len, dtype=torch.int32)
+    n_s, length = port_decode.split_plan(B, kv, n_rep, s)
+    assert n_s > 1 or s <= length
+    got = port_decode.decode_attention_splits_torch(tq, tk, tv, n, length)
+    plain = port_decode.decode_attention_torch(tq, tk, tv, n)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.reshape(-1, d).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("length", [16, 48, 144])
+def test_split_combine_in_bfloat16_matches_plain(length):
+    """bf16 inputs, p rounded to bf16 per split: within the kernel's bf16
+    tolerance of the plain version, also with splits past cache_len."""
+    g = torch.Generator().manual_seed(length)
+    q = torch.randn(2, 8, 64, generator=g).bfloat16()
+    k = torch.randn(2, 300, 2, 64, generator=g).bfloat16()
+    v = torch.randn(2, 300, 2, 64, generator=g).bfloat16()
+    for cache_len in (0, length - 1, length, 200, 299):
+        n = torch.tensor(cache_len, dtype=torch.int32)
+        got = port_decode.decode_attention_splits_torch(q, k, v, n, length)
+        want = port_decode.decode_attention_torch(q, k, v, n)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_decode_kernel_refuses_what_16_byte_loads_cannot_take():
+    """The CUDA branch's checks (run here on CPU tensors, as the wrapper
+    runs them on CUDA ones before a launch): for bfloat16 a base address
+    off 16 bytes, or a stride that is not a multiple of 16 bytes, is
+    refused and never copied; the model layout's cache and a decode step's
+    ``q[:, 0]`` view are taken as they are."""
+    bf = torch.bfloat16
+    q = torch.zeros(2, 1, 8, 64, dtype=bf)[:, 0]
+    kv = torch.zeros(2, 100, 2, 64, dtype=bf)
+    port_decode.check_kernel_inputs(q, kv, kv)
+    with pytest.raises(ValueError, match="16 bytes"):
+        port_decode.check_kernel_inputs(_misaligned((2, 8, 64)), kv, kv)
+    with pytest.raises(ValueError, match="16 bytes"):
+        port_decode.check_kernel_inputs(q, _misaligned((2, 100, 2, 64)), kv)
+    # 68 values a row: the position stride is 136 bytes.
+    odd = torch.zeros(2, 100, 2, 68, dtype=bf)[..., :64]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        port_decode.check_kernel_inputs(q, kv, odd)
+    # float32 is read element by element: only D must be contiguous.
+    port_decode.check_kernel_inputs(_misaligned((2, 8, 64), torch.float32),
+                                    kv.float(), kv.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        port_decode.check_kernel_inputs(
+            torch.zeros(2, 8, 128, dtype=bf)[..., ::2], kv, kv)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_decode.check_kernel_inputs(torch.zeros(2, 8, 32, dtype=bf),
+                                        kv[..., :32], kv[..., :32])
+    assert port_decode.LAUNCHES == 0

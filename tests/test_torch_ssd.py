@@ -272,3 +272,69 @@ def test_default_is_the_kernel_and_smoke_keeps_the_plain_form():
     assert smoke_variant(cfg).ssm_impl == "chunked"
     with pytest.raises(ValueError):
         replace(cfg, ssm_impl="scan").validate()
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernel's head groups (K4)
+# ---------------------------------------------------------------------------
+def test_the_kernels_head_group_plan_is_the_wrappers():
+    """The plan's constants and shared-memory sum in ``csrc/ssd_scan.cu``
+    are the wrapper's: the kernel refuses a plan past them."""
+    src = (Path(ssd_scan.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    for name, value in (("MAX_HEADS_PER_BLOCK", ssd_scan.MAX_HEADS_PER_BLOCK),
+                        ("SMEM_MAX", ssd_scan.SMEM_MAX),
+                        ("MAX_Q", ssd_scan.MAX_CHUNK)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "return Q * N * 2 + hb * Q * (P * 2 + 20);" in src
+    assert ssd_scan.smem_bytes(128, 256, 3) == 256 * 128 * 2 + 3 * 256 * 148
+    for hb in (1, 2, 3):
+        assert f"case {hb}: return launch_bf16<P, N, {hb}>" in src
+    assert "launch_bf16<P, N, 4>" not in src
+
+
+@pytest.mark.parametrize("H,G", [(24, 1), (8, 2), (16, 2), (8, 8), (12, 3),
+                                 (48, 1), (128, 8), (6, 1), (7, 1)])
+@pytest.mark.parametrize("B,S,N,Q", [(8, 1024, 128, 256), (2, 512, 64, 256),
+                                     (2, 256, 16, 64), (1, 16, 128, 16)])
+def test_head_group_plan_never_spans_two_groups(H, G, B, S, N, Q):
+    hb = ssd_scan.head_group_plan(B, S, H, G, N, Q)
+    assert 1 <= hb <= ssd_scan.MAX_HEADS_PER_BLOCK
+    assert (H // G) % hb == 0
+    assert ssd_scan.smem_bytes(N, Q, hb) <= ssd_scan.SMEM_MAX
+    rep = H // G
+    for h0 in range(0, H, hb):
+        assert len({h // rep for h in range(h0, h0 + hb)}) == 1
+
+
+def test_head_group_plan_at_mamba2_prefill():
+    """mamba2-130m's prefill (8 × 1024 steps, 24 heads on one B/C group,
+    N 128, chunk 256): 3 heads a block, 256 blocks in two waves of an
+    H100, where one block per (chunk, head) made 768 in six."""
+    cfg = get_config("mamba2_130m")
+    hb = ssd_scan.head_group_plan(8, 1024, cfg.ssm_heads, cfg.ssm_groups,
+                                  cfg.ssm_state, cfg.ssm_chunk, sms=132)
+    assert hb == 3
+    assert 8 * (1024 // cfg.ssm_chunk) * cfg.ssm_heads // hb == 256
+    assert ssd_scan.smem_bytes(cfg.ssm_state, cfg.ssm_chunk, hb) == 179200
+
+
+@pytest.mark.parametrize("shape,hb", [
+    ((2, 512, 8, 2, 64, 256), 1), ((3, 256, 12, 2, 16, 64), 2),
+    ((3, 1024, 12, 2, 128, 256), 2), ((3, 1024, 6, 2, 16, 64), 3)])
+def test_the_gpu_corners_reach_every_heads_per_block(shape, hb):
+    """``chip_smoke.py``'s SSD corners (B, S, H, G, N, Q) take each number
+    of heads per block with G > 1, so every template the kernel builds is
+    run on the card, and the plan never asks for shared memory past an
+    H100's: at the built widths (P 64, N <= 128, Q <= 256) the largest,
+    3 heads at N 128 and Q 256, fits; a wider head would not."""
+    assert ssd_scan.head_group_plan(*shape, sms=132) == hb
+    assert ssd_scan.smem_bytes(128, 256, 3) <= ssd_scan.SMEM_MAX
+    assert ssd_scan.smem_bytes(128, 256, 3, P=128) > ssd_scan.SMEM_MAX
+
+
+def test_y_leaves_in_16_byte_rows():
+    """The bf16 kernel stores y four floats at a time: the wrapper's y is
+    contiguous with P = 64, so every (step, head) row starts on 16 bytes."""
+    y = torch.empty((8, 1024, 24, 64), dtype=torch.float32)
+    assert all(s % 4 == 0 for s in y.stride()[:3])
+    assert ssd_scan.HEAD_DIMS == (64,)
