@@ -16,7 +16,13 @@ process exits non-zero):
 3. ``kernels``  holds each kernel against its plain PyTorch version on the
                 GPU: the Eq. 5 gate kernel (``torch.equal`` on the int8 gate
                 bits: tolerance 0) at the full-incident shape and on corner
-                batches; flash attention (K2) and decode attention (K3) at
+                batches (NaN, -0.0, ±inf and subnormal values, counts and
+                masks; W 1; R 1, 31 and one pass and one tile of its plan
+                ± 1 row; an all-padded window; F 2, 9, 14, 16, 64, 257 and
+                514; unaligned views at F 14 and 514), through both of its
+                paths (vector and scalar, the scalar one with several
+                column chunks), timed at the full incident; flash attention (K2)
+                and decode attention (K3) at
                 the serving path's shapes and corners (ragged lengths, n_rep
                 1 and 16, head_dim 64 and 128, Sq 1, 17 and 129 at the
                 bf16 kernel's 128-row tiles; for K3 cache_len at 0, at and
@@ -46,10 +52,12 @@ process exits non-zero):
                 float32 ``y``, as served) are timed at the serving shapes
                 beside their plain versions and, for K5,
                 ``torch._grouped_mm``.  With ``--replaced DIR`` (a
-                ``csrc`` holding the K2, K3, K4 and K5 bodies this version
-                replaced, e.g. the parent commit's) those bodies are built
-                too, held against the current kernels and timed in the
-                same turns (``replaced_ms``; null without the option).
+                ``csrc`` holding the K1, K2, K3, K4 and K5 bodies this
+                version replaced, e.g. the parent commit's) those that
+                differ from the current ones are built too, held against
+                the current kernels and timed in the same turns
+                (``replaced_ms``; null without the option or for a body
+                that did not change).
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -59,7 +67,8 @@ process exits non-zero):
                 numpy gate oracle and everything else on the CPU.  Launch
                 counters are zeroed just before and read just after.
 5. the gate kernel at the main path's own last packed batch: compare, then
-   time kernel, plain version and bound.
+   time kernel, plain version and (``--replaced``) the body it replaced,
+   beside the bound counted over what the function needs (``gate_bound``).
 6. ``serve_path``, once for each of glm4-9b (dense GQA: K2, K3),
                 granite-moe-1b-a400m (GQA + MoE: K2, K3, K5) and mamba2-130m
                 (SSM: K4), each at full width and depth (random weights from
@@ -381,10 +390,14 @@ def drive(args, stream, device, backend: str, timed: bool):
             staging = analyzer.staging
             h2d, kern, d2h = staging.last_ms
             gates_t0, gates_t1 = staging.last_span
+            need = gate_bound(staging.last_inputs())
             timings.append({
                 "tick": tick,
                 "windows_swept": watch.sizes["sweep"],
                 "batch_shape": list(staging.last_inputs()[0].shape),
+                "live_rows": need["live_rows"],
+                "pv_sectors": need["pv_sectors"],
+                "gate_bound_ms": need["bound_ms"],
                 "fresh_ingest_ms": (t_tick - t_in) * 1e3,
                 "prelude_pack_ms": (gates_t0 - st["sweep"]) * 1e3,
                 "h2d_ms": h2d, "gate_kernel_ms": kern, "d2h_ms": d2h,
@@ -469,15 +482,76 @@ def corner_batch(rng, device, F: int):
     return tuple(torch.from_numpy(a).to(device) for a in t)
 
 
-def hold_against_plain(tensors, peer_mean: float) -> dict:
+def special_batch(rng, W, R, F, device):
+    """A synthetic batch with a quarter of every input's entries (values,
+    counts, masks, column vectors, floor) replaced by
+    ``bigroots_gates.SPECIAL_VALUES``."""
+    t = [x.numpy().copy() for x in synthetic_batch(rng, W, R, F, "cpu")]
+    for a in t:
+        hit = rng.random(a.shape) < 0.25
+        a[hit] = rng.choice(bigroots_gates.SPECIAL_VALUES, int(hit.sum()))
+    return tuple(torch.from_numpy(a).to(device) for a in t)
+
+
+def shifted(tensors):
+    """The same batch as contiguous views one element into their storage:
+    no pointer is 16-byte aligned, so the kernel takes its scalar path."""
+    out = []
+    for t in tensors:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return tuple(out)
+
+
+def gate_corners(rng, device) -> list:
+    """K1's corner batches: ``(label, tensors)``.  Special values at F 2,
+    9, 14, 16 and 64; W 1; R 1, 31, and one pass and one tile of the
+    F = 14 vector plan and the F = 9 scalar plan, each ± 1 row; a window
+    whose rows are all padded; F 514, whose 257 column pairs take more than
+    one column chunk; unaligned views (the scalar path) at F 14 and at F
+    514, and F 257 (odd), whose columns take several chunks on the scalar
+    path."""
+    F = len(JAX_FEATURES)
+    out = [(f"special values F={f}", special_batch(rng, 4, 300, f, device))
+           for f in (2, 9, 14, 16, 64)]
+    out.append(("W=1", synthetic_batch(rng, 1, 300, F, device)))
+    for f in (F, 9):
+        plan = bigroots_gates.gate_plan(1, 1, f, aligned=True)
+        tile = plan.rows_per_pass * bigroots_gates.ROWS_PER_THREAD
+        for R in sorted({1, 31, plan.rows_per_pass - 1, plan.rows_per_pass,
+                         plan.rows_per_pass + 1, tile - 1, tile + 1}):
+            out.append((f"R={R} F={f} ({plan.path} plan)",
+                        synthetic_batch(rng, 3, R, f, device)))
+    padded = synthetic_batch(rng, 3, 200, F, device)
+    padded[4][1] = 0.0
+    padded[0][1] = 100.0
+    out.append(("an all-padded window", padded))
+    for f in (2, 16, 64, 514):
+        out.append((f"F={f}", synthetic_batch(rng, 2, 150, f, device)))
+    out.append(("unaligned view F=14",
+                shifted(synthetic_batch(rng, 3, 257, F, device))))
+    out.append(("unaligned view, special values",
+                shifted(special_batch(rng, 3, 100, F, device))))
+    out.append(("unaligned view F=514",
+                shifted(synthetic_batch(rng, 2, 40, 514, device))))
+    out.append(("F=257", special_batch(rng, 2, 40, 257, device)))
+    return out
+
+
+def hold_against_plain(tensors, peer_mean: float, label: str = "") -> dict:
     got = bigroots_gates.gates_launch(*tensors, peer_mean=peer_mean)
     torch.cuda.synchronize()
     want = bigroots_gates.eval_gates_torch(*tensors, peer_mean=peer_mean)
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     mismatches = int((diff != 0).sum().item())
+    path = bigroots_gates.plan_for(tensors[0], tensors[1], got).path
     check(torch.equal(got, want),
-          f"{mismatches} gate bits differ at {list(got.shape)}")
-    return {"shape": list(tensors[0].shape), "mismatches": mismatches,
+          f"{mismatches} gate bits differ at {list(got.shape)} "
+          f"({label}, {path} path)")
+    return {"case": label, "shape": list(tensors[0].shape), "path": path,
+            "mismatches": mismatches,
             "max_abs_err": float(diff.max().item()),
             "fired": int((want != 0).sum().item())}
 
@@ -516,13 +590,56 @@ def time_ms(fn, flush, reps: int = 25) -> list[float]:
     return out
 
 
-def gate_bound(W: int, R: int, F: int) -> dict:
-    read = W * R * (16 * F + 24) + 24 * W * F + 8 * F
+def _sectors(hit: torch.Tensor) -> int:
+    """32-byte sectors (four float64, the card's unit of transfer) of an
+    array that hold an element where ``hit`` is true."""
+    flat = hit.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 4)])
+    return int(flat.view(-1, 4).any(1).sum().item())
+
+
+def gate_bound(tensors) -> dict:
+    """What the function needs of these inputs.  ``rowmask`` of every row
+    says which rows are live; ``v`` of every live element (with the column
+    vectors) says which elements can fire: mask > 0, v > q, numok > 0 and
+    v > floor.  Only there do ``pv`` and the two counts change the output,
+    so they are counted by the 32-byte sectors holding such an element (for
+    ``pv``) or such a row (for each count).  Plus ``W·R·F`` bytes written;
+    the gate operations of the live elements.
+
+    Two earlier yardsticks beside it: ``bytes_live_rows`` /
+    ``bound_live_rows_ms`` count ``v`` and ``pv`` of every live row and
+    24 B of row scalars for every row; ``bytes_all_rows`` /
+    ``bound_all_rows_ms`` count ``v`` and ``pv`` of every row as well."""
+    v, pv, icnt, acnt, mask, vsum, q, numok, floor = tensors
+    W, R, F = v.shape
+    live = mask > 0.0
+    decides = live & (v > q) & (numok > 0.0) & (v > floor)
+    n_live = int(live.sum().item())
+    pv_sectors = _sectors(decides)
+    count_sectors = _sectors(decides.any(2))
+    cols = 24 * W * F + 8 * F
     written = W * R * F
-    bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-    ops_ms = W * R * F * GATE_OPS_PER_ELEMENT / FP64_FLOPS * 1e3
-    return {"bytes": read + written, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    nbytes = (8 * W * R + 8 * F * n_live + 32 * pv_sectors
+              + 2 * 32 * count_sectors + cols + written)
+    ops_ms = n_live * F * GATE_OPS_PER_ELEMENT / FP64_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    live_rows = n_live * 16 * F + W * R * 24 + cols + written
+    all_rows = W * R * (16 * F + 24) + cols + written
+
+    def bound(b, elements):
+        return max(b / HBM_BYTES_PER_S * 1e3,
+                   elements * F * GATE_OPS_PER_ELEMENT / FP64_FLOPS * 1e3)
+    return {"live_rows": n_live, "rows": W * R,
+            "deciding_elements": int(decides.sum().item()),
+            "pv_sectors": pv_sectors,
+            "pv_sectors_all": -(-W * R * F // 4),
+            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_live_rows": live_rows,
+            "bound_live_rows_ms": bound(live_rows, n_live),
+            "bytes_all_rows": all_rows,
+            "bound_all_rows_ms": bound(all_rows, W * R)}
 
 
 def measure_fns(fns: dict, flush, rounds: int = 4, reps: int = 25) -> dict:
@@ -542,18 +659,25 @@ def measure_fns(fns: dict, flush, rounds: int = 4, reps: int = 25) -> dict:
             "round_medians": per_round}
 
 
-def measure(tensors, peer_mean: float, flush) -> dict:
-    """The gate kernel and its plain version, timed in turns."""
+def measure(tensors, peer_mean: float, flush, replaced=None) -> dict:
+    """The gate kernel, its plain version and (``replaced``) the body it
+    replaced, held bit-identical first, timed in turns."""
     W, R, F = tensors[0].shape
     out = torch.empty((W, R, F), dtype=torch.int8, device=tensors[0].device)
-    fns = {
-        "ms": lambda: bigroots_gates.gates_launch(
-            *tensors, peer_mean=peer_mean, out=out),
+
+    def kernel():
+        return bigroots_gates.gates_launch(*tensors, peer_mean=peer_mean,
+                                           out=out)
+    fns = with_replaced({
+        "ms": kernel,
         "plain_ms": lambda: bigroots_gates.eval_gates_torch(
             *tensors, peer_mean=peer_mean),
-    }
-    return {"shape": [W, R, F], **measure_fns(fns, flush),
-            **gate_bound(W, R, F)}
+    }, replaced and replaced.body(
+        "bigroots_gates", lambda: replaced.gates(tensors, peer_mean)),
+        kernel, "bigroots_gates", 0.0)
+    return {"shape": [W, R, F],
+            "path": bigroots_gates.plan_for(tensors[0], tensors[1], out).path,
+            **measure_fns(fns, flush), **gate_bound(tensors)}
 
 
 # -- the attention kernels against their plain versions -------------------------
@@ -697,26 +821,31 @@ def _bound(flops, nbytes, dtype) -> dict:
 
 class Replaced:
     """The kernel bodies this version replaced, for timing in turns with the
-    current ones in the same call: ``flash_attention.cu``, ``moe_gmm.cu``,
-    ``decode_attention.cu`` and ``ssd_scan.cu`` from another tree's
-    ``csrc`` (``--replaced DIR``; e.g. the parent commit's, unpacked with
-    ``git archive``), built with the package's flags under their own
-    library names.  Their C entry points are the ones the parent tree (PR
-    14's) had: flash attention's and the grouped matmul's as now, decode
-    attention's with its f32 split scratch and no split plan, the SSD's
-    without the heads per block."""
+    current ones in the same call: ``bigroots_gates.cu``,
+    ``flash_attention.cu``, ``moe_gmm.cu``, ``decode_attention.cu`` and
+    ``ssd_scan.cu`` from another tree's ``csrc`` (``--replaced DIR``; e.g.
+    the parent commit's, unpacked with ``git archive``), built with the
+    package's flags under their own library names.  A body whose source and
+    shared headers equal the current ones replaced nothing: it is neither
+    built nor timed (:meth:`body` gives None).  The C entry points bound:
+    the gate kernel's, flash attention's and the grouped matmul's as now,
+    decode attention's with its f32 split scratch and no split plan, the
+    SSD's without the heads per block."""
 
-    NAMES = ("flash_attention", "moe_gmm", "decode_attention", "ssd_scan")
+    NAMES = ("bigroots_gates", "flash_attention", "moe_gmm",
+             "decode_attention", "ssd_scan")
 
     def __init__(self, src_dir: str) -> None:
         out = os.path.join(build.build_dir(), "replaced")
         os.makedirs(out, exist_ok=True)
         nvcc = build.find_nvcc()
+        self.built = [n for n in self.NAMES
+                      if not self._same_as_current(src_dir, n)]
         procs = {n: subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{n}.so"),
              os.path.join(src_dir, f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for n in self.NAMES}
+            for n in self.built}
         for n, proc in procs.items():
             log, _ = proc.communicate()
             check(proc.returncode == 0, f"replaced {n} did not build: {log}")
@@ -726,19 +855,52 @@ class Replaced:
         def lib(n):
             return ctypes.CDLL(os.path.join(out, f"lib{n}.so"))
         self.src_dir = src_dir
-        self._flash = lib("flash_attention").flash_attention_fwd
-        self._flash.argtypes = ([ptr] * 4 + [i32] * 8 + [ctypes.c_float]
-                                + [i64] * 12 + [ptr])
-        self._gmm = lib("moe_gmm").moe_gmm_fwd
-        self._gmm.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-        dec = lib("decode_attention")
-        dec.decode_attention_split.restype = i32
-        self._dec_split = dec.decode_attention_split()
-        self._dec = dec.decode_attention_fwd
-        self._dec.argtypes = ([ptr] * 8 + [i32] * 6 + [ctypes.c_float]
-                              + [i64] * 10 + [ptr])
-        self._ssd = lib("ssd_scan").ssd_intra_chunk_fwd
-        self._ssd.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 15 + [ptr]
+        if "bigroots_gates" in self.built:
+            self._gates = lib("bigroots_gates").bigroots_gates_f64
+            self._gates.argtypes = [ptr] * 10 + [i32] * 3 + [
+                ctypes.c_double, ptr]
+        if "flash_attention" in self.built:
+            self._flash = lib("flash_attention").flash_attention_fwd
+            self._flash.argtypes = ([ptr] * 4 + [i32] * 8 + [ctypes.c_float]
+                                    + [i64] * 12 + [ptr])
+        if "moe_gmm" in self.built:
+            self._gmm = lib("moe_gmm").moe_gmm_fwd
+            self._gmm.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        if "decode_attention" in self.built:
+            dec = lib("decode_attention")
+            dec.decode_attention_split.restype = i32
+            self._dec_split = dec.decode_attention_split()
+            self._dec = dec.decode_attention_fwd
+            self._dec.argtypes = ([ptr] * 8 + [i32] * 6 + [ctypes.c_float]
+                                  + [i64] * 10 + [ptr])
+        if "ssd_scan" in self.built:
+            self._ssd = lib("ssd_scan").ssd_intra_chunk_fwd
+            self._ssd.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 15 + [ptr]
+
+    @staticmethod
+    def _same_as_current(src_dir: str, name: str) -> bool:
+        """``DIR/name.cu`` and every ``DIR/*.cuh`` equal the package's."""
+        def sources(d):
+            d = str(d)
+            files = [f"{name}.cu"] + sorted(
+                f for f in os.listdir(d) if f.endswith(".cuh"))
+            return {f: open(os.path.join(d, f), "rb").read() for f in files}
+        return sources(src_dir) == sources(build.CSRC)
+
+    def body(self, name: str, fn):
+        """``fn`` (a call of the replaced ``name``) when that body was
+        built, else None."""
+        return fn if name in self.built else None
+
+    def gates(self, tensors, peer_mean: float):
+        W, R, F = tensors[0].shape
+        out = torch.empty((W, R, F), dtype=torch.int8,
+                          device=tensors[0].device)
+        rc = self._gates(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                         W, R, F, float(peer_mean),
+                         torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"replaced bigroots_gates_f64: CUDA error {rc}")
+        return out
 
     def flash(self, q, k, v, causal=True):
         B, Sq, H, D = q.shape
@@ -838,8 +1000,9 @@ def flash_timing(gen, device, flush, arch: str, replaced) -> dict:
         "library_ms": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
     }
-    fns = with_replaced(fns, replaced and (lambda: replaced.flash(q, k, v)),
-                        kernel, "flash_attention", ATTN_TOL[dt])
+    fns = with_replaced(fns, replaced and replaced.body(
+        "flash_attention", lambda: replaced.flash(q, k, v)), kernel,
+        "flash_attention", ATTN_TOL[dt])
     t = measure_fns(fns, flush, rounds=2)
     t.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
              path=cfg.name,
@@ -872,7 +1035,8 @@ def decode_timing(gen, device, flush, arch: str, replaced) -> dict:
             q, kc, vc, n),
         "library_ms": lambda: F.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=valid, enable_gqa=True),
-    }, replaced and (lambda: replaced.decode(q, kc, vc, n)), kernel,
+    }, replaced and replaced.body(
+        "decode_attention", lambda: replaced.decode(q, kc, vc, n)), kernel,
         "decode_attention", ATTN_TOL[dt])
     t = measure_fns(fns, flush, rounds=4)
     t.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
@@ -1119,7 +1283,8 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
             "ms": kernel,
             "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
             "library_ms": lib,
-        }, replaced and (lambda: replaced.gmm(xs, w, sizes)), kernel,
+        }, replaced and replaced.body(
+            "moe_gmm", lambda: replaced.gmm(xs, w, sizes)), kernel,
             "moe_gmm", GMM_TOL[bf])
         t = measure_fns(fns, flush, rounds=4 if label == "decode" else 2)
         M = int(sizes.sum())
@@ -1142,7 +1307,8 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
         "ms": ssd_kernel,
         "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
             x, dt, A, Bm, Cm, Q),
-    }, replaced and (lambda: replaced.ssd(x, dt, A, Bm, Cm, Q)), ssd_kernel,
+    }, replaced and replaced.body(
+        "ssd_scan", lambda: replaced.ssd(x, dt, A, Bm, Cm, Q)), ssd_kernel,
         "ssd_scan", ATTN_TOL[bf]), flush, rounds=2)
     t.update(shape=[SERVE_BATCH, PROMPT_LEN, H, 64], groups=G, state=N,
              chunk=Q, dtype="bfloat16", library_ms=None,
@@ -1584,11 +1750,22 @@ def run(args) -> None:
     rng = np.random.default_rng(args.seed)
     flush = torch.zeros(32 << 20, dtype=torch.float32, device=device)  # 128 MB
 
+    replaced = Replaced(args.replaced) if args.replaced else None
     full = synthetic_batch(rng, 64, 16384, F, device)
-    checks = [hold_against_plain(full, peer_mean),
-              hold_against_plain(corner_batch(rng, device, F), peer_mean),
-              hold_against_plain(corner_batch(rng, device, 9), peer_mean)]
-    full_timing = measure(full, peer_mean, flush)
+    checks = [hold_against_plain(full, peer_mean, "full incident"),
+              hold_against_plain(corner_batch(rng, device, F), peer_mean,
+                                 "NaN values, zero counts, padded rows"),
+              hold_against_plain(corner_batch(rng, device, 9), peer_mean,
+                                 "the same at F=9")]
+    checks += [hold_against_plain(t, peer_mean, label)
+               for label, t in gate_corners(rng, device)]
+    paths = {c["path"] for c in checks}
+    check(paths == {"vector", "scalar"},
+          f"the gate checks took only the {paths} path")
+    check(all(c["path"] == "scalar" for c in checks
+              if c["case"].startswith("unaligned")),
+          "an unaligned view took the vector path")
+    full_timing = measure(full, peer_mean, flush, replaced)
     del full
     emit({"phase": "kernels", "name": "bigroots_gates",
           "tolerance": "exact (int8 gate bits, torch.equal)",
@@ -1596,7 +1773,6 @@ def run(args) -> None:
     attn_checks = attention_checks(device, args.seed)
     for c in attn_checks:
         emit({"phase": "kernels", **c})
-    replaced = Replaced(args.replaced) if args.replaced else None
     attn_timing = attention_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": attn_timing})
     moe_ssd_checks = gmm_checks(device, args.seed) + ssd_checks(
@@ -1633,8 +1809,8 @@ def run(args) -> None:
           "oracle_fill_ingest_s": oracle_ingest_s,
           "gate_launches": launches, **summary})
 
-    at_path = hold_against_plain(last, peer_mean)
-    path_timing = measure(last, peer_mean, flush)
+    at_path = hold_against_plain(last, peer_mean, "main path's last batch")
+    path_timing = measure(last, peer_mean, flush, replaced)
     del flush, stream, got, want, analyzer, agg, last
     torch.cuda.empty_cache()
 
@@ -1673,10 +1849,15 @@ def run(args) -> None:
         "ms": path_timing["ms"], "plain_ms": path_timing["plain_ms"],
         "bound_ms": path_timing["bound_ms"],
         "bound_by": path_timing["bound_by"], "library_ms": None,
-        "shape": path_timing["shape"], "bytes": path_timing["bytes"],
+        "replaced_ms": path_timing.get("replaced_ms"),
+        **{k: path_timing[k] for k in (
+            "shape", "path", "bytes", "live_rows", "rows",
+            "deciding_elements", "pv_sectors", "pv_sectors_all",
+            "bytes_live_rows", "bound_live_rows_ms", "bytes_all_rows",
+            "bound_all_rows_ms", "round_medians")},
         "in_tick_ms": statistics.median(
             t["gate_kernel_ms"] for t in timings),
-        "round_medians": path_timing["round_medians"],
+        "checks": len(checks) + 1,
         "full_incident": full_timing,
     }, {**entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
                 "one per layer of the prefill", SERVE_ARCH,
@@ -1710,11 +1891,12 @@ def main() -> None:
     ap.add_argument("--ticks", type=int, default=5,
                     help="driven ticks (the fleet's size is fixed)")
     ap.add_argument("--replaced", metavar="DIR",
-                    help="a csrc directory holding the flash_attention.cu, "
-                         "moe_gmm.cu, decode_attention.cu and ssd_scan.cu "
-                         "bodies this version replaced: they are built and "
-                         "timed in turns with the current ones "
-                         "(replaced_ms)")
+                    help="a csrc directory holding the bigroots_gates.cu, "
+                         "flash_attention.cu, moe_gmm.cu, "
+                         "decode_attention.cu and ssd_scan.cu bodies this "
+                         "version replaced: those that differ from the "
+                         "current ones are built and timed in turns with "
+                         "them (replaced_ms)")
     ap.add_argument("--f32-layers", type=int, default=4,
                     help="depth of the serving paths' float32 variants (the "
                          "bf16 runs are always at full depth)")

@@ -25,18 +25,25 @@ Inputs (see :class:`repro_torch.core.fleet.FleetGateBatch`), all float64:
 Output: ``gbits [W, R, F]`` int8 — 0 where no gate fired; else bit 0 set
 when the inter-node observation fired and bit 1 for intra-node.
 
-The work is bound by memory bandwidth (16 bytes read and 1 written per
-element, no reuse), so the kernel (``csrc/bigroots_gates.cu``) is one
-fused grid-stride pass, one element per thread and iteration, that keeps
-every intermediate in registers; see the note at the top of the source.
-It is built by :mod:`repro_torch.kernels.build` at first use.
+The work is bound by memory bandwidth (16 bytes read an element at most
+and 1 written, no reuse), so the kernel (``csrc/bigroots_gates.cu``) is one
+fused pass over window-tiled blocks: a thread owns a column pair (read as
+16-byte ``double2`` loads) or, on the scalar path, one column, takes several
+rows with their loads in flight together, reads ``pv`` and the counts only
+where an element's output depends on them (never for a padded row), and
+divides only where a quotient decides the output.  The kernel chooses the
+path and the tiling from the shapes and the pointers; :func:`gate_plan`
+mirrors that choice.  It is built by :mod:`repro_torch.kernels.build` at
+first use.
 
-Three functions:
+The functions:
 
 - :func:`eval_gates_torch` — the plain PyTorch version of the same
   function.  The CPU tests use it, and the kernel is held against it on
   the GPU; nothing on the main path calls it when the tensors are on a
   CUDA device.
+- :func:`gate_plan` — the path and tiling the kernel takes for a batch
+  shape (:func:`plan_for` reads the pointers' alignment off the tensors).
 - :func:`gates_launch` — tensors in, int8 tensor out on the same device.
   For CUDA tensors it launches the kernel (on the current stream, without
   synchronising) or raises; it takes the plain version only for tensors
@@ -47,6 +54,7 @@ Three functions:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,7 +68,67 @@ LAUNCHES = 0
 _ARG_NAMES = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
               "vsum", "q", "numok", "floor")
 
+#: The tiling's constants, the same in ``csrc/bigroots_gates.cu``: a block's
+#: threads at most, the column units a block spans at most (wider rows are
+#: cut into chunks), and the rows a thread takes in a block (their loads in
+#: flight together).
+BLOCK_THREADS = 128
+MAX_UNITS = 128
+ROWS_PER_THREAD = 2
+
+#: Values at the edges of float64 arithmetic, on which the kernel is held
+#: against its plain version: NaN, both zeros, both infinities, subnormals
+#: (``__ddiv_rn``'s slow path), the smallest normal and the largest finite.
+SPECIAL_VALUES = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 5e-324,
+                           -5e-324, 1e-310, -1e-310, 2.2250738585072014e-308,
+                           1.7976931348623157e308, -1.7976931348623157e308])
+
 _fn = None
+
+
+class GatePlan(NamedTuple):
+    """How the kernel covers a ``[W, R, F]`` batch.
+
+    ``path`` is ``"vector"`` (a thread owns a column pair, 16-byte loads) or
+    ``"scalar"`` (one column, 8-byte loads).  A block has ``threads =
+    rows_per_pass * units`` threads: ``units`` consecutive column units of
+    ``rows_per_pass`` consecutive rows.  A row's units are cut into
+    ``chunks`` of ``units``, a window's rows into ``tiles`` of
+    ``rows_per_pass * ROWS_PER_THREAD``, and the grid is ``W * tiles *
+    chunks`` blocks."""
+
+    path: str
+    threads: int
+    rows_per_pass: int
+    units: int
+    chunks: int
+    tiles: int
+    grid: int
+
+
+def gate_plan(W: int, R: int, F: int, aligned: bool) -> GatePlan:
+    """The plan ``bigroots_gates_f64`` derives for a ``[W, R, F]`` batch
+    (the same arithmetic, for the tests and for reports).  The vector path
+    needs an even ``F`` and ``aligned`` pointers (``v`` and ``pv`` on 16
+    bytes, the output on 2); anything else takes the scalar path."""
+    path = "vector" if aligned and F % 2 == 0 else "scalar"
+    per_row = F // 2 if path == "vector" else F
+    units = min(per_row, MAX_UNITS)
+    chunks = -(-per_row // units)
+    rows_per_pass = BLOCK_THREADS // units
+    tiles = -(-R // (rows_per_pass * ROWS_PER_THREAD))
+    return GatePlan(path, rows_per_pass * units, rows_per_pass, units,
+                    chunks, tiles, W * tiles * chunks)
+
+
+def plan_for(v: torch.Tensor, peer_vsum: torch.Tensor,
+             out: torch.Tensor) -> GatePlan:
+    """:func:`gate_plan` for these tensors, their alignment read off their
+    data pointers (a view at an odd element offset is not aligned)."""
+    W, R, F = v.shape
+    aligned = (v.data_ptr() % 16 == 0 and peer_vsum.data_ptr() % 16 == 0
+               and out.data_ptr() % 2 == 0)
+    return gate_plan(W, R, F, aligned)
 
 
 def _kernel_fn():
@@ -69,8 +137,8 @@ def _kernel_fn():
         fn = build.load("bigroots_gates").bigroots_gates_f64
         fn.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-               ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double]
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -127,8 +195,8 @@ def gates_launch(v, peer_vsum, inter_cnt, intra_cnt, rowmask, vsum, q, numok,
 
     CUDA tensors go through the hand-written kernel on the current stream
     (no synchronisation; the output is allocated with ``torch.empty`` unless
-    a reusable int8 ``[W, R, F]`` tensor is passed as ``out``); CPU tensors
-    through :func:`eval_gates_torch`."""
+    a reusable int8 ``[W, R, F]`` tensor is passed as ``out``), on the path
+    :func:`plan_for` names; CPU tensors through :func:`eval_gates_torch`."""
     global LAUNCHES
     args = (v, peer_vsum, inter_cnt, intra_cnt, rowmask, vsum, q, numok,
             floor)
@@ -150,8 +218,7 @@ def gates_launch(v, peer_vsum, inter_cnt, intra_cnt, rowmask, vsum, q, numok,
     fn = _kernel_fn()
     with torch.cuda.device(v.device):
         rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), W, R, F,
-                float(peer_mean),
-                torch.cuda.current_stream().cuda_stream)
+                float(peer_mean), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"bigroots_gates_f64 launch failed: CUDA error {rc}"

@@ -7,6 +7,7 @@ import numpy as np
 
 import repro.core as ref_core
 import repro_torch.core as port_core
+from repro_torch.kernels import bigroots_gates as port_gates
 
 METRICS = ("cpu", "disk", "network")
 
@@ -105,6 +106,17 @@ def random_gate_batch(rng, W=None, R=None, F=None, batch_cls=None):
     floor = np.where(rng.random((1, 1, F)) < 0.3, 0.2, -np.inf)
     return batch_cls(v, peer_vsum, inter_cnt, intra_cnt, rowmask,
                      vsum, q, numok, floor, counts)
+
+
+def special_gate_batch(rng, W, R, F, share=0.25):
+    """:func:`random_gate_batch` with about ``share`` of every input's
+    entries (values, counts, masks, column vectors, floor) replaced by
+    the kernel's ``SPECIAL_VALUES``."""
+    b = random_gate_batch(rng, W=W, R=R, F=F)
+    for a in gate_args(b):
+        hit = rng.random(a.shape) < share
+        a[hit] = rng.choice(port_gates.SPECIAL_VALUES, int(hit.sum()))
+    return b
 
 
 def gate_args(b):

@@ -9,6 +9,8 @@ CUDA kernel itself is held against the plain version on the GPU by
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from repro.core.fleet import eval_gates_np
 from repro_torch.convert import gate_batch_from_numpy
 from repro_torch.kernels import bigroots_gates as port_gates
 
-from _torch_port_util import gate_args, random_gate_batch
+from _torch_port_util import gate_args, random_gate_batch, special_gate_batch
 
 
 def port_eval(b, peer_mean=1.5):
@@ -173,3 +175,108 @@ class TestWrapperChecks:
             pytest.skip("a CUDA device is present")
         with pytest.raises(RuntimeError, match="CUDA"):
             port_gates.eval_gates(*self._args(), peer_mean=1.5)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan (K1): path, tiling, coverage, constants
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("F", range(1, 18))
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_takes_the_vector_path_only_for_even_F_and_aligned(F, aligned):
+    plan = port_gates.gate_plan(64, 3072, F, aligned)
+    assert plan.path == ("vector" if aligned and F % 2 == 0 else "scalar")
+
+
+def plan_coverage(plan, W, R, F):
+    """How many times the kernel's thread → ``(w, r, f)`` mapping visits
+    each element of a ``[W, R, F]`` batch under ``plan``: the index
+    arithmetic of ``csrc/bigroots_gates.cu``'s ``gates_kernel``, over every
+    block, thread and row of a thread."""
+    per_row = F // 2 if plan.path == "vector" else F
+    b = np.arange(plan.grid)[:, None, None]
+    tid = np.arange(plan.threads)[None, :, None]
+    k = np.arange(port_gates.ROWS_PER_THREAD)[None, None, :]
+    chunk = b % plan.chunks
+    w = (b // plan.chunks) // plan.tiles
+    tile = (b // plan.chunks) % plan.tiles
+    lane_row = tid // plan.units
+    u = chunk * plan.units + tid % plan.units
+    r = (tile * plan.rows_per_pass * port_gates.ROWS_PER_THREAD
+         + k * plan.rows_per_pass + lane_row)
+    w, r, u = np.broadcast_arrays(w, r, u)
+    live = (u < per_row) & (r < R)
+    w, r, u = w[live], r[live], u[live]
+    seen = np.zeros((W, R, F), dtype=np.int64)
+    if plan.path == "vector":
+        np.add.at(seen, (w, r, 2 * u), 1)
+        np.add.at(seen, (w, r, 2 * u + 1), 1)
+    else:
+        np.add.at(seen, (w, r, u), 1)
+    return seen
+
+
+#: Shapes for the coverage check: the main path's batch, W = 1, R = 1, R
+#: around one pass and one tile of the F = 14 plans (18 / 9 rows a pass on
+#: the vector / scalar path, 36 / 18 rows a tile), F = 2, odd F, F up to and
+#: past a block's units (several column chunks).
+COVERAGE_SHAPES = [
+    (64, 3072, 14), (1, 1, 14), (1, 1, 1), (3, 1, 9), (1, 31, 14), (2, 35, 14),
+    (2, 36, 14), (2, 37, 14), (2, 143, 14), (2, 144, 14), (2, 145, 14),
+    (2, 8, 14), (2, 9, 14), (2, 10, 14), (2, 17, 14), (2, 18, 14), (2, 19, 14),
+    (2, 71, 14), (2, 73, 14), (5, 257, 2), (1, 1024, 2), (3, 1025, 2),
+    (4, 300, 9), (2, 129, 16), (2, 100, 64), (3, 33, 64), (2, 5, 510),
+    (2, 7, 512), (2, 3, 514), (1, 9, 1030), (2, 4, 256), (2, 4, 258),
+    (2, 6, 129), (2, 40, 255), (2, 40, 257), (7, 13, 6), (1, 2, 3),
+    (65, 3, 14), (2, 1000, 1),
+]
+
+
+@pytest.mark.parametrize("shape", COVERAGE_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_covers_every_element_exactly_once(shape, aligned):
+    W, R, F = shape
+    plan = port_gates.gate_plan(W, R, F, aligned)
+    # The kernel's __launch_bounds__ refuses a larger block.
+    assert plan.threads <= port_gates.BLOCK_THREADS
+    assert (plan_coverage(plan, W, R, F) == 1).all()
+
+
+def test_plan_constants_are_the_kernels():
+    """``csrc/bigroots_gates.cu`` derives its tiling from the same
+    constants as :func:`gate_plan`."""
+    src = (Path(port_gates.__file__).parent / "csrc"
+           / "bigroots_gates.cu").read_text()
+    for name in ("BLOCK_THREADS", "MAX_UNITS", "ROWS_PER_THREAD"):
+        assert (f"constexpr int {name} = {getattr(port_gates, name)};"
+                in src), name
+
+
+def test_plan_for_reads_the_alignment_off_the_pointers():
+    """A fresh tensor is aligned; a contiguous view one element into its
+    storage is not, and takes the scalar path."""
+    W, R, F = 2, 40, 14
+    fresh = torch.zeros((W, R, F), dtype=torch.float64)
+    shifted = torch.zeros(W * R * F + 1, dtype=torch.float64)[1:].view(W, R, F)
+    out = torch.empty((W, R, F), dtype=torch.int8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    assert port_gates.plan_for(fresh, fresh, out).path == "vector"
+    assert port_gates.plan_for(shifted, fresh, out).path == "scalar"
+    assert port_gates.plan_for(fresh, shifted, out).path == "scalar"
+    odd_out = torch.empty(W * R * F + 1, dtype=torch.int8)[1:].view(W, R, F)
+    assert port_gates.plan_for(fresh, fresh, odd_out).path == "scalar"
+    assert port_gates.plan_for(fresh[..., :9].contiguous(),
+                               fresh[..., :9].contiguous(),
+                               out[..., :9]).path == "scalar"
+
+
+@pytest.mark.parametrize("F", [2, 9, 14, 16, 64])
+@pytest.mark.parametrize("seed", range(3))
+def test_special_values_bit_identical(F, seed):
+    """NaN, -0.0, ±inf, subnormals and the largest finite values in every
+    input, counts and masks included: byte for byte the numpy oracle."""
+    b = special_gate_batch(np.random.default_rng([seed, F]), W=8, R=70, F=F)
+    with np.errstate(over="ignore"):  # the largest finite values overflow
+        want = eval_gates_np(b, peer_mean=1.5)
+    got = port_eval(b)
+    np.testing.assert_array_equal(got, want)
+    assert (got != 0).any()
