@@ -69,7 +69,24 @@ process exits non-zero):
 5. the gate kernel at the main path's own last packed batch: compare, then
    time kernel, plain version and (``--replaced``) the body it replaced,
    beside the bound counted over what the function needs (``gate_bound``).
-6. ``serve_path``, once for each of glm4-9b (dense GQA: K2, K3),
+6. ``diagnosis_stack`` drives the rest of the diagnosis stack on the GPU
+                through ``repro_torch.anomaly`` (wire telemetry, simulated
+                transport, star and tree aggregation, ``analyze_fleet`` with
+                K1, the policy engine): the six library scenarios and the
+                two pinned episode exports, each byte for byte against the
+                JAX package's golden under ``tests/golden/``, K1's launches
+                counted (zeroed before and read after each run) and required
+                in every run that confirms a cause through the gates;
+                ``hot_host_cpu`` scaled to 1024 hosts on 32 racks, K1
+                against the numpy gate oracle byte for byte and the incident
+                host's causes against the 16-host golden's; the closed-loop
+                mitigation A/B (``ab_compare``) as
+                ``examples/fault_tolerance_demo.py`` asserts it, equal to the
+                same call on the host; and the forecaster trained on the
+                card (400 Adam steps) through the value gate of the JAX
+                package's ``tests/test_forecast.py``, with its largest
+                parameter difference from the same training on the host.
+7. ``serve_path``, once for each of glm4-9b (dense GQA: K2, K3),
                 granite-moe-1b-a400m (GQA + MoE: K2, K3, K5) and mamba2-130m
                 (SSM: K4), each at full width and depth (random weights from
                 a seeded generator, float32 parameters served in bfloat16),
@@ -104,6 +121,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -113,13 +131,25 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.anomaly import (  # noqa: E402
+    SCENARIO_LIBRARY,
+    ab_compare,
+    build_scenario,
+    export_episodes,
+    run_scenario,
+)
+from repro_torch.anomaly.scenario import EPISODE_PINS  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     BigRootsAnalyzer,
     BigRootsThresholds,
     Forecaster,
     JAX_FEATURES,
     cause_to_wire,
+    evaluate_forecaster,
+    lead_time_curve,
+    train_forecaster,
 )
+from repro_torch.core.fleet import GateStaging  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
@@ -220,6 +250,25 @@ ROUTING_FLIP_SHARE = {"bfloat16": 0.08, "float32": 1e-3}
 #: float32 logits of the kernel path against the plain forms in float64,
 #: relative RMS: float32 rounding through 4 layers.
 SERVE_F32_REL_RMS = 1e-4
+
+
+#: The diagnosis stack's goldens, pinned by the JAX package.
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+#: hot_host_cpu scaled from its 16 hosts to this fleet (and racks); the
+#: simulation is host Python, which bounds the size within the run's limit.
+SCALED_HOSTS = 1024
+SCALED_RACKS = 32
+SCALED_NODE = "h0003"
+#: The forecaster's value gate (the JAX package's
+#: ``tests/test_forecast.py::TestForecastValue``): (scenario, seed) of the
+#: training and held-out exports, and the training run.
+VALUE_TRAIN = (("hot_host_cpu", 11), ("hot_host_cpu", 211),
+               ("clock_skew", 53), ("clock_skew", 253))
+VALUE_HELD = (("hot_host_cpu", 411), ("clock_skew", 453))
+VALUE_STEPS = 400
+#: Closed-loop A/B: the least share of the mean step time that acting on
+#: causes must recover (examples/fault_tolerance_demo.py).
+AB_IMPROVEMENT = 0.02
 
 
 def emit(obj: dict) -> None:
@@ -1708,6 +1757,210 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
     return run
 
 
+# -- the diagnosis stack ------------------------------------------------------
+
+@contextlib.contextmanager
+def gate_calls():
+    """Every ``GateStaging.run`` inside the block: under ``"calls"`` the
+    live rows of each packed batch and, on the card, its CUDA-event times
+    ``(h2d, kernel, d2h)`` in ms; under ``"largest"`` the live rows and a
+    copy of the inputs of the batch with the most.  K1's launch count is
+    zeroed on entry, so ``bigroots_gates.LAUNCHES`` after the block counts
+    the block's launches."""
+    seen = {"calls": [], "largest": (0, None)}
+    run = GateStaging.run
+
+    def counted(self, batch, peer_mean):
+        self.record_events = True
+        gbits = run(self, batch, peer_mean)
+        live = int(batch.counts.sum())
+        seen["calls"].append((live, self.last_ms))
+        if live > seen["largest"][0]:
+            seen["largest"] = (live, tuple(t.clone()
+                                           for t in self.last_inputs()))
+        return gbits
+
+    GateStaging.run = counted
+    bigroots_gates.LAUNCHES = 0
+    try:
+        yield seen
+    finally:
+        GateStaging.run = run
+
+
+def golden(kind: str, name: str) -> bytes:
+    with open(os.path.join(GOLDEN_DIR, f"{kind}_{name}.golden"), "rb") as f:
+        return f.read()
+
+
+def cause_lines(body: bytes) -> list[dict]:
+    return [json.loads(ln) for ln in body.decode().splitlines()
+            if not ln.startswith("#")]
+
+
+def gate_launches(what: str, seen: dict, gated: int,
+                  seconds: float) -> dict:
+    """K1's launches in a run: one for every packed sweep, and at least one
+    where the run confirmed a cause through the gates.  Beside them the
+    CUDA-event span of each launch (``k1_event_ms_*``) and the share of the
+    run's host-clock ``seconds`` outside the sweeps' event spans: at a few
+    live rows the copies before a launch are too short to hide the
+    wrapper's host work, so a span holds that enqueue too, and bounds the
+    kernel's time (and the device's busy time) from above."""
+    calls = seen["calls"]
+    launches = bigroots_gates.LAUNCHES
+    check(launches == len(calls),
+          f"{what}: {len(calls)} gate sweeps, {launches} K1 launches")
+    check(launches > 0 or gated == 0,
+          f"{what}: {gated} gate-confirmed causes without a K1 launch")
+    ms = [t for _, t in calls if t is not None]
+    kernel = [t[1] for t in ms]
+    spans = sum(map(sum, ms))
+    return {"k1_launches": launches, "gate_confirmed": gated,
+            "max_live_rows": seen["largest"][0],
+            "k1_event_ms_median": (statistics.median(kernel) if kernel
+                                   else None),
+            "k1_event_ms_max": max(kernel, default=None),
+            "sweep_event_ms": spans,
+            "idle_share_outside_sweeps": 1.0 - spans / (seconds * 1e3)}
+
+
+def diagnosis_goldens(device) -> tuple[dict, tuple]:
+    """The six library scenarios and the pinned episode exports on the
+    card, each byte for byte against the JAX package's golden.  Also
+    returns the inputs of the scenarios' largest packed batch."""
+    schema_cols = set(JAX_FEATURES.names)
+    out, largest = {}, (0, None)
+    for name in SCENARIO_LIBRARY:
+        want = golden("scenario", name)
+        with gate_calls() as seen:
+            res = run_scenario(name, device=device)
+        check(res.golden_bytes() == want,
+              f"scenario {name}: golden bytes differ")
+        gated = sum(c["feature"] in schema_cols for c in cause_lines(want))
+        out[name] = {"causes": len(res.causes), "seconds": res.wall_seconds,
+                     **gate_launches(f"scenario {name}", seen, gated,
+                                     res.wall_seconds)}
+        largest = max(largest, seen["largest"], key=lambda x: x[0])
+    for name in EPISODE_PINS:
+        with gate_calls() as seen:
+            es = export_episodes(name, device=device)
+        check(es.golden_bytes() == golden("episodes", name),
+              f"episodes {name}: golden bytes differ")
+        out[f"episodes_{name}"] = {
+            "sequences": len(es.y), "positives": es.positives,
+            "seconds": es.wall_seconds,
+            **gate_launches(f"episodes {name}", seen, len(es.confirmed),
+                            es.wall_seconds)}
+    return out, largest[1]
+
+
+def diagnosis_scaled(device) -> dict:
+    """hot_host_cpu at ``SCALED_HOSTS`` hosts: K1 on the card against the
+    numpy gate oracle on the host, byte for byte, and the incident host's
+    causes against the 16-host golden's."""
+    sc = build_scenario("hot_host_cpu", hosts=SCALED_HOSTS,
+                        racks=SCALED_RACKS)
+    with gate_calls() as seen:
+        t0 = time.perf_counter()
+        got = run_scenario(sc, device=device)
+        seconds = time.perf_counter() - t0
+    causes = [json.loads(ln) for ln in got.cause_lines]
+    launches = gate_launches("scaled scenario", seen, len(causes), seconds)
+    t0 = time.perf_counter()
+    want = run_scenario(sc, device=torch.device("cpu"), backend="numpy")
+    oracle_seconds = time.perf_counter() - t0
+    check(got.golden_bytes() == want.golden_bytes(),
+          f"{SCALED_HOSTS} hosts: torch and numpy backends differ")
+    small = [c for c in cause_lines(golden("scenario", "hot_host_cpu"))
+             if c["node"] == SCALED_NODE]
+    check(small and causes == small,
+          f"{SCALED_HOSTS} hosts: {SCALED_NODE}'s causes differ from the "
+          "16-host golden's, or another node carries a cause")
+    return {"hosts": SCALED_HOSTS, "racks": SCALED_RACKS,
+            "causes": len(causes), "rows_ingested":
+            got.counters["rows_ingested"], "seconds": seconds,
+            "numpy_backend_seconds": oracle_seconds, **launches}
+
+
+def loop_numbers(res) -> tuple:
+    return (res.stage_times, res.causes_per_stage, res.speculated,
+            res.cordoned, res.job_duration,
+            res.engine.decision_log_bytes())
+
+
+def diagnosis_closed_loop(device) -> dict:
+    """The closed-loop A/B on the card, as examples/fault_tolerance_demo.py
+    asserts it, and equal to the same call on the host."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        for scenario in ("cpu", "skew"):
+            path = os.path.join(tmp, f"audit_{scenario}.jsonl")
+            ab = ab_compare(scenario, seed=0, audit_path=path, device=device)
+            b, m = ab.baseline, ab.mitigated
+            check(b.actuator.applied == [] and b.engine.dry_run,
+                  f"A/B {scenario}: the diagnose-only arm acted")
+            check(ab.improvement > AB_IMPROVEMENT,
+                  f"A/B {scenario}: recovered only {ab.improvement:.3f}")
+            with open(path) as f:
+                decisions = sum(json.loads(ln)["type"] == "decision"
+                                for ln in f)
+            check(decisions > 0, f"A/B {scenario}: no decision audited")
+            host = ab_compare(scenario, seed=0, device=torch.device("cpu"))
+            check(loop_numbers(m) == loop_numbers(host.mitigated)
+                  and loop_numbers(b) == loop_numbers(host.baseline),
+                  f"A/B {scenario}: the card's run differs from the host's")
+            out[scenario] = {"improvement": ab.improvement,
+                             "mitigated_mean_step_s": m.mean_step_time,
+                             "baseline_mean_step_s": b.mean_step_time,
+                             "actions": len(m.actuator.applied),
+                             "audited_decisions": decisions}
+    return out
+
+
+def diagnosis_training(device) -> dict:
+    """The forecaster's value gate with parameters trained on the card, and
+    the largest parameter difference from the same training on the host."""
+    train = [export_episodes(n, seed=s, device=device) for n, s in VALUE_TRAIN]
+    held = [export_episodes(n, seed=s, device=device) for n, s in VALUE_HELD]
+    t0 = time.perf_counter()
+    params = train_forecaster(train, seed=0, steps=VALUE_STEPS, lr=0.05,
+                              device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = train_forecaster(train, seed=0, steps=VALUE_STEPS, lr=0.05,
+                            device=torch.device("cpu"))
+    host_s = time.perf_counter() - t0
+    rep = evaluate_forecaster(params, held)
+    lead = lead_time_curve(params, held, thresholds=(0.5,))[0]
+    check(rep["positives"] > 0 and rep["auc"] > rep["baseline_auc"],
+          f"value gate: AUC {rep['auc']} vs baseline {rep['baseline_auc']}")
+    check(lead["median_lead_steps"] > 0.0 and lead["precision"] >= 0.5
+          and lead["recall"] > 0.0, f"value gate: lead {lead}")
+    diff = max(float(np.max(np.abs(np.asarray(params[k]) - host[k])))
+               for k in params)
+    check(np.isfinite(diff), "card-trained parameters are not finite")
+    return {"steps": VALUE_STEPS, "train_seconds": card_s,
+            "host_train_seconds": host_s, **rep, "lead_at_0.5": lead,
+            "host_auc": evaluate_forecaster(host, held)["auc"],
+            "max_param_diff_vs_host": diff}
+
+
+def phase_diagnosis(device, flush) -> dict:
+    t0 = time.perf_counter()
+    goldens, largest = diagnosis_goldens(device)
+    peer_mean = BigRootsThresholds().peer_mean
+    out = {"goldens": goldens, "k1_at_largest_batch": {
+        "live_rows": int(largest[4].sum().item()),
+        **hold_against_plain(largest, peer_mean, "scenarios' largest batch"),
+        **measure(largest, peer_mean, flush)}}
+    out["scaled"] = diagnosis_scaled(device)
+    out["closed_loop"] = diagnosis_closed_loop(device)
+    out["training"] = diagnosis_training(device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_env() -> str:
@@ -1811,8 +2064,12 @@ def run(args) -> None:
 
     at_path = hold_against_plain(last, peer_mean, "main path's last batch")
     path_timing = measure(last, peer_mean, flush, replaced)
-    del flush, stream, got, want, analyzer, agg, last
+    del stream, got, want, analyzer, agg, last
     torch.cuda.empty_cache()
+
+    diagnosis = phase_diagnosis(device, flush)
+    emit({"phase": "diagnosis_stack", "ok": True, **diagnosis})
+    del flush
 
     serve = {}
     for arch in (SERVE_ARCH, MOE_ARCH, SSM_ARCH):
@@ -1859,6 +2116,9 @@ def run(args) -> None:
             t["gate_kernel_ms"] for t in timings),
         "checks": len(checks) + 1,
         "full_incident": full_timing,
+        "diagnosis_stack_launches": {
+            name: run["k1_launches"] for name, run in
+            [*diagnosis["goldens"].items(), ("scaled", diagnosis["scaled"])]},
     }, {**entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
                 "one per layer of the prefill", SERVE_ARCH,
                 attn_timing["flash_attention"], attn_checks),

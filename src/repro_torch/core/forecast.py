@@ -4,13 +4,17 @@ BigRoots (Eq. 5–7) confirms a straggler only after its duration is
 already long — time the mitigation loop has lost.  The detection
 literature (START's encoder-LSTM, arXiv 2111.10241; the NN MapReduce
 detector, arXiv 2004.05868) shows straggle risk is *predictable* from
-the same telemetry a few steps early.  This module is the inference
-side of that hop:
+the same telemetry a few steps early.  This module holds that hop:
 
 - **Model**: :mod:`repro_torch.models.forecast_ssd` — the ssd/mamba
   recurrence right-sized to per-node telemetry sequences, in a written,
   fixed op order (torch functions over a ``ForecastCell``; numpy twins
   as the host oracle).
+- **Training data**: :func:`repro_torch.anomaly.scenario.export_episodes`
+  — deterministic scenario runs labeled with the future Eq. 5 verdicts.
+- **Training**: :func:`train_forecaster`, full-batch Adam on the
+  windowed form of the cell; the gradient is ``torch.autograd`` on
+  float64 leaves on ``device``, the Adam update numpy on the host.
 - **Inference**: one extra batched launch per diagnosis tick over the
   gate sweep's own windows (:func:`repro_torch.core.fleet.pack_sequences`
   mirrors ``pack_windows``), emitting ``predicted_straggler`` candidate
@@ -20,25 +24,29 @@ side of that hop:
   :func:`forecast_step` over ``[S, F]`` — so the cost per tick is
   ``O(nodes)`` instead of ``O(nodes × length)``.
 
-Training and the ROC/lead-time evaluation of the forecaster are not part
-of this package yet; parameters come from ``forecast_init`` or from a
-forecaster trained elsewhere, through
-:func:`repro_torch.convert.forecast_params_from_numpy`.
-
 Contract: forecast causes are *candidates*, tagged with feature
 ``predicted_straggler`` and peer group ``("forecast",)``, appended after
 the confirmed stream — they never enter :class:`RootCauseStream` dedup
 state, so a forecast-off run's confirmed-cause bytes are untouched.
+Value is gated honestly through :mod:`repro_torch.core.roc`:
+:func:`evaluate_forecaster` reports model AUC against the best
+per-feature threshold detector, and :func:`lead_time_curve` reports how
+many steps of warning each alarm threshold buys at what precision.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.forecast_ssd import (
+    PARAM_NAMES,
     ForecastCell,
     ForecastConfig,
+    forecast_init,
+    forecast_logits,
     forecast_score,
     forecast_score_np,
     forecast_step,
@@ -47,10 +55,172 @@ from ..models.forecast_ssd import (
 from .analyzer import RootCause, synthesize_cause
 from .features import FeatureSchema
 from .fleet import ForecastBatch, pack_sequences
+from .roc import score_auc
 
-__all__ = ["PREDICTED_STRAGGLER", "Forecaster"]
+__all__ = [
+    "PREDICTED_STRAGGLER",
+    "Forecaster",
+    "baseline_auc",
+    "evaluate_forecaster",
+    "lead_time_curve",
+    "train_forecaster",
+]
 
 PREDICTED_STRAGGLER = "predicted_straggler"
+
+
+# -- training -----------------------------------------------------------------
+
+def _bce_loss(cell: ForecastCell, x, y, w):
+    z = forecast_logits(cell, x)
+    # Stable weighted BCE on logits: softplus(z) - y*z, positives
+    # up-weighted so ~1% incident rows aren't drowned by the fleet.
+    # logaddexp(0, z), not F.softplus: its threshold switches to the
+    # identity for large z.
+    per = torch.logaddexp(torch.zeros_like(z), z) - y * z
+    return (per * w).sum() / w.sum()
+
+
+def train_forecaster(
+    episodes,
+    cfg: ForecastConfig | None = None,
+    seed: int = 0,
+    steps: int = 300,
+    lr: float = 0.05,
+    device=None,
+) -> dict:
+    """Fit the forecast cell on labeled episode sets (full-batch Adam).
+
+    ``episodes`` is one :class:`~repro_torch.anomaly.scenario.EpisodeSet`
+    or a sequence of them (concatenated).  Deterministic for fixed inputs
+    and ``seed``.  Each step takes the loss's gradient with
+    ``torch.autograd`` on float64 leaves on ``device`` (``None`` = the GPU,
+    raising when there is none) and applies the Adam update to numpy
+    copies of the parameters on the host.  Returns numpy parameters ready
+    for :class:`Forecaster`.
+    """
+    device = resolve_device(device)
+    sets = [episodes] if hasattr(episodes, "x") else list(episodes)
+    x = np.concatenate([e.x for e in sets])
+    y = np.concatenate([e.y for e in sets]).astype(np.float64)
+    if x.shape[0] == 0:
+        raise ValueError("no episodes to train on")
+    if cfg is None:
+        cfg = ForecastConfig(
+            features=x.shape[2], length=x.shape[1],
+            horizon=sets[0].horizon,
+        )
+    pos = float(y.sum())
+    neg = float(len(y) - pos)
+    pos_weight = (neg / pos) if pos else 1.0
+    w = np.where(y > 0, pos_weight, 1.0)
+
+    params = forecast_init(cfg, seed=seed)
+    cell = ForecastCell(params, device, requires_grad=True)
+    leaves = [getattr(cell, k) for k in PARAM_NAMES]
+    xt, yt, wt = (torch.from_numpy(a).to(device) for a in (x, y, w))
+    m = {k: np.zeros_like(v) for k, v in params.items()}
+    v2 = {k: np.zeros_like(v) for k, v in params.items()}
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    for t in range(1, steps + 1):
+        grads = torch.autograd.grad(_bce_loss(cell, xt, yt, wt), leaves)
+        g = {k: gv.cpu().numpy() for k, gv in zip(PARAM_NAMES, grads)}
+        for k in params:
+            m[k] = b1 * m[k] + (1 - b1) * g[k]
+            v2[k] = b2 * v2[k] + (1 - b2) * g[k] ** 2
+            mh = m[k] / (1 - b1**t)
+            vh = v2[k] / (1 - b2**t)
+            params[k] = params[k] - lr * mh / (np.sqrt(vh) + eps)
+        with torch.no_grad():
+            for k, leaf in zip(PARAM_NAMES, leaves):
+                leaf.copy_(torch.from_numpy(np.asarray(params[k])))
+    return params
+
+
+# -- honest evaluation --------------------------------------------------------
+
+def baseline_auc(episodes) -> float:
+    """The paper-style per-feature threshold detector's best AUC.
+
+    For every feature column, score each sequence by its newest step's
+    gate-space value and take the strongest column — the ceiling any
+    single-feature threshold rule (the BigRoots detection idiom) can
+    reach on these labels.  The forecaster must beat this to earn its
+    launch in the tick.
+    """
+    sets = [episodes] if hasattr(episodes, "x") else list(episodes)
+    x = np.concatenate([e.x for e in sets])
+    y = np.concatenate([e.y for e in sets])
+    labels = [int(v) for v in y]
+    best = 0.5
+    for f in range(x.shape[2]):
+        best = max(best, score_auc([float(s) for s in x[:, -1, f]], labels))
+    return best
+
+
+def evaluate_forecaster(params: dict, episodes) -> dict:
+    """Held-out value report: model AUC vs the per-feature baseline."""
+    sets = [episodes] if hasattr(episodes, "x") else list(episodes)
+    x = np.concatenate([e.x for e in sets])
+    y = np.concatenate([e.y for e in sets])
+    scores = forecast_score_np(params, x)
+    model = score_auc([float(s) for s in scores], [int(v) for v in y])
+    base = baseline_auc(sets)
+    return {
+        "auc": model,
+        "baseline_auc": base,
+        "auc_gain": model - base,
+        "sequences": int(len(y)),
+        "positives": int(np.asarray(y).sum()),
+    }
+
+
+def lead_time_curve(
+    params: dict,
+    episodes,
+    thresholds: Sequence[float] = (0.3, 0.5, 0.7, 0.9),
+) -> list[dict]:
+    """Lead-time-vs-precision per alarm threshold.
+
+    For each gate-confirmed straggler ``(host, step_c)`` the lead time is
+    ``step_c - a`` for the *earliest* alarming anchor ``a`` in its
+    horizon window — the steps of warning the mitigation loop gains.
+    Precision is over all alarms (an alarm on a sequence labeled 0 is a
+    false page).  Confirmed stragglers with no alarm count as misses in
+    ``recall``, not in the median.
+    """
+    sets = [episodes] if hasattr(episodes, "x") else list(episodes)
+    out = []
+    for thr in thresholds:
+        leads: list[int] = []
+        alarms = 0
+        true_alarms = 0
+        events = 0
+        for e in sets:
+            scores = forecast_score_np(params, e.x)
+            fired = scores >= thr
+            alarms += int(fired.sum())
+            true_alarms += int((fired & (e.y > 0)).sum())
+            by_host: dict[str, list[int]] = {}
+            for i in range(len(e.y)):
+                if fired[i]:
+                    by_host.setdefault(e.hosts[i], []).append(e.anchors[i])
+            for host, step_c in e.confirmed:
+                events += 1
+                hits = [
+                    step_c - a for a in by_host.get(host, [])
+                    if step_c - e.horizon <= a < step_c
+                ]
+                if hits:
+                    leads.append(max(hits))
+        out.append({
+            "threshold": float(thr),
+            "alarms": alarms,
+            "precision": (true_alarms / alarms) if alarms else 0.0,
+            "recall": (len(leads) / events) if events else 0.0,
+            "median_lead_steps": float(np.median(leads)) if leads else 0.0,
+        })
+    return out
 
 
 # -- the per-tick hop ---------------------------------------------------------
@@ -125,6 +295,35 @@ class Forecaster:
         self._seen = np.zeros(0, dtype=np.int64)      # real steps advanced
         self._last_tick = np.zeros(0, dtype=np.int64)
         self._anchors: list[str] = []                 # newest task id fed
+
+    @classmethod
+    def train(
+        cls,
+        episodes,
+        schema: FeatureSchema,
+        *,
+        seed: int = 0,
+        steps: int = 300,
+        lr: float = 0.05,
+        **kwargs,
+    ) -> "Forecaster":
+        """Fit on episode sets and wrap the result (see
+        :func:`train_forecaster`, which runs on the ``device`` given
+        here, the forecaster's own).
+
+        Unless overridden, ``min_history`` defaults to the training
+        window length: the cell only ever saw full ``length``-step
+        sequences, so scores from a colder state are extrapolation and
+        should not page anyone."""
+        sets = [episodes] if hasattr(episodes, "x") else list(episodes)
+        cfg = ForecastConfig(
+            features=sets[0].x.shape[2], length=sets[0].length,
+            horizon=sets[0].horizon,
+        )
+        kwargs.setdefault("min_history", cfg.length)
+        params = train_forecaster(sets, cfg=cfg, seed=seed, steps=steps,
+                                  lr=lr, device=kwargs.get("device"))
+        return cls(params, cfg, schema, **kwargs)
 
     def _zeros_state(self, rows: int):
         H, N = self.config.hidden, self.config.state

@@ -1,0 +1,42 @@
+"""Fault tolerance: heartbeats, elastic re-mesh, BigRoots-informed
+straggler mitigation, and the closed-loop policy engine that turns
+confirmed root causes into guarded actions.
+
+The supervised restart loop (``Supervisor``, ``RestartBudgetExceeded``)
+is not part of this package yet: it checkpoints through a checkpoint
+manager, which comes with the training path."""
+from .elastic import ElasticPlan, plan_mesh_shape, reshard_plan
+from .heartbeat import FailureDetector, HeartbeatWriter
+from .mitigation import MitigationAction, MitigationPlanner
+from .policy import (
+    Action,
+    ActionKind,
+    Actuator,
+    DEFAULT_RULES,
+    GuardrailConfig,
+    PolicyEngine,
+    RecordingActuator,
+    Rule,
+    forecast_rule,
+    load_policy,
+)
+
+__all__ = [
+    "Action",
+    "ActionKind",
+    "Actuator",
+    "DEFAULT_RULES",
+    "ElasticPlan",
+    "FailureDetector",
+    "GuardrailConfig",
+    "HeartbeatWriter",
+    "MitigationAction",
+    "MitigationPlanner",
+    "PolicyEngine",
+    "RecordingActuator",
+    "Rule",
+    "forecast_rule",
+    "load_policy",
+    "plan_mesh_shape",
+    "reshard_plan",
+]

@@ -112,10 +112,12 @@ class ForecastCell(nn.Module):
     """The twelve float64 parameter tensors of the cell on one device.
 
     Built from the numpy dict of :func:`forecast_init` (or a trained one
-    of the same layout).  Inference only for now: the parameters do not
-    require gradients.  ``forward`` is :func:`forecast_score`."""
+    of the same layout).  The parameters require gradients only when
+    built with ``requires_grad=True``, as the trainer
+    (:func:`repro_torch.core.forecast.train_forecaster`) builds them.
+    ``forward`` is :func:`forecast_score`."""
 
-    def __init__(self, params, device) -> None:
+    def __init__(self, params, device, *, requires_grad: bool = False) -> None:
         super().__init__()
         missing = [k for k in PARAM_NAMES if k not in params]
         if missing:
@@ -129,7 +131,7 @@ class ForecastCell(nn.Module):
                 )
             self.register_parameter(name, nn.Parameter(
                 value.detach().to(device=device, dtype=torch.float64),
-                requires_grad=False,
+                requires_grad=requires_grad,
             ))
 
     @property
@@ -160,7 +162,11 @@ def _compress(x):
 
 
 def _hard_sigmoid(z):
-    return torch.clamp(0.25 * z + 0.5, min=0.0, max=1.0)
+    # minimum/maximum, not clamp: the same values, and at the kinks
+    # (0.25z + 0.5 exactly 0 or 1) the gradient is split in half as JAX's
+    # min/max split it, where clamp passes all of it.
+    return torch.minimum(torch.maximum(0.25 * z + 0.5, z.new_zeros(())),
+                         z.new_ones(()))
 
 
 def _rational_sigmoid(z):

@@ -23,7 +23,7 @@ them:
   for you.
 
 Any mode can carry a ``policy``
-(duck-typed: ``step`` / ``note_rejoin``): each tick's fresh causes are
+(:class:`~repro_torch.ft.policy.PolicyEngine`): each tick's fresh causes are
 handed to it with the live-host count — unless the policy object *is*
 the aggregator's own (then the aggregator's step already ticked it, and
 double-ticking would advance cooldowns twice).
@@ -38,6 +38,7 @@ Usage::
 from __future__ import annotations
 
 from ..core.window import RootCauseStream
+from ..ft.policy import PolicyEngine
 
 
 class Diagnosis:
@@ -53,7 +54,7 @@ class Diagnosis:
         analyzer=None,
         aggregator=None,
         sink=None,
-        policy=None,
+        policy: PolicyEngine | None = None,
         drive: bool = True,
         attribution: bool = False,
         forecaster=None,
@@ -86,7 +87,7 @@ class Diagnosis:
 
     # -- constructors --------------------------------------------------------
     @classmethod
-    def local(cls, analyzer, *, policy=None,
+    def local(cls, analyzer, *, policy: PolicyEngine | None = None,
               attribution: bool = False, forecaster=None) -> "Diagnosis":
         """Per-host diagnosis: run ``analyzer`` over the telemetry's own
         streaming window each tick (needs
@@ -101,7 +102,8 @@ class Diagnosis:
 
     @classmethod
     def fleet(cls, aggregator, *, drive: bool = True,
-              policy=None, forecaster=None) -> "Diagnosis":
+              policy: PolicyEngine | None = None,
+              forecaster=None) -> "Diagnosis":
         """Fleet diagnosis: drain each tick's delta into ``aggregator``
         in-process (needs ``StepTelemetry(wire=True)``); ``drive``
         selects whether this party runs the merged sweep.
@@ -111,7 +113,8 @@ class Diagnosis:
                    forecaster=forecaster)
 
     @classmethod
-    def forward(cls, sink, *, policy=None) -> "Diagnosis":
+    def forward(cls, sink, *,
+                policy: PolicyEngine | None = None) -> "Diagnosis":
         """Forwarding host: ship each tick's delta to ``sink`` — an
         object with ``send(delta)``, or an Endpoint/address string to
         connect (needs ``StepTelemetry(wire=True)``)."""

@@ -51,6 +51,7 @@ from ..core.features import FeatureSchema
 from ..core.whatif import WhatIfReplayer
 from ..core.window import RootCauseStream, StreamingTraceStore
 from ..device import resolve_device
+from ..ft.policy import PolicyEngine
 from ..telemetry.events import (
     MAX_FORWARD_DEPTH,
     ForwardedDelta,
@@ -133,7 +134,7 @@ class FleetAggregator:
         that ends an outage) are excluded from the EWMA — an outage is
         not a cadence observation.
     policy:
-        Optional policy engine (duck-typed: ``step`` / ``note_rejoin``) closing the loop:
+        Optional :class:`~repro_torch.ft.policy.PolicyEngine` closing the loop:
         every :meth:`step`'s causes are handed to it with the current
         live-host count (so its min-fleet guardrail tracks dropouts), and
         a host that rejoins after a dropout is reported via
@@ -213,7 +214,7 @@ class FleetAggregator:
         lease_multiplier: float = 4.0,
         lease_alpha: float = 0.25,
         clock=time.time,
-        policy=None,
+        policy: PolicyEngine | None = None,
         reorder_window: int = 0,
         device=None,
     ) -> None:
@@ -526,7 +527,7 @@ class FleetAggregator:
         the class docstring).  Retained time-spanned windows also advance
         to the fleet clock here so silent hosts' stages keep decaying.
 
-        With a ``policy`` (duck-typed policy engine), the
+        With a ``policy`` (:class:`~repro_torch.ft.policy.PolicyEngine`), the
         tick's causes — dropout escalations included — are handed to the
         policy after diagnosis; a host-dropout finding can thus trigger a
         cordon + re-mesh plan in the same tick it was detected.  Pass the

@@ -86,6 +86,33 @@ def test_serving_imports_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+DIAGNOSIS = r"""
+import sys
+import repro_torch.ft, repro_torch.anomaly
+from repro_torch.anomaly import ab_compare, export_episodes, run_scenario
+from repro_torch.core import (PCCAnalyzer, evaluate_forecaster, roc_sweep,
+                              train_forecaster)
+from repro_torch.core.reference import reference_root_causes
+
+res = run_scenario("hot_host_cpu", device="cpu")
+assert res.causes
+assert ab_compare("cpu", stages=4, device="cpu").baseline.engine.dry_run
+es = export_episodes("hot_host_cpu", device="cpu")
+evaluate_forecaster(train_forecaster(es, steps=2, device="cpu"), es)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_diagnosis_stack_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", DIAGNOSIS], env=ENV,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 NO_CUDA = r"""
 import torch
 from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,
@@ -107,6 +134,20 @@ for make in (lambda: BigRootsAnalyzer(JAX_FEATURES),
         raise SystemExit("ran on the CPU unasked")
 # The numpy oracle is host only: it needs no GPU and no device argument.
 Forecaster(params, cfg, JAX_FEATURES, backend="numpy")
+
+from repro_torch.anomaly import ScenarioEngine, ab_compare, build_scenario
+from repro_torch.anomaly.scenario import main as scenario_main
+from repro_torch.core import train_forecaster
+for make in (lambda: ScenarioEngine(build_scenario("hot_host_cpu")),
+             lambda: ab_compare("cpu", stages=2),
+             lambda: train_forecaster(None),
+             lambda: scenario_main(["--check", "hot_host_cpu"])):
+    try:
+        make()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise SystemExit("diagnosed on the CPU unasked")
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
