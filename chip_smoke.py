@@ -108,6 +108,30 @@ process exits non-zero):
                 ``--f32-layers`` layers (full width) must give the greedy
                 tokens of the plain forms with float64 activations.
 
+8. ``train_path``, once for each of granite-moe-1b-a400m (8 x 512 tokens a
+                step: K2, K5) and mamba2-130m (8 x 1024: K4), at full width and
+                depth through ``launch.train.run`` (the user's entry point:
+                seeded float32 weights, bf16 compute, ``remat``, AdamW, the
+                data pipeline, an async checkpoint every 4 steps, live
+                diagnosis every step): 8 steps, each step's kernel launches
+                asserted (K2 once per attention layer, K4 once per SSM
+                layer, K5 three times per MoE layer, all twice under remat:
+                the forward and each block's recompute), K1 launched in the
+                live ticks, the last checkpoint restored byte for byte
+                against the parameters it was saved from, step time by CUDA
+                events with its forward / backward / optimizer parts, one
+                more step profiled for the device's idle share.  Then the
+                gradients of the kernel path (the kernels forward, their
+                plain versions' autograd backward) against the reference's
+                plain forms on the run's first batch and initial
+                parameters, the routing replayed (``TrainRouting``, which
+                also checks that every recompute routes as its forward):
+                float32 cut to ``--f32-layers`` (loss, every leaf) and bf16
+                at full depth (loss, global norm, worst leaf), each limit
+                with a control that must exceed it; and each kernel's
+                forward and backward at its training shape, launched twice
+                to check it is deterministic.
+
 The last three lines of standard output are the GPU's name and power limit
 as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
 ``{"ok": true, "device": {...}}``.
@@ -139,6 +163,8 @@ from repro_torch.anomaly import (  # noqa: E402
     run_scenario,
 )
 from repro_torch.anomaly.scenario import EPISODE_PINS  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     BigRootsAnalyzer,
     BigRootsThresholds,
@@ -153,6 +179,7 @@ from repro_torch.core.fleet import GateStaging  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, HostDataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bigroots_gates,
     build,
@@ -162,10 +189,12 @@ from repro_torch.kernels import (  # noqa: E402
     ssd_chunked_cuda,
     ssd_scan,
 )
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ForecastConfig,
     Model,
     forecast_init,
+    lm,
 )
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models.ssd import ssd_chunked as ssd_chunked_plain  # noqa: E402
@@ -175,6 +204,8 @@ from repro_torch.serve import (  # noqa: E402
     Request,
     ServeEngine,
 )
+from repro_torch.train import global_norm  # noqa: E402
+from repro_torch.train import step as train_step_mod  # noqa: E402
 from repro_torch.telemetry import (  # noqa: E402
     ResourceTimeline,
     StageDelta,
@@ -1546,9 +1577,16 @@ class Routing:
     def __init__(self) -> None:
         self.recorded: list = []
 
+    def _source(self, call: int) -> int:
+        """The recorded call that router call ``call`` replays."""
+        return call
+
+    def _keep(self, probs, experts) -> None:
+        self.recorded.append(experts)
+
     def record(self):
         def keep(probs, experts):
-            self.recorded.append(experts)
+            self._keep(probs, experts)
             return experts
         return moe_layer.routing_hook(keep)
 
@@ -1556,10 +1594,13 @@ class Routing:
     def replay(self):
         """Yields ``{"routings": slots replayed, "flips": ...}``."""
         tally = {"routings": 0, "flips": 0}
-        calls = iter(self.recorded)
+        seen = [0]
 
         def pin(probs, experts):
-            pinned = next(calls, None)
+            call = seen[0]
+            seen[0] += 1
+            pinned = (self.recorded[self._source(call)]
+                      if call < len(self.recorded) else None)
             check(pinned is not None and pinned.shape == experts.shape,
                   "the replaying run routes other tokens than the recorded")
             tally["routings"] += pinned.numel()
@@ -1568,7 +1609,7 @@ class Routing:
             return pinned
         with moe_layer.routing_hook(pin):
             yield tally
-        check(next(calls, None) is None,
+        check(seen[0] == len(self.recorded),
               "the replaying run routed fewer times than the recorded")
 
 
@@ -1753,6 +1794,488 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
     ) if not ok]
     if failed:
         emit({"phase": "serve_path", "ok": False, **run})
+    check(not failed, f"{arch}: " + "; ".join(failed))
+    return run
+
+
+# -- the training path -------------------------------------------------------------
+
+#: The training path: both models at full width and depth through
+#: ``launch.train.run``, 8 steps each, an async checkpoint every 4 steps
+#: (so the one of step 4), live diagnosis on.  (batch, sequence) per arch;
+#: mamba2-130m's chunk is its config's 256.
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_SHAPES = {MOE_ARCH: (8, 512), SSM_ARCH: (8, 1024)}
+#: Gradients of the kernel path (the kernels forward, their plain versions'
+#: autograd backward) against the reference's plain forms on the same
+#: parameters and batch, the kernel run's routing replayed.  float32, depth
+#: cut to ``--f32-layers``: the loss within ``TRAIN_F32_LOSS_RTOL``
+#: relative, every gradient leaf within ``TRAIN_F32_GRAD_REL_RMS``
+#: relative RMS; a control (the plain forms on parameters rounded to
+#: ``TRAIN_F32_CONTROL_BITS`` significant bits) must exceed both.  The
+#: loss of random weights on random tokens sits near ln(vocab) and moves
+#: little with the weights, so its limit is 1e-6 (~10 ulp at 11), below
+#: the starting point of 1e-5 that only a 5-bit control exceeded.
+#: Readings on an H100 (granite-moe, 4 layers; sound / control at 8 bits):
+#: loss 8.7e-8 / 6.1e-6, worst leaf 2.8e-6 / 7.9e-3.
+TRAIN_F32_LOSS_RTOL = 1e-6
+TRAIN_F32_GRAD_REL_RMS = 1e-4
+TRAIN_F32_CONTROL_BITS = 8
+#: bf16 at full depth, by arch: the loss and the global gradient norm,
+#: relative, and the worst gradient leaf's relative RMS; a control at
+#: ``TRAIN_BF16_CONTROL_BITS`` must exceed each.  Readings on an H100, the
+#: same in two runs (sound / control): granite-moe at 5 bits: loss 9.6e-6
+#: / 1.1e-4, norm 6.1e-4 / 4.3e-3, leaf 0.053 / 0.165; mamba2-130m at 4
+#: bits (at 5 its loss read 2.0e-5, inside the sound 2.1e-5): loss 2.1e-5
+#: / 8.0e-5, norm 2.7e-5 / 2.2e-4, leaf 0.033 / 0.225.
+TRAIN_BF16_CONTROL_BITS = {MOE_ARCH: 5, SSM_ARCH: 4}
+TRAIN_BF16_LOSS_RTOL = {MOE_ARCH: 3e-5, SSM_ARCH: 4e-5}
+TRAIN_BF16_GNORM_RTOL = {MOE_ARCH: 2e-3, SSM_ARCH: 1e-4}
+TRAIN_BF16_LEAF_REL_RMS = 0.1
+#: Controls read beside the held one, by dtype (8 bits is bf16's own
+#: precision: rounding to it changes nothing there).
+TRAIN_CONTROL_SWEEP = {"float32": (5, 8, 12, 16), "bfloat16": (4, 5, 6)}
+
+
+class Mark:
+    """A point on the device's timeline (a CUDA event) or, off the card, on
+    the host clock (rehearsals only)."""
+
+    def __init__(self, device) -> None:
+        self.event = None
+        if device.type == "cuda":
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record()
+        self.t = time.perf_counter()
+
+    def ms_to(self, later: "Mark") -> float:
+        if self.event is not None:
+            return self.event.elapsed_time(later.event)
+        return (later.t - self.t) * 1e3
+
+
+class TrainProbe:
+    """Instruments ``launch.train.run`` from outside: each train step's
+    marks (start, end of the forward, start and end of the optimizer, end)
+    and kernel counts, each step's loss, the last state and step function,
+    a host copy of every checkpointed tree as ``save`` was called, and K1's
+    launches inside the live diagnosis ticks."""
+
+    def __init__(self, device) -> None:
+        self.device = device
+        self.steps: list[dict] = []
+        self.saves: list[tuple[int, list]] = []
+        self.state = None
+        self.step_fn = None
+        self.ticks = 0
+        self.k1_in_ticks = 0
+
+    def _mark(self, name: str) -> None:
+        self.steps[-1]["marks"].setdefault(name, Mark(self.device))
+
+    @contextlib.contextmanager
+    def installed(self):
+        probe = self
+        make0, loss0 = launch_train.make_train_step, Model.loss
+        adamw0, save0 = train_step_mod.adamw_update, CheckpointManager.save
+        tick0 = Diagnosis.tick
+
+        def make(*a, **kw):
+            inner = make0(*a, **kw)
+
+            def step(state, batch):
+                probe.steps.append({"marks": {}, "counts": [kernel_counts()]})
+                probe._mark("start")
+                state, metrics = inner(state, batch)
+                probe._mark("end")
+                probe.steps[-1]["counts"].append(kernel_counts())
+                probe.steps[-1]["loss"] = metrics["loss"]
+                probe.state, probe.step_fn = state, inner
+                return state, metrics
+            return step
+
+        def loss(model, params, batch):
+            out = loss0(model, params, batch)
+            probe._mark("forward_end")
+            return out
+
+        def adamw(*a, **kw):
+            probe._mark("optimizer_start")
+            out = adamw0(*a, **kw)
+            probe._mark("optimizer_end")
+            return out
+
+        def save(mgr, step, tree_, blocking=True):
+            probe.saves.append((step, [t.detach().to("cpu", copy=True)
+                                       for t in tree.leaves(tree_)]))
+            return save0(mgr, step, tree_, blocking=blocking)
+
+        def tick(diag, *a, **kw):
+            before = bigroots_gates.LAUNCHES
+            try:
+                return tick0(diag, *a, **kw)
+            finally:
+                probe.ticks += 1
+                probe.k1_in_ticks += bigroots_gates.LAUNCHES - before
+
+        launch_train.make_train_step = make
+        Model.loss = loss
+        train_step_mod.adamw_update = adamw
+        CheckpointManager.save = save
+        Diagnosis.tick = tick
+        try:
+            yield self
+        finally:
+            Diagnosis.tick = tick0
+            launch_train.make_train_step = make0
+            Model.loss = loss0
+            train_step_mod.adamw_update = adamw0
+            CheckpointManager.save = save0
+
+    def step_times(self) -> list[dict]:
+        out = []
+        for s in self.steps:
+            m = s["marks"]
+            out.append({
+                "step_ms": m["start"].ms_to(m["end"]),
+                "forward_ms": m["start"].ms_to(m["forward_end"]),
+                "backward_ms": m["forward_end"].ms_to(m["optimizer_start"]),
+                "optimizer_ms": m["optimizer_start"].ms_to(
+                    m["optimizer_end"]),
+                "launches": {k: s["counts"][1][k] - s["counts"][0][k]
+                             for k in s["counts"][0]}})
+        return out
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step: the forward's (K2 once per
+    attention layer, K4 once per SSM layer, K5 three times per MoE layer),
+    twice with ``remat`` (the backward recomputes every block); the
+    backward itself launches none (it is the plain versions' autograd)."""
+    prefill, _ = expected_launches(cfg)
+    return {k: (2 if cfg.remat else 1) * v for k, v in prefill.items()}
+
+
+class TrainRouting(Routing):
+    """:class:`Routing` for a forward and backward under ``remat``: the
+    router runs in the forward (block 0 first) and again in each block's
+    recompute (last block first).  Each recompute call replays its forward
+    call, and recording checks that it chose the same experts from bitwise
+    equal probabilities (``recompute_equal``)."""
+
+    def __init__(self, cfg) -> None:
+        super().__init__()
+        self.per_block = sum(s.ffn == "moe" for s in cfg.pattern())
+        self.blocks = cfg.n_blocks
+        self.probs: list = []
+        self.recompute_equal = True
+
+    def _source(self, call: int) -> int:
+        r = call - self.per_block * self.blocks
+        if r < 0:
+            return call
+        return (self.blocks - 1 - r // self.per_block) * self.per_block \
+            + r % self.per_block
+
+    def _keep(self, probs, experts) -> None:
+        f = self._source(len(self.recorded))
+        if f != len(self.recorded):
+            self.recompute_equal &= bool(
+                torch.equal(self.probs[f], probs)
+                and torch.equal(self.recorded[f], experts))
+        self.probs.append(probs.detach())
+        self.recorded.append(experts)
+
+
+def loss_and_grads(cfg, params, batch):
+    """The loss (float) and the gradient of every parameter leaf."""
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    loss, _ = lm.loss_fn(tree.unflatten(params, leaves), cfg, batch)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def grad_errors(got, want) -> dict:
+    """Relative RMS of every leaf and of the global norm."""
+    rel = [float((g.float() - w.float()).norm()
+                 / w.float().norm().clamp_min(1e-30))
+           for g, w in zip(got, want, strict=True)]
+    gn, wn = float(global_norm(list(got))), float(global_norm(list(want)))
+    return {"max_leaf_rel_rms": max(rel), "global_norm": gn,
+            "global_norm_rel": abs(gn - wn) / wn}
+
+
+def grad_check(cfg, params, batch, control_bits: int) -> dict:
+    """The kernel path (``cfg``) against the plain forms on the same
+    parameters and batch, and a control (the plain forms on parameters
+    rounded to ``control_bits`` bits) against the plain forms; the kernel
+    run's routing replayed in both.  Controls at ``TRAIN_CONTROL_SWEEP``
+    bits are read beside it (where the limits could lie)."""
+    plain = replace(cfg, **PLAIN_FORMS)
+    routing = TrainRouting(cfg)
+    before = kernel_counts()
+    with routing.record():
+        k_loss, k_grads = loss_and_grads(cfg, params, batch)
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    with routing.replay() as flips:
+        p_loss, p_grads = loss_and_grads(plain, params, batch)
+    kernel = grad_errors(k_grads, p_grads)
+    del k_grads
+    sweep = {}
+    for bits in (control_bits, *TRAIN_CONTROL_SWEEP[cfg.dtype]):
+        if bits in sweep:
+            continue
+        with routing.replay():
+            c_loss, c_grads = loss_and_grads(
+                plain, coarse_params(params, bits), batch)
+        sweep[bits] = {"loss_rel": abs(c_loss - p_loss) / abs(p_loss),
+                       **grad_errors(c_grads, p_grads)}
+        del c_grads
+    control = sweep[control_bits]
+    check(kernel_counts() == {k: before[k] + launched[k] for k in before},
+          "the plain forms launched a kernel")
+    return {"layers": cfg.n_layers, "dtype": cfg.dtype,
+            "loss": {"kernel": k_loss, "plain": p_loss,
+                     "kernel_rel": abs(k_loss - p_loss) / abs(p_loss),
+                     "control_rel": control["loss_rel"]},
+            "kernel_vs_plain": kernel, "control_vs_plain": control,
+            "control_bits": control_bits, "control_sweep": sweep,
+            "launches": launched,
+            "routing_flips": flips,
+            "recompute_routing_equal": routing.recompute_equal}
+
+
+def profile_train_step(fn, state, batch) -> dict:
+    """One more train step under ``torch.profiler``: the device time of its
+    kernels against the step's wall time (host clock to a
+    synchronisation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not busy:
+        return {"device_busy_ms": "not measured", "step_wall_ms": wall_ms}
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "kernel_launches": sum(1 for e in prof.events() if e.device_type
+                                   == torch.autograd.DeviceType.CUDA)}
+
+
+def backward_timing(device, arch: str, seed: int) -> dict:
+    """Each kernel of ``arch``'s training path at its training shape, bf16:
+    the forward (the kernel) and the backward (its plain version's
+    autograd) by CUDA events, median of 5 after one warm-up; and whether two
+    launches on the same inputs agree bit for bit (the recompute relies on
+    it)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    bf = torch.bfloat16
+    cfg = get_config(arch)
+    B, S = TRAIN_SHAPES[arch]
+    cases = {}
+    if arch == MOE_ARCH:
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        qkv = [_randn(gen, (B, S, h, D), bf, device) for h in (H, KV, KV)]
+        cases["flash_attention"] = (
+            lambda *t: flash_attention.flash_attention(*t), qkv)
+        sizes = routed_sizes(gen, B * S * cfg.moe_top_k, cfg.moe_experts,
+                             device)
+        xs = _randn(gen, (int(sizes.sum()), cfg.d_model), bf, device)
+        w = (torch.randn((cfg.moe_experts, cfg.d_model, cfg.expert_d_ff),
+                         generator=gen, device=device)
+             / cfg.d_model ** 0.5).to(bf)
+        cases["moe_gmm"] = (moe_gmm.grouped_matmul, [xs, w, sizes])
+    else:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, cfg.ssm_heads,
+                                      cfg.ssm_groups, cfg.ssm_state, bf,
+                                      device)
+        cases["ssd_scan"] = (
+            lambda *t: ssd_scan.ssd_intra_chunk(*t, cfg.ssm_chunk),
+            [x, dt, A, Bm.contiguous(), Cm.contiguous()])
+    out = {}
+    for name, (fn, inputs) in cases.items():
+        args = [t.requires_grad_() if t.is_floating_point() else t
+                for t in inputs]
+        first = fn(*args)
+        first = first if isinstance(first, tuple) else (first,)
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        equal = all(torch.equal(a, b) for a, b in zip(first, again))
+        grads_out = [torch.randn_like(o) for o in first]
+        wrt = [a for a in args if a.requires_grad]
+        fwd, bwd = [], []
+        for rep in range(6):
+            a, b, c = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            a.record()
+            outs = fn(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            b.record()
+            torch.autograd.grad(outs, wrt, grads_out)
+            c.record()
+            c.synchronize()
+            if rep:
+                fwd.append(a.elapsed_time(b))
+                bwd.append(b.elapsed_time(c))
+        out[name] = {"shape": list(inputs[0].shape),
+                     "forward_ms": statistics.median(fwd),
+                     "backward_ms": statistics.median(bwd),
+                     "deterministic": equal}
+        check(equal, f"{name}: two launches on the same inputs differ")
+    return out
+
+
+def phase_train(args, card: str, device, arch: str) -> dict:
+    """Train ``arch`` at full width and depth through ``launch.train.run``
+    with the launch counters zeroed just before and read after every step;
+    then the checkpoint, one profiled step, the gradients against the plain
+    forms and the kernels' backward times."""
+    cfg = get_config(arch)
+    check((cfg.attention_impl, cfg.moe_impl, cfg.ssm_impl, cfg.remat)
+          == ("cuda", "gmm", "cuda", True),
+          "the default is not the kernel path under remat")
+    B, S = TRAIN_SHAPES[arch]
+    want = expected_train_launches(cfg)
+    probe = TrainProbe(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", str(B),
+            "--seq", str(S), "--seed", str(args.seed), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--async-ckpt", "--device", str(device)]
+    with tempfile.TemporaryDirectory() as ckdir, probe.installed(), \
+            gate_calls() as gates:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = launch_train.run(launch_train.build_argparser().parse_args(
+            argv + ["--ckpt-dir", ckdir]))
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        k1 = bigroots_gates.LAUNCHES
+        mgr = CheckpointManager(ckdir)
+        saved_step, snapshot = probe.saves[-1]
+        t1 = time.perf_counter()
+        restored = mgr.restore(snapshot)
+        restore_s = time.perf_counter() - t1
+        ckpt_equal = mgr.latest_step() == saved_step and all(
+            r.tobytes() == s.numpy().tobytes()
+            for r, s in zip(tree.leaves(restored), snapshot, strict=True))
+        del restored, snapshot
+    probe.saves.clear()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    steps = probe.step_times()
+    losses = [float(s["loss"]) for s in probe.steps]
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} train steps")
+    for n, s in enumerate(steps):
+        check(s["launches"] == want,
+              f"{arch} train step {n} launched {s['launches']}, "
+              f"expected {want}")
+    steady = steps[1:]
+    step_ms = statistics.median(s["step_ms"] for s in steady)
+    run = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "batch": B, "seq": S,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.dtype,
+        "remat": cfg.remat, "steps": TRAIN_STEPS, "gpu": card,
+        "wall_s": wall, "driver_wall_s": out["wall_seconds"],
+        "step_ms_median": step_ms,
+        **{f"{k}_ms_median": statistics.median(s[f"{k}_ms"] for s in steady)
+           for k in ("forward", "backward", "optimizer")},
+        "tokens_per_s": B * S / (step_ms / 1e3),
+        "step_ms": [s["step_ms"] for s in steps],
+        "peak_memory_gb": peak / 1e9,
+        "launches": launches, "launches_per_step": want,
+        "k1_launches": k1, "packed_sweeps": len(gates["calls"]),
+        "diagnosis_ticks": probe.ticks, "k1_in_ticks": probe.k1_in_ticks,
+        "losses": losses, "loss_decreased": out["loss_decreased"],
+        "live_causes": out["live_causes_count"],
+        "stragglers": out["num_stragglers"],
+        "checkpoint": {"step": saved_step, "equal": ckpt_equal,
+                       "restore_s": restore_s},
+    }
+    check(all(np.isfinite(losses)), f"{arch}: a loss is not finite: "
+                                    f"{losses}")
+    check(out["loss_decreased"], f"{arch}: the loss did not decrease")
+    check(ckpt_equal, f"{arch}: the checkpoint restored other bytes")
+    check(probe.ticks == TRAIN_STEPS, f"{probe.ticks} diagnosis ticks")
+    check(k1 == len(gates["calls"]) and probe.k1_in_ticks >= 1,
+          f"{arch}: K1 launched {k1} times over {len(gates['calls'])} "
+          f"packed sweeps, {probe.k1_in_ticks} in the live ticks")
+    if device.type == "cuda":
+        loader = HostDataLoader(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                           batch_per_host=B, seed=args.seed),
+                                0, 1)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in loader.batch_at(TRAIN_STEPS)[0].items()}
+        run["profile"] = profile_train_step(probe.step_fn, probe.state, batch)
+    probe.state = probe.step_fn = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # Gradients: the first batch of the run and the run's initial
+    # parameters (the same seed), float32 cut in depth, then bf16 at full
+    # depth.
+    loader = HostDataLoader(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                       batch_per_host=B, seed=args.seed), 0, 1)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in loader.batch_at(0)[0].items()}
+    params = Model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
+                            args.f32_layers)
+    f32 = run["grad_f32"] = grad_check(cfg32, p32, batch,
+                                       TRAIN_F32_CONTROL_BITS)
+    del p32
+    bf16 = run["grad_bf16"] = grad_check(cfg, params, batch,
+                                         TRAIN_BF16_CONTROL_BITS[arch])
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        run["kernels"] = backward_timing(device, arch, args.seed)
+    loss_lim, gnorm_lim = TRAIN_BF16_LOSS_RTOL[arch], \
+        TRAIN_BF16_GNORM_RTOL[arch]
+    run["limits"] = {"f32_loss_rtol": TRAIN_F32_LOSS_RTOL,
+                     "f32_grad_rel_rms": TRAIN_F32_GRAD_REL_RMS,
+                     "bf16_loss_rtol": loss_lim, "bf16_gnorm_rtol": gnorm_lim,
+                     "bf16_leaf_rel_rms": TRAIN_BF16_LEAF_REL_RMS}
+    failed = [msg for ok, msg in (
+        (f32["loss"]["kernel_rel"] <= TRAIN_F32_LOSS_RTOL,
+         "float32 loss differs from the plain forms'"),
+        (f32["kernel_vs_plain"]["max_leaf_rel_rms"]
+         <= TRAIN_F32_GRAD_REL_RMS,
+         "a float32 gradient leaf differs from the plain forms'"),
+        (f32["loss"]["control_rel"] > TRAIN_F32_LOSS_RTOL
+         and f32["control_vs_plain"]["max_leaf_rel_rms"]
+         > TRAIN_F32_GRAD_REL_RMS,
+         "the float32 control lies inside a limit: the check cannot tell"),
+        (bf16["loss"]["kernel_rel"] <= loss_lim,
+         "bf16 loss further from the plain forms' than the limit"),
+        (bf16["kernel_vs_plain"]["global_norm_rel"] <= gnorm_lim,
+         "bf16 gradient norm further from the plain forms' than the limit"),
+        (bf16["kernel_vs_plain"]["max_leaf_rel_rms"]
+         <= TRAIN_BF16_LEAF_REL_RMS,
+         "a bf16 gradient leaf further from the plain forms' than the limit"),
+        (bf16["loss"]["control_rel"] > loss_lim
+         and bf16["control_vs_plain"]["global_norm_rel"] > gnorm_lim
+         and bf16["control_vs_plain"]["max_leaf_rel_rms"]
+         > TRAIN_BF16_LEAF_REL_RMS,
+         "the bf16 control lies inside a limit: the check cannot tell"),
+        (f32["recompute_routing_equal"] and bf16["recompute_routing_equal"],
+         "a recompute routed other than its forward"),
+        (f32["launches"] == expected_train_launches(cfg32)
+         and bf16["launches"] == want,
+         "the gradient checks' kernel path launched other counts"),
+        (flip_share(f32["routing_flips"]) <= ROUTING_FLIP_SHARE["float32"]
+         and flip_share(bf16["routing_flips"])
+         <= ROUTING_FLIP_SHARE["bfloat16"], "routing flips"),
+    ) if not ok]
+    if failed:
+        emit({"phase": "train_path", "ok": False, **run})
     check(not failed, f"{arch}: " + "; ".join(failed))
     return run
 
@@ -2077,6 +2600,21 @@ def run(args) -> None:
         emit({"phase": "serve_path", "ok": True, **serve[arch]})
         torch.cuda.empty_cache()
 
+    train = {}
+    for arch in (MOE_ARCH, SSM_ARCH):
+        train[arch] = phase_train(args, card, device, arch)
+        emit({"phase": "train_path", "ok": True, **train[arch]})
+        torch.cuda.empty_cache()
+
+    def trained(name: str, arch: str) -> dict:
+        """A kernel's launches in ``arch``'s training run, per step, and
+        its forward and backward at the training shape."""
+        return {"train_path": get_config(arch).name,
+                "train_launches": train[arch]["launches"][name],
+                "train_launches_per_step":
+                    train[arch]["launches_per_step"][name],
+                "train_shape": train[arch]["kernels"][name]}
+
     def entry(name: str, replaces: str, per: str, arch: str, t: dict,
               checked: list) -> dict:
         """One kernel's line: launches from ``arch``'s serving run, the
@@ -2119,26 +2657,31 @@ def run(args) -> None:
         "diagnosis_stack_launches": {
             name: run["k1_launches"] for name, run in
             [*diagnosis["goldens"].items(), ("scaled", diagnosis["scaled"])]},
+        "train_path_launches": {get_config(a).name: t["k1_launches"]
+                                for a, t in train.items()},
     }, {**entry("flash_attention", "src/repro/kernels/flash_attention.py:27",
                 "one per layer of the prefill", SERVE_ARCH,
                 attn_timing["flash_attention"], attn_checks),
-        "granite_prefill": attn_timing["flash_attention_granite"]},
+        "granite_prefill": attn_timing["flash_attention_granite"],
+        **trained("flash_attention", MOE_ARCH)},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
                  attn_timing["decode_attention"], attn_checks),
          "granite_last_step": attn_timing["decode_attention_granite"],
          "granite_launches": serve[MOE_ARCH]["launches"]["decode_attention"]},
-        entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
-              "one per SSM layer of the prefill", SSM_ARCH,
-              moe_ssd_timing["ssd_scan"], moe_ssd_checks),
+        {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
+                 "one per SSM layer of the prefill", SSM_ARCH,
+                 moe_ssd_timing["ssd_scan"], moe_ssd_checks),
+         **trained("ssd_scan", SSM_ARCH)},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
                  moe_ssd_checks),
          "library": moe_ssd_timing["moe_gmm_prefill"]["library"],
          "prefill_down_launch": moe_ssd_timing["moe_gmm_prefill_down"],
-         "decode_launch": moe_ssd_timing["moe_gmm_decode"]}],
+         "decode_launch": moe_ssd_timing["moe_gmm_decode"],
+         **trained("moe_gmm", MOE_ARCH)}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The numpy forms are the canonical storage layout shared with the JAX
 package (``forecast_init``'s parameter dict, the forecaster's carried
-state arrays, the packed gate batch, a language model's parameter tree),
+state arrays, the packed gate batch, a language model's parameter tree
+and its training state),
 so the same arrays can be handed to both packages and must produce the
 same results.
 """
@@ -14,6 +15,7 @@ import torch
 from .device import resolve_device
 from .models.forecast_ssd import ForecastCell
 from .models.lm import param_shapes
+from .train.optimizer import AdamWState
 
 _GATE_FIELDS = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
                 "vsum", "q", "numok", "floor")
@@ -97,3 +99,33 @@ def lm_params_from_numpy(params, cfg, device=None) -> dict:
         return out
 
     return carry(params, param_shapes(cfg), "")
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: a nested dict of
+    tensors (parameters, or a tree shaped like them: AdamW moments, an
+    error-feedback residual, gradients) as host numpy arrays, key for key,
+    in the same dtypes (numpy has no bfloat16: such a leaf raises)."""
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy().copy() for k, v in params.items()}
+
+
+def train_state_from_numpy(state, cfg, device=None) -> dict:
+    """A training state of the JAX package (``{"params", "opt", ["ef"]}``
+    with ``opt`` an AdamW state of fields ``m``, ``v``, ``step``, after
+    ``jax.tree.map(np.asarray, state)``) as the port's
+    :data:`repro_torch.train.TrainState` on ``device``: every tree checked
+    against ``cfg``'s parameter shapes, the step an int32 0-d tensor."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {
+        "params": lm_params_from_numpy(state["params"], cfg, dev),
+        "opt": AdamWState(
+            m=lm_params_from_numpy(opt.m, cfg, dev),
+            v=lm_params_from_numpy(opt.v, cfg, dev),
+            step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                              device=dev)),
+    }
+    if "ef" in state:
+        out["ef"] = lm_params_from_numpy(state["ef"], cfg, dev)
+    return out

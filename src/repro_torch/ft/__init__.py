@@ -1,10 +1,6 @@
-"""Fault tolerance: heartbeats, elastic re-mesh, BigRoots-informed
-straggler mitigation, and the closed-loop policy engine that turns
-confirmed root causes into guarded actions.
-
-The supervised restart loop (``Supervisor``, ``RestartBudgetExceeded``)
-is not part of this package yet: it checkpoints through a checkpoint
-manager, which comes with the training path."""
+"""Fault tolerance: heartbeats, supervised restart, elastic re-mesh,
+BigRoots-informed straggler mitigation, and the closed-loop policy engine
+that turns confirmed root causes into guarded actions."""
 from .elastic import ElasticPlan, plan_mesh_shape, reshard_plan
 from .heartbeat import FailureDetector, HeartbeatWriter
 from .mitigation import MitigationAction, MitigationPlanner
@@ -20,6 +16,7 @@ from .policy import (
     forecast_rule,
     load_policy,
 )
+from .supervisor import RestartBudgetExceeded, Supervisor
 
 __all__ = [
     "Action",
@@ -34,7 +31,9 @@ __all__ = [
     "MitigationPlanner",
     "PolicyEngine",
     "RecordingActuator",
+    "RestartBudgetExceeded",
     "Rule",
+    "Supervisor",
     "forecast_rule",
     "load_policy",
     "plan_mesh_shape",

@@ -9,7 +9,10 @@ The attention modules keep their wrapper's name (``flash_attention``,
 module, with its ``LAUNCHES`` counter, as are ``moe_gmm`` (function
 ``grouped_matmul``) and ``ssd_scan`` (function ``ssd_intra_chunk``); the
 model-layout entry points are :func:`mha_flash`, :func:`mha_decode`,
-:func:`moe_gmm_ffn` and :func:`ssd_chunked_cuda`.
+:func:`moe_gmm_ffn` and :func:`ssd_chunked_cuda`.  The forward kernels of
+the training path (flash attention, the SSD intra-chunk, the grouped
+matmul) are differentiable: their gradient is their plain version's
+(:mod:`.grad`).
 """
 from . import decode_attention, flash_attention, moe_gmm, ssd_scan
 from .bigroots_gates import eval_gates, eval_gates_torch, gates_launch

@@ -24,16 +24,20 @@ Two functions:
   float32; D 64 or 128) on the current stream or raise; CPU tensors take
   the plain version.  bfloat16 inputs must suit a TMA tensor map
   (:mod:`.tma`) and are refused, never copied, where they do not.
-  ``LAUNCHES`` counts kernel launches.
+  ``LAUNCHES`` counts kernel launches.  Its gradient is the plain
+  version's, by autograd (:mod:`.grad`): the JAX package has no backward
+  kernel either.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import build
+from .grad import PlainGradient
 from .tma import check_tma, tma_strides
 
 #: Number of times :func:`flash_attention` launched the CUDA kernel.
@@ -120,14 +124,22 @@ def check_kernel_inputs(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Attention forward on the tensors' own device: the hand-written
     kernel for CUDA tensors (no synchronisation), the plain version for
-    CPU tensors."""
-    global LAUNCHES
+    CPU tensors.  Differentiable: the gradient is the plain version's
+    (:class:`~repro_torch.kernels.grad.PlainGradient`)."""
     _check(q, k, v)
+    plain = functools.partial(flash_attention_torch, causal=causal)
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal)
+        return PlainGradient.apply(plain, plain, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     check_kernel_inputs(q, k, v)
+    return PlainGradient.apply(functools.partial(_launch, causal=causal),
+                               plain, q, k, v)
+
+
+def _launch(q, k, v, *, causal: bool) -> torch.Tensor:
+    """One launch of the CUDA kernel on checked inputs."""
+    global LAUNCHES
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

@@ -23,15 +23,18 @@ groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
   output tile is :func:`tile_rows` rows high, chosen from ``M`` and ``E``
   alone, and its inputs must suit a TMA tensor map (:mod:`.tma`).  CPU
   tensors take the plain version.  ``LAUNCHES`` counts kernel launches.
+  Its gradient is the plain version's, by autograd (:mod:`.grad`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 from .flash_attention import DTYPES
+from .grad import PlainGradient
 from .tma import check_tma
 
 #: Number of times :func:`grouped_matmul` launched the CUDA kernel.
@@ -132,17 +135,27 @@ def grouped_matmul(xs, w, group_sizes, *,
     kernel for CUDA tensors (no synchronisation, no host read of
     ``group_sizes``), the plain version for CPU tensors.
     ``rows_per_tile`` (64 or 128) overrides :func:`tile_rows` for the
-    bfloat16 kernel; it changes how the work is cut, not the result."""
-    global LAUNCHES
+    bfloat16 kernel; it changes how the work is cut, not the result.
+    Differentiable in ``xs`` and ``w``: the gradient is the plain
+    version's (:class:`~repro_torch.kernels.grad.PlainGradient`)."""
     _check(xs, w, group_sizes)
     if rows_per_tile is not None and rows_per_tile not in TILE_ROWS:
         raise ValueError(f"rows_per_tile {rows_per_tile}: the kernel takes "
                          f"{TILE_ROWS}")
     if xs.device.type == "cpu":
-        return grouped_matmul_torch(xs, w, group_sizes)
+        return PlainGradient.apply(grouped_matmul_torch, grouped_matmul_torch,
+                                   xs, w, group_sizes)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
     check_kernel_inputs(xs, w)
+    return PlainGradient.apply(
+        functools.partial(_launch, rows_per_tile=rows_per_tile),
+        grouped_matmul_torch, xs, w, group_sizes)
+
+
+def _launch(xs, w, group_sizes, *, rows_per_tile: int | None):
+    """One launch of the CUDA kernel on checked inputs."""
+    global LAUNCHES
     M, K = xs.shape
     E, _, N = w.shape
     out = torch.empty((M, N), dtype=xs.dtype, device=xs.device)

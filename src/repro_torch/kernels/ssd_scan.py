@@ -26,7 +26,8 @@ and not yet rounded.
   and group of :func:`head_group_plan` heads that share B and C; scalar
   FMAs for float32; P 64, N 16 / 32 / 64 / 128, Q a multiple of 16 up to
   256) on the current stream or raise; CPU tensors take the plain version.
-  ``LAUNCHES`` counts kernel launches.
+  ``LAUNCHES`` counts kernel launches.  Its gradient is the plain
+  version's, by autograd (:mod:`.grad`).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 from ..device import H100_SMS, sm_count
 from . import build
 from .flash_attention import DTYPES
+from .grad import PlainGradient
 
 #: Number of times :func:`ssd_intra_chunk` launched the CUDA kernel.
 LAUNCHES = 0
@@ -100,9 +102,12 @@ def _kernel_fn():
 def ssd_intra_chunk_torch(x, dt, A, Bm, Cm, chunk: int):
     """Plain PyTorch version, float32 throughout, outputs included
     (float64 for float64 inputs): ``seg = cumsum(dt·A)`` per chunk, the
-    decay ``exp(seg_i − seg_j)`` selected to 0 above the diagonal,
+    decay ``exp(seg_i − seg_j)`` below the diagonal and 0 above it,
     ``y = ((C·Bᵀ)·decay·dt_j)·x`` and ``S = Bᵀ·(x·dt·exp(seg_last −
-    seg))``."""
+    seg))``.  Above the diagonal ``seg_i − seg_j`` is positive and can
+    overflow the exponent: it is masked to ``-inf`` before the exponent
+    (the reference selects after it), which gives the same values and a
+    finite gradient where ``0 · exp(overflow)`` would give NaN."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q, rep = chunk, H // G
@@ -117,9 +122,9 @@ def ssd_intra_chunk_torch(x, dt, A, Bm, Cm, chunk: int):
     Bf = chunked(Bm.repeat_interleave(rep, dim=2), N)
     Cf = chunked(Cm.repeat_interleave(rep, dim=2), N)
     seg = torch.cumsum(dtf * A.to(acc)[None, :, None, None], dim=-1)
-    decay = torch.exp(seg[..., :, None] - seg[..., None, :])
     mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask, decay, 0.0)
+    decay = torch.exp(torch.where(mask, seg[..., :, None] - seg[..., None, :],
+                                  -torch.inf))
     scores = torch.einsum("bhcin,bhcjn->bhcij", Cf, Bf) * decay
     scores = scores * dtf[..., None, :]
     y = torch.einsum("bhcij,bhcjp->bhcip", scores, xf)
@@ -154,15 +159,24 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
 def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
     """The intra-chunk SSD on the tensors' own device: the hand-written
     kernel for CUDA tensors (no synchronisation), the plain version for CPU
-    tensors.  ``chunk`` must divide S; ``y`` is float32."""
-    global LAUNCHES
+    tensors.  ``chunk`` must divide S; ``y`` is float32.  Differentiable:
+    the gradient is the plain version's
+    (:class:`~repro_torch.kernels.grad.PlainGradient`)."""
     _check(x, dt, A, Bm, Cm, chunk)
+    plain = functools.partial(ssd_intra_chunk_torch, chunk=chunk)
     if x.device.type == "cpu":
-        return ssd_intra_chunk_torch(x, dt, A, Bm, Cm, chunk)
+        return PlainGradient.apply(plain, plain, x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B_, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
+    _check_kernel_inputs(x, Bm, Cm, chunk)
+    return PlainGradient.apply(functools.partial(_launch, chunk=chunk),
+                               plain, x, dt, A, Bm, Cm)
+
+
+def _check_kernel_inputs(x, Bm, Cm, chunk: int) -> None:
+    """What the CUDA kernel takes beyond :func:`_check`.  Raises; never
+    copies."""
+    P, N = x.shape[3], Bm.shape[3]
     if x.dtype not in DTYPES:
         raise TypeError(f"dtype {x.dtype}: the kernel takes float32 or "
                         "bfloat16")
@@ -179,6 +193,13 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
             for t in (x, Bm, Cm)):
         raise ValueError("bfloat16 rows must start on 16 bytes (the kernel "
                          "copies 16 bytes at a time)")
+
+
+def _launch(x, dt, A, Bm, Cm, *, chunk: int):
+    """One launch of the CUDA kernel on checked inputs."""
+    global LAUNCHES
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     Nc = S // chunk
     hb = (head_group_plan(B_, S, H, G, N, chunk, P, sm_count(x.device))
           if x.dtype == torch.bfloat16 else 1)

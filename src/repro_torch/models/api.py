@@ -2,6 +2,7 @@
 
     model = Model(cfg)
     params = model.init(generator)          # or model.init(device="cpu")
+    loss, metrics = model.loss(params, batch)
     cache = model.init_cache(params, batch, max_len)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, tokens, cache)
@@ -45,7 +46,10 @@ class Model:
             generator = torch.Generator(device=device).manual_seed(0)
         return lm.init_params(self.cfg, generator, device)
 
-    # -- evaluation -----------------------------------------------------------
+    # -- training -------------------------------------------------------------
+    def loss(self, params: Params, batch: dict):
+        return lm.loss_fn(params, self.cfg, batch)
+
     def forward(self, params: Params, batch: dict):
         return lm.forward(params, self.cfg, batch["tokens"],
                           embeds=batch.get("embeds"))

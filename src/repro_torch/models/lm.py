@@ -8,7 +8,8 @@ A slot is a mixer (``attn`` or ``ssm``) or an FFN (``mlp`` or ``moe``).
 
 Entry points:
   init_params(cfg, generator, device)     → params dict
-  forward(params, cfg, tokens, ...)       → (logits, MoeAux)
+  forward(params, cfg, tokens, ...)       → (logits, MoeAux)  (train/eval)
+  loss_fn(params, cfg, batch)             → (loss, metrics)
   init_cache(cfg, batch, max_len, device) → decode cache dict
   prefill(params, cfg, tokens, cache, ...)→ (logits, cache)
   decode_step(params, cfg, tokens, cache) → (logits, cache)
@@ -25,6 +26,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
@@ -105,7 +107,7 @@ def _block(params: Params, i: int) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (evaluation)
+# full-sequence forward (training / evaluation)
 # ---------------------------------------------------------------------------
 def head_logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     """Final projection; padded vocab columns are masked to -1e30."""
@@ -135,36 +137,97 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _block_forward(params: Params, cfg: ModelConfig, i: int, x, aux,
+                   positions):
+    """Block ``i``: every slot of the pattern on the residual stream ``x``,
+    the MoE aux terms added to ``aux`` in slot order."""
+    bp = _block(params, i)
+    for skey, kind, _role in _slot_keys(cfg):
+        p = bp[skey]
+        h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
+        if kind == "attn":
+            x = x + attention_apply(p, h, cfg, positions=positions)
+        elif kind == "ssm":
+            x = x + ssm_apply(p, h, cfg)
+        elif kind == "mlp":
+            x = x + mlp_apply(p, h)
+        else:
+            y, a = moe_apply(p, h, cfg)
+            x = x + y
+            aux = MoeAux(*(s + t for s, t in zip(aux, a)))
+    return x, aux
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             embeds: torch.Tensor | None = None):
     """Full-sequence logits and the MoE aux terms, averaged over the MoE
-    layers (zeros when there are none)."""
+    layers (zeros when there are none).
+
+    With ``cfg.remat`` and gradients enabled, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept, and the backward pass recomputes the block from its input — the
+    reference's ``jax.checkpoint`` per block.  It changes memory, not
+    values; the recompute launches the block's kernels a second time."""
     x = embed_inputs(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = MoeAux(zero, zero, torch.zeros(max(cfg.moe_experts, 1),
                                          device=x.device))
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_blocks):
-        bp = _block(params, i)
-        for skey, kind, _role in _slot_keys(cfg):
-            p = bp[skey]
-            h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
-            if kind == "attn":
-                x = x + attention_apply(p, h, cfg, positions=positions)
-            elif kind == "ssm":
-                x = x + ssm_apply(p, h, cfg)
-            elif kind == "mlp":
-                x = x + mlp_apply(p, h)
-            else:
-                y, a = moe_apply(p, h, cfg)
-                x = x + y
-                aux = MoeAux(*(s + t for s, t in zip(aux, a)))
+        if remat:
+            x, aux = checkpoint(_block_forward, params, cfg, i, x, aux,
+                                positions, use_reentrant=False)
+        else:
+            x, aux = _block_forward(params, cfg, i, x, aux, positions)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     n_moe = sum(s.ffn == "moe" for s in cfg.pattern()) * cfg.n_blocks
     if n_moe:
         aux = MoeAux(*(t / n_moe for t in aux))
     return head_logits(params, cfg, x), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood in float32, in the reference's
+    iota-select form: the label's logit is selected by comparing a column
+    index with the label (no gather), and the max subtracted before the
+    exponent carries no gradient."""
+    logits32 = logits.float()
+    m = logits32.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(col == labels[..., None], logits32,
+                              0.0).sum(dim=-1)
+    return lse - label_logit
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
+            lb_coef: float = 0.01, z_coef: float = 1e-3):
+    """Next-token cross-entropy; labels < 0 are ignored (modality
+    prefixes).  Returns ``(loss, metrics)``, the metrics as 0-d tensors
+    keyed as the reference keys them."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:   # modality prefix positions
+        pad = torch.full((labels.shape[0], logits.shape[1] - labels.shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    valid = labels >= 0
+    nll = cross_entropy(logits, labels.clamp_min(0))
+    denom = valid.sum().clamp_min(1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    loss = ce + lb_coef * aux.load_balance_loss + z_coef * aux.router_z_loss
+    metrics = {
+        "loss": loss,
+        "ce": ce,
+        "lb_loss": aux.load_balance_loss,
+        "z_loss": aux.router_z_loss,
+        "expert_load_max": (aux.expert_load.max() if cfg.moe_experts
+                            else torch.zeros((), device=loss.device)),
+    }
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

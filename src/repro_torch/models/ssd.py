@@ -119,10 +119,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     a = dtc * A.to(f32)[None, None, None, :]             # [B,Nc,Q,H]
     seg = torch.cumsum(a, dim=2)
 
-    # intra-chunk: decay(i <- j) = exp(seg_i - seg_j), valid for i >= j
-    decay = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
+    # intra-chunk: decay(i <- j) = exp(seg_i - seg_j), valid for i >= j;
+    # masked before the exponent (the reference masks after it): the same
+    # values, and no NaN gradient where seg_i - seg_j (i < j) overflows.
     mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], decay, 0.0)
+    decay = torch.exp(torch.where(
+        mask[None, None, :, :, None],
+        seg[:, :, :, None, :] - seg[:, :, None, :, :], -torch.inf))
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * decay
     scores = scores * dtc[:, :, None, :, :]              # dt_j weighting
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)

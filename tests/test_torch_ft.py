@@ -2,8 +2,8 @@
 ``repro_torch.anomaly.loop``) against ``repro.ft``.
 
 Every case of the reference's ``test_ft.py`` except the supervisor's
-(``repro_torch.ft`` has no ``Supervisor`` yet) runs here on both
-packages with the same inputs: the port must take the same actions and
+(its backoff cases run on the port in ``test_torch_ckpt_data.py``) runs
+here on both packages with the same inputs: the port must take the same actions and
 write the same audit JSON, byte for byte, and the reference's own
 assertions are checked on the port's result.  The A/B runs its analyzers
 on ``device="cpu"``.
@@ -569,7 +569,7 @@ def test_whatif_recovery_matches_the_reference():
 
 
 def test_no_supervisor_yet():
-    assert not hasattr(port_ft, "Supervisor")
-    assert "Supervisor" not in port_ft.__all__
-    assert set(port_ft.__all__) == set(ref_ft.__all__) - {
-        "Supervisor", "RestartBudgetExceeded"}
+    """Since the training slice (``repro_torch.ckpt``) the port's ``ft``
+    exports the supervisor too: the reference's names, all of them."""
+    assert port_ft.Supervisor.__module__ == "repro_torch.ft.supervisor"
+    assert set(port_ft.__all__) == set(ref_ft.__all__)

@@ -113,6 +113,33 @@ def test_diagnosis_stack_imports_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+TRAIN = r"""
+import sys, tempfile
+import repro_torch.ckpt, repro_torch.data, repro_torch.parallel, repro_torch.train
+from repro_torch.ft import Supervisor
+from repro_torch.launch import train
+
+with tempfile.TemporaryDirectory() as d:
+    out = train.run(train.build_argparser().parse_args([
+        "--arch", "granite_moe_1b_a400m", "--smoke", "--device", "cpu",
+        "--steps", "3", "--batch", "2", "--seq", "8", "--accum", "2",
+        "--compress-grads", "--ckpt-dir", d, "--ckpt-every", "1"]))
+    assert out["steps"] == 3
+    assert repro_torch.ckpt.CheckpointManager(d).latest_step() == 2
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_training_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", TRAIN], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 NO_CUDA = r"""
 import torch
 from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,
@@ -165,6 +192,17 @@ for make in (lambda: model.init(),
         assert "CUDA" in str(exc), exc
     else:
         raise SystemExit("served on the CPU unasked")
+
+from repro_torch.launch import train
+from repro_torch.train import AdamWConfig, init_state
+for make in (lambda: init_state(model, None, AdamWConfig()),
+             lambda: train.main(["--smoke", "--steps", "1"])):
+    try:
+        make()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise SystemExit("trained on the CPU unasked")
 print("RAISED")
 """
 
