@@ -131,6 +131,36 @@ process exits non-zero):
                 with a control that must exceed it; and each kernel's
                 forward and backward at its training shape, launched twice
                 to check it is deterministic.
+9. ``encdec_path``: seamless-m4t-medium (12 + 12 layers, d 1024, 16 heads
+                over 16 kv heads, head_dim 64, vocab 256206; ~0.98 B
+                parameters) at full size.  Serving through
+                ``Model.init_cache`` / ``prefill`` / ``decode``: 8 requests
+                of 256 frame embeddings and a 1024-token decoder prompt, 32
+                greedy new tokens; every call's launches asserted (K2 once
+                per encoder layer in ``init_cache``, twice per decoder layer
+                in the prefill: self and cross; K3 twice per decoder layer
+                in a step: the self and the cross cache); the bf16 logits
+                held to the plain forms as ``serve_path`` holds them, and a
+                float32 variant cut to ``--f32-layers`` (encoder and
+                decoder) to the plain forms with float64 activations.  Then
+                ``train_path``'s run and checks at 8 x 512 decoder tokens
+                and 128 frames (K2 72 times a step: 36 forward, 36
+                recompute).  The new kernel shapes are among the K2 / K3
+                corners of phase 3 (``Sq != Sk`` non-causal, n_rep 1 at
+                head_dim 64, the cross cache's ``cache_len``) and timed there.
+10. ``ep_path``: granite-moe-1b-a400m with ``moe_impl="ep"`` on a (data 1,
+                model 4) mesh of virtual shards: its 8 x 1024 prefill
+                through ``Model.prefill`` (K5 three times per shard per MoE
+                layer, K2 once per layer), its logits against the same ep
+                function with K5's plain version (routing replayed) within
+                granite's bf16 limit, the kept and dropped slots of both
+                runs equal, the dropped share and the distance to the
+                token-sorted MoE reported; a decode step raises, as the
+                reference asserts (S = 1 is not a multiple of 4); K5 timed
+                at one shard's rows.
+11. ``parallel``: the int8 all-reduce over 4 shards of granite's ``embed``
+                leaf against the mean of their dequantized values, and the
+                pipeline over 4 stages against the sequential composition.
 
 The last three lines of standard output are the GPU's name and power limit
 as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
@@ -190,20 +220,28 @@ from repro_torch.kernels import (  # noqa: E402
     ssd_scan,
 )
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ForecastConfig,
     Model,
     forecast_init,
-    lm,
 )
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models.ssd import ssd_chunked as ssd_chunked_plain  # noqa: E402
+from repro_torch.parallel import (  # noqa: E402
+    compressed_allreduce_mean,
+    dequantize,
+    ep_moe,
+    quantize,
+)
+from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Diagnosis,
     FleetAggregator,
     Request,
     ServeEngine,
 )
+from repro_torch.serve.engine import cast_params  # noqa: E402
 from repro_torch.train import global_norm  # noqa: E402
 from repro_torch.train import step as train_step_mod  # noqa: E402
 from repro_torch.telemetry import (  # noqa: E402
@@ -281,6 +319,27 @@ ROUTING_FLIP_SHARE = {"bfloat16": 0.08, "float32": 1e-3}
 #: float32 logits of the kernel path against the plain forms in float64,
 #: relative RMS: float32 rounding through 4 layers.
 SERVE_F32_REL_RMS = 1e-4
+#: The encoder-decoder path: seamless-m4t-medium at its published size,
+#: 8 requests of ``ENC_FRAMES`` frame embeddings (seq / 4, the JAX
+#: package's rule, ``launch/specs.py``) and a 1024-token decoder prompt,
+#: 32 greedy new tokens, the same cache as the decoder-only paths.
+ENCDEC_ARCH = "seamless_m4t_medium"
+ENC_FRAMES = PROMPT_LEN // 4
+#: Its bf16 kernel path against the bf16 plain forms, relative RMS of the
+#: worst step: a limit between the sound reading and the 5-bit control's
+#: (``SERVE_BF16_KERNEL_VS_PLAIN``'s rule).
+#: Readings on an H100 (sound / control): 0.0223 / 0.0408.
+ENCDEC_BF16_KERNEL_VS_PLAIN = 0.03
+#: Expert parallelism: granite-moe-1b-a400m with ``moe_impl="ep"`` on a
+#: (data 1, model 4) mesh of virtual shards on the one card, its prefill at
+#: the serving batch; logits against the same ep function with K5's plain
+#: version within granite's bf16 limit.
+EP_SHARDS = 4
+EP_KERNEL_VS_PLAIN = SERVE_BF16_KERNEL_VS_PLAIN[MOE_ARCH]
+#: The served prefill drops no slot at the default capacity factor 1.25
+#: (random routers route evenly), so the drop path is driven directly: one
+#: ep layer at this factor, K5 against its plain version.
+EP_LOW_CF = 0.5
 
 
 #: The diagnosis stack's goldens, pinned by the JAX package.
@@ -777,24 +836,26 @@ def compare(got, want, tol: float, what: str) -> dict:
     return res
 
 
-def flash_case(gen, B, S, H, KV, D, dtype, causal, device, bhsd=False):
-    """Kernel against plain version on one shape.  ``bhsd``: the inputs are
-    the JAX kernel's ``[B*H, S, D]`` layout seen as ``[1, S, B*H, D]``
-    views (strided, not copied)."""
+def flash_case(gen, B, S, H, KV, D, dtype, causal, device, bhsd=False,
+               Sk=None):
+    """Kernel against plain version on one shape: ``S`` queries over ``Sk``
+    keys (default ``S``).  ``bhsd``: the inputs are the JAX kernel's
+    ``[B*H, S, D]`` layout seen as ``[1, S, B*H, D]`` views (strided, not
+    copied)."""
     if bhsd:
         q = _randn(gen, (B * H, S, D), dtype, device).permute(1, 0, 2)[None]
         k = _randn(gen, (B * KV, S, D), dtype, device).permute(1, 0, 2)[None]
         v = _randn(gen, (B * KV, S, D), dtype, device).permute(1, 0, 2)[None]
     else:
         q = _randn(gen, (B, S, H, D), dtype, device)
-        k = _randn(gen, (B, S, KV, D), dtype, device)
-        v = _randn(gen, (B, S, KV, D), dtype, device)
+        k = _randn(gen, (B, Sk or S, KV, D), dtype, device)
+        v = _randn(gen, (B, Sk or S, KV, D), dtype, device)
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     want = flash_attention.flash_attention_torch(q, k, v, causal=causal)
     res = {"kernel": "flash_attention", "shape": list(q.shape), "kv": KV,
-           "dtype": str(dtype).removeprefix("torch."), "causal": causal,
-           "bhsd_view": bhsd}
+           "keys": k.shape[1], "dtype": str(dtype).removeprefix("torch."),
+           "causal": causal, "bhsd_view": bhsd}
     return {**res, **compare(got, want, ATTN_TOL[dtype],
                              f"flash_attention {res}")}
 
@@ -872,6 +933,35 @@ def attention_checks(device, seed: int) -> list[dict]:
                                    cache_len, device))
         out.append(decode_case(gen, 3, 70, 4, 2, 64, dtype, 69, device))
         out.append(decode_case(gen, 1, 5, 4, 4, 128, dtype, 2, device))
+        out += encdec_attention_checks(gen, dtype, device)
+    return out
+
+
+def encdec_attention_checks(gen, dtype, device) -> list[dict]:
+    """seamless-m4t-medium's shapes: plain MHA (n_rep 1) at head_dim 64.
+    K2: the decoder's causal self-attention, the encoder's non-causal one
+    over ``ENC_FRAMES``, and cross-attention (non-causal, ``Sq != Sk``) at
+    its serving shape and at a query row or key past a 128-row tile, one
+    key, one query; K3: the cross cache (``cache_len`` 0, the split edges,
+    ``ENC_FRAMES - 1`` as served) and the self cache at its split edges."""
+    cfg = get_config(ENCDEC_ARCH)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = SERVE_BATCH
+    out = [flash_case(gen, B, PROMPT_LEN, H, KV, D, dtype, True, device),
+           flash_case(gen, B, ENC_FRAMES, H, KV, D, dtype, False, device)]
+    for Sq, Sk in ((PROMPT_LEN, ENC_FRAMES), (1, 256), (17, 129), (129, 17),
+                   (300, 1)):
+        out.append(flash_case(gen, B if Sq == PROMPT_LEN else 2, Sq, H, KV,
+                              D, dtype, False, device, Sk=Sk))
+    out.append(flash_case(gen, 2, 17, 8, 2, 128, dtype, False, device,
+                          Sk=129))
+    for cache_len in sorted({0, ENC_FRAMES - 1,
+                             *decode_corners(B, ENC_FRAMES, H, KV, device)}):
+        out.append(decode_case(gen, B, ENC_FRAMES, H, KV, D, dtype,
+                               cache_len, device))
+    for cache_len in decode_corners(B, MAX_LEN, H, KV, device):
+        out.append(decode_case(gen, B, MAX_LEN, H, KV, D, dtype, cache_len,
+                               device))
     return out
 
 
@@ -1058,53 +1148,57 @@ def with_replaced(fns: dict, replaced_fn, current, what: str, tol: float
     return {**fns, "replaced_ms": replaced_fn}
 
 
-def flash_timing(gen, device, flush, arch: str, replaced) -> dict:
-    """K2 at ``arch``'s prefill: ``[8, 1024, H, D]`` causal over its kv
-    heads, bf16, beside its plain version, SDPA and (``replaced``) the body
-    it replaced."""
+def flash_timing(gen, device, flush, arch: str, replaced,
+                 Sq: int = PROMPT_LEN, Sk: int = PROMPT_LEN,
+                 causal: bool = True) -> dict:
+    """K2 at ``arch``'s prefill: ``[8, Sq, H, D]`` over ``Sk`` keys of its
+    kv heads (by default causal, ``Sq = Sk = 1024``), bf16, beside its
+    plain version, SDPA and (``replaced``) the body it replaced."""
     F = torch.nn.functional
     cfg = get_config(arch)
     B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim, torch.bfloat16
-    q = _randn(gen, (B, PROMPT_LEN, H, D), dt, device)
-    k = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
-    v = _randn(gen, (B, PROMPT_LEN, KV, D), dt, device)
+    q = _randn(gen, (B, Sq, H, D), dt, device)
+    k = _randn(gen, (B, Sk, KV, D), dt, device)
+    v = _randn(gen, (B, Sk, KV, D), dt, device)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def kernel():
-        return flash_attention.flash_attention(q, k, v, causal=True)
+        return flash_attention.flash_attention(q, k, v, causal=causal)
     fns = {
         "ms": kernel,
         "plain_ms": lambda: flash_attention.flash_attention_torch(
-            q, k, v, causal=True),
+            q, k, v, causal=causal),
         "library_ms": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
     }
     fns = with_replaced(fns, replaced and replaced.body(
-        "flash_attention", lambda: replaced.flash(q, k, v)), kernel,
+        "flash_attention", lambda: replaced.flash(q, k, v, causal)), kernel,
         "flash_attention", ATTN_TOL[dt])
     t = measure_fns(fns, flush, rounds=2)
-    t.update(shape=[B, PROMPT_LEN, H, D], kv_heads=KV, dtype="bfloat16",
-             path=cfg.name,
-             work_items=H * B * -(-PROMPT_LEN // flash_attention.BF16_BQ),
-             **flash_bound(B, PROMPT_LEN, PROMPT_LEN, H, KV, D, dt, True))
+    t.update(shape=[B, Sq, H, D], keys=Sk, kv_heads=KV, causal=causal,
+             dtype="bfloat16", path=cfg.name,
+             work_items=H * B * -(-Sq // flash_attention.BF16_BQ),
+             **flash_bound(B, Sq, Sk, H, KV, D, dt, causal))
     return t
 
 
-def decode_timing(gen, device, flush, arch: str, replaced) -> dict:
+def decode_timing(gen, device, flush, arch: str, replaced,
+                  S_max: int = MAX_LEN,
+                  last: int = PROMPT_LEN + MAX_NEW - 1) -> dict:
     """K3 at ``arch``'s last decode step: one-token attention over a
-    ``[8, 1064, KV, D]`` cache holding 1056 valid positions, bf16, beside
-    its plain version, SDPA and (``replaced``) the body it replaced."""
+    ``[8, S_max, KV, D]`` cache with ``cache_len = last`` (by default the
+    self cache of 1064 positions, 1056 valid), bf16, beside its plain
+    version, SDPA and (``replaced``) the body it replaced."""
     F = torch.nn.functional
     cfg = get_config(arch)
     B, H, KV, D, dt = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, \
         cfg.head_dim, torch.bfloat16
-    last = PROMPT_LEN + MAX_NEW - 1     # the last decode step's cache_len
     q = _randn(gen, (B, H, D), dt, device)
-    kc = _randn(gen, (B, MAX_LEN, KV, D), dt, device)
-    vc = _randn(gen, (B, MAX_LEN, KV, D), dt, device)
+    kc = _randn(gen, (B, S_max, KV, D), dt, device)
+    vc = _randn(gen, (B, S_max, KV, D), dt, device)
     n = torch.tensor(last, dtype=torch.int32, device=device)
-    valid = (torch.arange(MAX_LEN, device=device) <= n)[None, None, None, :]
+    valid = (torch.arange(S_max, device=device) <= n)[None, None, None, :]
     q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
 
     def kernel():
@@ -1119,9 +1213,9 @@ def decode_timing(gen, device, flush, arch: str, replaced) -> dict:
         "decode_attention", lambda: replaced.decode(q, kc, vc, n)), kernel,
         "decode_attention", ATTN_TOL[dt])
     t = measure_fns(fns, flush, rounds=4)
-    t.update(cache=[B, MAX_LEN, KV, D], heads=H, cache_len=last,
+    t.update(cache=[B, S_max, KV, D], heads=H, cache_len=last,
              dtype="bfloat16", path=cfg.name,
-             splits=decode_attention.split_plan(B, KV, H // KV, MAX_LEN,
+             splits=decode_attention.split_plan(B, KV, H // KV, S_max,
                                                 sm_count(device)),
              **decode_bound(B, H, KV, D, last + 1, dt))
     return t
@@ -1142,6 +1236,18 @@ def attention_timings(device, seed: int, flush, replaced=None) -> dict:
                                           replaced),
         "decode_attention_granite": decode_timing(gen, device, flush,
                                                   MOE_ARCH, replaced),
+        # seamless-m4t-medium: the encoder, the decoder's cross-attention
+        # over the encoder output, and a decode step's cross-attention over
+        # the whole cross cache
+        "flash_attention_encoder": flash_timing(
+            gen, device, flush, ENCDEC_ARCH, replaced, ENC_FRAMES,
+            ENC_FRAMES, causal=False),
+        "flash_attention_cross": flash_timing(
+            gen, device, flush, ENCDEC_ARCH, replaced, PROMPT_LEN,
+            ENC_FRAMES, causal=False),
+        "decode_attention_cross": decode_timing(
+            gen, device, flush, ENCDEC_ARCH, replaced, ENC_FRAMES,
+            ENC_FRAMES - 1),
     }
 
 
@@ -1455,13 +1561,14 @@ class Recorder:
         return [t for n, t in self.host_ms if n == name]
 
 
-def profile_decode(model, params, tokens: list) -> dict:
+def profile_decode(model, params, tokens: list, extra=None) -> dict:
     """One decode step of the kernel path under ``torch.profiler``: the
     device time of its kernels against the step's wall time (host clock to
-    a synchronisation), after a prefill and one unprofiled step."""
+    a synchronisation), after a prefill and one unprofiled step.  ``extra``:
+    more inputs of the batch (an encoder-decoder's frame embeddings)."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {"tokens": tokens[0]}
+    batch = {"tokens": tokens[0], **(extra or {})}
     cache = model.init_cache(params, batch, MAX_LEN)
     _, cache = model.prefill(params, batch, cache)
     _, cache = model.decode(params, tokens[1], cache)
@@ -1494,9 +1601,11 @@ def serve_requests(cfg, seed: int) -> list:
         np.int32), max_new_tokens=MAX_NEW) for i in range(SERVE_BATCH)]
 
 
-def teacher_forced(model, params, tokens: list) -> list:
-    """Prefill ``tokens[0]``, then decode each later entry; the logits."""
-    batch = {"tokens": tokens[0]}
+def teacher_forced(model, params, tokens: list, extra=None) -> list:
+    """Prefill ``tokens[0]``, then decode each later entry; the logits.
+    ``extra``: more inputs of the batch (an encoder-decoder's frame
+    embeddings, which ``init_cache`` encodes)."""
+    batch = {"tokens": tokens[0], **(extra or {})}
     cache = model.init_cache(params, batch, MAX_LEN)
     logits, cache = model.prefill(params, batch, cache)
     out = [logits]
@@ -1525,10 +1634,17 @@ def logit_errors(got: list, want: list, vocab: int) -> dict:
 
 
 def cut_params(params, cfg, layers: int):
-    """The first ``layers`` layers of a stacked parameter tree (views)."""
-    blocks = {k: {n: t[:layers] for n, t in slot.items()}
-              for k, slot in params["blocks"].items()}
-    return {**params, "blocks": blocks}, replace(cfg, n_layers=layers)
+    """The first ``layers`` layers of a stacked parameter tree (views); an
+    encoder-decoder's encoder and decoder both."""
+    def cut(blocks):
+        return {k: {n: t[:layers] for n, t in slot.items()}
+                for k, slot in blocks.items()}
+    if cfg.enc_layers:
+        return ({**params, "enc_blocks": cut(params["enc_blocks"]),
+                 "dec_blocks": cut(params["dec_blocks"])},
+                replace(cfg, n_layers=layers, enc_layers=layers))
+    return ({**params, "blocks": cut(params["blocks"])},
+            replace(cfg, n_layers=layers))
 
 
 SERVING_KERNELS = (flash_attention, decode_attention, ssd_scan, moe_gmm)
@@ -1624,17 +1740,24 @@ CONTROL_WEIGHTS = {"attn": ("wq", "wk", "wv"),
 
 def coarse_params(params, bits: int):
     """``params`` with the ``CONTROL_WEIGHTS`` rounded to ``bits``
-    significant bits (the rest shared, not copied)."""
+    significant bits (the rest shared, not copied).  A slot's kind is the
+    last word of its key: ``L0_attn``, or an encoder-decoder's ``attn``,
+    ``self_attn`` and ``cross_attn``."""
     def coarse(t):
         m, e = torch.frexp(t.float())
         return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits,
                            e).to(t.dtype)
-    blocks = {}
-    for key, slot in params["blocks"].items():
-        names = CONTROL_WEIGHTS.get(key.rsplit("_", 1)[-1], ())
-        blocks[key] = {n: coarse(t) if n in names else t
-                       for n, t in slot.items()}
-    return {**params, "blocks": blocks}
+
+    def blocks(tree_):
+        out = {}
+        for key, slot in tree_.items():
+            names = CONTROL_WEIGHTS.get(key.rsplit("_", 1)[-1], ())
+            out[key] = {n: coarse(t) if n in names else t
+                        for n, t in slot.items()}
+        return out
+    return {**params, **{k: blocks(params[k]) for k in
+                         ("blocks", "enc_blocks", "dec_blocks")
+                         if k in params}}
 
 
 def phase_serve(args, card: str, device, arch: str) -> dict:
@@ -1806,33 +1929,39 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
 #: mamba2-130m's chunk is its config's 256.
 TRAIN_STEPS = 8
 TRAIN_CKPT_EVERY = 4
-TRAIN_SHAPES = {MOE_ARCH: (8, 512), SSM_ARCH: (8, 1024)}
+TRAIN_SHAPES = {MOE_ARCH: (8, 512), SSM_ARCH: (8, 1024),
+                ENCDEC_ARCH: (8, 512)}
 #: Gradients of the kernel path (the kernels forward, their plain versions'
 #: autograd backward) against the reference's plain forms on the same
 #: parameters and batch, the kernel run's routing replayed.  float32, depth
 #: cut to ``--f32-layers``: the loss within ``TRAIN_F32_LOSS_RTOL``
 #: relative, every gradient leaf within ``TRAIN_F32_GRAD_REL_RMS``
 #: relative RMS; a control (the plain forms on parameters rounded to
-#: ``TRAIN_F32_CONTROL_BITS`` significant bits) must exceed both.  The
-#: loss of random weights on random tokens sits near ln(vocab) and moves
-#: little with the weights, so its limit is 1e-6 (~10 ulp at 11), below
-#: the starting point of 1e-5 that only a 5-bit control exceeded.
-#: Readings on an H100 (granite-moe, 4 layers; sound / control at 8 bits):
-#: loss 8.7e-8 / 6.1e-6, worst leaf 2.8e-6 / 7.9e-3.
+#: ``TRAIN_F32_CONTROL_BITS`` significant bits, by arch) must exceed both.
+#: The loss of random weights on random tokens sits near ln(vocab) and
+#: moves little with the weights, so its limit is 1e-6 (~10 ulp at 11),
+#: below the starting point of 1e-5 that only a 5-bit control exceeded.
+#: Readings on an H100 (4 layers; sound / control): granite-moe at 8 bits:
+#: loss 8.7e-8 / 6.1e-6, worst leaf 2.8e-6 / 7.9e-3; seamless-m4t-medium
+#: (ln 256206 ≈ 12.5, its loss moved 6.8e-7 at 8 bits) at 5 bits: loss
+#: 7.5e-8 / 2.3e-5, worst leaf 3.2e-6 / 3.4e-2.
 TRAIN_F32_LOSS_RTOL = 1e-6
 TRAIN_F32_GRAD_REL_RMS = 1e-4
-TRAIN_F32_CONTROL_BITS = 8
+TRAIN_F32_CONTROL_BITS = {MOE_ARCH: 8, SSM_ARCH: 8, ENCDEC_ARCH: 5}
 #: bf16 at full depth, by arch: the loss and the global gradient norm,
 #: relative, and the worst gradient leaf's relative RMS; a control at
 #: ``TRAIN_BF16_CONTROL_BITS`` must exceed each.  Readings on an H100, the
 #: same in two runs (sound / control): granite-moe at 5 bits: loss 9.6e-6
 #: / 1.1e-4, norm 6.1e-4 / 4.3e-3, leaf 0.053 / 0.165; mamba2-130m at 4
 #: bits (at 5 its loss read 2.0e-5, inside the sound 2.1e-5): loss 2.1e-5
-#: / 8.0e-5, norm 2.7e-5 / 2.2e-4, leaf 0.033 / 0.225.
-TRAIN_BF16_CONTROL_BITS = {MOE_ARCH: 5, SSM_ARCH: 4}
-TRAIN_BF16_LOSS_RTOL = {MOE_ARCH: 3e-5, SSM_ARCH: 4e-5}
-TRAIN_BF16_GNORM_RTOL = {MOE_ARCH: 2e-3, SSM_ARCH: 1e-4}
-TRAIN_BF16_LEAF_REL_RMS = 0.1
+#: / 8.0e-5, norm 2.7e-5 / 2.2e-4, leaf 0.033 / 0.225; seamless-m4t-medium
+#: at 4 bits (at 5 its norm read 3.3e-4 and its worst leaf 0.059, too near
+#: the sound 1.8e-4 and 0.030): loss 5.5e-6 / 4.0e-5, norm 1.8e-4 /
+#: 6.3e-4, leaf 0.030 / 0.102 (its limits near the geometric means).
+TRAIN_BF16_CONTROL_BITS = {MOE_ARCH: 5, SSM_ARCH: 4, ENCDEC_ARCH: 4}
+TRAIN_BF16_LOSS_RTOL = {MOE_ARCH: 3e-5, SSM_ARCH: 4e-5, ENCDEC_ARCH: 1.5e-5}
+TRAIN_BF16_GNORM_RTOL = {MOE_ARCH: 2e-3, SSM_ARCH: 1e-4, ENCDEC_ARCH: 3e-4}
+TRAIN_BF16_LEAF_REL_RMS = {MOE_ARCH: 0.1, SSM_ARCH: 0.1, ENCDEC_ARCH: 0.055}
 #: Controls read beside the held one, by dtype (8 bits is bf16's own
 #: precision: rounding to it changes nothing there).
 TRAIN_CONTROL_SWEEP = {"float32": (5, 8, 12, 16), "bfloat16": (4, 5, 6)}
@@ -1853,6 +1982,13 @@ class Mark:
         if self.event is not None:
             return self.event.elapsed_time(later.event)
         return (later.t - self.t) * 1e3
+
+    def ms_to_now(self, device) -> float:
+        """Time from this mark to a new one, once the device reaches it."""
+        now = Mark(device)
+        if now.event is not None:
+            now.event.synchronize()
+        return self.ms_to(now)
 
 
 class TrainProbe:
@@ -1950,11 +2086,17 @@ class TrainProbe:
 
 def expected_train_launches(cfg) -> dict:
     """Kernel launches of one train step: the forward's (K2 once per
-    attention layer, K4 once per SSM layer, K5 three times per MoE layer),
-    twice with ``remat`` (the backward recomputes every block); the
-    backward itself launches none (it is the plain versions' autograd)."""
-    prefill, _ = expected_launches(cfg)
-    return {k: (2 if cfg.remat else 1) * v for k, v in prefill.items()}
+    attention layer — an encoder-decoder's encoder layers once, its decoder
+    layers twice: self and cross —, K4 once per SSM layer, K5 three times
+    per MoE layer), twice with ``remat`` (the backward recomputes every
+    block); the backward itself launches none (it is the plain versions'
+    autograd)."""
+    if cfg.enc_layers:
+        forward = {"flash_attention": cfg.enc_layers + 2 * cfg.n_layers,
+                   "decode_attention": 0, "ssd_scan": 0, "moe_gmm": 0}
+    else:
+        forward, _ = expected_launches(cfg)
+    return {k: (2 if cfg.remat else 1) * v for k, v in forward.items()}
 
 
 class TrainRouting(Routing):
@@ -1991,7 +2133,7 @@ class TrainRouting(Routing):
 def loss_and_grads(cfg, params, batch):
     """The loss (float) and the gradient of every parameter leaf."""
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    loss, _ = lm.loss_fn(tree.unflatten(params, leaves), cfg, batch)
+    loss, _ = Model(cfg).loss(tree.unflatten(params, leaves), batch)
     return float(loss.detach()), torch.autograd.grad(loss, leaves)
 
 
@@ -2045,6 +2187,18 @@ def grad_check(cfg, params, batch, control_bits: int) -> dict:
             "recompute_routing_equal": routing.recompute_equal}
 
 
+def train_batch(cfg, B: int, S: int, seed: int, step: int, device) -> dict:
+    """The training run's batch of ``step``, as ``launch.train`` makes it
+    (an encoder-decoder's with ``S // 4`` frame embeddings)."""
+    loader = HostDataLoader(DataConfig(
+        vocab=cfg.vocab, seq_len=S, batch_per_host=B, seed=seed,
+        embed_tokens=cfg.frontend_tokens,
+        d_model=cfg.d_model if (cfg.frontend_tokens or cfg.enc_layers) else 0,
+        enc_frames=S // 4 if cfg.enc_layers else 0), 0, 1)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in loader.batch_at(step)[0].items()}
+
+
 def profile_train_step(fn, state, batch) -> dict:
     """One more train step under ``torch.profiler``: the device time of its
     kernels against the step's wall time (host clock to a
@@ -2091,6 +2245,17 @@ def backward_timing(device, arch: str, seed: int) -> dict:
                          generator=gen, device=device)
              / cfg.d_model ** 0.5).to(bf)
         cases["moe_gmm"] = (moe_gmm.grouped_matmul, [xs, w, sizes])
+    elif arch == ENCDEC_ARCH:
+        # the decoder's causal self-attention and its cross-attention over
+        # the S / 4 encoder frames
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        cases["flash_attention"] = (
+            lambda *t: flash_attention.flash_attention(*t),
+            [_randn(gen, (B, S, h, D), bf, device) for h in (H, KV, KV)])
+        cases["flash_attention_cross"] = (
+            lambda *t: flash_attention.flash_attention(*t, causal=False),
+            [_randn(gen, shape, bf, device) for shape in
+             ((B, S, H, D), (B, S // 4, KV, D), (B, S // 4, KV, D))])
     else:
         x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, cfg.ssm_heads,
                                       cfg.ssm_groups, cfg.ssm_state, bf,
@@ -2207,11 +2372,7 @@ def phase_train(args, card: str, device, arch: str) -> dict:
           f"{arch}: K1 launched {k1} times over {len(gates['calls'])} "
           f"packed sweeps, {probe.k1_in_ticks} in the live ticks")
     if device.type == "cuda":
-        loader = HostDataLoader(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                           batch_per_host=B, seed=args.seed),
-                                0, 1)
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in loader.batch_at(TRAIN_STEPS)[0].items()}
+        batch = train_batch(cfg, B, S, args.seed, TRAIN_STEPS, device)
         run["profile"] = profile_train_step(probe.step_fn, probe.state, batch)
     probe.state = probe.step_fn = None
     if device.type == "cuda":
@@ -2220,16 +2381,13 @@ def phase_train(args, card: str, device, arch: str) -> dict:
     # Gradients: the first batch of the run and the run's initial
     # parameters (the same seed), float32 cut in depth, then bf16 at full
     # depth.
-    loader = HostDataLoader(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                       batch_per_host=B, seed=args.seed), 0, 1)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in loader.batch_at(0)[0].items()}
+    batch = train_batch(cfg, B, S, args.seed, 0, device)
     params = Model(cfg).init(
         torch.Generator(device=device).manual_seed(args.seed))
     p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
                             args.f32_layers)
     f32 = run["grad_f32"] = grad_check(cfg32, p32, batch,
-                                       TRAIN_F32_CONTROL_BITS)
+                                       TRAIN_F32_CONTROL_BITS[arch])
     del p32
     bf16 = run["grad_bf16"] = grad_check(cfg, params, batch,
                                          TRAIN_BF16_CONTROL_BITS[arch])
@@ -2237,12 +2395,12 @@ def phase_train(args, card: str, device, arch: str) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
         run["kernels"] = backward_timing(device, arch, args.seed)
-    loss_lim, gnorm_lim = TRAIN_BF16_LOSS_RTOL[arch], \
-        TRAIN_BF16_GNORM_RTOL[arch]
+    loss_lim, gnorm_lim, leaf_lim = TRAIN_BF16_LOSS_RTOL[arch], \
+        TRAIN_BF16_GNORM_RTOL[arch], TRAIN_BF16_LEAF_REL_RMS[arch]
     run["limits"] = {"f32_loss_rtol": TRAIN_F32_LOSS_RTOL,
                      "f32_grad_rel_rms": TRAIN_F32_GRAD_REL_RMS,
                      "bf16_loss_rtol": loss_lim, "bf16_gnorm_rtol": gnorm_lim,
-                     "bf16_leaf_rel_rms": TRAIN_BF16_LEAF_REL_RMS}
+                     "bf16_leaf_rel_rms": leaf_lim}
     failed = [msg for ok, msg in (
         (f32["loss"]["kernel_rel"] <= TRAIN_F32_LOSS_RTOL,
          "float32 loss differs from the plain forms'"),
@@ -2258,12 +2416,12 @@ def phase_train(args, card: str, device, arch: str) -> dict:
         (bf16["kernel_vs_plain"]["global_norm_rel"] <= gnorm_lim,
          "bf16 gradient norm further from the plain forms' than the limit"),
         (bf16["kernel_vs_plain"]["max_leaf_rel_rms"]
-         <= TRAIN_BF16_LEAF_REL_RMS,
+         <= leaf_lim,
          "a bf16 gradient leaf further from the plain forms' than the limit"),
         (bf16["loss"]["control_rel"] > loss_lim
          and bf16["control_vs_plain"]["global_norm_rel"] > gnorm_lim
          and bf16["control_vs_plain"]["max_leaf_rel_rms"]
-         > TRAIN_BF16_LEAF_REL_RMS,
+         > leaf_lim,
          "the bf16 control lies inside a limit: the check cannot tell"),
         (f32["recompute_routing_equal"] and bf16["recompute_routing_equal"],
          "a recompute routed other than its forward"),
@@ -2278,6 +2436,419 @@ def phase_train(args, card: str, device, arch: str) -> dict:
         emit({"phase": "train_path", "ok": False, **run})
     check(not failed, f"{arch}: " + "; ".join(failed))
     return run
+
+
+# -- the encoder-decoder path -------------------------------------------------
+
+def encdec_requests(cfg, seed: int, device) -> dict:
+    """``SERVE_BATCH`` decoder prompts of ``PROMPT_LEN`` tokens and their
+    ``ENC_FRAMES`` frame embeddings (the audio frontend's stub output)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))
+    frames = rng.normal(0, 1, (SERVE_BATCH, ENC_FRAMES, cfg.d_model))
+    return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
+            "enc_embeds": torch.from_numpy(frames.astype(np.float32)).to(
+                device)}
+
+
+def encdec_generate(model, params, batch: dict, new_tokens: int,
+                    device) -> dict:
+    """Serve one batch through ``Model.init_cache`` / ``prefill`` /
+    ``decode``, greedy: each call's device time (``Mark``), host enqueue
+    time, kernel launches and logits, the tokens fed (prompt first) and the
+    host-clock wall time."""
+    calls = []
+
+    def call(name, fn, *a):
+        before = kernel_counts()
+        start = Mark(device)
+        t0 = time.perf_counter()
+        out = fn(*a)
+        host = (time.perf_counter() - t0) * 1e3
+        calls.append({"name": name, "marks": (start, Mark(device)),
+                      "host_ms": host,
+                      "launches": {k: v - before[k]
+                                   for k, v in kernel_counts().items()}})
+        return out
+    t0 = time.perf_counter()
+    cache = call("init_cache", model.init_cache, params, batch, MAX_LEN)
+    logits, cache = call("prefill", model.prefill, params,
+                         {"tokens": batch["tokens"]}, cache)
+    fed, out = [batch["tokens"]], [logits]
+    for _ in range(new_tokens):
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(nxt)
+        logits, cache = call("decode", model.decode, params, nxt, cache)
+        out.append(logits)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"calls": calls, "tokens": fed, "logits": out,
+            "wall_s": time.perf_counter() - t0,
+            "generated": torch.cat(fed[1:], dim=1)}
+
+
+def _call_ms(calls: list, name: str) -> list[float]:
+    return [c["marks"][0].ms_to(c["marks"][1]) for c in calls
+            if c["name"] == name]
+
+
+def expected_encdec_launches(cfg) -> dict:
+    """Kernel launches of ``init_cache`` (K2 once per encoder layer),
+    ``prefill`` (K2 twice per decoder layer: self and cross) and a decode
+    step (K3 twice per decoder layer: the self and the cross cache)."""
+    zero = {m.__name__.rsplit(".", 1)[-1]: 0 for m in SERVING_KERNELS}
+    return {"init_cache": {**zero, "flash_attention": cfg.enc_layers},
+            "prefill": {**zero, "flash_attention": 2 * cfg.n_layers},
+            "decode": {**zero, "decode_attention": 2 * cfg.n_layers}}
+
+
+def phase_encdec_serve(args, card: str, device) -> dict:
+    """Serve seamless-m4t-medium at full size through ``Model``: launches
+    of every call checked, the bf16 logits held to the plain forms and to
+    a float32 model, a float32 variant cut in depth held to the plain
+    forms with float64 activations."""
+    cfg = get_config(ENCDEC_ARCH)
+    check(cfg.attention_impl == "cuda" and cfg.enc_layers > 0,
+          "the default is not the kernel path")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = Model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    bparams = cast_params(params, cfg, device)
+    model = Model(cfg)
+    batch = encdec_requests(cfg, args.seed, device)
+    frames = {"enc_embeds": batch["enc_embeds"]}
+    # Warm-up (cuBLAS handles, the kernels' libraries): 2 new tokens.
+    encdec_generate(model, bparams, encdec_requests(cfg, args.seed + 1,
+                                                    device), 2, device)
+    zero_counts()
+    gen = encdec_generate(model, bparams, batch, MAX_NEW, device)
+    launches = kernel_counts()
+    want = expected_encdec_launches(cfg)
+    calls = gen["calls"]
+    check([c["name"] for c in calls]
+          == ["init_cache", "prefill"] + ["decode"] * MAX_NEW, "calls")
+    for n, c in enumerate(calls):
+        check(c["launches"] == want[c["name"]],
+              f"{cfg.name} call {n} ({c['name']}) launched {c['launches']}, "
+              f"expected {want[c['name']]}")
+    toks = gen["generated"]
+    check(tuple(toks.shape) == (SERVE_BATCH, MAX_NEW), "generated shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "a token outside the vocabulary")
+    decode_ms = _call_ms(calls, "decode")
+    run = {
+        "arch": cfg.name, "enc_layers": cfg.enc_layers,
+        "dec_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "vocab_padded": cfg.vocab_padded,
+        "params": sum(t.numel() for t in tree.leaves(params)),
+        "param_dtype": cfg.param_dtype, "served_dtype": cfg.dtype,
+        "requests": SERVE_BATCH, "enc_frames": ENC_FRAMES,
+        "prompt_len": PROMPT_LEN, "new_tokens": MAX_NEW, "max_len": MAX_LEN,
+        "gpu": card,
+        "init_cache_ms": _call_ms(calls, "init_cache")[0],
+        "prefill_ms": _call_ms(calls, "prefill")[0],
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_enqueue_ms_median": statistics.median(
+            c["host_ms"] for c in calls if c["name"] == "decode"),
+        "decode_ms_per_step": decode_ms, "wall_s": gen["wall_s"],
+        "tokens_per_s": SERVE_BATCH * MAX_NEW / gen["wall_s"],
+        "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device.type == "cuda" else None),
+        "launches": launches, "launches_per_call": want,
+    }
+
+    plain = replace(cfg, **PLAIN_FORMS)
+    plain16 = teacher_forced(Model(plain), bparams, gen["tokens"], frames)
+    control16 = teacher_forced(Model(plain),
+                               coarse_params(bparams, CONTROL_BITS),
+                               gen["tokens"], frames)
+    check(kernel_counts() == launches, "the plain forms launched a kernel")
+    if device.type == "cuda":
+        run["decode_profile"] = profile_decode(model, bparams, gen["tokens"],
+                                               frames)
+    del bparams
+    ref32 = teacher_forced(Model(replace(plain, dtype="float32")), params,
+                           gen["tokens"], frames)
+    limit = ENCDEC_BF16_KERNEL_VS_PLAIN
+    bf16 = run["bf16_vs_f32"] = {
+        "kernel_path": logit_errors(gen["logits"], ref32, cfg.vocab),
+        "plain_forms": logit_errors(plain16, ref32, cfg.vocab),
+        "kernel_vs_plain": logit_errors(gen["logits"], plain16, cfg.vocab),
+        "control_vs_plain": logit_errors(control16, plain16, cfg.vocab),
+        "control_bits": CONTROL_BITS, "margin": SERVE_BF16_MARGIN,
+        "kernel_vs_plain_limit": limit}
+    del plain16, control16, ref32, gen
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # float32, depth cut (encoder and decoder): greedy tokens equal to the
+    # plain forms' with float64 activations, logits within 1e-4.
+    p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
+                            args.f32_layers)
+    k32 = encdec_generate(Model(cfg32), p32, batch, MAX_NEW, device)
+    p64 = encdec_generate(Model(replace(cfg32, dtype="float64",
+                                        **PLAIN_FORMS)), p32, batch, MAX_NEW,
+                          device)
+    f32 = run["f32_variant"] = {
+        "layers": args.f32_layers,
+        "tokens_equal": torch.equal(k32["generated"], p64["generated"]),
+        "tolerance_rel_rms": SERVE_F32_REL_RMS,
+        "launches": [c["launches"] for c in k32["calls"][:3]],
+        **logit_errors(k32["logits"], p64["logits"], cfg.vocab)}
+    del k32, p64, p32, params
+    failed = [msg for ok, msg in (
+        (bf16["kernel_path"]["max_rel_rms"]
+         <= SERVE_BF16_MARGIN * bf16["plain_forms"]["max_rel_rms"],
+         "bf16 kernel path further from float32 than the plain forms"),
+        (bf16["kernel_vs_plain"]["max_rel_rms"] <= limit,
+         "bf16 kernel path further from the plain forms than the limit"),
+        (bf16["control_vs_plain"]["max_rel_rms"] > limit,
+         "the control lies inside the limit: the check cannot tell"),
+        (f32["tokens_equal"], "float32 greedy tokens differ between the "
+                              "kernels and the plain forms"),
+        (f32["max_rel_rms"] <= SERVE_F32_REL_RMS, "float32 logits differ"),
+    ) if not ok]
+    if failed:
+        emit({"phase": "encdec_path", "part": "serve", "ok": False, **run})
+    check(not failed, f"{cfg.name}: " + "; ".join(failed))
+    return run
+
+
+# -- expert parallelism -------------------------------------------------------
+
+@contextlib.contextmanager
+def expert_ffn(replacement):
+    """``moe._gmm_ffn`` (the expert FFN that ``ep_moe`` runs through K5)
+    replaced inside the block."""
+    orig, moe_layer._gmm_ffn = moe_layer._gmm_ffn, replacement
+    try:
+        yield
+    finally:
+        moe_layer._gmm_ffn = orig
+
+
+def ep_to_gmm_routing(ep: Routing, shards: int, B: int, S: int) -> Routing:
+    """The routing of an ep run (one router call per shard per layer, each
+    over the shard's ``[B, S / M]`` tokens) as the token-sorted MoE routes
+    (one call per layer over ``[B, S]``)."""
+    out = Routing()
+    for i in range(0, len(ep.recorded), shards):
+        parts = torch.stack(ep.recorded[i:i + shards])     # [M, B·S/M, k]
+        k = parts.shape[-1]
+        out.recorded.append(parts.view(shards, B, S // shards, k)
+                            .permute(1, 0, 2, 3).reshape(B * S, k))
+    return out
+
+
+def ep_shard_timing(xs, sizes, layer: dict, device) -> dict:
+    """K5 at the rows one ep shard received (its ``E / M`` experts, the
+    invalid slots as zero rows in the last group), gate/up and down, bf16,
+    beside its plain version and ``torch._grouped_mm``."""
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device=device)
+    e_local = sizes.numel()
+    gen = torch.Generator(device=device).manual_seed(11)
+    out = {}
+    for label, w in (("gate_up", layer["w_gate"][:e_local]),
+                     ("down", layer["w_down"][:e_local])):
+        x = xs if label == "gate_up" else _randn(
+            gen, (xs.shape[0], w.shape[1]), xs.dtype, device)
+        lib, lib_name = grouped_mm_library(x, w, sizes)
+        t = measure_fns({
+            "ms": lambda: moe_gmm.grouped_matmul(x, w, sizes),
+            "plain_ms": lambda: moe_gmm.grouped_matmul_torch(x, w, sizes),
+            "library_ms": lib}, flush, rounds=2)
+        K, N = w.shape[1], w.shape[2]
+        t.update(rows=int(sizes.sum()), experts=e_local, K=K, N=N,
+                 group_sizes=sizes.tolist(), library=lib_name,
+                 rows_per_tile=moe_gmm.tile_rows(x.shape[0], e_local),
+                 dtype=str(x.dtype).removeprefix("torch."),
+                 **gmm_bound(sizes, K, N, x.dtype))
+        out[label] = t
+    return out
+
+
+def ep_low_capacity(layer: dict, cfg, B: int, S: int, seed: int,
+                    device) -> dict:
+    """One ep MoE layer (granite's first, bf16) at ``EP_LOW_CF`` on random
+    hidden states, so that slots drop: the experts through K5 against its
+    plain version (``GMM_TOL``), with the same kept slots."""
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=device).to(layer["w_gate"].dtype)
+    runs = {}
+    for name, ffn in (("kernel", moe_layer._gmm_ffn),
+                      ("plain", moe_layer._ragged_ffn)):
+        kept = []
+        with expert_ffn(ffn), ep_moe.dispatch_hook(kept.append):
+            y, _ = ep_moe.ep_moe_apply(layer, x, cfg,
+                                       capacity_factor=EP_LOW_CF)
+        runs[name] = (y, kept)
+    (y, kept), (y_plain, kept_plain) = runs["kernel"], runs["plain"]
+    slots = sum(k.numel() for k in kept)
+    return {"capacity_factor": EP_LOW_CF, "shape": [B, S, cfg.d_model],
+            "kept_equal": all(torch.equal(a, b)
+                              for a, b in zip(kept, kept_plain, strict=True)),
+            "dropped_share": sum(int((~k).sum()) for k in kept) / slots,
+            **compare(y, y_plain, GMM_TOL[y.dtype], "ep layer at low capacity")}
+
+
+def phase_ep(args, card: str, device) -> dict:
+    """granite-moe-1b-a400m's prefill with ``moe_impl="ep"`` over
+    ``EP_SHARDS`` virtual model shards: K5's launches, its logits against
+    the same ep function with K5's plain version (routing replayed), the
+    kept and dropped slots of both runs, the distance to the token-sorted
+    MoE (reported, no limit), and a decode step, which raises as the
+    reference asserts (S = 1 is not a multiple of M)."""
+    cfg = replace(get_config(MOE_ARCH), moe_impl="ep")
+    params = Model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    bparams = cast_params(params, cfg, device)
+    del params
+    ep_moe.set_mesh(make_mesh((1, EP_SHARDS), ("data", "model")))
+    tokens = torch.from_numpy(np.stack(
+        [r.prompt for r in serve_requests(cfg, args.seed)])).to(device)
+    batch = {"tokens": tokens}
+    B, S = tokens.shape
+
+    def prefill(model):
+        cache = model.init_cache(bparams, batch, MAX_LEN)
+        a = Mark(device)
+        logits, cache = model.prefill(bparams, batch, cache)
+        return logits, cache, a.ms_to_now(device)
+
+    model = Model(cfg)
+    first = []
+    inner = moe_layer._gmm_ffn
+
+    def keep_first(p, xs, sizes, cdt):
+        if not first:
+            first.append((xs.clone(), sizes.clone()))
+        return inner(p, xs, sizes, cdt)
+    with expert_ffn(keep_first):                           # warm-up
+        prefill(model)
+    routing, kept, kept_plain = Routing(), [], []
+    zero_counts()
+    with routing.record(), ep_moe.dispatch_hook(kept.append):
+        logits, cache, ms = prefill(model)
+    launches = kernel_counts()
+    moe_layers = cfg.n_blocks * sum(s.ffn == "moe" for s in cfg.pattern())
+    want = {"flash_attention": cfg.n_layers, "decode_attention": 0,
+            "ssd_scan": 0, "moe_gmm": 3 * EP_SHARDS * moe_layers}
+    check(launches == want, f"ep prefill launched {launches}, expected {want}")
+    try:
+        model.decode(bparams, tokens[:, :1], cache)
+        decode_error = None
+    except ValueError as exc:
+        decode_error = str(exc)
+    check(decode_error is not None, "an ep decode step at M = 4 ran")
+    del cache
+    with expert_ffn(moe_layer._ragged_ffn), routing.replay() as flips, \
+            ep_moe.dispatch_hook(kept_plain.append):
+        plain, _, plain_ms = prefill(model)
+    check(kernel_counts()["moe_gmm"] == launches["moe_gmm"],
+          "the plain expert FFN launched K5")
+    slots = sum(k.numel() for k in kept)
+    dropped = sum(int((~k).sum()) for k in kept)
+    kept_equal = len(kept) == len(kept_plain) == EP_SHARDS * moe_layers \
+        and all(torch.equal(a, b) for a, b in zip(kept, kept_plain))
+    with ep_to_gmm_routing(routing, EP_SHARDS, B, S).replay():
+        token_sorted, _, gmm_ms = prefill(Model(replace(cfg, moe_impl="gmm")))
+    run = {
+        "arch": cfg.name, "moe_impl": cfg.moe_impl, "gpu": card,
+        "mesh": {"data": 1, "model": EP_SHARDS}, "batch": B, "prompt_len": S,
+        "experts_per_shard": cfg.moe_experts // EP_SHARDS,
+        "capacity_per_destination": ep_moe.capacity(
+            B * S // EP_SHARDS, cfg.moe_top_k, EP_SHARDS, 1.25),
+        "prefill_ms": ms, "plain_expert_ffn_prefill_ms": plain_ms,
+        "token_sorted_gmm_prefill_ms": gmm_ms,
+        "launches": launches, "launches_expected": want,
+        "kernel_vs_plain": logit_errors([logits], [plain], cfg.vocab),
+        "kernel_vs_plain_limit": EP_KERNEL_VS_PLAIN,
+        "routing_flips": flips,
+        "routing_flip_limit": ROUTING_FLIP_SHARE["bfloat16"],
+        "kept_equal": kept_equal, "dispatches": len(kept),
+        "slots": slots, "dropped_slots": dropped,
+        "dropped_share": dropped / slots,
+        "ep_vs_token_sorted": logit_errors([logits], [token_sorted],
+                                           cfg.vocab),
+        "decode_raises": decode_error,
+    }
+    layer = {n: t[0] for n, t in bparams["blocks"]["L0_moe"].items()}
+    run["low_capacity"] = ep_low_capacity(layer, cfg, B, S, args.seed,
+                                          device)
+    if device.type == "cuda":
+        xs, sizes = first[0]
+        run["k5_shard"] = ep_shard_timing(xs, sizes, layer, device)
+    ep_moe.set_mesh(None)
+    del bparams, first
+    failed = [msg for ok, msg in (
+        (run["kernel_vs_plain"]["max_rel_rms"] <= EP_KERNEL_VS_PLAIN,
+         "ep logits further from K5's plain version than the limit"),
+        (kept_equal, "the kept slots differ between the two runs"),
+        (run["low_capacity"]["kept_equal"]
+         and run["low_capacity"]["dropped_share"] > 0,
+         "at the low capacity the kept slots differ, or none dropped"),
+        (flip_share(flips) <= ROUTING_FLIP_SHARE["bfloat16"],
+         "routing flips"),
+    ) if not ok]
+    if failed:
+        emit({"phase": "ep_path", "ok": False, **run})
+    check(not failed, "ep: " + "; ".join(failed))
+    return run
+
+
+# -- the parallel layers on one card ------------------------------------------
+
+def phase_parallel(args, device) -> dict:
+    """``compressed_allreduce_mean`` over 4 shards of granite's
+    ``embed``-sized leaf against the mean of the shards' dequantized
+    values, and ``pipeline_apply`` over 4 stages against the sequential
+    composition."""
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 9)
+    shape = (cfg.vocab_padded, cfg.d_model)
+    xs = [torch.randn(shape, generator=gen, device=device) * (1 + i)
+          for i in range(4)]
+    a = Mark(device)
+    got = compressed_allreduce_mean(xs)
+    ms = a.ms_to_now(device)
+    want = torch.stack([dequantize(quantize(x), x.shape) for x in xs]).mean(0)
+    err = float((got - want).abs().max() / want.abs().max())
+    exact = float((got - torch.stack(xs).mean(0)).abs().max()
+                  / torch.stack(xs).mean(0).abs().max())
+    qt = quantize(xs[0])
+    allreduce = {"participants": 4, "shape": list(shape), "ms": ms,
+                 "rel_err_vs_dequantized_mean": err,
+                 "rel_err_vs_exact_mean": exact,
+                 "wire_bytes_per_participant": qt.q.numel()
+                 + 4 * qt.scale.numel(),
+                 "float32_bytes_per_participant": 4 * xs[0].numel()}
+    del xs, got, want
+
+    stages, n_micro, mb, d = 4, 8, 64, cfg.d_model
+    ws = torch.randn((stages, d, d), generator=gen, device=device) / d ** 0.5
+    x = torch.randn((n_micro, mb, d), generator=gen, device=device)
+    a = Mark(device)
+    out = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x,
+                         make_mesh((stages,), ("pipe",)))
+    pipe_ms = a.ms_to_now(device)
+    seq = []
+    for m in range(n_micro):
+        h = x[m]
+        for w in ws:
+            h = torch.tanh(h @ w)
+        seq.append(h)
+    seq = torch.stack(seq)
+    pipe_err = float((out - seq).abs().max() / seq.abs().max())
+    pipe = {"stages": stages, "microbatches": n_micro, "microbatch": [mb, d],
+            "ticks": n_micro + stages - 1, "ms": pipe_ms,
+            "rel_err_vs_sequential": pipe_err,
+            "bitwise_equal": bool(torch.equal(out, seq))}
+    check(err <= 1e-7, f"compressed all-reduce differs by {err}")
+    check(pipe_err <= 1e-6, f"pipeline differs by {pipe_err}")
+    return {"compressed_allreduce_mean": allreduce, "pipeline_apply": pipe}
 
 
 # -- the diagnosis stack ------------------------------------------------------
@@ -2606,6 +3177,18 @@ def run(args) -> None:
         emit({"phase": "train_path", "ok": True, **train[arch]})
         torch.cuda.empty_cache()
 
+    encdec = phase_encdec_serve(args, card, device)
+    emit({"phase": "encdec_path", "part": "serve", "ok": True, **encdec})
+    torch.cuda.empty_cache()
+    train[ENCDEC_ARCH] = phase_train(args, card, device, ENCDEC_ARCH)
+    emit({"phase": "encdec_path", "part": "train", "ok": True,
+          **train[ENCDEC_ARCH]})
+    torch.cuda.empty_cache()
+    ep = phase_ep(args, card, device)
+    emit({"phase": "ep_path", "ok": True, **ep})
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel", "ok": True, **phase_parallel(args, device)})
+
     def trained(name: str, arch: str) -> dict:
         """A kernel's launches in ``arch``'s training run, per step, and
         its forward and backward at the training shape."""
@@ -2663,13 +3246,36 @@ def run(args) -> None:
                 "one per layer of the prefill", SERVE_ARCH,
                 attn_timing["flash_attention"], attn_checks),
         "granite_prefill": attn_timing["flash_attention_granite"],
-        **trained("flash_attention", MOE_ARCH)},
+        **trained("flash_attention", MOE_ARCH),
+        "encdec": {
+            "path": get_config(ENCDEC_ARCH).name,
+            "serve_launches": encdec["launches"]["flash_attention"],
+            "per_init_cache": encdec["launches_per_call"]["init_cache"][
+                "flash_attention"],
+            "per_prefill": encdec["launches_per_call"]["prefill"][
+                "flash_attention"],
+            "encoder": attn_timing["flash_attention_encoder"],
+            "cross": attn_timing["flash_attention_cross"],
+            "train_launches": train[ENCDEC_ARCH]["launches"][
+                "flash_attention"],
+            "train_launches_per_step": train[ENCDEC_ARCH][
+                "launches_per_step"]["flash_attention"],
+            "train_shape": train[ENCDEC_ARCH]["kernels"]["flash_attention"],
+            "train_shape_cross": train[ENCDEC_ARCH]["kernels"][
+                "flash_attention_cross"]},
+        "ep_prefill_launches": ep["launches"]["flash_attention"]},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
                  attn_timing["decode_attention"], attn_checks),
          "granite_last_step": attn_timing["decode_attention_granite"],
-         "granite_launches": serve[MOE_ARCH]["launches"]["decode_attention"]},
+         "granite_launches": serve[MOE_ARCH]["launches"]["decode_attention"],
+         "encdec": {
+             "path": get_config(ENCDEC_ARCH).name,
+             "serve_launches": encdec["launches"]["decode_attention"],
+             "per_step": encdec["launches_per_call"]["decode"][
+                 "decode_attention"],
+             "cross_last_step": attn_timing["decode_attention_cross"]}},
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
@@ -2681,7 +3287,11 @@ def run(args) -> None:
          "library": moe_ssd_timing["moe_gmm_prefill"]["library"],
          "prefill_down_launch": moe_ssd_timing["moe_gmm_prefill_down"],
          "decode_launch": moe_ssd_timing["moe_gmm_decode"],
-         **trained("moe_gmm", MOE_ARCH)}],
+         **trained("moe_gmm", MOE_ARCH),
+         "ep": {"path": ep["arch"] + " moe_impl=ep", "shards": EP_SHARDS,
+                "prefill_launches": ep["launches"]["moe_gmm"],
+                "shard_gate_up": ep["k5_shard"]["gate_up"],
+                "shard_down": ep["k5_shard"]["down"]}}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ import torch
 
 from .device import resolve_device
 from .models.forecast_ssd import ForecastCell
-from .models.lm import param_shapes
+from .models import encdec, lm
 from .train.optimizer import AdamWState
 
 _GATE_FIELDS = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
@@ -74,12 +74,19 @@ def _lm_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def param_shapes(cfg) -> dict:
+    """The shapes of ``cfg``'s parameter tree: the encoder-decoder tree
+    for ``enc_layers > 0``, else the decoder-only one."""
+    return (encdec if cfg.enc_layers else lm).param_shapes(cfg)
+
+
 def lm_params_from_numpy(params, cfg, device=None) -> dict:
-    """A language model's parameter tree from the JAX package
+    """A model's parameter tree from the JAX package
     (``jax.tree.map(np.asarray, params)``: nested dicts of numpy arrays)
     as the port's nested dict of tensors on ``device``, key for key, in the
     same dtypes.  Raises when a key or a shape differs from what
-    :func:`repro_torch.models.lm.init_params` makes for ``cfg``."""
+    :meth:`repro_torch.models.Model.init` makes for ``cfg`` (decoder-only
+    or encoder-decoder)."""
     dev = resolve_device(device)
 
     def carry(tree, shapes, path):

@@ -1,5 +1,6 @@
 """Models of the package: the straggle-risk forecast cell, and the model
-zoo's configs, layers and decoder-only assembly behind :class:`Model`."""
+zoo's configs, layers and its decoder-only and encoder-decoder assemblies
+behind :class:`Model`."""
 from .api import Model
 from .config import LayerSlot, ModelConfig, smoke_variant
 from .forecast_ssd import (

@@ -1,4 +1,5 @@
-"""The model API of the JAX package, over PyTorch tensors.
+"""The model API of the JAX package, over PyTorch tensors: one call surface
+for every architecture.
 
     model = Model(cfg)
     params = model.init(generator)          # or model.init(device="cpu")
@@ -7,9 +8,9 @@
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, tokens, cache)
 
-Decoder-only configs run — dense / GQA attention, MoE, Mamba2 (SSM) and
-hybrid layer patterns; encoder-decoder configs raise (they wait for a
-later slice of the port).
+Decoder-only configs (dense / GQA attention, MoE, Mamba2 (SSM), hybrid
+layer patterns, the VLM backbone) run through :mod:`.lm`, encoder-decoder
+configs (``enc_layers > 0``) through :mod:`.encdec`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from . import lm
+from . import encdec, lm
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -26,12 +27,8 @@ Params = dict[str, Any]
 
 class Model:
     def __init__(self, cfg: ModelConfig) -> None:
-        if cfg.enc_layers > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models wait for a later slice "
-                "of the port"
-            )
         self.cfg = cfg.validate()
+        self.is_encdec = cfg.enc_layers > 0
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None, *,
@@ -44,26 +41,47 @@ class Model:
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        return lm.init_params(self.cfg, generator, device)
+        mod = encdec if self.is_encdec else lm
+        return mod.init_params(self.cfg, generator, device)
+
+    def abstract_params(self) -> Params:
+        """The parameters as ``meta`` tensors: shapes and dtypes, no
+        allocation."""
+        mod = encdec if self.is_encdec else lm
+        return mod.abstract_params(self.cfg)
 
     # -- training -------------------------------------------------------------
     def loss(self, params: Params, batch: dict):
+        if self.is_encdec:
+            return encdec.loss_fn(params, self.cfg, batch)
         return lm.loss_fn(params, self.cfg, batch)
 
     def forward(self, params: Params, batch: dict):
+        if self.is_encdec:
+            return encdec.forward(params, self.cfg, batch["tokens"],
+                                  batch["enc_embeds"])
         return lm.forward(params, self.cfg, batch["tokens"],
                           embeds=batch.get("embeds"))
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, params: Params, batch: dict, max_len: int) -> dict:
+        if self.is_encdec:
+            return encdec.init_cache(params, self.cfg, batch["enc_embeds"],
+                                     max_len)
         bsz = batch["tokens"].shape[0]
         return lm.init_cache(self.cfg, bsz, max_len, params["embed"].device)
 
     def prefill(self, params: Params, batch: dict, cache: dict):
+        if self.is_encdec:
+            # the encoder output is already in the cache (init_cache
+            # encodes); prefill runs the decoder prompt into the self cache
+            return encdec.prefill(params, self.cfg, batch["tokens"], cache)
         return lm.prefill(params, self.cfg, batch["tokens"], cache,
                           embeds=batch.get("embeds"))
 
     def decode(self, params: Params, tokens, cache: dict):
+        if self.is_encdec:
+            return encdec.decode_step(params, self.cfg, tokens, cache)
         return lm.decode_step(params, self.cfg, tokens, cache)
 
     # -- bookkeeping ----------------------------------------------------------

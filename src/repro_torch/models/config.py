@@ -14,10 +14,12 @@ that the normal entry points run them.
   ``"cuda"`` (flash attention for the prefill, split-K decode attention for
   each decode step).  ``"pallas"``, the JAX package's name for its kernel
   path, is read as ``"cuda"``.
-- ``moe_impl`` takes ``"gmm" | "ragged" | "dense" | "gathered"`` and
+- ``moe_impl`` takes ``"gmm" | "ragged" | "dense" | "gathered" | "ep"`` and
   defaults to ``"gmm"``, the grouped-matmul kernel over expert-sorted rows
   (the reference defaults to ``"ragged"``, which reaches no kernel).
-  ``"ep"`` (expert parallelism) raises until ``parallel/`` is ported.
+  ``"ep"`` is expert parallelism over the ``model`` axis of the mesh
+  given to :func:`repro_torch.parallel.ep_moe.set_mesh` (the shards a list
+  on one device), its experts through the same kernel.
 - ``ssm_impl`` (new) takes ``"cuda" | "chunked"`` and defaults to
   ``"cuda"``, the SSD intra-chunk kernel; ``"chunked"`` is the reference's
   plain chunked form.
@@ -29,8 +31,9 @@ from dataclasses import dataclass, field, replace
 
 #: ``"cuda"``: the hand-written kernels; the other two are plain PyTorch.
 ATTENTION_IMPLS = ("cuda", "blocked", "dense")
-#: ``"gmm"``: the hand-written grouped matmul; the others are plain PyTorch.
-MOE_IMPLS = ("gmm", "ragged", "dense", "gathered")
+#: ``"gmm"`` and ``"ep"``: the hand-written grouped matmul; the others are
+#: plain PyTorch.
+MOE_IMPLS = ("gmm", "ragged", "dense", "gathered", "ep")
 #: ``"cuda"``: the hand-written SSD intra-chunk kernel; ``"chunked"`` plain.
 SSM_IMPLS = ("cuda", "chunked")
 
@@ -85,7 +88,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     attention_impl: str = "cuda"     # cuda | blocked | dense
-    moe_impl: str = "gmm"            # gmm | ragged | dense | gathered
+    moe_impl: str = "gmm"            # gmm | ragged | dense | gathered | ep
     ssm_impl: str = "cuda"           # cuda | chunked
     remat: bool = True
     # Dry-run cost extraction: XLA cost analysis counts while-loop bodies
@@ -169,10 +172,6 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: attention_impl={self.attention_impl!r} is not "
                 f"one of {ATTENTION_IMPLS}"
-            )
-        if self.moe_impl == "ep":
-            raise NotImplementedError(
-                f"{self.name}: moe_impl='ep' waits for the port of parallel/"
             )
         for name, value, allowed in (("moe_impl", self.moe_impl, MOE_IMPLS),
                                      ("ssm_impl", self.ssm_impl, SSM_IMPLS)):

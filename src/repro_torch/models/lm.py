@@ -13,6 +13,7 @@ Entry points:
   init_cache(cfg, batch, max_len, device) → decode cache dict
   prefill(params, cfg, tokens, cache, ...)→ (logits, cache)
   decode_step(params, cfg, tokens, cache) → (logits, cache)
+  abstract_params(cfg)                    → the params as ``meta`` tensors
 
 The cache holds ``"len"`` (a 0-d int32 tensor on the device, the fill
 level the kernels read), ``"pos"`` (the same number on the host, which
@@ -353,3 +354,17 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache["len"] = cache_len + 1
     cache["pos"] += 1
     return logits, cache
+
+
+def meta_tree(shapes: dict, dtype: torch.dtype) -> Params:
+    """A parameter tree of ``meta`` tensors from its shapes: ``dtype``
+    everywhere but ``A_log``, which the SSM keeps in float32."""
+    return {k: meta_tree(v, dtype) if isinstance(v, dict) else torch.empty(
+        v, dtype=torch.float32 if k == "A_log" else dtype, device="meta")
+        for k, v in shapes.items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    allocation) — the dry-run path."""
+    return meta_tree(param_shapes(cfg), dtype_of(cfg.param_dtype))

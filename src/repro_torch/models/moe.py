@@ -13,6 +13,9 @@ execution path.  ``cfg.moe_impl`` picks it:
 - ``dense``: every expert processes every token, combined by routing
   weight (E/k the FLOPs).
 - ``gathered``: each token gathers its k experts' weights (tiny batches).
+- ``ep``: expert parallelism over the mesh's ``model`` axis
+  (:func:`repro_torch.parallel.ep_moe.ep_moe_apply`): capacity-packed
+  dispatch, each shard's experts through the grouped-matmul kernel.
 
 Each returns ``(output, MoeAux)``: the load-balancing and router-z losses
 and the expert load vector, as the reference computes them.
@@ -83,9 +86,10 @@ def routing_hook(fn: Callable):
         _routing_hook = prev
 
 
-def _route(p: Params, x2d: torch.Tensor, cfg):
-    """Router: top-k expert ids ``[T, k]`` and renormalised weights
-    ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``."""
+def _router(p: Params, x2d: torch.Tensor, cfg):
+    """Router logits and probabilities ``[T, E]`` (float32), top-k expert
+    ids ``[T, k]`` (through :func:`routing_hook`) and their renormalised
+    weights ``[T, k]``.  x2d: ``[T, d]``."""
     logits = (x2d @ p["router"].to(x2d.dtype)).float()          # [T, E]
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.topk(probs, cfg.moe_top_k, dim=-1)
@@ -93,7 +97,13 @@ def _route(p: Params, x2d: torch.Tensor, cfg):
         experts = _routing_hook(probs, experts)
         weights = probs.gather(-1, experts)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, experts, weights
 
+
+def _route(p: Params, x2d: torch.Tensor, cfg):
+    """Router: top-k expert ids ``[T, k]`` and renormalised weights
+    ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``."""
+    logits, probs, experts, weights = _router(p, x2d, cfg)
     E = cfg.moe_experts
     onehot = F.one_hot(experts, E).float()                      # [T, k, E]
     load = onehot.sum(dim=(0, 1)) / onehot.sum().clamp_min(1.0)
@@ -192,9 +202,9 @@ _BY_IMPL = {"gmm": moe_apply_gmm, "ragged": moe_apply_ragged,
 
 
 def moe_apply(p: Params, x, cfg):
-    if cfg.moe_impl not in _BY_IMPL:
-        raise NotImplementedError(
-            f"moe_impl={cfg.moe_impl!r} is not ported (expert parallelism "
-            "waits for parallel/)")
+    if cfg.moe_impl == "ep":
+        from ..parallel.ep_moe import ep_moe_apply
+
+        return ep_moe_apply(p, x, cfg)
     return _BY_IMPL[cfg.moe_impl](p, x, cfg)
 

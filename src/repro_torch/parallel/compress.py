@@ -8,17 +8,19 @@ convergence — Karimireddy et al., 2019).  The payloads and scales are
 the reference's byte for byte: the same float32 division, and
 ``torch.round`` rounds half to even as ``jnp.round`` does.
 
-The reference's ``compressed_allreduce_mean`` (an all-gather of the int8
-payloads inside ``shard_map``) waits for the port of the rest of
-``parallel/``.
+:func:`compressed_allreduce_mean` is the reference's int8 all-reduce over
+a list of the participants' tensors on one device (the collectives of
+:mod:`.collectives`): each is quantized, the int8 payloads and float32
+scales are gathered, and every participant dequantizes and averages.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
 import torch
 
 from .. import tree
+from .collectives import all_gather
 
 BLOCK = 256
 
@@ -46,6 +48,19 @@ def dequantize(qt: Quantized, shape, dtype=torch.float32) -> torch.Tensor:
 
 def quantization_error(x: torch.Tensor) -> torch.Tensor:
     return x.float() - dequantize(quantize(x), x.shape)
+
+
+def compressed_allreduce_mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The mean of the participants' ``xs`` (one tensor each, of one
+    shape) as every participant computes it from the int8 wire format:
+    the gathered payloads dequantized, averaged in float32, cut back to
+    the tensor's size and cast to its dtype."""
+    qts = [quantize(x) for x in xs]
+    qg = all_gather([qt.q for qt in qts])          # int8 on the wire
+    sg = all_gather([qt.scale for qt in qts])      # float32 scales
+    n, size = qg.shape[0], qts[0].size
+    deq = (qg.float() * sg[..., None]).reshape(n, -1)[:, :size]
+    return deq.mean(dim=0).reshape(xs[0].shape).to(xs[0].dtype)
 
 
 def ef_init(grads: Any) -> Any:

@@ -63,7 +63,8 @@ from .diagnosis import Diagnosis
 #: decay parameters ``A_log`` / ``dt_bias`` (the reference's
 #: ``models/ssd.py:227-228`` reads them in float32).  Rounding them to bf16
 #: would serve another function than the reference.
-_KEEP_DTYPE = ("norm_scale", "final_norm", "inner_norm", "A_log", "dt_bias")
+_KEEP_DTYPE = ("norm_scale", "final_norm", "enc_final_norm", "inner_norm",
+               "A_log", "dt_bias")
 
 
 def make_prefill_step(model: Model) -> Callable:

@@ -1,7 +1,5 @@
-"""Training substrate: AdamW, schedules, the train-step builder.
-
-The reference's ``abstract_state`` and ``state_shardings`` wait for the
-port of ``parallel/sharding`` and ``launch/dryrun``."""
+"""Training substrate: AdamW, schedules, the train-step builder, the
+state's shapes and shardings."""
 from .optimizer import (
     AdamWConfig,
     AdamWState,
@@ -11,12 +9,19 @@ from .optimizer import (
     global_norm,
     make_schedule,
 )
-from .step import TrainState, init_state, make_train_step
+from .step import (
+    TrainState,
+    abstract_state,
+    init_state,
+    make_train_step,
+    state_shardings,
+)
 
 __all__ = [
     "AdamWConfig",
     "AdamWState",
     "TrainState",
+    "abstract_state",
     "adamw_init",
     "adamw_update",
     "clip_by_global_norm",
@@ -24,4 +29,5 @@ __all__ = [
     "init_state",
     "make_schedule",
     "make_train_step",
+    "state_shardings",
 ]

@@ -5,9 +5,9 @@ The JAX package's ``train/step.py`` on tensors.  The gradient is
 ``torch.autograd.grad`` of ``model.loss`` over every parameter leaf,
 without ``allow_unused``: a parameter the loss does not reach (a kernel
 whose output carried no gradient, say) raises instead of training the
-wrong function.  The reference's ``abstract_state`` and
-``state_shardings`` (shapes without allocation, mesh shardings) wait for
-the port of ``parallel/sharding`` and ``launch/dryrun``.
+wrong function.  :func:`abstract_state` gives the state as ``meta``
+tensors and :func:`state_shardings` its shardings on a mesh
+(:mod:`repro_torch.parallel.sharding`), ZeRO-1 included.
 """
 from __future__ import annotations
 
@@ -18,7 +18,14 @@ import torch
 from .. import tree
 from ..models.api import Model
 from ..parallel.compress import ef_init, ef_compress
-from .optimizer import AdamWConfig, adamw_init, adamw_update
+from ..parallel.sharding import (
+    NamedSharding,
+    dp_axes,
+    dp_size,
+    param_shardings,
+    spec,
+)
+from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
 
 TrainState = dict  # {"params": ..., "opt": AdamWState, ["ef": residual]}
 
@@ -33,6 +40,58 @@ def init_state(model: Model, generator: torch.Generator | None,
     if compress:
         state["ef"] = ef_init(params)
     return state
+
+
+def abstract_state(model: Model, opt_cfg: AdamWConfig,
+                   compress: bool = False) -> TrainState:
+    """:func:`init_state`'s tree as ``meta`` tensors (shapes and dtypes, no
+    allocation)."""
+    params = model.abstract_params()
+
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    state: TrainState = {"params": params, "opt": AdamWState(
+        m=tree.map(f32, params), v=tree.map(f32, params),
+        step=torch.empty((), dtype=torch.int32, device="meta"))}
+    if compress:
+        state["ef"] = tree.map(f32, params)
+    return state
+
+
+def state_shardings(abstract: TrainState, cfg, mesh, zero_opt: bool = False):
+    """Shardings of the whole train state.
+
+    Default: AdamW's ``m`` / ``v`` follow their parameters (sharded over
+    the model axis only, replicated across data).  ``zero_opt=True`` also
+    shards ``m`` / ``v`` over the data axes (ZeRO-1): each data-parallel
+    rank owns a slice of the optimizer state — memory ÷ dp size, at the
+    cost of a gather / scatter around the update."""
+    def zero_shard(shardings, moments):
+        """The dp axes on the first unsharded, divisible dim of each leaf."""
+        dp, n = dp_axes(mesh), dp_size(mesh)
+
+        def one(s: NamedSharding, leaf):
+            entries = list(s.spec) + [None] * (leaf.dim() - len(s.spec))
+            for i, (ax, dim) in enumerate(zip(entries, leaf.shape)):
+                if ax is None and dim % n == 0 and dim > 0:
+                    entries[i] = dp
+                    return NamedSharding(mesh, spec(*entries))
+            return s
+        return tree.map(one, shardings, moments)
+
+    m_sh = param_shardings(abstract["opt"].m, cfg, mesh)
+    v_sh = param_shardings(abstract["opt"].v, cfg, mesh)
+    if zero_opt:
+        m_sh = zero_shard(m_sh, abstract["opt"].m)
+        v_sh = zero_shard(v_sh, abstract["opt"].v)
+    out: TrainState = {
+        "params": param_shardings(abstract["params"], cfg, mesh),
+        "opt": AdamWState(m=m_sh, v=v_sh,
+                          step=NamedSharding(mesh, spec())),
+    }
+    if "ef" in abstract:
+        out["ef"] = param_shardings(abstract["ef"], cfg, mesh)
+    return out
 
 
 def make_train_step(

@@ -140,6 +140,50 @@ def test_training_imports_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+SLICE6 = r"""
+import sys
+from dataclasses import replace
+import torch
+import repro_torch.launch.mesh, repro_torch.models.encdec
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import Model, smoke_variant
+from repro_torch.parallel import compressed_allreduce_mean, ep_moe, pipeline
+from repro_torch.parallel.sharding import param_shardings
+from repro_torch.train import AdamWConfig, abstract_state, state_shardings
+
+cfg = replace(smoke_variant(get_config("seamless_m4t_medium")),
+              attention_impl="cuda")
+model = Model(cfg)
+params = model.init(device="cpu")
+batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+         "enc_embeds": torch.zeros((2, 4, cfg.d_model))}
+cache = model.init_cache(params, batch, 12)
+_, cache = model.prefill(params, batch, cache)
+model.decode(params, batch["tokens"][:, :1], cache)
+ep_moe.set_mesh(make_mesh((1, 2), ("data", "model")))
+moe = replace(smoke_variant(get_config("granite_moe_1b_a400m")),
+              moe_impl="ep")
+Model(moe).forward(Model(moe).init(device="cpu"), batch)
+compressed_allreduce_mean([torch.ones(3), torch.zeros(3)])
+pipeline.pipeline_apply(lambda w, x: x * w, torch.ones(2), torch.ones(2, 3),
+                        make_mesh((2,), ("pipe",)))
+state_shardings(abstract_state(model, AdamWConfig()), get_config(
+    "seamless_m4t_medium"), make_mesh((16, 16), ("data", "model")), True)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_encdec_and_parallel_import_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", SLICE6], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 NO_CUDA = r"""
 import torch
 from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,

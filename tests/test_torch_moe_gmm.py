@@ -307,10 +307,12 @@ def test_sort_is_stable_as_jnp_argsort(layer):
 
 
 def test_expert_parallel_raises_until_ported():
+    """Expert parallelism is ported (``parallel/ep_moe.py``,
+    ``tests/test_torch_parallel.py``): ``"ep"`` validates, an unknown
+    implementation still raises."""
     cfg = get_config("granite_moe_1b_a400m")
     assert cfg.moe_impl == "gmm"
     assert smoke_variant(cfg).moe_impl == "ragged"
-    with pytest.raises(NotImplementedError):
-        replace(cfg, moe_impl="ep").validate()
+    assert replace(cfg, moe_impl="ep").validate().moe_impl == "ep"
     with pytest.raises(ValueError):
         replace(cfg, moe_impl="megablocks").validate()

@@ -316,8 +316,8 @@ def test_pallas_name_reads_as_cuda_and_default_is_the_kernel():
     assert smoke_variant(cfg).attention_impl == "dense"
     with pytest.raises(ValueError):
         replace(cfg, attention_impl="flash").validate()
-    with pytest.raises(NotImplementedError):
-        Model(get_config("seamless_m4t_medium"))
+    # encoder-decoder configs are ported too (tests/test_torch_encdec.py)
+    assert Model(get_config("seamless_m4t_medium")).is_encdec
     # MoE and SSM layers are ported: their kernel paths are the defaults
     assert (cfg.moe_impl, cfg.ssm_impl) == ("gmm", "cuda")
     params = Model(smoke_variant(get_config("mamba2_130m"))).init(device="cpu")
@@ -486,3 +486,53 @@ def test_launch_serve_runs_new_archs_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert f"BigRoots serve report — {get_config(arch).name}-smoke" in out
     assert '"generated_tokens": 6' in out
+
+
+# ---------------------------------------------------------------------------
+# the VLM prefix: precomputed patch embeddings before the text
+# ---------------------------------------------------------------------------
+VLM_TEXT = 32
+VLM_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_vlm_prefix_matches_jax(impl):
+    """internvl2-26b at smoke size, in the setup of the reference's
+    ``TestVLM`` (``tests/test_arch_smoke.py:163``): 8 patch embeddings
+    before 32 text tokens.  The forward, and the prefill then one greedy
+    decode step with the embeddings, against the JAX model on the same
+    parameters (float32; largest difference 1e-5 of the largest
+    logit)."""
+    cfg = ref_smoke_variant(ref_get_config("internvl2_26b"))
+    model = RefModel(cfg)
+    np_params = jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.key(0)))
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, VLM_TEXT)).astype(np.int32)
+    embeds = rng.normal(0, 1, (2, cfg.frontend_tokens, cfg.d_model)).astype(
+        np.float32)
+    jb = {"tokens": jnp.asarray(tokens), "embeds": jnp.asarray(embeds)}
+    P = cfg.frontend_tokens
+    want_full, _ = jax.jit(model.forward)(jparams, jb)
+    cache = model.init_cache(jparams, jb, max_len=VLM_TEXT + P + 8)
+    want_pf, cache = jax.jit(model.prefill)(jparams, jb, cache)
+    nxt = jnp.argmax(want_pf[:, 0], -1).astype(jnp.int32)[:, None]
+    want_dec, _ = jax.jit(model.decode)(jparams, nxt, cache)
+
+    port_cfg = replace(smoke_variant(get_config("internvl2_26b")),
+                       **IMPLS[impl])
+    params = lm_params_from_numpy(np_params, port_cfg, device="cpu")
+    pm = Model(port_cfg)
+    pb = {"tokens": torch.from_numpy(tokens),
+          "embeds": torch.from_numpy(embeds)}
+    full, _ = pm.forward(params, pb)
+    pcache = pm.init_cache(params, pb, VLM_TEXT + P + 8)
+    pf, pcache = pm.prefill(params, pb, pcache)
+    dec, pcache = pm.decode(params, torch.from_numpy(np.array(nxt)), pcache)
+    assert full.shape == (2, VLM_TEXT + P, port_cfg.vocab_padded)
+    assert pcache["pos"] == VLM_TEXT + P + 1
+    for got, want in ((full, want_full), (pf, want_pf), (dec, want_dec)):
+        want = np.asarray(want, np.float64)
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err <= VLM_RTOL, err
