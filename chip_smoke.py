@@ -48,8 +48,10 @@ process exits non-zero):
                 an initial state, N 16, shapes whose bf16 blocks take 1, 2
                 or 3 heads of a G > 1 group, at N 16, Q 64 and in a
                 ragged second wave), also through ``ssd_chunked_cuda``;
-                K5 (prefill gate/up and down, decode) and K4 (its
-                float32 ``y``, as served) are timed at the serving shapes
+                K5 (prefill gate/up and down, decode, a training step's
+                gate/up) and K4 (its float32 ``y``, as served) are timed
+                at the serving shapes (and K2 / K3 at seamless-m4t-medium's
+                and K2 at granite's training shapes)
                 beside their plain versions and, for K5,
                 ``torch._grouped_mm``.  With ``--replaced DIR`` (a
                 ``csrc`` holding the K1, K2, K3, K4 and K5 bodies this
@@ -161,6 +163,25 @@ process exits non-zero):
 11. ``parallel``: the int8 all-reduce over 4 shards of granite's ``embed``
                 leaf against the mean of their dequantized values, and the
                 pipeline over 4 stages against the sequential composition.
+12. ``roofline``: for each timed path (the prefill and a decode step of
+                glm4-9b, granite-moe-1b-a400m, mamba2-130m and
+                seamless-m4t-medium, a train step of the last three), the
+                same step counted on ``meta`` tensors by the dry run's
+                counters at the same shape and impls
+                (``repro_torch.launch.dryrun``): ``mfu`` (model FLOPs over
+                the measured time × the bf16 peak) and the achieved roofline
+                fraction (the counted bound over the measured time), each
+                at most 1.05; the meta run's kernel launches equal to the
+                card's and its argument bytes on a 1 × 1 mesh at most the
+                measured peak memory.
+13. ``dryrun``: ``python -m repro_torch.launch.dryrun --all --mesh both``
+                into a temporary directory, every cell ``ok``, the report's
+                two tables printed.
+14. ``examples``: the six ``repro_torch.examples`` on the GPU with their
+                smallest documented arguments, each ending with ``OK``, its
+                kernel launches counted: K1 once per packed sweep,
+                ``serve_demo`` K2 and K3; ``quickstart`` and
+                ``anomaly_study`` print what they print on the host.
 
 The last three lines of standard output are the GPU's name and power limit
 as ``nvidia-smi`` gives them, one JSON object ``{"kernels": [...]}``, and
@@ -170,6 +191,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
+import io
 import json
 import os
 import statistics
@@ -206,7 +229,7 @@ from repro_torch.core import (  # noqa: E402
     train_forecaster,
 )
 from repro_torch.core.fleet import GateStaging  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
 from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, HostDataLoader  # noqa: E402
@@ -219,6 +242,7 @@ from repro_torch.kernels import (  # noqa: E402
     ssd_chunked_cuda,
     ssd_scan,
 )
+from repro_torch.launch import dryrun, report, roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
@@ -251,16 +275,6 @@ from repro_torch.telemetry import (  # noqa: E402
     StepTelemetry,
 )
 
-#: Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, and
-#: the float64 rate outside the tensor cores (half the 67 TFLOP/s float32
-#: rate) for the operations bound.
-HBM_BYTES_PER_S = 3.35e12
-FP64_FLOPS = 33.5e12
-#: Dense peaks for the attention kernels' operations bound: bf16 on the
-#: tensor cores, float32 outside them.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-#: sub, div, mul for each of the two peer means, and seven comparisons.
-GATE_OPS_PER_ELEMENT = 13
 #: The fleet: 64 live stage windows (the aggregator's default retention) of
 #: 16384 rows each, filled by 32 senders; every tick 4 senders add 64 fresh
 #: rows to every stage.  Only the number of ticks can be cut.
@@ -743,8 +757,8 @@ def gate_bound(tensors) -> dict:
     vectors) says which elements can fire: mask > 0, v > q, numok > 0 and
     v > floor.  Only there do ``pv`` and the two counts change the output,
     so they are counted by the 32-byte sectors holding such an element (for
-    ``pv``) or such a row (for each count).  Plus ``W·R·F`` bytes written;
-    the gate operations of the live elements.
+    ``pv``) or such a row (for each count); the bytes and operations are
+    ``roofline.gate_work``'s.
 
     Two earlier yardsticks beside it: ``bytes_live_rows`` /
     ``bound_live_rows_ms`` count ``v`` and ``pv`` of every live row and
@@ -756,29 +770,23 @@ def gate_bound(tensors) -> dict:
     decides = live & (v > q) & (numok > 0.0) & (v > floor)
     n_live = int(live.sum().item())
     pv_sectors = _sectors(decides)
-    count_sectors = _sectors(decides.any(2))
-    cols = 24 * W * F + 8 * F
-    written = W * R * F
-    nbytes = (8 * W * R + 8 * F * n_live + 32 * pv_sectors
-              + 2 * 32 * count_sectors + cols + written)
-    ops_ms = n_live * F * GATE_OPS_PER_ELEMENT / FP64_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    live_rows = n_live * 16 * F + W * R * 24 + cols + written
-    all_rows = W * R * (16 * F + 24) + cols + written
-
-    def bound(b, elements):
-        return max(b / HBM_BYTES_PER_S * 1e3,
-                   elements * F * GATE_OPS_PER_ELEMENT / FP64_FLOPS * 1e3)
+    work = roofline.gate_work(W, R, F, n_live, pv_sectors,
+                              _sectors(decides.any(2)))
+    f64 = torch.float64
+    need = roofline.work_bound(work)
     return {"live_rows": n_live, "rows": W * R,
             "deciding_elements": int(decides.sum().item()),
             "pv_sectors": pv_sectors,
             "pv_sectors_all": -(-W * R * F // 4),
-            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_live_rows": live_rows,
-            "bound_live_rows_ms": bound(live_rows, n_live),
-            "bytes_all_rows": all_rows,
-            "bound_all_rows_ms": bound(all_rows, W * R)}
+            "bytes": work["bytes"], "bound_ms": need["bound_ms"],
+            "bound_by": need["bound_by"],
+            "bytes_live_rows": work["bytes_live_rows"],
+            "bound_live_rows_ms": roofline.bound(
+                work["flops"], work["bytes_live_rows"], f64)["bound_ms"],
+            "bytes_all_rows": work["bytes_all_rows"],
+            "bound_all_rows_ms": roofline.bound(
+                work["flops_all_rows"], work["bytes_all_rows"],
+                f64)["bound_ms"]}
 
 
 def measure_fns(fns: dict, flush, rounds: int = 4, reps: int = 25) -> dict:
@@ -963,30 +971,6 @@ def encdec_attention_checks(gen, dtype, device) -> list[dict]:
         out.append(decode_case(gen, B, MAX_LEN, H, KV, D, dtype, cache_len,
                                device))
     return out
-
-
-def flash_bound(B, Sq, Sk, H, KV, D, dtype, causal) -> dict:
-    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
-             else Sq * Sk)
-    flops = 4 * B * H * D * pairs
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * D * (2 * B * Sq * H + 2 * B * Sk * KV)
-    return _bound(flops, nbytes, dtype)
-
-
-def decode_bound(B, H, KV, D, valid, dtype) -> dict:
-    flops = 4 * B * H * D * valid
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * D * (2 * B * valid * KV + 2 * B * H)
-    return _bound(flops, nbytes, dtype)
-
-
-def _bound(flops, nbytes, dtype) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 class Replaced:
@@ -1179,7 +1163,8 @@ def flash_timing(gen, device, flush, arch: str, replaced,
     t.update(shape=[B, Sq, H, D], keys=Sk, kv_heads=KV, causal=causal,
              dtype="bfloat16", path=cfg.name,
              work_items=H * B * -(-Sq // flash_attention.BF16_BQ),
-             **flash_bound(B, Sq, Sk, H, KV, D, dt, causal))
+             **roofline.work_bound(roofline.flash_work(
+                 B, Sq, Sk, H, KV, D, dt, causal)))
     return t
 
 
@@ -1217,7 +1202,8 @@ def decode_timing(gen, device, flush, arch: str, replaced,
              dtype="bfloat16", path=cfg.name,
              splits=decode_attention.split_plan(B, KV, H // KV, S_max,
                                                 sm_count(device)),
-             **decode_bound(B, H, KV, D, last + 1, dt))
+             **roofline.work_bound(roofline.decode_work(
+                 B, H, KV, D, last + 1, dt)))
     return t
 
 
@@ -1225,8 +1211,12 @@ def attention_timings(device, seed: int, flush, replaced=None) -> dict:
     """K2 at glm4-9b's prefill (``[8, 1024, 32, 128]`` causal over 2 kv
     heads) and granite-moe-1b-a400m's (``[8, 1024, 16, 64]`` over 8), and
     K3 at the last decode step of each: a ``[8, 1064, 2, 128]`` cache for
-    32 heads and a ``[8, 1064, 8, 64]`` one for 16; bf16."""
+    32 heads and a ``[8, 1064, 8, 64]`` one for 16; seamless-m4t-medium's
+    encoder, cross- and self-attention (``[8, 1024, 16, 64]`` over 16 kv
+    heads) and K3 over its cross and self cache; granite's training shape
+    ``[8, 512, 16, 64]``; bf16."""
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    S_train = TRAIN_SHAPES[MOE_ARCH][1]
     return {
         "flash_attention": flash_timing(gen, device, flush, SERVE_ARCH,
                                         replaced),
@@ -1248,6 +1238,15 @@ def attention_timings(device, seed: int, flush, replaced=None) -> dict:
         "decode_attention_cross": decode_timing(
             gen, device, flush, ENCDEC_ARCH, replaced, ENC_FRAMES,
             ENC_FRAMES - 1),
+        # the decoder's causal self-attention at n_rep 1 and a decode
+        # step's over the self cache
+        "flash_attention_self": flash_timing(gen, device, flush, ENCDEC_ARCH,
+                                             replaced),
+        "decode_attention_self": decode_timing(gen, device, flush,
+                                               ENCDEC_ARCH, replaced),
+        # granite-moe-1b-a400m's training shape, [8, 512, 16, 64]
+        "flash_attention_train": flash_timing(
+            gen, device, flush, MOE_ARCH, replaced, S_train, S_train),
     }
 
 
@@ -1402,27 +1401,10 @@ def ssd_checks(device, seed: int) -> list[dict]:
 
 
 def gmm_bound(sizes, K, N, dtype) -> dict:
-    """Every routed row read once, the weights of the experts that have
-    rows read once, every output written once; 2·M·K·N operations."""
-    elt = torch.finfo(dtype).bits // 8
-    M = int(sizes.sum())
-    active = int((sizes > 0).sum())
-    return _bound(2 * M * K * N, elt * (M * K + active * K * N + M * N),
-                  dtype)
-
-
-def ssd_bound(B, S, H, G, N, Q, dtype, P=64) -> dict:
-    """Inputs read once (x, B, C in x's dtype, dt in f32), outputs written
-    once (y, states and seg, all f32); the causal products C·Bᵀ and scores·x
-    over j <= i and the chunk state Bᵀ·xw."""
-    elt = torch.finfo(dtype).bits // 8
-    Nc = S // Q
-    pairs = Q * (Q + 1) // 2
-    flops = B * H * Nc * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
-    nbytes = (elt * B * S * H * P + 4 * B * S * H * P + 4 * B * S * H
-              + elt * 2 * B * S * G * N + 4 * B * H * Nc * N * P
-              + 4 * B * H * S)
-    return _bound(flops, nbytes, dtype)
+    """``roofline.gmm_work`` of these group sizes: the experts that have
+    rows are the active ones."""
+    return roofline.work_bound(roofline.gmm_work(
+        int(sizes.sum()), K, N, int((sizes > 0).sum()), dtype))
 
 
 def grouped_mm_library(xs, w, sizes):
@@ -1445,7 +1427,8 @@ def grouped_mm_library(xs, w, sizes):
 def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
     """K5 at granite-moe-1b-a400m's prefill gate/up launch (65536 routed
     rows over 32 experts, 1024 → 512, bf16), its prefill down launch
-    (512 → 1024) and a decode step's gate/up (64 rows), each beside its
+    (512 → 1024), a decode step's gate/up (64 rows) and a training step's
+    gate/up (32768 rows at 8 × 512 tokens), each beside its
     plain version, ``torch._grouped_mm`` and (``replaced``) the body it
     replaced; and K4 at mamba2-130m's prefill (8 × 1024 steps, 24 heads,
     P 64, N 128, chunk 256, bf16)."""
@@ -1454,9 +1437,11 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
     cfg = get_config(MOE_ARCH)
     E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
     out = {}
+    B_train, S_train = TRAIN_SHAPES[MOE_ARCH]
     for label, rows, K, N in (("prefill", SERVE_BATCH * PROMPT_LEN, d, f),
                               ("prefill_down", SERVE_BATCH * PROMPT_LEN, f, d),
-                              ("decode", SERVE_BATCH, d, f)):
+                              ("decode", SERVE_BATCH, d, f),
+                              ("train", B_train * S_train, d, f)):
         sizes = routed_sizes(gen, rows * cfg.moe_top_k, E, device)
         xs = _randn(gen, (int(sizes.sum()), K), bf, device)
         w = (torch.randn((E, K, N), generator=gen, device=device)
@@ -1500,7 +1485,8 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
              chunk=Q, dtype="bfloat16", library_ms=None,
              heads_per_block=ssd_scan.head_group_plan(
                  SERVE_BATCH, PROMPT_LEN, H, G, N, Q, sms=sm_count(device)),
-             **ssd_bound(SERVE_BATCH, PROMPT_LEN, H, G, N, Q, bf))
+             **roofline.work_bound(roofline.ssd_work(
+                 SERVE_BATCH, PROMPT_LEN, H, G, N, Q, bf)))
     out["ssd_scan"] = t
     return out
 
@@ -3055,6 +3041,179 @@ def phase_diagnosis(device, flush) -> dict:
     return out
 
 
+# -- the roofline of the timed paths -------------------------------------------
+
+#: An ``mfu`` or achieved roofline fraction above this fails the phase: the
+#: path would have run faster than the card's peaks allow, so a count or a
+#: time is wrong.
+ROOFLINE_LIMIT = 1.05
+
+
+def roofline_paths(serve: dict, train: dict, encdec: dict) -> list:
+    """``(arch, kind, batch, length, measured ms, peak bytes, launches)`` of
+    each timed path: the serving prefill (its one timed call) and decode
+    step (the median) of every served arch at the serving batch and prompt,
+    a step against the ``MAX_LEN`` cache, and one train step (the median
+    of steps 2–8) of every trained arch at its training shape.  Launches
+    are what the card made in one such call."""
+    out = []
+    for arch, run in ((SERVE_ARCH, serve[SERVE_ARCH]),
+                      (MOE_ARCH, serve[MOE_ARCH]), (SSM_ARCH, serve[SSM_ARCH]),
+                      (ENCDEC_ARCH, encdec)):
+        cfg = get_config(arch)
+        if cfg.enc_layers:
+            want = expected_encdec_launches(cfg)
+            prefill, step = want["prefill"], want["decode"]
+        else:
+            prefill, step = expected_launches(cfg)
+        peak = run["peak_memory_gb"] * 1e9
+        out += [(arch, "prefill", SERVE_BATCH, PROMPT_LEN, run["prefill_ms"],
+                 peak, prefill),
+                (arch, "decode", SERVE_BATCH, PROMPT_LEN,
+                 run["decode_ms_per_step_median"], peak, step)]
+    for arch in (MOE_ARCH, SSM_ARCH, ENCDEC_ARCH):
+        B, S = TRAIN_SHAPES[arch]
+        out.append((arch, "train", B, S, train[arch]["step_ms_median"],
+                    train[arch]["peak_memory_gb"] * 1e9,
+                    expected_train_launches(get_config(arch))))
+    return out
+
+
+def path_roofline(arch: str, kind: str, B: int, S: int, ms: float,
+                  peak: float, launches: dict) -> dict:
+    """One timed path against the dry run's counters: the same step on
+    ``meta`` at the same shape and impls (served parameters in the compute
+    dtype, as ``ServeEngine`` casts them), on a 1 × 1 mesh."""
+    cfg = get_config(arch)
+    shape = ShapeSpec(f"{kind}_{B}x{S}", S, B, kind)
+    args, shardings, step = dryrun.build_cell(
+        cfg, shape, make_mesh((1, 1), ("data", "model")),
+        max_len=None if kind == "train" else MAX_LEN, served=kind != "train")
+    arg_bytes = dryrun.argument_bytes(args, shardings)
+    counted = dryrun.count_step(step)
+    roof = roofline.Roofline.build(
+        counted["flops"], counted["bytes"], None, 1,
+        roofline.model_flops_for(cfg, shape), counted["bytes_upper"])
+    seconds = ms / 1e3
+    res = {"arch": cfg.name, "kind": kind, "batch": B, "seq": S,
+           "cache": None if kind == "train" else MAX_LEN,
+           "measured_ms": ms, "model_flops": roof.model_flops,
+           "flops": counted["flops"], "bytes": counted["bytes"],
+           "bytes_upper": counted["bytes_upper"],
+           "compute_ms": roof.compute_s * 1e3,
+           "memory_ms": roof.memory_s * 1e3, "bound_ms": roof.bound_s * 1e3,
+           "dominant": roof.dominant, "useful_ratio": roof.useful_ratio,
+           "mfu": roof.model_flops / (seconds * roofline.PEAK_FLOPS),
+           "roofline_fraction_achieved": roof.bound_s / seconds,
+           "argument_bytes_1x1": arg_bytes, "peak_memory_bytes": peak,
+           "kernels": counted["kernels"], "count_s": counted["seconds"]}
+    check(res["mfu"] <= ROOFLINE_LIMIT
+          and res["roofline_fraction_achieved"] <= ROOFLINE_LIMIT,
+          f"{arch} {kind}: mfu {res['mfu']} / fraction "
+          f"{res['roofline_fraction_achieved']} above {ROOFLINE_LIMIT}")
+    check(arg_bytes <= peak, f"{arch} {kind}: the dry run's {arg_bytes} "
+                             f"argument bytes exceed the measured peak {peak}")
+    counted_launches = {k: v["launches"] for k, v in counted["kernels"].items()}
+    check(counted_launches == {k: v for k, v in launches.items() if v},
+          f"{arch} {kind}: the meta run counted {counted_launches}, the "
+          f"card launched {launches}")
+    return res
+
+
+def phase_roofline(serve: dict, train: dict, encdec: dict) -> list[dict]:
+    return [path_roofline(*p) for p in roofline_paths(serve, train, encdec)]
+
+
+# -- the dry run -----------------------------------------------------------------
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` (every
+    cell on both production meshes, on meta, one process per core) into a
+    temporary directory; every cell must be ``ok``.  Prints the report's
+    two tables."""
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--jobs", str(jobs), "--results-dir", d],
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        rows = report.load(results_dir=d)
+    failed = [f"{r['mesh']} {r['arch']} {r['shape']}: {r.get('error')}"
+              for r in rows if r["status"] != "ok"]
+    check(proc.returncode == 0 and not failed and len(rows) == 64,
+          f"dry run: rc {proc.returncode}, {len(rows)} cells, failed "
+          f"{failed}: {proc.stderr[-2000:]}")
+    print(report.dryrun_table(rows), flush=True)
+    print(report.roofline_table(rows, mesh="single"), flush=True)
+    return {"cells": len(rows), "seconds": seconds, "jobs": jobs,
+            "dominant": {d: sum(r["roofline"]["dominant"] == d for r in rows)
+                         for d in ("compute", "memory", "collective")}}
+
+
+# -- the examples ----------------------------------------------------------------
+
+#: The six examples with their smallest documented arguments.
+EXAMPLES = {
+    "quickstart": [],
+    "anomaly_study": [],
+    "fault_tolerance_demo": [],
+    "serve_demo": [],
+    "train_100m_bigroots": [],
+    "fleet_demo": ["--hosts", "2", "--steps", "24", "--kill-after", "8",
+                   "--lease", "1.0"],
+}
+#: Examples whose printed report must equal the same run on the host.
+EXAMPLE_HOST_REPORT = ("quickstart", "anomaly_study")
+
+
+def run_example(name: str, argv: list[str]) -> tuple[int, str, float]:
+    """``repro_torch.examples.<name>.main(argv)`` in this process, its
+    standard output kept."""
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(device) -> dict:
+    """Each example on the GPU: it must end with ``OK``; its kernel launches
+    are counted (zeroed before, read after), every packed sweep it reaches
+    launches K1, and ``serve_demo`` launches K2 and K3."""
+    out = {}
+    for name, extra in EXAMPLES.items():
+        with gate_calls() as gates:
+            zero_counts()
+            rc, text, seconds = run_example(
+                name, ["--device", str(device), *extra])
+            launches = {**kernel_counts(),
+                        "bigroots_gates": bigroots_gates.LAUNCHES}
+        lines = text.strip().splitlines()
+        check(rc == 0 and bool(lines) and lines[-1].startswith("OK"),
+              f"example {name}: rc {rc}, last lines {lines[-3:]}")
+        sweeps = len(gates["calls"])
+        check(launches["bigroots_gates"] == sweeps,
+              f"example {name}: K1 launched {launches['bigroots_gates']} "
+              f"times over {sweeps} packed sweeps")
+        if name == "serve_demo":
+            check(launches["flash_attention"] >= 1
+                  and launches["decode_attention"] >= 1,
+                  f"serve_demo launched {launches}")
+        run = {"seconds": seconds, "launches": launches,
+               "packed_sweeps": sweeps, "last_line": lines[-1][:160]}
+        if name in EXAMPLE_HOST_REPORT:
+            _, host, _ = run_example(name, ["--device", "cpu", *extra])
+            check(host == text, f"example {name}: the report differs from "
+                                "the host's")
+            run["equals_host_report"] = True
+        out[name] = run
+    return out
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_env() -> str:
@@ -3188,6 +3347,11 @@ def run(args) -> None:
     emit({"phase": "ep_path", "ok": True, **ep})
     torch.cuda.empty_cache()
     emit({"phase": "parallel", "ok": True, **phase_parallel(args, device)})
+    for res in phase_roofline(serve, train, encdec):
+        emit({"phase": "roofline", "ok": True, "gpu": card, **res})
+    emit({"phase": "dryrun", "ok": True, **phase_dryrun()})
+    examples = phase_examples(device)
+    emit({"phase": "examples", "ok": True, "gpu": card, **examples})
 
     def trained(name: str, arch: str) -> dict:
         """A kernel's launches in ``arch``'s training run, per step, and
@@ -3247,6 +3411,7 @@ def run(args) -> None:
                 attn_timing["flash_attention"], attn_checks),
         "granite_prefill": attn_timing["flash_attention_granite"],
         **trained("flash_attention", MOE_ARCH),
+        "train_launch": attn_timing["flash_attention_train"],
         "encdec": {
             "path": get_config(ENCDEC_ARCH).name,
             "serve_launches": encdec["launches"]["flash_attention"],
@@ -3256,6 +3421,7 @@ def run(args) -> None:
                 "flash_attention"],
             "encoder": attn_timing["flash_attention_encoder"],
             "cross": attn_timing["flash_attention_cross"],
+            "self": attn_timing["flash_attention_self"],
             "train_launches": train[ENCDEC_ARCH]["launches"][
                 "flash_attention"],
             "train_launches_per_step": train[ENCDEC_ARCH][
@@ -3275,7 +3441,8 @@ def run(args) -> None:
              "serve_launches": encdec["launches"]["decode_attention"],
              "per_step": encdec["launches_per_call"]["decode"][
                  "decode_attention"],
-             "cross_last_step": attn_timing["decode_attention_cross"]}},
+             "cross_last_step": attn_timing["decode_attention_cross"],
+             "self_last_step": attn_timing["decode_attention_self"]}},
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
@@ -3287,6 +3454,7 @@ def run(args) -> None:
          "library": moe_ssd_timing["moe_gmm_prefill"]["library"],
          "prefill_down_launch": moe_ssd_timing["moe_gmm_prefill_down"],
          "decode_launch": moe_ssd_timing["moe_gmm_decode"],
+         "train_launch": moe_ssd_timing["moe_gmm_train"],
          **trained("moe_gmm", MOE_ARCH),
          "ep": {"path": ep["arch"] + " moe_impl=ep", "shards": EP_SHARDS,
                 "prefill_launches": ep["launches"]["moe_gmm"],

@@ -25,6 +25,10 @@ be a multiple of the split (the reference asserts a multiple of 512).
   (batch, kv head) in one thread-block cluster that combines them; float32:
   split partials through scratch, then a combine launch; D 64 or 128); CPU
   tensors take the plain version.  ``LAUNCHES`` counts calls that launched.
+  ``meta`` tensors (the dry run) take the kernel's checks, then an empty
+  output, and its work over the whole cache (``cache_len`` is not known on
+  meta; a cell decodes at its full context) goes to the active step
+  counter (:func:`repro_torch.launch.roofline.decode_work`).
 """
 from __future__ import annotations
 
@@ -192,7 +196,7 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     _check(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_torch(q, k_cache, v_cache, cache_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
@@ -201,6 +205,12 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
             or cache_len.dtype != torch.int32 or cache_len.numel() != 1
             or cache_len.device != q.device):
         raise ValueError("cache_len must be one int32 on q's device")
+    if q.device.type == "meta":
+        from ..launch import roofline
+
+        roofline.count_kernel("decode_attention", roofline.decode_work(
+            B, H, KV, D, S, q.dtype))
+        return torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if q.dtype == torch.bfloat16:
         n_splits, split_len = split_plan(B, KV, H // KV, S,

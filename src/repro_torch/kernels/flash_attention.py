@@ -26,7 +26,9 @@ Two functions:
   (:mod:`.tma`) and are refused, never copied, where they do not.
   ``LAUNCHES`` counts kernel launches.  Its gradient is the plain
   version's, by autograd (:mod:`.grad`): the JAX package has no backward
-  kernel either.
+  kernel either.  ``meta`` tensors (the dry run) take the kernel's checks,
+  then an empty output of its shape, and its work (:func:`repro_torch.
+  launch.roofline.flash_work`) goes to the active step counter.
 """
 from __future__ import annotations
 
@@ -130,11 +132,24 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     plain = functools.partial(flash_attention_torch, causal=causal)
     if q.device.type == "cpu":
         return PlainGradient.apply(plain, plain, q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     check_kernel_inputs(q, k, v)
-    return PlainGradient.apply(functools.partial(_launch, causal=causal),
+    launch = _count if q.device.type == "meta" else _launch
+    return PlainGradient.apply(functools.partial(launch, causal=causal),
                                plain, q, k, v)
+
+
+def _count(q, k, v, *, causal: bool) -> torch.Tensor:
+    """The kernel on ``meta`` tensors: its work to the step counter, an
+    empty output."""
+    from ..launch import roofline
+
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    roofline.count_kernel("flash_attention", roofline.flash_work(
+        B, Sq, Sk, H, KV, D, q.dtype, causal))
+    return torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
 
 
 def _launch(q, k, v, *, causal: bool) -> torch.Tensor:

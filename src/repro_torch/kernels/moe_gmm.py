@@ -24,6 +24,9 @@ groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
   alone, and its inputs must suit a TMA tensor map (:mod:`.tma`).  CPU
   tensors take the plain version.  ``LAUNCHES`` counts kernel launches.
   Its gradient is the plain version's, by autograd (:mod:`.grad`).
+  ``meta`` tensors (the dry run) take the kernel's checks, then an empty
+  output, and its work (:func:`repro_torch.launch.roofline.gmm_work`) goes
+  to the active step counter.
 """
 from __future__ import annotations
 
@@ -80,7 +83,12 @@ def row_tiles(M: int, E: int, bm: int) -> int:
 
 def grouped_matmul_torch(xs, w, group_sizes) -> torch.Tensor:
     """Plain PyTorch version: ``xs[rows of e] @ w[e]`` in float32 for every
-    expert ``e``, cast to xs's dtype."""
+    expert ``e``, cast to xs's dtype.  On ``meta`` tensors, where the group
+    sizes cannot be read, one product of every row with one expert's
+    weights stands in: the same shapes and the same operation count, and
+    so the same count under autograd (the dry run's backward)."""
+    if xs.device.type == "meta":
+        return (xs.float() @ w[0].float()).to(xs.dtype)
     sizes = [int(n) for n in group_sizes.tolist()]
     if sum(sizes) != xs.shape[0] or min(sizes, default=0) < 0:
         raise ValueError(f"group sizes {sizes} do not split {xs.shape[0]} "
@@ -145,12 +153,28 @@ def grouped_matmul(xs, w, group_sizes, *,
     if xs.device.type == "cpu":
         return PlainGradient.apply(grouped_matmul_torch, grouped_matmul_torch,
                                    xs, w, group_sizes)
-    if xs.device.type != "cuda":
+    if xs.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {xs.device}")
     check_kernel_inputs(xs, w)
+    if xs.device.type == "meta":
+        return PlainGradient.apply(_count, grouped_matmul_torch, xs, w,
+                                   group_sizes)
     return PlainGradient.apply(
         functools.partial(_launch, rows_per_tile=rows_per_tile),
         grouped_matmul_torch, xs, w, group_sizes)
+
+
+def _count(xs, w, group_sizes):
+    """The kernel on ``meta`` tensors: its work to the step counter (every
+    expert that can hold a row counted active: the sizes are not known on
+    meta), an empty output."""
+    from ..launch import roofline
+
+    M, K = xs.shape
+    E, _, N = w.shape
+    roofline.count_kernel("moe_gmm", roofline.gmm_work(
+        M, K, N, min(E, M), xs.dtype))
+    return torch.empty((M, N), dtype=xs.dtype, device=xs.device)
 
 
 def _launch(xs, w, group_sizes, *, rows_per_tile: int | None):

@@ -27,7 +27,10 @@ and not yet rounded.
   FMAs for float32; P 64, N 16 / 32 / 64 / 128, Q a multiple of 16 up to
   256) on the current stream or raise; CPU tensors take the plain version.
   ``LAUNCHES`` counts kernel launches.  Its gradient is the plain
-  version's, by autograd (:mod:`.grad`).
+  version's, by autograd (:mod:`.grad`).  ``meta`` tensors (the dry run)
+  take the kernel's checks, then empty outputs, and its work
+  (:func:`repro_torch.launch.roofline.ssd_work`) goes to the active step
+  counter.
 """
 from __future__ import annotations
 
@@ -166,11 +169,33 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
     plain = functools.partial(ssd_intra_chunk_torch, chunk=chunk)
     if x.device.type == "cpu":
         return PlainGradient.apply(plain, plain, x, dt, A, Bm, Cm)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     _check_kernel_inputs(x, Bm, Cm, chunk)
-    return PlainGradient.apply(functools.partial(_launch, chunk=chunk),
+    launch = _count if x.device.type == "meta" else _launch
+    return PlainGradient.apply(functools.partial(launch, chunk=chunk),
                                plain, x, dt, A, Bm, Cm)
+
+
+def _outputs(x, Nc: int, N: int, chunk: int):
+    """Empty ``y``, ``states`` and ``seg`` of the kernel's shapes."""
+    B_, S, H, P = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((B_, S, H, P), **f32),
+            torch.empty((B_, H, Nc, N, P), **f32),
+            torch.empty((B_, H, Nc, chunk), **f32))
+
+
+def _count(x, dt, A, Bm, Cm, *, chunk: int):
+    """The kernel on ``meta`` tensors: its work to the step counter, empty
+    outputs."""
+    from ..launch import roofline
+
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    roofline.count_kernel("ssd_scan", roofline.ssd_work(
+        B_, S, H, G, N, chunk, x.dtype, P))
+    return _outputs(x, S // chunk, N, chunk)
 
 
 def _check_kernel_inputs(x, Bm, Cm, chunk: int) -> None:
@@ -204,11 +229,7 @@ def _launch(x, dt, A, Bm, Cm, *, chunk: int):
     hb = (head_group_plan(B_, S, H, G, N, chunk, P, sm_count(x.device))
           if x.dtype == torch.bfloat16 else 1)
     A = A.contiguous()
-    y = torch.empty((B_, S, H, P), dtype=torch.float32, device=x.device)
-    states = torch.empty((B_, H, Nc, N, P), dtype=torch.float32,
-                         device=x.device)
-    seg = torch.empty((B_, H, Nc, chunk), dtype=torch.float32,
-                      device=x.device)
+    y, states, seg = _outputs(x, Nc, N, chunk)
     strides = [t.stride(i) for t in (x, dt, Bm, Cm, y) for i in range(3)]
     with torch.cuda.device(x.device):
         rc = _kernel_fn()(

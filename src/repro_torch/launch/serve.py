@@ -6,12 +6,15 @@ dense (glm4_9b), MoE (granite_moe_1b_a400m), SSM (mamba2_130m), hybrid:
 CPU-sized example (the smoke variant, on the host):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
       --smoke --device cpu --requests 8 --max-new 16
+Full width cut to fewer layers (the kernels' shapes, a smaller model):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --layers 2
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -31,6 +34,9 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="glm4_9b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only this many layers (a multiple of the "
+                         "arch's layer pattern), at the config's width")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -46,6 +52,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = replace(cfg, n_layers=args.layers).validate()
     if cfg.enc_layers:
         raise SystemExit("the serving entry point takes decoder-only archs")
     model = Model(cfg)

@@ -184,6 +184,36 @@ def test_encdec_and_parallel_import_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+SLICE7 = r"""
+import sys, tempfile
+import repro_torch.launch.dryrun, repro_torch.launch.report
+import repro_torch.launch.roofline, repro_torch.launch.specs
+import repro_torch.kernels.ref
+import repro_torch.examples
+from repro_torch.examples import (anomaly_study, fault_tolerance_demo,
+                                  fleet_demo, quickstart, serve_demo,
+                                  train_100m_bigroots)
+from repro_torch.configs import SHAPES
+from repro_torch.launch import dryrun
+
+with tempfile.TemporaryDirectory() as d:
+    r = dryrun.run_cell("mamba2_130m", SHAPES["decode_32k"], "single",
+                        results_dir=d)
+    assert r["status"] == "ok", r
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_dry_run_ref_and_examples_import_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", SLICE7], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 NO_CUDA = r"""
 import torch
 from repro_torch.core import (BigRootsAnalyzer, Forecaster, JAX_FEATURES,
@@ -247,6 +277,15 @@ for make in (lambda: init_state(model, None, AdamWConfig()),
         assert "CUDA" in str(exc), exc
     else:
         raise SystemExit("trained on the CPU unasked")
+
+from repro_torch.examples import quickstart, serve_demo
+for make in (lambda: quickstart.main([]), lambda: serve_demo.main([])):
+    try:
+        make()
+    except RuntimeError as exc:
+        assert "CUDA" in str(exc), exc
+    else:
+        raise SystemExit("an example ran on the CPU unasked")
 print("RAISED")
 """
 
