@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py [--seed 0] [--ticks 5] [--f32-layers 4]
-                          [--replaced DIR]
+                          [--replaced DIR] [--serve ARCH ...]
 
 What it does, in phases (one JSON line each; any failure raises and the
 process exits non-zero):
@@ -34,24 +34,34 @@ process exits non-zero):
                 timed at the serving path's shapes (glm4-9b's and
                 granite-moe-1b-a400m's prefill and last decode step) beside
                 their plain versions and ``scaled_dot_product_attention``;
-                the MoE
+                and at the head layouts of the families served in phase 7
+                and 9 (head_dim 128 at n_rep 6, 4 and 1; internvl2's
+                2048-position prefill; K3 at n_rep 6, a partial 16-row head
+                group, at the split edges of the serving cache and of
+                internvl2's 2088-position one); the MoE
                 grouped matmul (K5: 3e-2 / 1e-4, the reference's tolerances
                 for it) at granite-moe-1b-a400m's prefill and decode shapes
                 and corners (empty experts, one row, one expert holding 5x
                 the mean, row counts and widths off the tiles, groups of
                 exactly one tile, boundaries inside tiles, fewer rows than
-                a tile, one expert, both tile heights forced) and the SSD
+                a tile, one expert, both tile heights forced; olmoe-1b-7b's
+                64 experts at its prefill and at a decode step's 64 slots,
+                64 groups of 0 or 1 rows; jamba-v0.1-52b's 14336 → 4096
+                down projection) and the SSD
                 intra-chunk kernel (K4: 2e-2 / 2e-5; the float32 kernel
                 against a float64 plain version) at mamba2-130m's prefill
                 shape and corners (G > 1, one chunk, one chunk of 12 and of
                 100 steps that ``ssd_chunked_cuda`` pads to 16-step tiles,
                 an initial state, N 16, shapes whose bf16 blocks take 1, 2
                 or 3 heads of a G > 1 group, at N 16, Q 64 and in a
-                ragged second wave), also through ``ssd_chunked_cuda``;
+                ragged second wave, and jamba's prefill: 128 heads, N 16),
+                also through ``ssd_chunked_cuda``;
                 K5 (prefill gate/up and down, decode, a training step's
                 gate/up) and K4 (its float32 ``y``, as served) are timed
                 at the serving shapes (and K2 / K3 at seamless-m4t-medium's
-                and K2 at granite's training shapes)
+                and at the served families' prefill and last step, K5 at
+                olmoe's and jamba's, K4 at jamba's, and K2 at granite's
+                training shapes)
                 beside their plain versions and, for K5,
                 ``torch._grouped_mm``.  With ``--replaced DIR`` (a
                 ``csrc`` holding the K1, K2, K3, K4 and K5 bodies this
@@ -89,9 +99,15 @@ process exits non-zero):
                 package's ``tests/test_forecast.py``, with its largest
                 parameter difference from the same training on the host.
 7. ``serve_path``, once for each of glm4-9b (dense GQA: K2, K3),
-                granite-moe-1b-a400m (GQA + MoE: K2, K3, K5) and mamba2-130m
-                (SSM: K4), each at full width and depth (random weights from
-                a seeded generator, float32 parameters served in bfloat16),
+                granite-moe-1b-a400m (GQA + MoE: K2, K3, K5), mamba2-130m
+                (SSM: K4), jamba-v0.1-52b (hybrid: K2, K3, K4 and K5 in
+                one model; cut to 8 of its 32 layers, one period of its
+                pattern), codeqwen1.5-7b (MHA with qkv bias),
+                granite-3-8b (tied embeddings) and granite-8b (dense GQA),
+                each at full width and (jamba but) full depth (random
+                weights from a seeded generator, float32 parameters cast
+                leaf by leaf to the bfloat16 the engine serves, drawn again
+                for the float32 reference once the engine is gone),
                 through ``ServeEngine`` with streaming telemetry and
                 ``Diagnosis.local``: 8 requests x 1024 prompt tokens, 32
                 greedy new tokens each.  Launch counters are zeroed just
@@ -107,8 +123,10 @@ process exits non-zero):
                 the kernel path must lie within a limit of them that a
                 lower-precision control exceeds, and in float32, the model
                 both are held to.  A float32 variant cut to
-                ``--f32-layers`` layers (full width) must give the greedy
-                tokens of the plain forms with float64 activations.
+                ``--f32-layers`` layers (full width; whole periods of the
+                pattern, so 8 for jamba) must give the greedy tokens of the
+                plain forms with float64 activations (teacher-forced, the
+                weights cast per use).
 
 8. ``train_path``, once for each of granite-moe-1b-a400m (8 x 512 tokens a
                 step: K2, K5) and mamba2-130m (8 x 1024: K4), at full width and
@@ -150,6 +168,13 @@ process exits non-zero):
                 recompute).  The new kernel shapes are among the K2 / K3
                 corners of phase 3 (``Sq != Sk`` non-causal, n_rep 1 at
                 head_dim 64, the cross cache's ``cache_len``) and timed there.
+                ``vlm_path``: internvl2-26b's backbone (d 6144, 48 heads over
+                8, d_ff 16384, vocab 92553) cut to 8 of its 48 layers,
+                served the same way through ``Model`` with 1024 seeded patch
+                embeddings ahead of each 1024-token prompt (K2 once per
+                layer of the 2048-position prefill, K3 once per layer of a
+                step over a 2088-position cache) and held to the same
+                rules.
 10. ``ep_path``: granite-moe-1b-a400m with ``moe_impl="ep"`` on a (data 1,
                 model 4) mesh of virtual shards: its 8 x 1024 prefill
                 through ``Model.prefill`` (K5 three times per shard per MoE
@@ -164,8 +189,10 @@ process exits non-zero):
                 leaf against the mean of their dequantized values, and the
                 pipeline over 4 stages against the sequential composition.
 12. ``roofline``: for each timed path (the prefill and a decode step of
-                glm4-9b, granite-moe-1b-a400m, mamba2-130m and
-                seamless-m4t-medium, a train step of the last three), the
+                every served arch at its served depth, a train step of
+                granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
+                whose prefill also gets its ``mfu`` over ``init_cache`` +
+                prefill: its model FLOPs count the encoder), the
                 same step counted on ``meta`` tensors by the dry run's
                 counters at the same shape and impls
                 (``repro_torch.launch.dryrun``): ``mfu`` (model FLOPs over
@@ -301,6 +328,25 @@ GMM_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 #: and new tokens as glm4-9b's.
 MOE_ARCH = "granite_moe_1b_a400m"
 SSM_ARCH = "mamba2_130m"
+#: Every arch served through ``ServeEngine``, in the order they run, with
+#: the depth it is served at (None: the config's own).  A cut keeps whole
+#: periods of the layer pattern: jamba-v0.1-52b at 8 of its 32 layers is
+#: one period (1 attention, 7 SSM and 4 MoE layers, 13.3 B parameters), the
+#: only model whose forward runs K2, K4 and K5 together.  olmoe-1b-7b is
+#: not among them: its bf16 routing flips read 8.33 % (against the bf16
+#: plain forms) and 8.29 % (against float32) on an H100, past
+#: ``ROUTING_FLIP_SHARE``, which stays as it is; its kernel shapes are
+#: held and timed in phase 3, and ``--serve olmoe_1b_7b`` serves it alone.
+HYBRID_ARCH = "jamba_v0_1_52b"
+SERVE_PATHS = {SERVE_ARCH: None, MOE_ARCH: None, SSM_ARCH: None,
+               HYBRID_ARCH: 8, "codeqwen1_5_7b": None, "granite_3_8b": None,
+               "granite_8b": None}
+#: The VLM: internvl2-26b's backbone at full width, cut to 8 of its 48
+#: layers (all 48 are ~80 GB of float32 master weights), served through
+#: ``Model`` with ``frontend_tokens`` (1024) seeded patch embeddings ahead
+#: of each prompt; its cache also holds the patches.
+VLM_ARCH = "internvl2_26b"
+VLM_LAYERS = 8
 #: The bf16 kernel path's logits are held to the float32 model (the
 #: reference's plain forms in float32 on the same f32 weights, teacher-forced
 #: with the same tokens and the kernel run's routing): their relative RMS
@@ -319,9 +365,18 @@ SERVE_BF16_MARGIN = 1.5
 #: that lost precision would be.  Every run checks that its control lies
 #: past the limit.  Readings on an H100 (sound / control at 5 bits):
 #: glm4-9b 0.080 / 0.206, mamba2-130m 0.018 / 0.086; granite-moe-1b-a400m
-#: 0.034 / 0.065 with its control at 6 bits, which 5 bits only widens.
+#: 0.034 / 0.065 with its control at 6 bits, which 5 bits only widens;
+#: seamless-m4t-medium 0.0223 / 0.0408; jamba-v0.1-52b (8 layers) 0.0169 /
+#: 0.0741, internvl2-26b (8 layers, with patches) 0.0479 / 0.1632,
+#: codeqwen1.5-7b 0.0700 / 0.1896, granite-3-8b 0.0760 / 0.2133,
+#: granite-8b 0.0739 / 0.2097, olmoe-1b-7b 0.0592 / 0.1963 (the limits
+#: near their geometric means).
 SERVE_BF16_KERNEL_VS_PLAIN = {"glm4_9b": 0.12, "granite_moe_1b_a400m": 0.055,
-                              "mamba2_130m": 0.04}
+                              "mamba2_130m": 0.04,
+                              "seamless_m4t_medium": 0.03,
+                              "jamba_v0_1_52b": 0.035, "internvl2_26b": 0.09,
+                              "codeqwen1_5_7b": 0.115, "granite_3_8b": 0.125,
+                              "granite_8b": 0.125, "olmoe_1b_7b": 0.11}
 CONTROL_BITS = 5
 #: A replayed routing slot (token x k) is a flip where the replaying run's
 #: own top-k differs from the recorded one.  Their share may be at most
@@ -339,11 +394,6 @@ SERVE_F32_REL_RMS = 1e-4
 #: 32 greedy new tokens, the same cache as the decoder-only paths.
 ENCDEC_ARCH = "seamless_m4t_medium"
 ENC_FRAMES = PROMPT_LEN // 4
-#: Its bf16 kernel path against the bf16 plain forms, relative RMS of the
-#: worst step: a limit between the sound reading and the 5-bit control's
-#: (``SERVE_BF16_KERNEL_VS_PLAIN``'s rule).
-#: Readings on an H100 (sound / control): 0.0223 / 0.0408.
-ENCDEC_BF16_KERNEL_VS_PLAIN = 0.03
 #: Expert parallelism: granite-moe-1b-a400m with ``moe_impl="ep"`` on a
 #: (data 1, model 4) mesh of virtual shards on the one card, its prefill at
 #: the serving batch; logits against the same ep function with K5's plain
@@ -942,6 +992,29 @@ def attention_checks(device, seed: int) -> list[dict]:
         out.append(decode_case(gen, 3, 70, 4, 2, 64, dtype, 69, device))
         out.append(decode_case(gen, 1, 5, 4, 4, 128, dtype, 2, device))
         out += encdec_attention_checks(gen, dtype, device)
+        out += served_attention_checks(gen, dtype, device)
+    return out
+
+
+def served_attention_checks(gen, dtype, device) -> list[dict]:
+    """The head layouts of jamba, olmoe, codeqwen, granite-8b / 3-8b and
+    internvl2, all at head_dim 128.  K2: n_rep 6 (internvl2's 48 query heads
+    over 8) at one query row, one row past a 128-row tile and its 2048
+    positions (1024 patch embeddings + 1024 text tokens); n_rep 4 (jamba,
+    both granites) and n_rep 1 (codeqwen, olmoe) at 1024.  K3: n_rep 6 (a
+    partial group of 6 in a 16-row head group) at the split edges of the
+    serving cache and of internvl2's; n_rep 4 and 1 at the last step."""
+    out = [flash_case(gen, 2, S, 48, 8, 128, dtype, True, device)
+           for S in (1, 129, 2 * PROMPT_LEN)]
+    out += [flash_case(gen, 2, PROMPT_LEN, H, KV, 128, dtype, True, device)
+            for H, KV in ((32, 8), (32, 32), (16, 16))]
+    for S_max in (MAX_LEN, serve_max_len(served_config(VLM_ARCH))):
+        out += [decode_case(gen, SERVE_BATCH, S_max, 48, 8, 128, dtype, n,
+                            device)
+                for n in decode_corners(SERVE_BATCH, S_max, 48, 8, device)]
+    out += [decode_case(gen, SERVE_BATCH, MAX_LEN, H, KV, 128, dtype,
+                        PROMPT_LEN + MAX_NEW - 1, device)
+            for H, KV in ((32, 8), (32, 32), (16, 16))]
     return out
 
 
@@ -1247,7 +1320,31 @@ def attention_timings(device, seed: int, flush, replaced=None) -> dict:
         # granite-moe-1b-a400m's training shape, [8, 512, 16, 64]
         "flash_attention_train": flash_timing(
             gen, device, flush, MOE_ARCH, replaced, S_train, S_train),
+        **served_attention_timings(gen, device, flush, replaced),
     }
+
+
+#: The served families' attention layouts, all at head_dim 128, by the
+#: name their timings carry: n_rep 6 (internvl2, whose prefill is 2048
+#: positions), 4 (jamba, granite-8b and granite-3-8b alike), 1 (codeqwen's
+#: 32 heads, olmoe's 16).
+SERVED_ATTENTION = {"internvl2": VLM_ARCH, "jamba": HYBRID_ARCH,
+                    "codeqwen": "codeqwen1_5_7b", "olmoe": "olmoe_1b_7b"}
+
+
+def served_attention_timings(gen, device, flush, replaced) -> dict:
+    """K2 at the prefill and K3 at the last decode step of each of
+    ``SERVED_ATTENTION``, as served (internvl2's patch embeddings lengthen
+    its prefill and cache by ``frontend_tokens``)."""
+    out = {}
+    for name, arch in SERVED_ATTENTION.items():
+        cfg = served_config(arch)
+        S, S_max = cfg.frontend_tokens + PROMPT_LEN, serve_max_len(cfg)
+        out[f"flash_attention_{name}"] = flash_timing(
+            gen, device, flush, arch, replaced, S, S)
+        out[f"decode_attention_{name}"] = decode_timing(
+            gen, device, flush, arch, replaced, S_max, S + MAX_NEW - 1)
+    return out
 
 
 # -- the MoE grouped matmul (K5) and the SSD intra-chunk kernel (K4) -------------
@@ -1313,6 +1410,29 @@ def gmm_checks(device, seed: int) -> list[dict]:
                             "prefill gate, 64-row tiles", rows_per_tile=64))
         out.append(gmm_case(gen, decode, d, f, dtype, device,
                             "decode gate, 128-row tiles", rows_per_tile=128))
+        out += served_gmm_checks(gen, dtype, device)
+    return out
+
+
+def served_gmm_checks(gen, dtype, device) -> list[dict]:
+    """K5 at olmoe's and jamba's widths: olmoe's 64 experts (top-8, 2048 →
+    1024) at its prefill's routed rows and at a decode step's 64 slots,
+    where nearly every group holds 0, 1 or 2 rows (also one of only 0 and
+    1 rows); jamba's 16 experts (top-2) at its prefill down projection
+    14336 → 4096, the longest reduction of any served path."""
+    out = []
+    for arch, cases in (("olmoe_1b_7b", ("prefill gate", "decode gate")),
+                        (HYBRID_ARCH, ("prefill down",))):
+        cfg = served_config(arch)
+        E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+        for case in cases:
+            tokens = SERVE_BATCH * (PROMPT_LEN if "prefill" in case else 1)
+            sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
+            K, N = (f, d) if "down" in case else (d, f)
+            out.append(gmm_case(gen, sizes, K, N, dtype, device,
+                                f"{cfg.name} {case}"))
+    out.append(gmm_case(gen, (torch.arange(64) % 3 != 0).long(), 2048, 1024,
+                        dtype, device, "64 groups of 0 or 1 rows"))
     return out
 
 
@@ -1397,6 +1517,12 @@ def ssd_checks(device, seed: int) -> list[dict]:
         out.append(ssd_case(gen, 3, 256, 12, 2, 16, 64, dtype, device))
         out.append(ssd_case(gen, 3, PROMPT_LEN, 12, 2, N, Q, dtype, device))
         out.append(ssd_case(gen, 3, PROMPT_LEN, 6, 2, 16, 64, dtype, device))
+        # jamba's prefill: 128 heads (d_inner 8192 / 64) on one B/C group,
+        # N 16: 2 heads a block, 2048 blocks in 15.5 waves of an H100.
+        jcfg = served_config(HYBRID_ARCH)
+        out.append(ssd_case(gen, SERVE_BATCH, PROMPT_LEN, jcfg.ssm_heads,
+                            jcfg.ssm_groups, jcfg.ssm_state, jcfg.ssm_chunk,
+                            dtype, device))
     return out
 
 
@@ -1428,21 +1554,30 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
     """K5 at granite-moe-1b-a400m's prefill gate/up launch (65536 routed
     rows over 32 experts, 1024 → 512, bf16), its prefill down launch
     (512 → 1024), a decode step's gate/up (64 rows) and a training step's
-    gate/up (32768 rows at 8 × 512 tokens), each beside its
+    gate/up (32768 rows at 8 × 512 tokens), and the same three serving
+    launches at olmoe-1b-7b's widths (64 experts top-8, 2048 → 1024) and
+    jamba-v0.1-52b's (16 experts top-2, 4096 → 14336), each beside its
     plain version, ``torch._grouped_mm`` and (``replaced``) the body it
     replaced; and K4 at mamba2-130m's prefill (8 × 1024 steps, 24 heads,
-    P 64, N 128, chunk 256, bf16)."""
+    P 64, N 128, chunk 256, bf16) and jamba's (128 heads, N 16)."""
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     bf = torch.bfloat16
-    cfg = get_config(MOE_ARCH)
-    E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
-    out = {}
+    rows = SERVE_BATCH * PROMPT_LEN
     B_train, S_train = TRAIN_SHAPES[MOE_ARCH]
-    for label, rows, K, N in (("prefill", SERVE_BATCH * PROMPT_LEN, d, f),
-                              ("prefill_down", SERVE_BATCH * PROMPT_LEN, f, d),
-                              ("decode", SERVE_BATCH, d, f),
-                              ("train", B_train * S_train, d, f)):
-        sizes = routed_sizes(gen, rows * cfg.moe_top_k, E, device)
+    launches = []
+    for prefix, arch in (("", MOE_ARCH), ("olmoe_", "olmoe_1b_7b"),
+                         ("jamba_", HYBRID_ARCH)):
+        cfg = served_config(arch)
+        d, f = cfg.d_model, cfg.expert_d_ff
+        launches += [(cfg, f"{prefix}prefill", rows, d, f),
+                     (cfg, f"{prefix}prefill_down", rows, f, d),
+                     (cfg, f"{prefix}decode", SERVE_BATCH, d, f)]
+        if arch == MOE_ARCH:
+            launches.append((cfg, "train", B_train * S_train, d, f))
+    out = {}
+    for cfg, label, tokens, K, N in launches:
+        E = cfg.moe_experts
+        sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
         xs = _randn(gen, (int(sizes.sum()), K), bf, device)
         w = (torch.randn((E, K, N), generator=gen, device=device)
              / K ** 0.5).to(bf)
@@ -1457,7 +1592,8 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
         }, replaced and replaced.body(
             "moe_gmm", lambda: replaced.gmm(xs, w, sizes)), kernel,
             "moe_gmm", GMM_TOL[bf])
-        t = measure_fns(fns, flush, rounds=4 if label == "decode" else 2)
+        t = measure_fns(fns, flush, rounds=4 if label.endswith("decode")
+                        else 2)
         M = int(sizes.sum())
         t.update(rows=M, experts=E, K=K, N=N,
                  active_experts=int((sizes > 0).sum()),
@@ -1466,7 +1602,17 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
                  dtype="bfloat16", **gmm_bound(sizes, K, N, bf))
         out[f"moe_gmm_{label}"] = t
         del xs, w
-    scfg = get_config(SSM_ARCH)
+    for key, arch in (("ssd_scan", SSM_ARCH),
+                      ("ssd_scan_jamba", HYBRID_ARCH)):
+        out[key] = ssd_timing(gen, device, flush, arch, replaced)
+    return out
+
+
+def ssd_timing(gen, device, flush, arch: str, replaced) -> dict:
+    """K4 at ``arch``'s prefill (8 x 1024 steps, P 64, bf16) beside its
+    plain version and (``replaced``) the body it replaced."""
+    bf = torch.bfloat16
+    scfg = get_config(arch)
     H, G, N, Q = scfg.ssm_heads, scfg.ssm_groups, scfg.ssm_state, \
         scfg.ssm_chunk
     x, dt, A, Bm, Cm = ssd_inputs(gen, SERVE_BATCH, PROMPT_LEN, H, G, N, bf,
@@ -1482,13 +1628,12 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
         "ssd_scan", lambda: replaced.ssd(x, dt, A, Bm, Cm, Q)), ssd_kernel,
         "ssd_scan", ATTN_TOL[bf]), flush, rounds=2)
     t.update(shape=[SERVE_BATCH, PROMPT_LEN, H, 64], groups=G, state=N,
-             chunk=Q, dtype="bfloat16", library_ms=None,
+             chunk=Q, dtype="bfloat16", library_ms=None, path=scfg.name,
              heads_per_block=ssd_scan.head_group_plan(
                  SERVE_BATCH, PROMPT_LEN, H, G, N, Q, sms=sm_count(device)),
              **roofline.work_bound(roofline.ssd_work(
                  SERVE_BATCH, PROMPT_LEN, H, G, N, Q, bf)))
-    out["ssd_scan"] = t
-    return out
+    return t
 
 
 # -- the serving path ------------------------------------------------------------
@@ -1547,15 +1692,17 @@ class Recorder:
         return [t for n, t in self.host_ms if n == name]
 
 
-def profile_decode(model, params, tokens: list, extra=None) -> dict:
+def profile_decode(model, params, tokens: list, extra=None,
+                   max_len: int | None = None) -> dict:
     """One decode step of the kernel path under ``torch.profiler``: the
     device time of its kernels against the step's wall time (host clock to
     a synchronisation), after a prefill and one unprofiled step.  ``extra``:
-    more inputs of the batch (an encoder-decoder's frame embeddings)."""
+    more inputs of the batch (an encoder-decoder's frame embeddings, a
+    VLM's patch embeddings)."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = {"tokens": tokens[0], **(extra or {})}
-    cache = model.init_cache(params, batch, MAX_LEN)
+    cache = model.init_cache(params, batch, max_len or MAX_LEN)
     _, cache = model.prefill(params, batch, cache)
     _, cache = model.decode(params, tokens[1], cache)
     torch.cuda.synchronize()
@@ -1587,12 +1734,14 @@ def serve_requests(cfg, seed: int) -> list:
         np.int32), max_new_tokens=MAX_NEW) for i in range(SERVE_BATCH)]
 
 
-def teacher_forced(model, params, tokens: list, extra=None) -> list:
+def teacher_forced(model, params, tokens: list, extra=None,
+                   max_len: int | None = None) -> list:
     """Prefill ``tokens[0]``, then decode each later entry; the logits.
     ``extra``: more inputs of the batch (an encoder-decoder's frame
-    embeddings, which ``init_cache`` encodes)."""
+    embeddings, which ``init_cache`` encodes; a VLM's patch embeddings,
+    which the prefill puts ahead of the prompt)."""
     batch = {"tokens": tokens[0], **(extra or {})}
-    cache = model.init_cache(params, batch, MAX_LEN)
+    cache = model.init_cache(params, batch, max_len or MAX_LEN)
     logits, cache = model.prefill(params, batch, cache)
     out = [logits]
     for tok in tokens[1:]:
@@ -1619,18 +1768,37 @@ def logit_errors(got: list, want: list, vocab: int) -> dict:
             "argmax_agreement_min": min(agree)}
 
 
+def served_config(arch: str):
+    """``arch``'s config as served: cut to its ``SERVE_PATHS`` depth (or
+    ``VLM_LAYERS``) where one is set, at the published width."""
+    cfg = get_config(arch)
+    layers = VLM_LAYERS if arch == VLM_ARCH else SERVE_PATHS.get(arch)
+    return replace(cfg, n_layers=layers).validate() if layers else cfg
+
+
+def serve_max_len(cfg) -> int:
+    """The cache a served batch fills: its frontend's embeddings (a VLM's
+    patches), the prompt, the new tokens and 8 positions spare."""
+    return cfg.frontend_tokens + MAX_LEN
+
+
 def cut_params(params, cfg, layers: int):
-    """The first ``layers`` layers of a stacked parameter tree (views); an
+    """The first ``layers`` layers of a stacked parameter tree (views), at
+    least one whole period of the layer pattern (the slots are stacked per
+    period: jamba's variant keeps 8 layers whatever ``layers`` asks); an
     encoder-decoder's encoder and decoder both."""
-    def cut(blocks):
-        return {k: {n: t[:layers] for n, t in slot.items()}
-                for k, slot in blocks.items()}
+    period = len(cfg.pattern())
+    blocks = -(-layers // period)
+
+    def cut(tree_):
+        return {k: {n: t[:blocks] for n, t in slot.items()}
+                for k, slot in tree_.items()}
     if cfg.enc_layers:
         return ({**params, "enc_blocks": cut(params["enc_blocks"]),
                  "dec_blocks": cut(params["dec_blocks"])},
                 replace(cfg, n_layers=layers, enc_layers=layers))
     return ({**params, "blocks": cut(params["blocks"])},
-            replace(cfg, n_layers=layers))
+            replace(cfg, n_layers=blocks * period))
 
 
 SERVING_KERNELS = (flash_attention, decode_attention, ssd_scan, moe_gmm)
@@ -1694,8 +1862,14 @@ class Routing:
 
     @contextlib.contextmanager
     def replay(self):
-        """Yields ``{"routings": slots replayed, "flips": ...}``."""
-        tally = {"routings": 0, "flips": 0}
+        """Yields ``{"routings": slots replayed, "flips": ..., "moved":
+        ...}``: ``flips`` counts the positions where the two top-k lists,
+        each sorted by expert id, differ (the count the limit holds);
+        ``moved`` counts the replaying run's experts that are not among
+        the recorded ones (one changed expert of a top-k moves one slot,
+        and may shift up to k positions of the sorted list), a reading
+        beside it."""
+        tally = {"routings": 0, "flips": 0, "moved": 0}
         seen = [0]
 
         def pin(probs, experts):
@@ -1708,6 +1882,8 @@ class Routing:
             tally["routings"] += pinned.numel()
             tally["flips"] += int((experts.sort(-1).values
                                    != pinned.sort(-1).values).sum())
+            tally["moved"] += int((experts[..., :, None]
+                                   != pinned[..., None, :]).all(-1).sum())
             return pinned
         with moe_layer.routing_hook(pin):
             yield tally
@@ -1728,11 +1904,15 @@ def coarse_params(params, bits: int):
     """``params`` with the ``CONTROL_WEIGHTS`` rounded to ``bits``
     significant bits (the rest shared, not copied).  A slot's kind is the
     last word of its key: ``L0_attn``, or an encoder-decoder's ``attn``,
-    ``self_attn`` and ``cross_attn``."""
+    ``self_attn`` and ``cross_attn``.  Rounded one block at a time: the
+    float32 temporaries of a whole stacked leaf (olmoe's 16 layers of 64
+    experts) would not fit beside the model."""
     def coarse(t):
-        m, e = torch.frexp(t.float())
-        return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits,
-                           e).to(t.dtype)
+        out = torch.empty_like(t)
+        for i, blk in enumerate(t):
+            m, e = torch.frexp(blk.float())
+            out[i] = torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e)
+        return out
 
     def blocks(tree_):
         out = {}
@@ -1747,31 +1927,44 @@ def coarse_params(params, bits: int):
 
 
 def phase_serve(args, card: str, device, arch: str) -> dict:
-    """Serve ``arch`` at full size through ``ServeEngine``, with the launch
-    counters zeroed just before the run and read after every call; then
-    hold the logits to the plain forms and to a float32 model."""
-    cfg = get_config(arch)
+    """Serve ``arch`` at full width (at its ``SERVE_PATHS`` depth) through
+    ``ServeEngine``, with the launch counters zeroed just before the run
+    and read after every call; then hold the logits to the plain forms and
+    to a float32 model."""
+    t_phase = time.perf_counter()
+    cfg = served_config(arch)
     check((cfg.attention_impl, cfg.moe_impl, cfg.ssm_impl)
           == ("cuda", "gmm", "cuda"), "the default is not the kernel path")
-    torch.cuda.reset_peak_memory_stats()
+    def master():
+        """The seeded float32 parameters (drawn again, the same values,
+        whenever they are needed)."""
+        return Model(cfg).init(
+            torch.Generator(device=device).manual_seed(args.seed))
+
+    # The engine's bf16 copy is cast from the master leaf by leaf, each
+    # float32 leaf freed as it goes: the master and the copy together do not
+    # fit one card for jamba at 8 layers (53 + 27 GB).  The master is drawn
+    # again for the float32 reference once the engine is gone.
     t0 = time.perf_counter()
-    params = Model(cfg).init(
-        torch.Generator(device=device).manual_seed(args.seed))
+    served = cast_params(master(), cfg, device, in_place=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
+    torch.cuda.reset_peak_memory_stats()
     model = Model(cfg)
     rec = Recorder(model)
     timeline = ResourceTimeline()
     telem = StepTelemetry("host0", timeline=timeline, window=64,
                           streaming=True)
+    t0 = time.perf_counter()
     engine = ServeEngine(
-        model, params, max_len=MAX_LEN, batch_size=SERVE_BATCH,
+        model, served, max_len=MAX_LEN, batch_size=SERVE_BATCH,
         telemetry=telem, device=device,
         diagnosis=Diagnosis.local(BigRootsAnalyzer(
             JAX_FEATURES, timelines=timeline, device=device)))
+    del served                  # the engine holds the same tensors
     torch.cuda.synchronize()
-    cast_s = time.perf_counter() - t0 - init_s
+    cast_s = time.perf_counter() - t0
     # Warm-up (cuBLAS handles, the kernels' libraries): 2 new tokens.
     engine.run([Request(r.request_id, r.prompt, 2)
                 for r in serve_requests(cfg, args.seed + 1)])
@@ -1804,7 +1997,9 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     decode_ms = rec.ms("decode")
     run = {
-        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": get_config(arch).n_layers,
+        "d_model": cfg.d_model,
         "pattern": [s.name for s in cfg.pattern()],
         "params": cfg.param_count(),
         "active_params": cfg.param_count(active_only=True),
@@ -1841,6 +2036,7 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
                                            rec.tokens)
     del engine
     torch.cuda.empty_cache()
+    params = master()
     with routing.replay() as flips32:
         ref32 = teacher_forced(Model(replace(plain, dtype="float32")),
                                params, rec.tokens)
@@ -1857,32 +2053,35 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
     del plain16, control16, ref32, rec
     torch.cuda.empty_cache()
 
-    # float32, depth cut: greedy tokens must equal those of the plain forms
-    # with float64 activations (the oracle of the kernel path's numerics:
-    # the chunked SSD then scans in float64, as K4 does), replaying the
-    # kernel run's routing; the logits agree to 1e-4.
+    # float32, depth cut (to whole periods of the layer pattern): greedy
+    # tokens must equal those of the plain forms with float64 activations
+    # (the oracle of the kernel path's numerics: the chunked SSD then scans
+    # in float64, as K4 does), teacher-forced with the kernel run's tokens
+    # and routing; the logits agree to 1e-4.  The plain forms cast each
+    # float32 weight per use, as the reference does: a float64 copy of
+    # jamba's 8 layers (106 GB) would not fit.
     p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
                             args.f32_layers)
     routing = Routing()
-    runs = {}
-    for name, mcfg in (("kernel", cfg32),
-                       ("plain", replace(cfg32, dtype="float64",
-                                         **PLAIN_FORMS))):
-        m = Model(mcfg)
-        r32 = Recorder(m)
-        reqs = serve_requests(cfg, args.seed)
-        with (routing.record() if name == "kernel" else routing.replay()) \
-                as tally:
-            ServeEngine(m, p32, max_len=MAX_LEN, batch_size=SERVE_BATCH,
-                        device=device).run(reqs)
-        runs[name] = ([r.output for r in reqs], r32.logits, tally)
+    m32 = Model(cfg32)
+    r32 = Recorder(m32)
+    with routing.record():
+        ServeEngine(m32, p32, max_len=MAX_LEN, batch_size=SERVE_BATCH,
+                    device=device).run(serve_requests(cfg, args.seed))
+    with routing.replay() as tally:
+        p64 = teacher_forced(Model(replace(cfg32, dtype="float64",
+                                           **PLAIN_FORMS)), p32, r32.tokens)
     f32 = run["f32_variant"] = {
-        "layers": args.f32_layers,
-        "tokens_equal": runs["kernel"][0] == runs["plain"][0],
+        "layers": cfg32.n_layers,
+        "tokens_equal": all(torch.equal(a[:, -1].argmax(-1),
+                                        b[:, -1].argmax(-1))
+                            for a, b in zip(r32.logits, p64)),
         "tolerance_rel_rms": SERVE_F32_REL_RMS,
-        "routing_flips": runs["plain"][2],
+        "routing_flips": tally,
         "routing_flip_limit": ROUTING_FLIP_SHARE["float32"],
-        **logit_errors(runs["kernel"][1], runs["plain"][1], cfg.vocab)}
+        **logit_errors(r32.logits, p64, cfg.vocab)}
+    del p32, p64, r32, params
+    run["seconds"] = time.perf_counter() - t_phase
 
     # Every reading is taken before any is judged.
     failed = [msg for ok, msg in (
@@ -2424,21 +2623,24 @@ def phase_train(args, card: str, device, arch: str) -> dict:
     return run
 
 
-# -- the encoder-decoder path -------------------------------------------------
+# -- the encoder-decoder and the VLM through Model ---------------------------
 
-def encdec_requests(cfg, seed: int, device) -> dict:
-    """``SERVE_BATCH`` decoder prompts of ``PROMPT_LEN`` tokens and their
-    ``ENC_FRAMES`` frame embeddings (the audio frontend's stub output)."""
+def model_requests(cfg, seed: int, device) -> dict:
+    """``SERVE_BATCH`` prompts of ``PROMPT_LEN`` tokens and what the arch's
+    frontend stub gives beside them: an encoder-decoder's ``ENC_FRAMES``
+    frame embeddings (``enc_embeds``), a VLM's ``frontend_tokens`` patch
+    embeddings (``embeds``)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))
-    frames = rng.normal(0, 1, (SERVE_BATCH, ENC_FRAMES, cfg.d_model))
+    key, n = (("enc_embeds", ENC_FRAMES) if cfg.enc_layers
+              else ("embeds", cfg.frontend_tokens))
+    frames = rng.normal(0, 1, (SERVE_BATCH, n, cfg.d_model))
     return {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
-            "enc_embeds": torch.from_numpy(frames.astype(np.float32)).to(
-                device)}
+            key: torch.from_numpy(frames.astype(np.float32)).to(device)}
 
 
-def encdec_generate(model, params, batch: dict, new_tokens: int,
-                    device) -> dict:
+def generate(model, params, batch: dict, new_tokens: int, device,
+             max_len: int | None = None) -> dict:
     """Serve one batch through ``Model.init_cache`` / ``prefill`` /
     ``decode``, greedy: each call's device time (``Mark``), host enqueue
     time, kernel launches and logits, the tokens fed (prompt first) and the
@@ -2457,9 +2659,9 @@ def encdec_generate(model, params, batch: dict, new_tokens: int,
                                    for k, v in kernel_counts().items()}})
         return out
     t0 = time.perf_counter()
-    cache = call("init_cache", model.init_cache, params, batch, MAX_LEN)
-    logits, cache = call("prefill", model.prefill, params,
-                         {"tokens": batch["tokens"]}, cache)
+    cache = call("init_cache", model.init_cache, params, batch,
+                 max_len or MAX_LEN)
+    logits, cache = call("prefill", model.prefill, params, batch, cache)
     fed, out = [batch["tokens"]], [logits]
     for _ in range(new_tokens):
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -2478,39 +2680,48 @@ def _call_ms(calls: list, name: str) -> list[float]:
             if c["name"] == name]
 
 
-def expected_encdec_launches(cfg) -> dict:
-    """Kernel launches of ``init_cache`` (K2 once per encoder layer),
-    ``prefill`` (K2 twice per decoder layer: self and cross) and a decode
-    step (K3 twice per decoder layer: the self and the cross cache)."""
+def expected_model_launches(cfg) -> dict:
+    """Kernel launches of each ``Model`` call.  An encoder-decoder:
+    ``init_cache`` K2 once per encoder layer, ``prefill`` K2 twice per
+    decoder layer (self and cross), a decode step K3 twice per decoder
+    layer (the self and the cross cache).  A decoder-only model (the VLM):
+    none in ``init_cache``, then ``expected_launches``."""
     zero = {m.__name__.rsplit(".", 1)[-1]: 0 for m in SERVING_KERNELS}
-    return {"init_cache": {**zero, "flash_attention": cfg.enc_layers},
-            "prefill": {**zero, "flash_attention": 2 * cfg.n_layers},
-            "decode": {**zero, "decode_attention": 2 * cfg.n_layers}}
+    if cfg.enc_layers:
+        return {"init_cache": {**zero, "flash_attention": cfg.enc_layers},
+                "prefill": {**zero, "flash_attention": 2 * cfg.n_layers},
+                "decode": {**zero, "decode_attention": 2 * cfg.n_layers}}
+    prefill, step = expected_launches(cfg)
+    return {"init_cache": zero, "prefill": prefill, "decode": step}
 
 
-def phase_encdec_serve(args, card: str, device) -> dict:
-    """Serve seamless-m4t-medium at full size through ``Model``: launches
-    of every call checked, the bf16 logits held to the plain forms and to
-    a float32 model, a float32 variant cut in depth held to the plain
-    forms with float64 activations."""
-    cfg = get_config(ENCDEC_ARCH)
-    check(cfg.attention_impl == "cuda" and cfg.enc_layers > 0,
+def phase_model_serve(args, card: str, device, arch: str) -> dict:
+    """Serve ``arch`` (seamless-m4t-medium, or internvl2-26b with its patch
+    embeddings) at full width through ``Model``: launches of every call
+    checked, the bf16 logits held to the plain forms and to a float32
+    model, a float32 variant cut in depth held to the plain forms with
+    float64 activations."""
+    t_phase = time.perf_counter()
+    cfg = served_config(arch)
+    check(cfg.attention_impl == "cuda"
+          and bool(cfg.enc_layers or cfg.frontend_tokens),
           "the default is not the kernel path")
+    max_len = serve_max_len(cfg)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     params = Model(cfg).init(
         torch.Generator(device=device).manual_seed(args.seed))
     bparams = cast_params(params, cfg, device)
     model = Model(cfg)
-    batch = encdec_requests(cfg, args.seed, device)
-    frames = {"enc_embeds": batch["enc_embeds"]}
+    batch = model_requests(cfg, args.seed, device)
+    frames = {k: v for k, v in batch.items() if k != "tokens"}
     # Warm-up (cuBLAS handles, the kernels' libraries): 2 new tokens.
-    encdec_generate(model, bparams, encdec_requests(cfg, args.seed + 1,
-                                                    device), 2, device)
+    generate(model, bparams, model_requests(cfg, args.seed + 1, device), 2,
+             device, max_len)
     zero_counts()
-    gen = encdec_generate(model, bparams, batch, MAX_NEW, device)
+    gen = generate(model, bparams, batch, MAX_NEW, device, max_len)
     launches = kernel_counts()
-    want = expected_encdec_launches(cfg)
+    want = expected_model_launches(cfg)
     calls = gen["calls"]
     check([c["name"] for c in calls]
           == ["init_cache", "prefill"] + ["decode"] * MAX_NEW, "calls")
@@ -2524,14 +2735,16 @@ def phase_encdec_serve(args, card: str, device) -> dict:
           "a token outside the vocabulary")
     decode_ms = _call_ms(calls, "decode")
     run = {
-        "arch": cfg.name, "enc_layers": cfg.enc_layers,
-        "dec_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": get_config(arch).n_layers,
+        "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.head_dim, "vocab_padded": cfg.vocab_padded,
         "params": sum(t.numel() for t in tree.leaves(params)),
         "param_dtype": cfg.param_dtype, "served_dtype": cfg.dtype,
-        "requests": SERVE_BATCH, "enc_frames": ENC_FRAMES,
-        "prompt_len": PROMPT_LEN, "new_tokens": MAX_NEW, "max_len": MAX_LEN,
+        "requests": SERVE_BATCH,
+        "frontend": {k: list(v.shape[1:]) for k, v in frames.items()},
+        "prompt_len": PROMPT_LEN, "new_tokens": MAX_NEW, "max_len": max_len,
         "gpu": card,
         "init_cache_ms": _call_ms(calls, "init_cache")[0],
         "prefill_ms": _call_ms(calls, "prefill")[0],
@@ -2546,18 +2759,19 @@ def phase_encdec_serve(args, card: str, device) -> dict:
     }
 
     plain = replace(cfg, **PLAIN_FORMS)
-    plain16 = teacher_forced(Model(plain), bparams, gen["tokens"], frames)
+    plain16 = teacher_forced(Model(plain), bparams, gen["tokens"], frames,
+                             max_len)
     control16 = teacher_forced(Model(plain),
                                coarse_params(bparams, CONTROL_BITS),
-                               gen["tokens"], frames)
+                               gen["tokens"], frames, max_len)
     check(kernel_counts() == launches, "the plain forms launched a kernel")
     if device.type == "cuda":
         run["decode_profile"] = profile_decode(model, bparams, gen["tokens"],
-                                               frames)
+                                               frames, max_len)
     del bparams
     ref32 = teacher_forced(Model(replace(plain, dtype="float32")), params,
-                           gen["tokens"], frames)
-    limit = ENCDEC_BF16_KERNEL_VS_PLAIN
+                           gen["tokens"], frames, max_len)
+    limit = SERVE_BF16_KERNEL_VS_PLAIN[arch]
     bf16 = run["bf16_vs_f32"] = {
         "kernel_path": logit_errors(gen["logits"], ref32, cfg.vocab),
         "plain_forms": logit_errors(plain16, ref32, cfg.vocab),
@@ -2569,21 +2783,22 @@ def phase_encdec_serve(args, card: str, device) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # float32, depth cut (encoder and decoder): greedy tokens equal to the
-    # plain forms' with float64 activations, logits within 1e-4.
+    # float32, depth cut (an encoder-decoder's encoder and decoder): greedy
+    # tokens equal to the plain forms' with float64 activations, logits
+    # within 1e-4.
     p32, cfg32 = cut_params(params, replace(cfg, dtype="float32"),
                             args.f32_layers)
-    k32 = encdec_generate(Model(cfg32), p32, batch, MAX_NEW, device)
-    p64 = encdec_generate(Model(replace(cfg32, dtype="float64",
-                                        **PLAIN_FORMS)), p32, batch, MAX_NEW,
-                          device)
+    k32 = generate(Model(cfg32), p32, batch, MAX_NEW, device, max_len)
+    p64 = generate(Model(replace(cfg32, dtype="float64", **PLAIN_FORMS)),
+                   p32, batch, MAX_NEW, device, max_len)
     f32 = run["f32_variant"] = {
-        "layers": args.f32_layers,
+        "layers": cfg32.n_layers,
         "tokens_equal": torch.equal(k32["generated"], p64["generated"]),
         "tolerance_rel_rms": SERVE_F32_REL_RMS,
         "launches": [c["launches"] for c in k32["calls"][:3]],
         **logit_errors(k32["logits"], p64["logits"], cfg.vocab)}
     del k32, p64, p32, params
+    run["seconds"] = time.perf_counter() - t_phase
     failed = [msg for ok, msg in (
         (bf16["kernel_path"]["max_rel_rms"]
          <= SERVE_BF16_MARGIN * bf16["plain_forms"]["max_rel_rms"],
@@ -2597,9 +2812,15 @@ def phase_encdec_serve(args, card: str, device) -> dict:
         (f32["max_rel_rms"] <= SERVE_F32_REL_RMS, "float32 logits differ"),
     ) if not ok]
     if failed:
-        emit({"phase": "encdec_path", "part": "serve", "ok": False, **run})
+        emit({"phase": model_phase(cfg), "part": "serve", "ok": False,
+              **run})
     check(not failed, f"{cfg.name}: " + "; ".join(failed))
     return run
+
+
+def model_phase(cfg) -> str:
+    """The phase name of a ``phase_model_serve`` run's JSON line."""
+    return "encdec_path" if cfg.enc_layers else "vlm_path"
 
 
 # -- expert parallelism -------------------------------------------------------
@@ -3049,54 +3270,51 @@ def phase_diagnosis(device, flush) -> dict:
 ROOFLINE_LIMIT = 1.05
 
 
-def roofline_paths(serve: dict, train: dict, encdec: dict) -> list:
-    """``(arch, kind, batch, length, measured ms, peak bytes, launches)`` of
-    each timed path: the serving prefill (its one timed call) and decode
-    step (the median) of every served arch at the serving batch and prompt,
-    a step against the ``MAX_LEN`` cache, and one train step (the median
-    of steps 2–8) of every trained arch at its training shape.  Launches
-    are what the card made in one such call."""
+def roofline_paths(served: dict, train: dict) -> list:
+    """``(config, kind, batch, length, cache, measured ms, peak bytes,
+    launches)`` of each timed path: the serving prefill (its one timed
+    call) and decode step (the median) of every served arch (``served``:
+    arch → its run) at its served depth, the serving batch and prompt (a
+    VLM's patches and text together) and its cache, and one train step
+    (the median of steps 2–8) of every trained arch at its training shape.
+    Launches are what the card made in one such call."""
     out = []
-    for arch, run in ((SERVE_ARCH, serve[SERVE_ARCH]),
-                      (MOE_ARCH, serve[MOE_ARCH]), (SSM_ARCH, serve[SSM_ARCH]),
-                      (ENCDEC_ARCH, encdec)):
-        cfg = get_config(arch)
-        if cfg.enc_layers:
-            want = expected_encdec_launches(cfg)
-            prefill, step = want["prefill"], want["decode"]
-        else:
-            prefill, step = expected_launches(cfg)
+    for arch, run in served.items():
+        cfg = served_config(arch)
+        want = expected_model_launches(cfg)
         peak = run["peak_memory_gb"] * 1e9
-        out += [(arch, "prefill", SERVE_BATCH, PROMPT_LEN, run["prefill_ms"],
-                 peak, prefill),
-                (arch, "decode", SERVE_BATCH, PROMPT_LEN,
-                 run["decode_ms_per_step_median"], peak, step)]
+        S, cache = cfg.frontend_tokens + PROMPT_LEN, serve_max_len(cfg)
+        out += [(cfg, "prefill", SERVE_BATCH, S, cache, run["prefill_ms"],
+                 peak, want["prefill"]),
+                (cfg, "decode", SERVE_BATCH, S, cache,
+                 run["decode_ms_per_step_median"], peak, want["decode"])]
     for arch in (MOE_ARCH, SSM_ARCH, ENCDEC_ARCH):
         B, S = TRAIN_SHAPES[arch]
-        out.append((arch, "train", B, S, train[arch]["step_ms_median"],
+        cfg = get_config(arch)
+        out.append((cfg, "train", B, S, None, train[arch]["step_ms_median"],
                     train[arch]["peak_memory_gb"] * 1e9,
-                    expected_train_launches(get_config(arch))))
+                    expected_train_launches(cfg)))
     return out
 
 
-def path_roofline(arch: str, kind: str, B: int, S: int, ms: float,
-                  peak: float, launches: dict) -> dict:
+def path_roofline(cfg, kind: str, B: int, S: int, cache: int | None,
+                  ms: float, peak: float, launches: dict) -> dict:
     """One timed path against the dry run's counters: the same step on
-    ``meta`` at the same shape and impls (served parameters in the compute
-    dtype, as ``ServeEngine`` casts them), on a 1 × 1 mesh."""
-    cfg = get_config(arch)
+    ``meta`` at the same config (as served: cut in depth where the path
+    is), shape and impls (served parameters in the compute dtype, as
+    ``ServeEngine`` casts them), on a 1 × 1 mesh."""
     shape = ShapeSpec(f"{kind}_{B}x{S}", S, B, kind)
     args, shardings, step = dryrun.build_cell(
-        cfg, shape, make_mesh((1, 1), ("data", "model")),
-        max_len=None if kind == "train" else MAX_LEN, served=kind != "train")
+        cfg, shape, make_mesh((1, 1), ("data", "model")), max_len=cache,
+        served=kind != "train")
     arg_bytes = dryrun.argument_bytes(args, shardings)
     counted = dryrun.count_step(step)
     roof = roofline.Roofline.build(
         counted["flops"], counted["bytes"], None, 1,
         roofline.model_flops_for(cfg, shape), counted["bytes_upper"])
     seconds = ms / 1e3
-    res = {"arch": cfg.name, "kind": kind, "batch": B, "seq": S,
-           "cache": None if kind == "train" else MAX_LEN,
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "kind": kind,
+           "batch": B, "seq": S, "cache": cache,
            "measured_ms": ms, "model_flops": roof.model_flops,
            "flops": counted["flops"], "bytes": counted["bytes"],
            "bytes_upper": counted["bytes_upper"],
@@ -3109,19 +3327,34 @@ def path_roofline(arch: str, kind: str, B: int, S: int, ms: float,
            "kernels": counted["kernels"], "count_s": counted["seconds"]}
     check(res["mfu"] <= ROOFLINE_LIMIT
           and res["roofline_fraction_achieved"] <= ROOFLINE_LIMIT,
-          f"{arch} {kind}: mfu {res['mfu']} / fraction "
+          f"{cfg.name} {kind}: mfu {res['mfu']} / fraction "
           f"{res['roofline_fraction_achieved']} above {ROOFLINE_LIMIT}")
-    check(arg_bytes <= peak, f"{arch} {kind}: the dry run's {arg_bytes} "
+    check(arg_bytes <= peak, f"{cfg.name} {kind}: the dry run's {arg_bytes} "
                              f"argument bytes exceed the measured peak {peak}")
     counted_launches = {k: v["launches"] for k, v in counted["kernels"].items()}
     check(counted_launches == {k: v for k, v in launches.items() if v},
-          f"{arch} {kind}: the meta run counted {counted_launches}, the "
+          f"{cfg.name} {kind}: the meta run counted {counted_launches}, the "
           f"card launched {launches}")
     return res
 
 
-def phase_roofline(serve: dict, train: dict, encdec: dict) -> list[dict]:
-    return [path_roofline(*p) for p in roofline_paths(serve, train, encdec)]
+def phase_roofline(served: dict, train: dict) -> list[dict]:
+    """Every timed path's roofline.  An encoder-decoder's prefill also
+    gives its ``mfu`` over ``init_cache`` + prefill: its model FLOPs
+    (every parameter over every prompt token) count the encoder, which
+    ``init_cache`` runs, and the prefill alone does not."""
+    out = []
+    for p in roofline_paths(served, train):
+        res = path_roofline(*p)
+        cfg, kind = p[0], p[1]
+        if cfg.enc_layers and kind == "prefill":
+            run = served[ENCDEC_ARCH]
+            ms = run["init_cache_ms"] + run["prefill_ms"]
+            res.update(init_cache_ms=run["init_cache_ms"],
+                       mfu_init_cache_and_prefill=res["model_flops"]
+                       / (ms / 1e3 * roofline.PEAK_FLOPS))
+        out.append(res)
+    return out
 
 
 # -- the dry run -----------------------------------------------------------------
@@ -3325,7 +3558,7 @@ def run(args) -> None:
     del flush
 
     serve = {}
-    for arch in (SERVE_ARCH, MOE_ARCH, SSM_ARCH):
+    for arch in SERVE_PATHS:
         serve[arch] = phase_serve(args, card, device, arch)
         emit({"phase": "serve_path", "ok": True, **serve[arch]})
         torch.cuda.empty_cache()
@@ -3336,9 +3569,13 @@ def run(args) -> None:
         emit({"phase": "train_path", "ok": True, **train[arch]})
         torch.cuda.empty_cache()
 
-    encdec = phase_encdec_serve(args, card, device)
-    emit({"phase": "encdec_path", "part": "serve", "ok": True, **encdec})
-    torch.cuda.empty_cache()
+    served = dict(serve)
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        served[arch] = phase_model_serve(args, card, device, arch)
+        emit({"phase": model_phase(served_config(arch)), "part": "serve",
+              "ok": True, **served[arch]})
+        torch.cuda.empty_cache()
+    encdec = served[ENCDEC_ARCH]
     train[ENCDEC_ARCH] = phase_train(args, card, device, ENCDEC_ARCH)
     emit({"phase": "encdec_path", "part": "train", "ok": True,
           **train[ENCDEC_ARCH]})
@@ -3347,7 +3584,7 @@ def run(args) -> None:
     emit({"phase": "ep_path", "ok": True, **ep})
     torch.cuda.empty_cache()
     emit({"phase": "parallel", "ok": True, **phase_parallel(args, device)})
-    for res in phase_roofline(serve, train, encdec):
+    for res in phase_roofline(served, train):
         emit({"phase": "roofline", "ok": True, "gpu": card, **res})
     emit({"phase": "dryrun", "ok": True, **phase_dryrun()})
     examples = phase_examples(device)
@@ -3379,6 +3616,9 @@ def run(args) -> None:
             "replaced_ms": t.get("replaced_ms"),
             "shape": t.get("shape") or t.get("cache") or [t["rows"], t["K"],
                                                           t["N"]],
+            "served_launches": {served_config(a).name: r["launches"][name]
+                                for a, r in served.items()
+                                if r["launches"][name]},
         }
 
     print(card, flush=True)
@@ -3410,6 +3650,8 @@ def run(args) -> None:
                 "one per layer of the prefill", SERVE_ARCH,
                 attn_timing["flash_attention"], attn_checks),
         "granite_prefill": attn_timing["flash_attention_granite"],
+        "served_prefill": {n: attn_timing[f"flash_attention_{n}"]
+                           for n in SERVED_ATTENTION},
         **trained("flash_attention", MOE_ARCH),
         "train_launch": attn_timing["flash_attention_train"],
         "encdec": {
@@ -3435,6 +3677,8 @@ def run(args) -> None:
                  "one per layer of every decode step", SERVE_ARCH,
                  attn_timing["decode_attention"], attn_checks),
          "granite_last_step": attn_timing["decode_attention_granite"],
+         "served_last_step": {n: attn_timing[f"decode_attention_{n}"]
+                              for n in SERVED_ATTENTION},
          "granite_launches": serve[MOE_ARCH]["launches"]["decode_attention"],
          "encdec": {
              "path": get_config(ENCDEC_ARCH).name,
@@ -3446,6 +3690,7 @@ def run(args) -> None:
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
+         "jamba_prefill": moe_ssd_timing["ssd_scan_jamba"],
          **trained("ssd_scan", SSM_ARCH)},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
@@ -3455,6 +3700,9 @@ def run(args) -> None:
          "prefill_down_launch": moe_ssd_timing["moe_gmm_prefill_down"],
          "decode_launch": moe_ssd_timing["moe_gmm_decode"],
          "train_launch": moe_ssd_timing["moe_gmm_train"],
+         **{n: {k: moe_ssd_timing[f"moe_gmm_{n}_{k}"]
+                for k in ("prefill", "prefill_down", "decode")}
+            for n in ("olmoe", "jamba")},
          **trained("moe_gmm", MOE_ARCH),
          "ep": {"path": ep["arch"] + " moe_impl=ep", "shards": EP_SHARDS,
                 "prefill_launches": ep["launches"]["moe_gmm"],
@@ -3481,7 +3729,38 @@ def main() -> None:
     ap.add_argument("--f32-layers", type=int, default=4,
                     help="depth of the serving paths' float32 variants (the "
                          "bf16 runs are always at full depth)")
-    run(ap.parse_args())
+    ap.add_argument("--serve", nargs="+", metavar="ARCH",
+                    help="only build the kernels and serve these archs, "
+                         "each held to the serving checks (bringing up an "
+                         "arch; the kernels line and the ok line are not "
+                         "printed)")
+    args = ap.parse_args()
+    if args.serve:
+        serve_only(args)
+    else:
+        run(args)
+
+
+def serve_only(args) -> None:
+    """``--serve``: each named arch's serving phase alone, every one run
+    before the first failure is raised."""
+    card = phase_env()
+    device = torch.device("cuda")
+    phase_build()
+    failed = []
+    for arch in args.serve:
+        cfg = served_config(arch)
+        try:
+            if cfg.enc_layers or cfg.frontend_tokens:
+                emit({"phase": model_phase(cfg), "part": "serve", "ok": True,
+                      **phase_model_serve(args, card, device, arch)})
+            else:
+                emit({"phase": "serve_path", "ok": True,
+                      **phase_serve(args, card, device, arch)})
+        except RuntimeError as e:
+            failed.append(str(e))
+        torch.cuda.empty_cache()
+    check(not failed, "; ".join(failed))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,13 @@
 """Serving entry point: batched requests through prefill + decode with telemetry.
 
 On the GPU (the default device), any decoder-only arch at full size —
-dense (glm4_9b), MoE (granite_moe_1b_a400m), SSM (mamba2_130m), hybrid:
+dense (glm4_9b, codeqwen1_5_7b, granite_8b, granite_3_8b), MoE
+(granite_moe_1b_a400m, olmoe_1b_7b), SSM (mamba2_130m):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b
+The hybrid and the VLM backbone fit one H100 cut to whole layer periods
+(jamba_v0_1_52b: 8 of 32 layers; internvl2_26b: text prompts only, the
+engine takes no patch embeddings):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b --layers 8
 CPU-sized example (the smoke variant, on the host):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
       --smoke --device cpu --requests 8 --max-new 16
@@ -24,7 +29,7 @@ from ..core import BigRootsAnalyzer, JAX_FEATURES, render_markdown, summarize
 from ..device import resolve_device
 from ..models import Model, smoke_variant
 from ..serve import Diagnosis
-from ..serve.engine import Request, ServeEngine
+from ..serve.engine import Request, ServeEngine, cast_params
 from ..telemetry.events import StepTelemetry
 from ..telemetry.sampler import SystemSampler
 from ..telemetry.timeline import ResourceTimeline
@@ -57,7 +62,12 @@ def main(argv: list[str] | None = None) -> None:
     if cfg.enc_layers:
         raise SystemExit("the serving entry point takes decoder-only archs")
     model = Model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    # Seeded float32 parameters, each leaf cast to the served dtype as it
+    # goes: the float32 tree beside the engine's copy would not fit one card
+    # for the largest cut (jamba_v0_1_52b --layers 8, 13.3 B parameters).
+    params = cast_params(
+        model.init(torch.Generator(device=device).manual_seed(args.seed)),
+        cfg, device, in_place=True)
 
     timeline = ResourceTimeline()
     telem = StepTelemetry("host0", timeline=timeline, window=64,
@@ -83,7 +93,7 @@ def main(argv: list[str] | None = None) -> None:
         ),
         device=device,
     )
-    del params  # the engine keeps its own copy in cfg.dtype
+    del params  # the engine holds the same tensors
     with SystemSampler("host0", timeline, interval=0.25):
         t0 = time.time()
         done = 0

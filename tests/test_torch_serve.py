@@ -337,9 +337,11 @@ def test_bf16_params_carry_bit_for_bit(carried):
 
 
 # ---------------------------------------------------------------------------
-# MoE, SSM and hybrid archs: the K5 / K4 paths' models
+# MoE, SSM and hybrid archs (the K5 / K4 paths' models) and the dense archs
+# with qkv bias, rope_theta 1e6, tied embeddings or an odd vocabulary
 # ---------------------------------------------------------------------------
-NEW_ARCHS = ["granite_moe_1b_a400m", "mamba2_130m", "jamba_v0_1_52b"]
+NEW_ARCHS = ["granite_moe_1b_a400m", "mamba2_130m", "jamba_v0_1_52b",
+             "olmoe_1b_7b", "codeqwen1_5_7b", "granite_8b", "granite_3_8b"]
 #: the kernel entry points (plain versions on CPU tensors) and the
 #: reference's plain forms
 IMPLS = {"kernel": dict(attention_impl="cuda", moe_impl="gmm",

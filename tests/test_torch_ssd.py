@@ -318,6 +318,19 @@ def test_head_group_plan_at_mamba2_prefill():
     assert ssd_scan.smem_bytes(cfg.ssm_state, cfg.ssm_chunk, hb) == 179200
 
 
+def test_head_group_plan_at_jamba_prefill():
+    """jamba-v0.1-52b's prefill (8 × 1024 steps, 128 heads on one B/C
+    group, N 16, chunk 256): a block's heads divide the 128 of the group,
+    so 3 is out; 2 heads a block, 2048 blocks in 15.5 waves of an H100,
+    where one head a block made 4096 in 31.0."""
+    cfg = get_config("jamba_v0_1_52b")
+    assert (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state) == (128, 1, 16)
+    hb = ssd_scan.head_group_plan(8, 1024, cfg.ssm_heads, cfg.ssm_groups,
+                                  cfg.ssm_state, cfg.ssm_chunk, sms=132)
+    assert hb == 2
+    assert 8 * (1024 // cfg.ssm_chunk) * cfg.ssm_heads // hb == 2048
+
+
 @pytest.mark.parametrize("shape,hb", [
     ((2, 512, 8, 2, 64, 256), 1), ((3, 256, 12, 2, 16, 64), 2),
     ((3, 1024, 12, 2, 128, 256), 2), ((3, 1024, 6, 2, 16, 64), 3)])
