@@ -137,7 +137,8 @@ process exits non-zero):
                 asserted (K2 once per attention layer, K4 once per SSM
                 layer, K5 three times per MoE layer, all twice under remat:
                 the forward and each block's recompute), K1 launched in the
-                live ticks, the last checkpoint restored byte for byte
+                live ticks (in the tick of step 3 at least, a straggler
+                made by holding the host before it), the last checkpoint restored byte for byte
                 against the parameters it was saved from, step time by CUDA
                 events with its forward / backward / optimizer parts, one
                 more step profiled for the device's idle share.  Then the
@@ -2114,6 +2115,16 @@ def phase_serve(args, card: str, device, arch: str) -> dict:
 #: mamba2-130m's chunk is its config's 256.
 TRAIN_STEPS = 8
 TRAIN_CKPT_EVERY = 4
+#: The live diagnosis gates stragglers only: a step whose task takes more
+#: than 1.5x its window's median.  Left to the card's own timing the run may
+#: hold none (the checkpoint step often is one, not always), so the probe
+#: holds the host, GPU idle, before step ``TRAIN_STALL_STEP``'s train step
+#: for ``TRAIN_STALL_FACTOR`` times the longest task before it.  That task
+#: then is a straggler (the window's median is at most that longest task)
+#: and the tick that reads it must launch K1.  The hold lies outside the
+#: step's CUDA-event marks, so the step times do not hold it.
+TRAIN_STALL_STEP = 3
+TRAIN_STALL_FACTOR = 2.0
 TRAIN_SHAPES = {MOE_ARCH: (8, 512), SSM_ARCH: (8, 1024),
                 ENCDEC_ARCH: (8, 512)}
 #: Gradients of the kernel path (the kernels forward, their plain versions'
@@ -2180,8 +2191,9 @@ class TrainProbe:
     """Instruments ``launch.train.run`` from outside: each train step's
     marks (start, end of the forward, start and end of the optimizer, end)
     and kernel counts, each step's loss, the last state and step function,
-    a host copy of every checkpointed tree as ``save`` was called, and K1's
-    launches inside the live diagnosis ticks."""
+    a host copy of every checkpointed tree as ``save`` was called, K1's
+    launches in each live diagnosis tick, and the host hold that makes
+    step ``TRAIN_STALL_STEP`` a straggler (see there)."""
 
     def __init__(self, device) -> None:
         self.device = device
@@ -2191,6 +2203,9 @@ class TrainProbe:
         self.step_fn = None
         self.ticks = 0
         self.k1_in_ticks = 0
+        self.k1_per_tick: list[int] = []
+        self.longest_task_s = 0.0
+        self.stall_s = None
 
     def _mark(self, name: str) -> None:
         self.steps[-1]["marks"].setdefault(name, Mark(self.device))
@@ -2206,6 +2221,9 @@ class TrainProbe:
             inner = make0(*a, **kw)
 
             def step(state, batch):
+                if len(probe.steps) == TRAIN_STALL_STEP:
+                    probe.stall_s = TRAIN_STALL_FACTOR * probe.longest_task_s
+                    time.sleep(probe.stall_s)
                 probe.steps.append({"marks": {}, "counts": [kernel_counts()]})
                 probe._mark("start")
                 state, metrics = inner(state, batch)
@@ -2232,13 +2250,17 @@ class TrainProbe:
                                        for t in tree.leaves(tree_)]))
             return save0(mgr, step, tree_, blocking=blocking)
 
-        def tick(diag, *a, **kw):
+        def tick(diag, telemetry, *a, **kw):
             before = bigroots_gates.LAUNCHES
             try:
-                return tick0(diag, *a, **kw)
+                return tick0(diag, telemetry, *a, **kw)
             finally:
                 probe.ticks += 1
-                probe.k1_in_ticks += bigroots_gates.LAUNCHES - before
+                probe.k1_per_tick.append(bigroots_gates.LAUNCHES - before)
+                probe.k1_in_ticks += probe.k1_per_tick[-1]
+                probe.longest_task_s = max(
+                    float(stage.durations.max())
+                    for stage in telemetry.trace.stages())
 
         launch_train.make_train_step = make
         Model.loss = loss
@@ -2542,6 +2564,8 @@ def phase_train(args, card: str, device, arch: str) -> dict:
         "launches": launches, "launches_per_step": want,
         "k1_launches": k1, "packed_sweeps": len(gates["calls"]),
         "diagnosis_ticks": probe.ticks, "k1_in_ticks": probe.k1_in_ticks,
+        "k1_per_tick": probe.k1_per_tick, "stall_step": TRAIN_STALL_STEP,
+        "stall_s": probe.stall_s,
         "losses": losses, "loss_decreased": out["loss_decreased"],
         "live_causes": out["live_causes_count"],
         "stragglers": out["num_stragglers"],
@@ -2553,9 +2577,12 @@ def phase_train(args, card: str, device, arch: str) -> dict:
     check(out["loss_decreased"], f"{arch}: the loss did not decrease")
     check(ckpt_equal, f"{arch}: the checkpoint restored other bytes")
     check(probe.ticks == TRAIN_STEPS, f"{probe.ticks} diagnosis ticks")
-    check(k1 == len(gates["calls"]) and probe.k1_in_ticks >= 1,
+    check(k1 == len(gates["calls"]) and probe.k1_in_ticks >= 1
+          and probe.k1_per_tick[TRAIN_STALL_STEP] >= 1,
           f"{arch}: K1 launched {k1} times over {len(gates['calls'])} "
-          f"packed sweeps, {probe.k1_in_ticks} in the live ticks")
+          f"packed sweeps, {probe.k1_in_ticks} in the live ticks "
+          f"{probe.k1_per_tick} (step {TRAIN_STALL_STEP} held "
+          f"{probe.stall_s} s)")
     if device.type == "cuda":
         batch = train_batch(cfg, B, S, args.seed, TRAIN_STEPS, device)
         run["profile"] = profile_train_step(probe.step_fn, probe.state, batch)
