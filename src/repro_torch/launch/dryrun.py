@@ -22,8 +22,9 @@ the port's explicit collectives and the hand-written kernels' work.
   an uneven shard); ``temp_size_in_bytes`` has no counterpart on meta and
   is null.
 - Collective bytes are those of the port's explicit collectives (the ep
-  MoE's dispatch, as its list form runs it: every data-parallel group in
-  turn).  An auto-sharded cell has none — the collectives GSPMD would
+  MoE's dispatch, combine, output gather and aux reductions, each counted
+  once with one participant's operand bytes, as an HLO collective over
+  every data-parallel group at once).  An auto-sharded cell has none — the collectives GSPMD would
   insert have no eager counterpart — and its ``collective_bytes`` is
   null: ``dominant`` is taken over compute and memory.
 

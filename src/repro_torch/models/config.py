@@ -18,8 +18,9 @@ that the normal entry points run them.
   defaults to ``"gmm"``, the grouped-matmul kernel over expert-sorted rows
   (the reference defaults to ``"ragged"``, which reaches no kernel).
   ``"ep"`` is expert parallelism over the ``model`` axis of the mesh
-  given to :func:`repro_torch.parallel.ep_moe.set_mesh` (the shards a list
-  on one device), its experts through the same kernel.
+  given to :func:`repro_torch.parallel.ep_moe.set_mesh` (a ``Mesh``: every
+  shard in this process; a ``DeviceMesh``: one shard a rank), its experts
+  through the same kernel.
 - ``ssm_impl`` (new) takes ``"cuda" | "chunked"`` and defaults to
   ``"cuda"``, the SSD intra-chunk kernel; ``"chunked"`` is the reference's
   plain chunked form.

@@ -1,10 +1,13 @@
 """Distribution: sharding rules, gradient compression, pipeline parallelism
 and expert-parallel MoE.
 
-On one device the parallel layers run the reference's per-shard bodies over
-a list of the shards' tensors (:mod:`.collectives`); a form over
-``torch.distributed`` process groups waits for a machine with more than
-one card."""
+The parallel layers run the reference's per-shard bodies over the shards
+they are given (:mod:`.collectives`): a bare ``Mesh`` runs every shard in
+this process, a list of their tensors on one device (the list form); a
+``torch.distributed`` ``DeviceMesh`` runs one shard a rank, the
+collectives over its process groups (the rank form, :mod:`.dist`; ranks
+join with :func:`repro_torch.launch.mesh.init_ranks`).  Both forms give
+the same bits."""
 from .compress import (
     Quantized,
     compressed_allreduce_mean,

@@ -8,19 +8,21 @@ convergence — Karimireddy et al., 2019).  The payloads and scales are
 the reference's byte for byte: the same float32 division, and
 ``torch.round`` rounds half to even as ``jnp.round`` does.
 
-:func:`compressed_allreduce_mean` is the reference's int8 all-reduce over
-a list of the participants' tensors on one device (the collectives of
-:mod:`.collectives`): each is quantized, the int8 payloads and float32
-scales are gathered, and every participant dequantizes and averages.
+:func:`compressed_allreduce_mean` is the reference's int8 all-reduce: each
+participant's tensor is quantized, the int8 payloads and float32 scales
+are all-gathered, and every participant dequantizes and averages.  Given
+a process group it takes this rank's tensor and gathers across the ranks
+(:mod:`.dist`); given a list of every participant's tensor it runs them
+all here, on one device (:mod:`.collectives`).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence
+from typing import Any, NamedTuple
 
 import torch
 
 from .. import tree
-from .collectives import all_gather
+from .collectives import ListShards
 
 BLOCK = 256
 
@@ -50,14 +52,22 @@ def quantization_error(x: torch.Tensor) -> torch.Tensor:
     return x.float() - dequantize(quantize(x), x.shape)
 
 
-def compressed_allreduce_mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The mean of the participants' ``xs`` (one tensor each, of one
-    shape) as every participant computes it from the int8 wire format:
-    the gathered payloads dequantized, averaged in float32, cut back to
-    the tensor's size and cast to its dtype."""
-    qts = [quantize(x) for x in xs]
-    qg = all_gather([qt.q for qt in qts])          # int8 on the wire
-    sg = all_gather([qt.scale for qt in qts])      # float32 scales
+def compressed_allreduce_mean(x, group=None) -> torch.Tensor:
+    """The mean of the participants' tensors (one shape) as every
+    participant computes it from the int8 wire format: the gathered
+    payloads dequantized, averaged in float32, cut back to the tensor's
+    size and cast to its dtype.  ``x``: this rank's tensor, and ``group``
+    the process group of the participants (the reference's ``(x,
+    axis_name)``); or, with no ``group``, a sequence of every
+    participant's tensor, all here."""
+    if group is None:
+        xs, sh = list(x), ListShards.over(len(x))
+    else:
+        from .dist import RankShards
+        xs, sh = [x], RankShards.of_group(group)
+    qts = [quantize(t) for t in xs]
+    qg = sh.all_gather([qt.q for qt in qts], "group")[0]          # int8
+    sg = sh.all_gather([qt.scale for qt in qts], "group")[0]      # float32
     n, size = qg.shape[0], qts[0].size
     deq = (qg.float() * sg[..., None]).reshape(n, -1)[:, :size]
     return deq.mean(dim=0).reshape(xs[0].shape).to(xs[0].dtype)

@@ -3,16 +3,18 @@
 The JAX package's ``parallel/ep_moe.py`` runs this under ``shard_map``:
 experts live on the ``model`` axis, tokens are sequence-sharded into the
 block, and dispatch is the GShard/Switch capacity all_to_all.  Here the
-shards are a list on one device and the collectives are
-:mod:`repro_torch.parallel.collectives`; each shard's body is the
-reference's:
+shards are a :class:`~repro_torch.parallel.collectives.Shards`: with a bare
+``Mesh`` published (:func:`set_mesh`) every shard runs in this process, a
+list on one device; with a ``DeviceMesh`` each rank runs its own, and the
+collectives cross processes (:mod:`repro_torch.parallel.dist`).  Both run
+each shard's body, the reference's:
 
   1. route locally (the port's ``moe._router``, so ``moe.routing_hook``
-     sees one call per shard per layer, in shard order),
+     sees one call per held shard per layer, in shard order),
   2. pack per-destination send buffers ``[M, cap, d]`` (capacity ``cap``,
      overflow dropped in the reference's stable argsort / searchsorted
      order; the dropped slots are not renormalised away),
-  3. all_to_all over the model axis,
+  3. all_to_all over the model axis (rows, local expert ids, valid flags),
   4. the shard's ``E/M`` experts through the grouped-matmul kernel (K5,
      ``moe._gmm_ffn``) on views of their weight slices, invalid slots as
      zero rows in the last local group, as the reference lays them out,
@@ -25,7 +27,10 @@ destination overflows, its slot 0 ends up invalid and the entry kept
 there contributes nothing.  The port computes that outcome without a
 scatter of duplicates: such a first entry is dropped too.
 
-``MoeAux`` is formed with the reference's psum / pmean over all shards.
+``MoeAux`` is formed with the reference's psum / pmean over the model and
+data axes.  The output is all-gathered over the same axes, so every shard
+holds the whole ``[B, S, d]`` and the layers around the MoE run
+replicated, as GSPMD runs them outside the reference's ``shard_map``.
 """
 from __future__ import annotations
 
@@ -36,24 +41,27 @@ import torch
 import torch.nn.functional as F
 
 from ..models import moe as _moe
-from .collectives import all_to_all, pmean, psum
-from .sharding import dp_size
+from .collectives import Shards, shards
+from .sharding import dp_axes, dp_size
 
 # The caller publishes the mesh here before running the model (the model
 # code only knows axis names), as the reference's launcher does.
-_MESH = None
+_SHARDS: Shards | None = None
 
 
 def set_mesh(mesh) -> None:
-    global _MESH
-    _MESH = mesh
+    """Publish what the ep layers run over: a bare ``Mesh`` (every shard
+    in this process), a ``DeviceMesh`` or ``RankShards`` (this rank's
+    shard), or None."""
+    global _SHARDS
+    _SHARDS = None if mesh is None else shards(mesh)
 
 
-def get_mesh():
-    if _MESH is None:
+def get_shards() -> Shards:
+    if _SHARDS is None:
         raise RuntimeError("ep_moe.set_mesh(mesh) must be called before "
                            "running an ep MoE layer")
-    return _MESH
+    return _SHARDS
 
 
 #: ``fn(keep [t_loc * k] bool) -> None`` or None; set by
@@ -63,9 +71,9 @@ _dispatch_hook: Callable | None = None
 
 @contextlib.contextmanager
 def dispatch_hook(fn: Callable):
-    """Inside the block each shard's dispatch passes ``fn`` its kept-slot
-    mask over its ``t_loc · k`` routed slots (token-major, as routed), in
-    shard order, one call per shard per layer."""
+    """Inside the block each held shard's dispatch passes ``fn`` its
+    kept-slot mask over its ``t_loc · k`` routed slots (token-major, as
+    routed), in shard order, one call per held shard per layer."""
     global _dispatch_hook
     prev, _dispatch_hook = _dispatch_hook, fn
     try:
@@ -134,8 +142,9 @@ def _shard_dispatch(pw, xt, cfg, M: int, cap: int):
 
 def _shard_experts(pw, x_rows, exp_rows, valid_rows, shard: int,
                    e_local: int):
-    """Step 4 on the rows a shard received: its local experts' FFN over
-    them, invalid rows as zeros in the last local group."""
+    """Step 4 on the rows a shard received (a block from each shard): its
+    local experts' FFN over them, invalid rows as zeros in the last local
+    group."""
     recv_x, recv_exp = torch.cat(x_rows), torch.cat(exp_rows)
     recv_valid = torch.cat(valid_rows)
     eid = torch.where(recv_valid, recv_exp, e_local - 1)
@@ -151,57 +160,55 @@ def _shard_experts(pw, x_rows, exp_rows, valid_rows, shard: int,
     return y_back
 
 
-def _group(p, x, cfg, capacity_factor: float):
-    """One data-parallel group: ``x [b, S, d]`` sequence-sharded over the
-    ``M`` model shards.  Returns ``y [b, S, d]`` and every shard's aux
-    statistics."""
-    M = get_mesh().shape["model"]
-    E, k = cfg.moe_experts, cfg.moe_top_k
-    e_local = E // M
-    b, S, d = x.shape
-    xs = [t.reshape(-1, d) for t in x.chunk(M, dim=1)]
-    cap = capacity(xs[0].shape[0], k, M, capacity_factor)
-    sends, combines, stats = zip(*(_shard_dispatch(p, xt, cfg, M, cap)
-                                   for xt in xs))
-    recv = [all_to_all([s[n] for s in sends]) for n in range(3)]
-    y_back = [_shard_experts(p, recv[0][j], recv[1][j], recv[2][j], j,
-                             e_local).view(M, cap, d) for j in range(M)]
-    ret = all_to_all(y_back)
-    ys = []
-    for i, (order, keep, slot, weights) in enumerate(combines):
-        back = torch.cat(ret[i])                        # [M * cap, d]
-        contrib = torch.where(keep[:, None], back[slot], 0)
-        per_slot = torch.empty_like(contrib)
-        per_slot[order] = contrib                       # token-major again
-        t_loc = xs[i].shape[0]
-        y = torch.einsum("tkd,tk->td", per_slot.view(t_loc, k, d),
-                         weights.to(x.dtype))
-        ys.append(y.view(b, S // M, d))
-    return torch.cat(ys, dim=1), stats
+def _combine(back_rows, combine, k: int, dtype) -> torch.Tensor:
+    """Step 5 at the source: ``[t_loc, d]`` from the rows that came back
+    (a block from each shard) and the shard's dispatch plan."""
+    order, keep, slot, weights = combine
+    back = torch.cat(back_rows)                          # [M * cap, d]
+    contrib = torch.where(keep[:, None], back[slot], 0)
+    per_slot = torch.empty_like(contrib)
+    per_slot[order] = contrib                            # token-major again
+    t_loc = weights.shape[0]
+    return torch.einsum("tkd,tk->td", per_slot.view(t_loc, k, -1),
+                        weights.to(dtype))
 
 
 def ep_moe_apply(p, x, cfg, capacity_factor: float = 1.25):
-    """``x [B, S, d]``: the batch split over the mesh's data axes, the
-    sequence over its ``model`` axis of ``M`` shards.  Returns ``(y,
-    MoeAux)`` like ``moe.moe_apply``.  Raises ``ValueError`` where the
-    reference asserts: ``E`` or ``S`` not a multiple of ``M``, or ``B`` not
-    a multiple of the data-parallel size."""
-    mesh = get_mesh()
-    M, dp = mesh.shape["model"], dp_size(mesh)
-    E = cfg.moe_experts
-    B, S, _ = x.shape
+    """``x [B, S, d]``, the same on every rank: the batch split over the
+    mesh's data axes, the sequence over its ``model`` axis of ``M``
+    shards.  Returns ``(y, MoeAux)`` like ``moe.moe_apply``, the whole
+    ``y`` on every rank.  Raises ``ValueError`` where the reference
+    asserts (``E`` or ``S`` not a multiple of ``M``, or ``B`` not a
+    multiple of the data-parallel size), before any collective, so every
+    rank raises and none waits."""
+    sh = get_shards()
+    data = dp_axes(sh.mesh)
+    M, dp = sh.mesh.shape["model"], dp_size(sh.mesh)
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    B, S, d = x.shape
     if E % M or S % M or B % dp:
         raise ValueError(f"expert parallelism over {M} model shards and "
                          f"{dp} data shards needs E ({E}) and S ({S}) "
                          f"multiples of {M}, B ({B}) of {dp}")
-    ys, stats = [], []
-    for xb in x.chunk(dp, dim=0):
-        y, st = _group(p, xb, cfg, capacity_factor)
-        ys.append(y)
-        stats += st
-    load = psum([s["load"] for s in stats])
+    e_local, b = E // M, B // dp
+    cap = capacity(b * S // M, k, M, capacity_factor)
+    xs = [x.chunk(dp, dim=0)[i].chunk(M, dim=1)[m].reshape(-1, d)
+          for i, m in zip(sh.flat_index(data), sh.index("model"))]
+    sends, combines, stats = zip(*(_shard_dispatch(p, xt, cfg, M, cap)
+                                   for xt in xs))
+    recv = [sh.all_to_all([s[n] for s in sends], "model") for n in range(3)]
+    y_back = [_shard_experts(p, recv[0][i], recv[1][i], recv[2][i], m,
+                             e_local).view(M, cap, d)
+              for i, m in enumerate(sh.index("model"))]
+    ret = sh.all_to_all(y_back, "model")
+    ys = [_combine(back, c, k, x.dtype).view(b, S // M, d)
+          for back, c in zip(ret, combines)]
+    axes = (*data, "model")
+    y = sh.all_gather(ys, axes)[0]                       # [dp · M, b, S/M, d]
+    y = y.view(dp, M, b, S // M, d).transpose(1, 2).reshape(B, S, d)
+    load = sh.psum([s["load"] for s in stats], axes)[0]
     load = load / load.sum().clamp_min(1.0)
-    importance = pmean([s["importance"] for s in stats])
+    importance = sh.pmean([s["importance"] for s in stats], axes)[0]
     lb = E * torch.sum(load * importance)
-    z = pmean([s["z"] for s in stats])
-    return torch.cat(ys, dim=0), _moe.MoeAux(lb, z, load)
+    z = sh.pmean([s["z"] for s in stats], axes)[0]
+    return y, _moe.MoeAux(lb, z, load)

@@ -184,6 +184,46 @@ def test_encdec_and_parallel_import_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+SLICE9 = r"""
+import os, sys, tempfile
+from dataclasses import replace
+import torch
+import torch.distributed as dist
+import repro_torch.parallel.dist
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import init_ranks, make_mesh
+from repro_torch.models import Model, smoke_variant
+from repro_torch.parallel import compressed_allreduce_mean, ep_moe, pipeline
+from repro_torch.parallel.collectives import shards
+
+with tempfile.TemporaryDirectory() as d:
+    dm = init_ranks(make_mesh((1, 1), ("data", "model")), 0,
+                    os.path.join(d, "store"))
+    assert type(shards(dm)).__name__ == "RankShards"
+    ep_moe.set_mesh(dm)
+    moe = replace(smoke_variant(get_config("granite_moe_1b_a400m")),
+                  moe_impl="ep")
+    Model(moe).forward(Model(moe).init(device="cpu"),
+                       {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+    compressed_allreduce_mean(torch.ones(3), dist.group.WORLD)
+    pipeline.pipeline_apply(lambda w, x: x * w, torch.ones(1),
+                            torch.ones(2, 3),
+                            make_mesh((1,), ("pipe",)).device_mesh())
+    dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_rank_form_of_parallel_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", SLICE9], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 SLICE7 = r"""
 import sys, tempfile
 import repro_torch.launch.dryrun, repro_torch.launch.report

@@ -1,9 +1,9 @@
 """``repro_torch.parallel`` and ``launch.mesh`` against the JAX package.
 
-On one device the port runs the reference's ``shard_map`` bodies over a
-list of per-shard tensors (``parallel/collectives.py``); a
-``torch.distributed`` form over real process groups waits for a machine
-with more than one card.  The reference's pipeline and expert-parallel
+Given a bare ``Mesh`` the port runs the reference's ``shard_map`` bodies
+over a list of per-shard tensors on one device (``parallel/collectives.py``,
+the list form, held here); ``tests/test_torch_dist.py`` holds its rank form,
+one shard a ``torch.distributed`` rank, to the list form.  The reference's pipeline and expert-parallel
 MoE run on a virtual CPU mesh of 4 devices in a subprocess
 (``--xla_force_host_platform_device_count``, as ``tests/test_parallel.py``
 does), on the same numpy inputs.  Limits: the pipeline 1e-6 (largest

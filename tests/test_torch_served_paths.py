@@ -139,8 +139,9 @@ def test_internvl2_decode_is_one_partial_head_group():
 
 def test_routing_replay_counts_flips_and_moved_slots():
     """A replayed top-3 that swaps one expert: the recorded experts are
-    routed to; the sorted lists differ in 3 positions (the flips the limit
-    holds) while 1 slot's expert moved."""
+    routed to; the sorted lists differ in 3 positions (the flips the
+    float32 limit holds) while 1 slot's expert moved (what the bf16 limit
+    holds)."""
     routing = cs.Routing()
     routing.recorded.append(torch.tensor([[0, 2, 3], [3, 1, 2]]))
     with routing.replay() as tally:
@@ -148,4 +149,22 @@ def test_routing_replay_counts_flips_and_moved_slots():
             None, torch.tensor([[2, 3, 5], [1, 2, 3]]))
     assert torch.equal(got, routing.recorded[0])
     assert tally == {"routings": 6, "flips": 3, "moved": 1}
-    assert cs.flip_share(tally) == 0.5
+    assert cs.flip_share(tally) == 1 / 6
+    assert cs.flip_share(tally, "float32") == 0.5
+
+
+def test_routing_check_needs_its_control_past_the_limit():
+    """The bf16 routing check holds each sound run's moved share to the
+    limit and the control's past it; a run that routes nothing (a dense
+    model's tally) holds none."""
+    limit = cs.ROUTING_FLIP_SHARE["bfloat16"]
+
+    def tally(share):
+        return {"routings": 10_000, "flips": 0, "moved": round(share * 1e4)}
+    sound, control = tally(limit * 0.8), tally(limit * 1.25)
+    assert cs.routing_ok([sound, sound], control)
+    assert not cs.routing_ok([sound, tally(limit * 1.1)], control)
+    assert not cs.routing_ok([sound], tally(limit))      # inside: can't tell
+    none = {"routings": 0, "flips": 0, "moved": 0}
+    assert cs.routing_ok([none], none)
+    assert "olmoe_1b_7b" in cs.SERVE_PATHS
