@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py [--seed 0] [--ticks 5] [--f32-layers 4]
-                          [--replaced DIR] [--serve ARCH ...]
+                          [--replaced DIR] [--serve ARCH ...] [--shard]
 
 What it does, in phases (one JSON line each; any failure raises and the
 process exits non-zero):
@@ -69,7 +69,9 @@ process exits non-zero):
                 differ from the current ones are built too, held against
                 the current kernels and timed in the same turns
                 (``replaced_ms``; null without the option or for a body
-                that did not change).
+                that did not change).  Then K2, K4 and K5 at
+                ``shard_path``'s sharded shapes (one participant's heads,
+                rows and experts), held and timed the same way.
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -207,7 +209,33 @@ process exits non-zero):
                 list form of phases 10 and 11, and a decode step must
                 raise on every rank.  A rank that raises fails the run;
                 every rank is joined within 600 s, then killed.
-13. ``roofline``: for each timed path (the prefill and a decode step of
+13. ``shard_path``: the sharded train step (``make_train_step`` with the
+                mesh's shards and ``state_shardings``), one participant a
+                rank process, 4 on the one card as in ``dist_path``:
+                granite-moe-1b-a400m on (data 1, model 4) at 4 layers
+                (kv heads and experts sharded: K2 and K5), glm4-9b on
+                (1, 4) at 2 layers (kv heads replicated, n_rep 8: K2) and
+                mamba2-130m on (2, 2) at 8 layers with ZeRO-1 (12 SSD heads a
+                participant, ``inner_norm`` summed over the model axis:
+                K4), bf16, ``remat``, 3 steps each from seeded parameters
+                and ``launch.train``'s batches.  Per rank and case: K2,
+                K4 and K5's exact launches a step; float32 at 4 layers (2
+                for glm4), the routing of rank 0's unsharded run replayed:
+                the loss and every gathered gradient leaf against the
+                unsharded step (``train_path``'s float32 limits), and the
+                control (no sum over ``"model"`` of the partial
+                gradients) past the leaf limit; bf16 step 1's loss and
+                gradient norm against the unsharded bf16 step (the
+                ``grad_bf16`` limits); under ZeRO-1 the moments' slices
+                equal to those of the same step without it and the
+                parameters within the float32 leaf limit; every block of
+                every leaf the same bits on each rank holding it
+                (checksums) after each step.  Printed, not limited: step
+                ms per rank, spawn-to-ready seconds, peak GB per rank,
+                collectives per rank and step.  The kernels are held
+                against their plain versions at these shapes (and timed)
+                in ``kernels``.
+14. ``roofline``: for each timed path (the prefill and a decode step of
                 every served arch at its served depth, a train step of
                 granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
                 whose prefill also gets its ``mfu`` over ``init_cache`` +
@@ -220,10 +248,10 @@ process exits non-zero):
                 at most 1.05; the meta run's kernel launches equal to the
                 card's and its argument bytes on a 1 × 1 mesh at most the
                 measured peak memory.
-14. ``dryrun``: ``python -m repro_torch.launch.dryrun --all --mesh both``
+15. ``dryrun``: ``python -m repro_torch.launch.dryrun --all --mesh both``
                 into a temporary directory, every cell ``ok``, the report's
                 two tables printed.
-15. ``examples``: the six ``repro_torch.examples`` on the GPU with their
+16. ``examples``: the six ``repro_torch.examples`` on the GPU with their
                 smallest documented arguments, each ending with ``OK``, its
                 kernel launches counted: K1 once per packed sweep,
                 ``serve_demo`` K2 and K3; ``quickstart`` and
@@ -321,6 +349,7 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.serve.engine import cast_params  # noqa: E402
 from repro_torch.train import global_norm  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, AdamWState  # noqa: E402
 from repro_torch.train import step as train_step_mod  # noqa: E402
 from repro_torch.telemetry import (  # noqa: E402
     ResourceTimeline,
@@ -395,7 +424,13 @@ SERVE_BF16_MARGIN = 1.5
 #: 0.0741, internvl2-26b (8 layers, with patches) 0.0479 / 0.1632,
 #: codeqwen1.5-7b 0.0700 / 0.1896, granite-3-8b 0.0760 / 0.2133,
 #: granite-8b 0.0739 / 0.2097, olmoe-1b-7b 0.0592 / 0.1963 (the limits
-#: near their geometric means).
+#: near their geometric means).  A second seed (``--serve`` of every arch
+#: of ``SERVE_PATHS`` with ``--seed 1``, NVIDIA H100 80GB HBM3, 700.00 W),
+#: sound / control at 5 bits: glm4-9b 0.0782 / 0.2121, granite-moe
+#: 0.0350 / 0.1104, mamba2 0.0158 / 0.0845, jamba (8 layers) 0.0160 /
+#: 0.0741, codeqwen 0.0713 / 0.1919, granite-3-8b 0.0784 / 0.1994,
+#: granite-8b 0.0721 / 0.1972, olmoe 0.0611 / 0.1788: every sound reading
+#: under its limit and every control past it, as at seed 0.
 SERVE_BF16_KERNEL_VS_PLAIN = {"glm4_9b": 0.12, "granite_moe_1b_a400m": 0.055,
                               "mamba2_130m": 0.04,
                               "seamless_m4t_medium": 0.03,
@@ -421,7 +456,9 @@ CONTROL_BITS = 5
 #: jamba 0.71 / 1.82 %, control 3.76 %; olmoe 2.53 / 2.52 %, control 7.32
 #: %.  The limit lies between the highest sound reading (olmoe's 2.53 %)
 #: and the lowest control (jamba's 3.76 %), near their geometric mean; so
-#: olmoe is served in ``SERVE_PATHS``.
+#: olmoe is served in ``SERVE_PATHS``.  At seed 1 (``--serve ... --seed
+#: 1``): granite-moe 1.38 / 1.40 %, control 4.24 %; jamba 0.66 / 1.82 %,
+#: control 3.81 %; olmoe 2.49 / 2.52 %, control 7.31 %.
 ROUTING_FLIP_SHARE = {"bfloat16": 0.03, "float32": 1e-3}
 #: The tally each dtype's limit holds.
 ROUTING_TALLY = {"bfloat16": "moved", "float32": "flips"}
@@ -3409,6 +3446,564 @@ def phase_dist(args, card: str, device, ep_ref: dict,
     return run
 
 
+# -- the sharded train step ---------------------------------------------------
+
+#: ``shard_path``: the sharded train step (``make_train_step(..., shards=,
+#: shardings=state_shardings(..., zero_opt=))``), one participant a rank
+#: process, ``SHARD_RANKS`` of them on the one card as in ``dist_path``
+#: (gloo through pinned host buffers; not a multi-card time).  Per case:
+#: the (data, model) mesh, the depth of its bf16 steps (None: the
+#: config's), the batch, ZeRO-1, and the depth of its float32 check.
+#: granite-moe-1b-a400m shards its kv heads (8 over 4) and experts (32 over
+#: 4): K2 at ``[8, 512, 4, 64]`` over 2 kv heads, K5 over 8 local experts;
+#: glm4-9b replicates its 2 kv heads: 8 query heads a participant over one
+#: kv head (n_rep 8); mamba2-130m runs 12 of its 24 SSD heads on 4 of the 8
+#: rows, its ``inner_norm`` summed over ``"model"``, its moments under
+#: ZeRO-1.  The cuts are the phase's time (the whole run may add 90 s):
+#: every model-region end moves an activation through the host (gloo,
+#: ~0.6 GB/s), so on an H100 (NVIDIA H100 80GB HBM3, 700.00 W) granite's
+#: 24 layers at 8 x 512 took 7.9 s a step and 8 layers 3.0 s, glm4 at 8 x
+#: 512 3.2 s, mamba2's 24 layers 2.5 s; with the float32 checks (glm4's
+#: gathers of its 2.5 GB embedding and head ~15 s) the phase read 80-89 s.
+#: granite and mamba2 run 4 and 8 layers, glm4 4 x 512.
+SHARD_RANKS = 4
+SHARD_STEPS = 3
+SHARD_TIMEOUT_S = 900.0
+SHARD_CASES = {
+    MOE_ARCH: {"mesh": (1, 4), "layers": 4, "batch": (8, 512),
+               "zero_opt": False, "f32_layers": 4},
+    SERVE_ARCH: {"mesh": (1, 4), "layers": 2, "batch": (4, 512),
+                 "zero_opt": False, "f32_layers": 2},
+    SSM_ARCH: {"mesh": (2, 2), "layers": 8, "batch": (8, 1024),
+               "zero_opt": True, "f32_layers": 4},
+}
+#: bf16: step 1's loss and global gradient norm against the unsharded bf16
+#: step on the same parameters and batch (routing replayed), relative, at
+#: ``train_path``'s ``grad_bf16`` limits; glm4-9b has no ``train_path``
+#: reading and takes granite-moe's.  float32: the loss and every gathered
+#: gradient leaf against the unsharded step at ``grad_f32``'s limits, and
+#: the same gradients without the sum over ``"model"`` of the partial
+#: leaves (the control) must lie past the leaf limit.
+SHARD_BF16_LIMITS = {
+    arch: (TRAIN_BF16_LOSS_RTOL[src], TRAIN_BF16_GNORM_RTOL[src])
+    for arch, src in ((MOE_ARCH, MOE_ARCH), (SERVE_ARCH, MOE_ARCH),
+                      (SSM_ARCH, SSM_ARCH))}
+SHARD_OPT = AdamWConfig()
+
+
+def shard_config(arch: str, layers: int | None, **kw):
+    """``arch`` at full width, cut to ``layers`` (None: its depth)."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers).validate()
+    return replace(cfg, **kw)
+
+
+def local_heads(cfg, m: int) -> tuple[int, int]:
+    """Query and kv heads one participant's K2 launch takes at a model axis
+    of ``m`` (``models/layers.py``'s ``_attention_sharded``, participant
+    0): the kv heads its query heads read."""
+    from repro_torch.parallel.sharding import kv_shardable
+
+    H, KV = cfg.n_heads // m, cfg.n_kv_heads
+    if kv_shardable(cfg, m):
+        return H, KV // m
+    n_rep = cfg.n_heads // KV
+    return H, (H - 1) // n_rep + 1
+
+
+def shard_kernel_shapes(gen, device) -> dict:
+    """The kernels' launches at the sharded shapes of ``SHARD_CASES``
+    (participant 0): K2 at granite's and glm4's, K4 at mamba2's, K5 at
+    granite's local experts (their group sizes from a random router over
+    all experts: about a quarter of the routed rows)."""
+    out = {}
+    for key, arch in (("granite", MOE_ARCH), ("glm4", SERVE_ARCH)):
+        cfg, case = get_config(arch), SHARD_CASES[arch]
+        (dp, m), (B, S) = case["mesh"], case["batch"]
+        H, KV = local_heads(cfg, m)
+        out[f"flash_attention_{key}"] = (B // dp, S, H, KV, cfg.head_dim)
+    cfg, case = get_config(SSM_ARCH), SHARD_CASES[SSM_ARCH]
+    (dp, m), (B, S) = case["mesh"], case["batch"]
+    out["ssd_scan"] = (B // dp, S, cfg.ssm_heads // m, cfg.ssm_groups,
+                       cfg.ssm_state, cfg.ssm_chunk)
+    cfg, case = get_config(MOE_ARCH), SHARD_CASES[MOE_ARCH]
+    (dp, m), (B, S) = case["mesh"], case["batch"]
+    E = cfg.moe_experts
+    sizes = routed_sizes(gen, B // dp * S * cfg.moe_top_k, E, device)
+    out["moe_gmm"] = (sizes[:E // m], cfg.d_model, cfg.expert_d_ff)
+    return out
+
+
+def shard_kernel_checks(device, seed: int) -> list[dict]:
+    """K2, K4 and K5 against their plain versions at the sharded shapes, in
+    bf16 and float32, with the tolerances of the other checks."""
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    shapes = shard_kernel_shapes(gen, device)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for key in ("flash_attention_granite", "flash_attention_glm4"):
+            B, S, H, KV, D = shapes[key]
+            out.append({**flash_case(gen, B, S, H, KV, D, dtype, True,
+                                     device), "sharded": key})
+        B, S, H, G, N, Q = shapes["ssd_scan"]
+        out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device),
+                    "sharded": "ssd_scan_mamba2"})
+        sizes, d, f = shapes["moe_gmm"]
+        out.append({**gmm_case(gen, sizes, d, f, dtype, device,
+                               "sharded gate/up"), "sharded": "moe_gmm"})
+        out.append({**gmm_case(gen, sizes, f, d, dtype, device,
+                               "sharded down"), "sharded": "moe_gmm"})
+    return out
+
+
+def shard_kernel_timings(device, seed: int, flush) -> dict:
+    """K2, K4 and K5 (gate/up and down) at the sharded shapes, bf16, beside
+    their plain versions and library calls, with their bounds."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    shapes = shard_kernel_shapes(gen, device)
+    bf = torch.bfloat16
+    out = {}
+    for key in ("flash_attention_granite", "flash_attention_glm4"):
+        B, S, H, KV, D = shapes[key]
+        q = _randn(gen, (B, S, H, D), bf, device)
+        k = _randn(gen, (B, S, KV, D), bf, device)
+        v = _randn(gen, (B, S, KV, D), bf, device)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = measure_fns({
+            "ms": lambda: flash_attention.flash_attention(q, k, v,
+                                                          causal=True),
+            "plain_ms": lambda: flash_attention.flash_attention_torch(
+                q, k, v, causal=True),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)},
+            flush, rounds=2)
+        t.update(shape=[B, S, H, D], kv_heads=KV, causal=True,
+                 dtype="bfloat16", **roofline.work_bound(
+                     roofline.flash_work(B, S, S, H, KV, D, bf, True)))
+        out[key] = t
+        del q, k, v, qt, kt, vt
+    B, S, H, G, N, Q = shapes["ssd_scan"]
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
+    t = measure_fns({
+        "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
+        "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
+            x, dt, A, Bm, Cm, Q)}, flush, rounds=2)
+    t.update(shape=[B, S, H, 64], groups=G, state=N, chunk=Q,
+             dtype="bfloat16", library_ms=None,
+             heads_per_block=ssd_scan.head_group_plan(
+                 B, S, H, G, N, Q, sms=sm_count(device)),
+             **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q, bf)))
+    out["ssd_scan"] = t
+    del x, dt, A, Bm, Cm
+    sizes, d, f = shapes["moe_gmm"]
+    for key, K, N_ in (("moe_gmm_gate_up", d, f), ("moe_gmm_down", f, d)):
+        E = sizes.numel()
+        xs = _randn(gen, (int(sizes.sum()), K), bf, device)
+        w = (torch.randn((E, K, N_), generator=gen, device=device)
+             / K ** 0.5).to(bf)
+        lib, lib_name = grouped_mm_library(xs, w, sizes)
+        t = measure_fns({
+            "ms": lambda: moe_gmm.grouped_matmul(xs, w, sizes),
+            "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
+            "library_ms": lib}, flush, rounds=2)
+        M = int(sizes.sum())
+        t.update(rows=M, experts=E, K=K, N=N_, library=lib_name,
+                 active_experts=int((sizes > 0).sum()),
+                 rows_per_tile=moe_gmm.tile_rows(M, E), dtype="bfloat16",
+                 **gmm_bound(sizes, K, N_, bf))
+        out[key] = t
+        del xs, w
+    return out
+
+
+def fingerprint(t: torch.Tensor) -> int:
+    """A 64-bit checksum of a tensor's bits, on its device: its 4-byte (or
+    2-byte) words times odd multipliers by position, summed with
+    wrap-around; any changed bit changes it (but by a collision, 2^-64)."""
+    word = {4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()]
+    flat = t.contiguous().reshape(-1).view(word)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 24
+    for lo in range(0, flat.numel(), step):
+        x = flat[lo:lo + step].to(torch.int64)
+        idx = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                           device=t.device)
+        total += (x * (idx * 0x9E3779B1 | 1)).sum()
+    return int(total)
+
+
+def zero_moments(shardings, abstract, device):
+    """Zero AdamW moments of one participant's blocks: ``abstract``'s
+    leaves' shapes cut by ``shardings``."""
+    from repro_torch.parallel.sharding import shard_shape
+
+    def zeros(sh, leaf):
+        return torch.zeros(shard_shape(leaf.shape, sh), dtype=torch.float32,
+                           device=device)
+    return AdamWState(m=tree.map(zeros, shardings.m, abstract.m),
+                      v=tree.map(zeros, shardings.v, abstract.v),
+                      step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def shard_reference(args, device, arch: str) -> dict:
+    """The unsharded bf16 step of ``arch``'s case (its depth, its first
+    batch, seeded parameters): loss, global gradient norm, and the
+    routing it recorded (forward and recompute, on the host), which step
+    1 of the sharded run replays."""
+    case = SHARD_CASES[arch]
+    cfg = shard_config(arch, case["layers"])
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        args.seed))
+    B, S = case["batch"]
+    batch = train_batch(cfg, B, S, args.seed, 0, device)
+    routing = TrainRouting(cfg)
+    with routing.record():
+        _, metrics = train_step_mod.make_train_step(model, SHARD_OPT)(
+            {"params": params, "opt": train_step_mod.adamw_init(params)},
+            batch)
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "recompute_routing_equal": routing.recompute_equal,
+            "routing": [t.cpu() for t in routing.recorded]}
+
+
+def shard_f32_check(seed: int, device, arch: str, part) -> dict:
+    """``arch`` in float32 at its check's depth: rank 0 takes the
+    unsharded loss and gradients (routing recorded), every rank the
+    sharded ones on its block with that routing replayed; each gathered
+    leaf, with and without the sum over ``"model"`` of the partial ones,
+    is held to rank 0's.  Errors are rank 0's (None elsewhere)."""
+    from repro_torch.parallel.sharding import (
+        gather_tree,
+        param_shardings,
+        shard_tree,
+    )
+
+    case = SHARD_CASES[arch]
+    cfg = shard_config(arch, case["f32_layers"], dtype="float32")
+    model = Model(cfg)
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    sh = param_shardings(full, cfg, part.mesh)
+    local = shard_tree(full, sh, part.coord)
+    B, S = case["batch"]
+    batch = train_batch(cfg, B, S, seed, 0, device)
+    lead = dist.get_rank() == 0
+    routing = TrainRouting(cfg)
+    ref_loss = ref_grads = None
+    marks = [time.time()]
+    if lead:
+        with routing.record():
+            ref_loss, ref_grads = loss_and_grads(cfg, full, batch)
+    del full
+    recorded = [[t.cpu() for t in routing.recorded] if lead else None]
+    dist.broadcast_object_list(recorded, src=0)
+    routing.recorded = [t.to(device) for t in recorded[0]]
+    marks.append(time.time())
+    zero_counts()
+    with (routing.replay() if routing.recorded
+          else contextlib.nullcontext(None)) as flips:
+        metrics, grads = train_step_mod.sharded_grads(model, local, batch,
+                                                      part)
+    launches = kernel_counts()
+    marks.append(time.time())
+    partial = train_step_mod.partial_grad_leaves(sh)
+    whole = train_step_mod.psum_partial(grads, partial, part)
+    like = model.abstract_params()
+    leaf_rel, control_rel = [], []
+    for i, (g, c, s, m) in enumerate(zip(
+            tree.leaves(whole), tree.leaves(grads), tree.leaves(sh),
+            tree.leaves(like), strict=True)):
+        gw = gather_tree(g, s, part.shards, m)
+        cw = gather_tree(c, s, part.shards, m) if partial[i] else gw
+        if lead:
+            w = ref_grads[i].float()
+            leaf_rel.append(float((gw.float() - w).norm()
+                                  / w.norm().clamp_min(1e-30)))
+            control_rel.append(float((cw.float() - w).norm()
+                                     / w.norm().clamp_min(1e-30)))
+        del gw, cw
+    marks.append(time.time())
+    loss = float(metrics["loss"])
+    return {"layers": cfg.n_layers, "launches": launches,
+            "seconds": dict(zip(("unsharded", "sharded", "gathers"),
+                                np.diff(marks).tolist())),
+            "launches_expected": expected_train_launches(cfg),
+            "loss": loss, "unsharded_loss": ref_loss,
+            "loss_rel": (abs(loss - ref_loss) / abs(ref_loss) if lead
+                         else None),
+            "max_leaf_rel_rms": max(leaf_rel) if lead else None,
+            "control_max_leaf_rel_rms": max(control_rel) if lead else None,
+            "partial_leaves": sum(partial),
+            "control_past_limit_in_every_partial_leaf": (
+                all(e > TRAIN_F32_GRAD_REL_RMS
+                    for e, p in zip(control_rel, partial) if p)
+                if lead else None),
+            "routing_flips": flips,
+            "recompute_routing_equal": (routing.recompute_equal if lead
+                                        else None)}
+
+
+def shard_steps(seed: int, device, arch: str, part, routing_rec: list
+                ) -> dict:
+    """``SHARD_STEPS`` sharded bf16 steps of ``arch``'s case on this
+    participant's block of the seeded state (ZeRO-1 where the case says),
+    the batches of ``launch.train``'s pipeline, step 1 replaying the
+    unsharded step's routing: per step its time (CUDA events), launches,
+    collectives, peak memory, loss, gradient norm and every leaf's
+    fingerprint.  Under ZeRO-1, step 1 also runs without it from the same
+    state: its moments' slices and parameters against ZeRO-1's."""
+    from repro_torch.parallel.sharding import shard_slices, shard_tree
+
+    case = SHARD_CASES[arch]
+    cfg = shard_config(arch, case["layers"])
+    model = Model(cfg)
+    abstract = train_step_mod.abstract_state(model, SHARD_OPT)
+    sh = train_step_mod.state_shardings(abstract, cfg, part.mesh,
+                                        zero_opt=case["zero_opt"])
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    params = shard_tree(full, sh["params"], part.coord)
+    del full
+    state = {"params": params,
+             "opt": zero_moments(sh["opt"], abstract["opt"], device)}
+    step = train_step_mod.make_train_step(model, SHARD_OPT, shards=part,
+                                          shardings=sh)
+    routing = TrainRouting(cfg)
+    routing.recorded = [t.to(device) for t in routing_rec]
+    B, S = case["batch"]
+    on_card = device.type == "cuda"
+    runs, zero = [], None
+    for i in range(SHARD_STEPS):
+        batch = train_batch(cfg, B, S, seed, i, device)
+        if i == 0 and case["zero_opt"]:
+            plain_sh = train_step_mod.state_shardings(abstract, cfg,
+                                                      part.mesh)
+            plain, _ = train_step_mod.make_train_step(
+                model, SHARD_OPT, shards=part, shardings=plain_sh)(
+                {"params": params, "opt": zero_moments(
+                    plain_sh["opt"], abstract["opt"], device)}, batch)
+        observed = []
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        replay = routing.replay() if i == 0 and routing.recorded else \
+            contextlib.nullcontext(None)
+        with replay as flips, collectives.observe(
+                lambda kind, n: observed.append((kind, n))):
+            a = Mark(device)
+            state, metrics = step(state, batch)
+            ms = a.ms_to_now(device)
+        launches = kernel_counts()
+        runs.append({
+            "step_ms": ms, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "launches": launches, "collectives": collective_counts(observed),
+            "routing_flips": flips,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if on_card else None),
+            "fingerprints": [fingerprint(t) for t in tree.leaves(state)]})
+        if i == 0 and case["zero_opt"]:
+            def within(zs, ps, t):
+                """The ZeRO-1 block ``zs`` inside ``t``, the block ``ps``."""
+                return t[tuple(slice(z.start - p.start, z.stop - p.start)
+                               for z, p in zip(zs, ps))]
+            equal = []
+            for part_name in ("m", "v"):
+                for zt, pt, zsh, psh, leaf in zip(
+                        tree.leaves(getattr(state["opt"], part_name)),
+                        tree.leaves(getattr(plain["opt"], part_name)),
+                        tree.leaves(getattr(sh["opt"], part_name)),
+                        tree.leaves(getattr(plain_sh["opt"], part_name)),
+                        tree.leaves(getattr(abstract["opt"], part_name)),
+                        strict=True):
+                    equal.append(torch.equal(zt, within(
+                        shard_slices(leaf.shape, zsh, part.coord),
+                        shard_slices(leaf.shape, psh, part.coord), pt)))
+            rel = [float((a_.float() - b_.float()).norm()
+                         / b_.float().norm().clamp_min(1e-30))
+                   for a_, b_ in zip(tree.leaves(state["params"]),
+                                     tree.leaves(plain["params"]))]
+            zero = {"moment_slices_equal": all(equal),
+                    "moment_leaves": len(equal),
+                    "zero_sharded_leaves": sum(
+                        s.spec != p.spec for s, p in zip(
+                            tree.leaves(sh["opt"].m),
+                            tree.leaves(plain_sh["opt"].m))),
+                    "params_max_rel_rms": max(rel),
+                    "params_bitwise_equal": all(
+                        torch.equal(a_, b_) for a_, b_ in zip(
+                            tree.leaves(state["params"]),
+                            tree.leaves(plain["params"])))}
+            del plain
+    specs = [s.spec for s in tree.leaves(sh)]
+    del state
+    return {"layers": cfg.n_layers, "launches_expected":
+            expected_train_launches(cfg), "runs": runs, "zero": zero,
+            "specs": specs}
+
+
+def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
+               device_type: str, routings: dict) -> dict:
+    """One participant of ``shard_path`` (a process of its own): joins the
+    4-rank group, then for each case its float32 check and its bf16
+    steps."""
+    from repro_torch.parallel.tensor import Participant
+
+    started_s = time.time() - t_spawn
+    device = torch.device(device_type)
+    dm = init_ranks(make_mesh((2, 2), ("data", "model")), rank, store)
+    meshes = {(2, 2): dm,
+              (1, 4): make_mesh((1, 4), ("data", "model")).device_mesh()}
+    # what every process pays once before its first step: the device's
+    # context and its first product, and the import of torch._dynamo
+    # that torch.utils.checkpoint makes on its first call
+    importlib.import_module("torch._dynamo")
+    torch.ones((8, 8), device=device) @ torch.ones((8, 8), device=device)
+    ready_s = time.time() - t_spawn
+    out = {"rank": rank, "started_s": started_s, "ready_s": ready_s,
+           "cases": {}}
+    for arch, case in SHARD_CASES.items():
+        part = Participant(meshes[case["mesh"]])
+        t0 = time.time()
+        f32 = shard_f32_check(seed, device, arch, part)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.time()
+        steps = shard_steps(seed, device, arch, part, routings[arch])
+        out["cases"][arch] = {"coord": part.coord, "f32": f32, **steps,
+                              "f32_check_s": t1 - t0,
+                              "steps_s": time.time() - t1}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_spawn
+    return out
+
+
+def phase_shard(args, card: str, device) -> dict:
+    """The sharded train step on the card: the unsharded bf16 references
+    in this process, then ``SHARD_RANKS`` spawned participants
+    (``shard_rank``) on ``cuda:0``; every case's checks (module doc, phase
+    13) on every rank."""
+    refs = {}
+    t_ref = time.time()
+    for arch in SHARD_CASES:
+        refs[arch] = shard_reference(args, device, arch)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(shard_rank, SHARD_RANKS,
+                          os.path.join(tmp, "store"), args.seed, t0,
+                          device.type,
+                          {a: r["routing"] for a, r in refs.items()},
+                          timeout_s=SHARD_TIMEOUT_S)
+    seconds = time.time() - t0
+    out, failed = {}, []
+    for arch, case in SHARD_CASES.items():
+        per = [r["cases"][arch] for r in ranks]
+        lead = per[0]
+        f32 = lead["f32"]
+        ref = refs[arch]
+        loss_lim, gnorm_lim = SHARD_BF16_LIMITS[arch]
+        step1 = lead["runs"][0]
+        bf16 = {"loss": step1["loss"], "unsharded_loss": ref["loss"],
+                "loss_rel": abs(step1["loss"] - ref["loss"])
+                / abs(ref["loss"]),
+                "grad_norm": step1["grad_norm"],
+                "unsharded_grad_norm": ref["grad_norm"],
+                "grad_norm_rel": abs(step1["grad_norm"] - ref["grad_norm"])
+                / ref["grad_norm"],
+                "limits": {"loss_rtol": loss_lim, "gnorm_rtol": gnorm_lim}}
+        # every participant holding a block holds its bits, after each step
+        held: dict = {}
+        for p in per:
+            for n, run in enumerate(p["runs"]):
+                for i, (s, fp) in enumerate(zip(p["specs"],
+                                                run["fingerprints"])):
+                    axes = sorted({a for e in s if e is not None
+                                   for a in (e if isinstance(e, tuple)
+                                             else (e,))})
+                    held.setdefault((n, i, tuple(p["coord"][a]
+                                                 for a in axes)),
+                                    set()).add(fp)
+        checks = {
+            "launches": all(
+                r_["launches"] == p["launches_expected"]
+                for p in per for r_ in p["runs"]),
+            "f32_launches": all(p["f32"]["launches"]
+                                == p["f32"]["launches_expected"]
+                                for p in per),
+            "f32_loss": f32["loss_rel"] <= TRAIN_F32_LOSS_RTOL,
+            "f32_leaves": f32["max_leaf_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS,
+            "f32_control_past_limit": (
+                f32["control_max_leaf_rel_rms"] > TRAIN_F32_GRAD_REL_RMS
+                and f32["control_past_limit_in_every_partial_leaf"]),
+            "f32_losses_equal_on_every_rank": len(
+                {p["f32"]["loss"] for p in per}) == 1,
+            "bf16_loss": bf16["loss_rel"] <= loss_lim,
+            "bf16_grad_norm": bf16["grad_norm_rel"] <= gnorm_lim,
+            "metrics_equal_on_every_rank": all(
+                len({(p["runs"][n]["loss"], p["runs"][n]["grad_norm"])
+                     for p in per}) == 1 for n in range(SHARD_STEPS)),
+            "losses_finite": all(np.isfinite(r_["loss"]) for r_ in
+                                 lead["runs"]),
+            "block_bits_equal_across_ranks": all(
+                len(v) == 1 for v in held.values()),
+            "routing": (flip_share(f32["routing_flips"], "float32")
+                        <= ROUTING_FLIP_SHARE["float32"]
+                        and routing_ok([step1["routing_flips"]])
+                        and f32["recompute_routing_equal"]
+                        and ref["recompute_routing_equal"])
+            if ref["routing"] else True,
+        }
+        if case["zero_opt"]:
+            checks["zero1_moment_slices_equal"] = all(
+                p["zero"]["moment_slices_equal"]
+                and p["zero"]["zero_sharded_leaves"] > 0 for p in per)
+            checks["zero1_params"] = all(
+                p["zero"]["params_max_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS
+                for p in per)
+        steady = [r_["step_ms"] for p in per for r_ in p["runs"][1:]]
+        out[arch] = {
+            "arch": get_config(arch).name, "mesh": {
+                "data": case["mesh"][0], "model": case["mesh"][1]},
+            "layers": lead["layers"], "batch": case["batch"][0],
+            "seq": case["batch"][1], "zero_opt": case["zero_opt"],
+            "steps": SHARD_STEPS, "gpu": card,
+            "f32_check_s": lead["f32_check_s"], "steps_s": lead["steps_s"],
+            "step_ms_per_rank": [[r_["step_ms"] for r_ in p["runs"]]
+                                 for p in per],
+            "step_ms_median_steps_2_on": statistics.median(steady),
+            "step_note": "four processes share one card and gloo copies "
+                         "through the host: not a multi-card time",
+            "peak_memory_gb_per_rank": [max(r_["peak_memory_gb"] or 0
+                                            for r_ in p["runs"])
+                                        for p in per],
+            "losses": [r_["loss"] for r_ in lead["runs"]],
+            "launches_per_rank_step": lead["runs"][0]["launches"],
+            "launches_expected": lead["launches_expected"],
+            "collectives_per_rank_step": lead["runs"][1]["collectives"]
+            if SHARD_STEPS > 1 else lead["runs"][0]["collectives"],
+            "f32": f32, "bf16": bf16,
+            "routing_flips_step1": step1["routing_flips"],
+            "zero": lead["zero"], "checks": checks}
+        failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+    run = {"ranks": SHARD_RANKS, "device": f"{device.type}:0 in every rank",
+           "backend": "gloo, CUDA tensors staged through pinned host "
+                      "buffers", "references_s": t0 - t_ref,
+           "seconds": seconds,
+           "started_s": [r["started_s"] for r in ranks],
+           "spawn_to_ready_s": [r["ready_s"] for r in ranks],
+           "rank_seconds": [r["seconds"] for r in ranks], "cases": out}
+    if failed:
+        emit({"phase": "shard_path", "ok": False, **run})
+    check(not failed, "shard: " + ", ".join(failed))
+    return run
+
+
 # -- the diagnosis stack ------------------------------------------------------
 
 @contextlib.contextmanager
@@ -3871,6 +4466,11 @@ def run(args) -> None:
         emit({"phase": "kernels", **c})
     moe_ssd_timing = moe_ssd_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": moe_ssd_timing})
+    shard_checks = shard_kernel_checks(device, args.seed)
+    for c in shard_checks:
+        emit({"phase": "kernels", **c})
+    shard_timing = shard_kernel_timings(device, args.seed, flush)
+    emit({"phase": "kernels", "timings": {"sharded": shard_timing}})
 
     t0 = time.perf_counter()
     stream = make_stream(args)
@@ -3939,6 +4539,9 @@ def run(args) -> None:
     dist_run = phase_dist(args, card, device, ep_ref, par_ref)
     emit({"phase": "dist_path", "ok": True, **dist_run})
     del ep_ref, par_ref
+    torch.cuda.empty_cache()
+    shard = phase_shard(args, card, device)
+    emit({"phase": "shard_path", "ok": True, **shard})
     for res in phase_roofline(served, train):
         emit({"phase": "roofline", "ok": True, "gpu": card, **res})
     emit({"phase": "dryrun", "ok": True, **phase_dryrun()})
@@ -3954,6 +4557,21 @@ def run(args) -> None:
                     train[arch]["launches_per_step"][name],
                 "train_shape": train[arch]["kernels"][name]}
 
+    def sharded(name: str, key: str, arch: str, timed: str) -> dict:
+        """A kernel at a ``shard_path`` case's shapes: its launches per
+        rank and step, its checks' largest error and its timing there
+        (``shard_timing[timed]``)."""
+        case = shard["cases"][arch]
+        return {"path": case["arch"], "mesh": case["mesh"],
+                "launches_per_rank_step": case["launches_per_rank_step"][
+                    name],
+                "launches_per_rank": case["launches_per_rank_step"][name]
+                * SHARD_STEPS,
+                "max_abs_err": max(c["max_abs_err"] for c in shard_checks
+                                   if c["kernel"] == name
+                                   and c["sharded"].startswith(key)),
+                **shard_timing[timed]}
+
     def entry(name: str, replaces: str, per: str, arch: str, t: dict,
               checked: list) -> dict:
         """One kernel's line: launches from ``arch``'s serving run, the
@@ -3964,7 +4582,7 @@ def run(args) -> None:
             "replaces": replaces, "launches": serve[arch]["launches"][name],
             "launches_per": per, "path": get_config(arch).name,
             "max_abs_err": max(c["max_abs_err"] for c in checked
-                               if c["kernel"] == name),
+                               + shard_checks if c["kernel"] == name),
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "flops", "bytes",
                                  "round_medians")},
@@ -4028,7 +4646,12 @@ def run(args) -> None:
                 "flash_attention_cross"]},
         "ep_prefill_launches": ep["launches"]["flash_attention"],
         "dist_prefill_launches_per_rank": dist_run["launches_per_rank"][
-            "flash_attention"]},
+            "flash_attention"],
+        "sharded": {
+            "granite": sharded("flash_attention", "flash_attention_granite",
+                               MOE_ARCH, "flash_attention_granite"),
+            "glm4": sharded("flash_attention", "flash_attention_glm4",
+                            SERVE_ARCH, "flash_attention_glm4")}},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
@@ -4048,7 +4671,8 @@ def run(args) -> None:
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
          "jamba_prefill": moe_ssd_timing["ssd_scan_jamba"],
-         **trained("ssd_scan", SSM_ARCH)},
+         **trained("ssd_scan", SSM_ARCH),
+         "sharded": sharded("ssd_scan", "ssd_scan", SSM_ARCH, "ssd_scan")},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
@@ -4067,7 +4691,10 @@ def run(args) -> None:
                 "shard_down": ep["k5_shard"]["down"]},
          "dist": {"ranks": EP_SHARDS,
                   "prefill_launches_per_rank": dist_run["launches_per_rank"][
-                      "moe_gmm"]}}],
+                      "moe_gmm"]},
+         "sharded": {**sharded("moe_gmm", "moe_gmm", MOE_ARCH,
+                               "moe_gmm_gate_up"),
+                     "down": shard_timing["moe_gmm_down"]}}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4089,6 +4716,11 @@ def main() -> None:
     ap.add_argument("--f32-layers", type=int, default=4,
                     help="depth of the serving paths' float32 variants (the "
                          "bf16 runs are always at full depth)")
+    ap.add_argument("--shard", action="store_true",
+                    help="only build the kernels, hold them at the sharded "
+                         "shapes and run shard_path (bringing up the "
+                         "sharded step; the kernels line and the ok line "
+                         "are not printed)")
     ap.add_argument("--serve", nargs="+", metavar="ARCH",
                     help="only build the kernels and serve these archs, "
                          "each held to the serving checks (bringing up an "
@@ -4097,8 +4729,27 @@ def main() -> None:
     args = ap.parse_args()
     if args.serve:
         serve_only(args)
+    elif args.shard:
+        shard_only(args)
     else:
         run(args)
+
+
+def shard_only(args) -> None:
+    """``--shard``: the kernels at the sharded shapes, then ``shard_path``
+    alone."""
+    card = phase_env()
+    device = torch.device("cuda")
+    phase_build()
+    for c in shard_kernel_checks(device, args.seed):
+        emit({"phase": "kernels", **c})
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device=device)
+    emit({"phase": "kernels", "timings": {"sharded": shard_kernel_timings(
+        device, args.seed, flush)}})
+    del flush
+    torch.cuda.empty_cache()
+    emit({"phase": "shard_path", "ok": True,
+          **phase_shard(args, card, device)})
 
 
 def serve_only(args) -> None:

@@ -15,6 +15,7 @@ import torch
 from .device import resolve_device
 from .models.forecast_ssd import ForecastCell
 from .models import encdec, lm
+from .parallel.sharding import param_shardings, shard_tree
 from .train.optimizer import AdamWState
 
 _GATE_FIELDS = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
@@ -106,6 +107,16 @@ def lm_params_from_numpy(params, cfg, device=None) -> dict:
         return out
 
     return carry(params, param_shapes(cfg), "")
+
+
+def lm_shard_from_numpy(params, cfg, mesh, coord: dict,
+                        device=None) -> dict:
+    """The block of a model's parameters that the participant at
+    ``coord`` (``{axis: index}``) of ``mesh`` holds, from the JAX package's
+    numpy tree: the port's whole tree (:func:`lm_params_from_numpy`), cut
+    by the sharding rules (``param_shardings``, ``shard_tree``)."""
+    full = lm_params_from_numpy(params, cfg, device)
+    return shard_tree(full, param_shardings(full, cfg, mesh), coord)
 
 
 def lm_params_to_numpy(params) -> dict:

@@ -24,9 +24,11 @@ the port's explicit collectives and the hand-written kernels' work.
 - Collective bytes are those of the port's explicit collectives (the ep
   MoE's dispatch, combine, output gather and aux reductions, each counted
   once with one participant's operand bytes, as an HLO collective over
-  every data-parallel group at once).  An auto-sharded cell has none — the collectives GSPMD would
-  insert have no eager counterpart — and its ``collective_bytes`` is
-  null: ``dominant`` is taken over compute and memory.
+  every data-parallel group at once).  An auto-sharded cell has none: its
+  step runs unsharded on meta, and the explicit collectives of the
+  sharded step (``parallel/tensor.py``, ``train/step.py``) are not counted
+  yet, so its ``collective_bytes`` is null: ``dominant`` is taken over
+  compute and memory.
 
 Results go one JSON per cell under ``dryrun_results_torch/`` (never the
 reference's ``dryrun_results/``); a finished cell is not run again unless
@@ -58,6 +60,7 @@ from ..parallel.sharding import (
     dp_axes,
     dp_size,
     param_shardings,
+    shard_shape,
     spec,
 )
 from ..serve.engine import cast_params
@@ -141,20 +144,6 @@ def build_cell(cfg, shape: ShapeSpec, mesh, *, accum: int = 1,
                  "cache": c_sh}
     return args, shardings, lambda: model.decode(params, ins["tokens"],
                                                  ins["cache"])
-
-
-def shard_shape(shape, sharding: NamedSharding) -> tuple[int, ...]:
-    """One device's block of a leaf: each dimension ceil-divided by the
-    product of the sizes of the axes its spec entry names (XLA pads an
-    uneven shard)."""
-    mesh = sharding.mesh
-    entries = list(sharding.spec) + [None] * (len(shape) - len(sharding.spec))
-    out = []
-    for dim, entry in zip(shape, entries):
-        axes = () if entry is None else (
-            entry if isinstance(entry, tuple) else (entry,))
-        out.append(-(-dim // math.prod(mesh.shape[a] for a in axes)))
-    return tuple(out)
 
 
 def argument_bytes(args, shardings) -> int:

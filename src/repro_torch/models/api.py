@@ -11,6 +11,14 @@ for every architecture.
 Decoder-only configs (dense / GQA attention, MoE, Mamba2 (SSM), hybrid
 layer patterns, the VLM backbone) run through :mod:`.lm`, encoder-decoder
 configs (``enc_layers > 0``) through :mod:`.encdec`.
+
+``loss`` and ``forward`` take the shard context as an argument,
+``shards``: one participant of a data × model mesh (a
+:class:`~repro_torch.parallel.tensor.Participant`, or the ``Shards`` /
+``DeviceMesh`` it is made from), given its block of the parameters
+(:func:`repro_torch.parallel.sharding.shard_tree`) and its rows of the
+batch.  Decoder-only configs only; without it every call is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..parallel.tensor import gather_vocab, participant
 from . import encdec, lm
 from .config import ModelConfig
 
@@ -51,17 +60,33 @@ class Model:
         return mod.abstract_params(self.cfg)
 
     # -- training -------------------------------------------------------------
-    def loss(self, params: Params, batch: dict):
+    def loss(self, params: Params, batch: dict, shards=None):
+        """``(loss, metrics)``; with ``shards``, the participant's part of
+        the loss (its mean over the data axes is the whole batch's) and
+        the whole batch's metrics (:func:`repro_torch.models.lm.loss_fn`)."""
+        part = self._part(shards)
         if self.is_encdec:
             return encdec.loss_fn(params, self.cfg, batch)
-        return lm.loss_fn(params, self.cfg, batch)
+        return lm.loss_fn(params, self.cfg, batch, part=part)
 
-    def forward(self, params: Params, batch: dict):
+    def forward(self, params: Params, batch: dict, shards=None):
+        """``(logits, aux)``; with ``shards``, the participant's rows of
+        the logits, every column (gathered over ``"model"``)."""
+        part = self._part(shards)
         if self.is_encdec:
             return encdec.forward(params, self.cfg, batch["tokens"],
                                   batch["enc_embeds"])
-        return lm.forward(params, self.cfg, batch["tokens"],
-                          embeds=batch.get("embeds"))
+        logits, aux = lm.forward(params, self.cfg, batch["tokens"],
+                                 embeds=batch.get("embeds"), part=part)
+        if part is not None:
+            logits = gather_vocab(logits, part, self.cfg.vocab_padded)
+        return logits, aux
+
+    def _part(self, shards):
+        if shards is not None and self.is_encdec:
+            raise NotImplementedError("the encoder-decoder does not run "
+                                      "sharded")
+        return participant(shards)
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, params: Params, batch: dict, max_len: int) -> dict:

@@ -7,6 +7,15 @@ key.
 hand-written kernels through :mod:`repro_torch.kernels.ops` (flash
 attention for a full sequence, split-K decode attention against the
 cache), ``"dense"`` and ``"blocked"`` are the JAX package's own plain forms.
+
+Given a :class:`~repro_torch.parallel.tensor.Participant` (``part``), the
+full-sequence attention and the MLP run on its block of the weights
+(``parallel/sharding.py``'s rules): its query heads (``wq`` / ``bq`` by
+column, ``wo`` by row), its kv heads (``wk`` / ``wv`` by column where the
+kv heads divide the model axis, else the columns of the kv heads its
+query heads read, from the replicated weights), its ``d_ff`` columns, in
+a region of :func:`~repro_torch.parallel.tensor.enter_model_region` and
+:func:`~repro_torch.parallel.tensor.leave_model_region`.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import kv_shardable
+from ..parallel.tensor import enter_model_region, leave_model_region
 
 Params = dict[str, Any]
 
@@ -158,8 +169,15 @@ def blocked_attention(q, k, v, causal: bool, kv_chunk: int = 1024,
 
 
 def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
-                    x_kv=None, kv_positions=None, use_rope: bool = True):
-    """Full-sequence attention (prefill without cache, forward)."""
+                    x_kv=None, kv_positions=None, use_rope: bool = True,
+                    part=None):
+    """Full-sequence attention (prefill without cache, forward); with a
+    participant ``part``, self-attention on its block (module doc)."""
+    if part is not None:
+        if x_kv is not None or not use_rope:
+            raise NotImplementedError("sharded attention is decoder "
+                                      "self-attention with rope only")
+        return _attention_sharded(p, x, cfg, positions, causal, part)
     x_kv = x if x_kv is None else x_kv
     q, k, v = _project_qkv(p, x, x_kv, cfg)
     if use_rope:
@@ -172,12 +190,53 @@ def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
     return out @ p["wo"].to(out.dtype)
 
 
+def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part):
+    """Self-attention over ``part``'s query heads ``part.block(H)``.  With
+    ``wk`` / ``wv`` replicated, the kv heads those query heads read are
+    projected from their columns: one kv head for all of them (glm4-9b at
+    a model axis of 4: 8 heads over one, so n_rep 8), or, where the block
+    straddles kv groups unevenly, each query head's own (n_rep 1)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = dtype_of(cfg.dtype)
+    h_lo, h_hi = part.block(H)
+    x = enter_model_region(x, part)
+    B, S = x.shape[:2]
+    if kv_shardable(cfg, part.m):
+        cols, pick = slice(None), None
+    else:
+        n_rep = H // KV
+        kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
+        cols = slice(kv_lo * hd, kv_hi * hd)
+        even = kv_hi - kv_lo == 1 or (
+            h_lo % n_rep == 0 and (h_hi - h_lo) % n_rep == 0)
+        pick = None if even else (h_lo - kv_lo * n_rep, n_rep)
+    q = x @ p["wq"].to(cdt)
+    k = x @ p["wk"][:, cols].to(cdt)
+    v = x @ p["wv"][:, cols].to(cdt)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"][cols].to(cdt)
+        v = v + p["bv"][cols].to(cdt)
+    q = q.reshape(B, S, h_hi - h_lo, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if pick is not None:
+        first, n_rep = pick
+        k = _repeat_kv(k, n_rep)[:, :, first:first + h_hi - h_lo]
+        v = _repeat_kv(v, n_rep)[:, :, first:first + h_hi - h_lo]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = attend(q, k, v, cfg, causal)
+    out = out.reshape(B, S, (h_hi - h_lo) * hd)
+    return leave_model_region(out @ p["wo"].to(out.dtype), part)
+
+
 def attend(q, k, v, cfg, causal: bool):
     """q ``[B,S,H,D]``, k/v ``[B,S,KV,D]`` (not repeated) through the form
     ``cfg.attention_impl`` names."""
     if cfg.attention_impl == "cuda":
         return ops.mha_flash(q, k, v, causal=causal)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     if cfg.attention_impl == "dense":
         return dense_attention(q, k, v, causal)
@@ -257,8 +316,12 @@ def mlp_init(gen, cfg, n_blocks: int, device, d_ff: int | None = None):
     return p
 
 
-def mlp_apply(p: Params, x):
+def mlp_apply(p: Params, x, part=None):
+    """SwiGLU; with a participant ``part``, over its ``d_ff`` columns."""
+    if part is not None:
+        x = enter_model_region(x, part)
     cdt = x.dtype
     g = x @ p["w_gate"].to(cdt)
     u = x @ p["w_up"].to(cdt)
-    return (F.silu(g) * u) @ p["w_down"].to(cdt)
+    out = (F.silu(g) * u) @ p["w_down"].to(cdt)
+    return out if part is None else leave_model_region(out, part)

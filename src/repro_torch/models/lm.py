@@ -21,6 +21,18 @@ bounds the writes without reading the device) and ``"slots"``: K/V caches
 for attention slots, the conv shift registers and the float32 SSD state
 for SSM slots.  Prefill and decode write them in place and return the same
 dict.  Only attention slots bound the length.
+
+``forward`` and ``loss_fn`` also run as one participant of a data × model
+mesh (``part``, a :class:`~repro_torch.parallel.tensor.Participant`):
+its block of every parameter (``parallel/sharding.py``'s rules), its rows
+of the batch.  The embedding is vocabulary-sharded (a masked lookup of
+the participant's rows, summed over ``"model"``), the logits too (the
+head's columns, or the tied embedding's rows), and the loss is the
+vocabulary-parallel cross-entropy over them; the layers run their blocks
+in model regions (:mod:`.layers`, :mod:`.moe`, :mod:`.ssd`).  The loss a
+participant returns is its part of the whole batch's: its mean over the
+data axes is that loss, and so is its gradients' mean.  Without ``part``
+the code and its bits are the unsharded ones.
 """
 from __future__ import annotations
 
@@ -29,6 +41,11 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tensor import (
+    enter_model_region,
+    leave_model_region,
+    vocab_parallel_cross_entropy,
+)
 from .config import ModelConfig
 from .layers import (
     _project_qkv,
@@ -110,12 +127,18 @@ def _block(params: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 # full-sequence forward (training / evaluation)
 # ---------------------------------------------------------------------------
-def head_logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    """Final projection; padded vocab columns are masked to -1e30."""
+def head_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                part=None):
+    """Final projection; padded vocab columns are masked to -1e30.  With
+    ``part``, its block of the columns (the global index is masked)."""
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    lo = 0
+    if part is not None:
+        x = enter_model_region(x, part)
+        lo = part.block(cfg.vocab_padded)[0]
     logits = x @ head.to(x.dtype)
     if cfg.vocab_padded != cfg.vocab:
-        col = torch.arange(cfg.vocab_padded, device=x.device)
+        col = lo + torch.arange(logits.shape[-1], device=x.device)
         logits = torch.where(col >= cfg.vocab,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=x.device), logits)
@@ -123,12 +146,23 @@ def head_logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 embeds: torch.Tensor | None = None) -> torch.Tensor:
+                 embeds: torch.Tensor | None = None,
+                 part=None) -> torch.Tensor:
     """Token embedding; modality frontends prepend precomputed embeddings.
     Rows are gathered before the cast (the same values as the reference's
-    cast-then-gather, without casting the whole table)."""
+    cast-then-gather, without casting the whole table).  With ``part``,
+    each model participant looks up the tokens its rows hold, zeros
+    elsewhere, and the rows are summed over ``"model"``."""
     cdt = dtype_of(cfg.dtype)
-    x = params["embed"][tokens.long()].to(cdt)
+    if part is None:
+        x = params["embed"][tokens.long()].to(cdt)
+    else:
+        lo, hi = part.block(cfg.vocab_padded)
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        rows = params["embed"][ids.clamp(0, max(hi - lo - 1, 0))].to(cdt)
+        x = leave_model_region(torch.where(mine[..., None], rows, 0.0),
+                               part)
     if embeds is not None:
         x = torch.cat([embeds.to(cdt), x], dim=1)
     return x
@@ -139,7 +173,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _block_forward(params: Params, cfg: ModelConfig, i: int, x, aux,
-                   positions):
+                   positions, part=None):
     """Block ``i``: every slot of the pattern on the residual stream ``x``,
     the MoE aux terms added to ``aux`` in slot order."""
     bp = _block(params, i)
@@ -147,29 +181,54 @@ def _block_forward(params: Params, cfg: ModelConfig, i: int, x, aux,
         p = bp[skey]
         h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
         if kind == "attn":
-            x = x + attention_apply(p, h, cfg, positions=positions)
+            x = x + attention_apply(p, h, cfg, positions=positions,
+                                    part=part)
         elif kind == "ssm":
-            x = x + ssm_apply(p, h, cfg)
+            x = x + ssm_apply(p, h, cfg, part=part)
         elif kind == "mlp":
-            x = x + mlp_apply(p, h)
+            x = x + mlp_apply(p, h, part)
         else:
-            y, a = moe_apply(p, h, cfg)
+            y, a = moe_apply(p, h, cfg, part)
             x = x + y
             aux = MoeAux(*(s + t for s, t in zip(aux, a)))
     return x, aux
 
 
+def check_shardable(cfg: ModelConfig, m: int) -> None:
+    """Raise where a model axis of ``m`` does not divide a dimension the
+    sharded layers split by whole units: attention and SSD heads, ``d_ff``
+    columns, experts, the padded vocabulary (``shard_tree`` cuts any leaf;
+    the layers run only whole blocks)."""
+    pattern = cfg.pattern()
+    dims = {"vocab_padded": cfg.vocab_padded}
+    if any(s.mixer == "attn" for s in pattern):
+        dims["n_heads"] = cfg.n_heads
+    if any(s.mixer == "ssm" for s in pattern):
+        dims["ssm_heads"] = cfg.ssm_heads
+    if any(s.ffn == "mlp" for s in pattern):
+        dims["d_ff"] = cfg.d_ff
+    if any(s.ffn == "moe" for s in pattern):
+        dims["moe_experts"] = cfg.moe_experts
+    uneven = {k: v for k, v in dims.items() if v % m}
+    if uneven:
+        raise NotImplementedError(f"{cfg.name}: a model axis of {m} does not "
+                                  f"divide {uneven}")
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            embeds: torch.Tensor | None = None):
+            embeds: torch.Tensor | None = None, part=None):
     """Full-sequence logits and the MoE aux terms, averaged over the MoE
-    layers (zeros when there are none).
+    layers (zeros when there are none).  With ``part`` (module doc), the
+    logits are its vocabulary block.
 
     With ``cfg.remat`` and gradients enabled, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not
     kept, and the backward pass recomputes the block from its input — the
     reference's ``jax.checkpoint`` per block.  It changes memory, not
     values; the recompute launches the block's kernels a second time."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    if part is not None:
+        check_shardable(cfg, part.m)
+    x = embed_inputs(params, cfg, tokens, embeds, part)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -179,14 +238,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.n_blocks):
         if remat:
             x, aux = checkpoint(_block_forward, params, cfg, i, x, aux,
-                                positions, use_reentrant=False)
+                                positions, part, use_reentrant=False)
         else:
-            x, aux = _block_forward(params, cfg, i, x, aux, positions)
+            x, aux = _block_forward(params, cfg, i, x, aux, positions, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     n_moe = sum(s.ffn == "moe" for s in cfg.pattern()) * cfg.n_blocks
     if n_moe:
         aux = MoeAux(*(t / n_moe for t in aux))
-    return head_logits(params, cfg, x), aux
+    return head_logits(params, cfg, x, part), aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -204,21 +263,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
-            lb_coef: float = 0.01, z_coef: float = 1e-3):
+            lb_coef: float = 0.01, z_coef: float = 1e-3, part=None):
     """Next-token cross-entropy; labels < 0 are ignored (modality
     prefixes).  Returns ``(loss, metrics)``, the metrics as 0-d tensors
-    keyed as the reference keys them."""
+    keyed as the reference keys them.  With ``part`` (module doc) the
+    loss is the participant's part, the cross-entropy's denominator the
+    whole batch's valid labels, and the metrics (detached) the whole
+    batch's."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          embeds=batch.get("embeds"))
+                          embeds=batch.get("embeds"), part=part)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:   # modality prefix positions
         pad = torch.full((labels.shape[0], logits.shape[1] - labels.shape[1]),
                          -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     valid = labels >= 0
-    nll = cross_entropy(logits, labels.clamp_min(0))
-    denom = valid.sum().clamp_min(1)
-    ce = torch.where(valid, nll, 0.0).sum() / denom
+    if part is None:
+        nll = cross_entropy(logits, labels.clamp_min(0))
+        denom = valid.sum().clamp_min(1)
+        ce = torch.where(valid, nll, 0.0).sum() / denom
+    else:
+        nll = vocab_parallel_cross_entropy(logits, labels.clamp_min(0), part,
+                                           cfg.vocab_padded)
+        denom = part.psum_dp(valid.sum()).clamp_min(1)
+        ce = torch.where(valid, nll, 0.0).sum() * part.dp / denom
     loss = ce + lb_coef * aux.load_balance_loss + z_coef * aux.router_z_loss
     metrics = {
         "loss": loss,
@@ -228,6 +296,12 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
         "expert_load_max": (aux.expert_load.max() if cfg.moe_experts
                             else torch.zeros((), device=loss.device)),
     }
+    if part is not None:
+        names = ("loss", "ce", "lb_loss", "z_loss")
+        whole = part.pmean_dp(torch.stack([metrics[k].detach()
+                                           for k in names]))
+        metrics.update(zip(names, whole.unbind(0)))
+        metrics["expert_load_max"] = metrics["expert_load_max"].detach()
     return loss, metrics
 
 

@@ -20,6 +20,18 @@ execution path.  ``cfg.moe_impl`` picks it:
 Each returns ``(output, MoeAux)``: the load-balancing and router-z losses
 and the expert load vector, as the reference computes them.
 
+Given a :class:`~repro_torch.parallel.tensor.Participant` (``part``),
+``gmm`` and ``ragged`` run its block of the experts (``[E@model, ...]``)
+inside a model region: the router is replicated, so every model
+participant routes all ``T·k`` slots alike; each keeps the slots of its
+``E / m`` experts, runs the expert FFN over them (three K5 launches on
+``gmm``) and combines them by routing weight into a partial output that
+:func:`~repro_torch.parallel.tensor.leave_model_region` sums.  The aux
+terms come from the replicated router, equal on every model participant:
+their load is the mean over the data axes (the reference's global batch)
+and their gradient is taken on model participant 0 alone, so that the
+sum of the router's partial gradients over ``"model"`` counts it once.
+
 :func:`routing_hook` lets a caller see every routing decision and replace
 it, to hold two runs to one routing (top-k is discontinuous: two runs that
 differ only by rounding pick other experts wherever two router
@@ -35,6 +47,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.moe_gmm import grouped_matmul_torch
+from ..parallel.tensor import enter_model_region, leave_model_region
 from .layers import _normal, dtype_of
 
 Params = dict[str, Any]
@@ -100,16 +113,23 @@ def _router(p: Params, x2d: torch.Tensor, cfg):
     return logits, probs, experts, weights
 
 
-def _route(p: Params, x2d: torch.Tensor, cfg):
+def _route(p: Params, x2d: torch.Tensor, cfg, part=None):
     """Router: top-k expert ids ``[T, k]`` and renormalised weights
-    ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``."""
+    ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``.  With
+    ``part``, the load is the mean over the data axes, ``lb`` this data
+    participant's part of the whole batch's (their mean is it), and the
+    aux losses carry no gradient off model participant 0."""
     logits, probs, experts, weights = _router(p, x2d, cfg)
     E = cfg.moe_experts
     onehot = F.one_hot(experts, E).float()                      # [T, k, E]
     load = onehot.sum(dim=(0, 1)) / onehot.sum().clamp_min(1.0)
+    if part is not None:
+        load = part.pmean_dp(load)
     importance = probs.mean(dim=0)
     lb = E * torch.sum(load * importance)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if part is not None and part.mi != 0:
+        lb, z = lb.detach(), z.detach()
     return experts, weights, MoeAux(lb, z, load)
 
 
@@ -126,10 +146,13 @@ def _gmm_ffn(p: Params, xs, group_sizes, cdt):
                            p["w_up"].to(cdt), p["w_down"].to(cdt))
 
 
-def _sorted_apply(p: Params, x, cfg, ffn):
+def _sorted_apply(p: Params, x, cfg, ffn, part=None):
     """Token-sorted MoE: route, sort the ``T·k`` routed slots by expert
     (stable, as ``jnp.argsort``), run ``ffn`` over the sorted rows, put the
-    rows back and combine them by routing weight."""
+    rows back and combine them by routing weight.  With ``part``, over
+    its experts' slots (module doc)."""
+    if part is not None:
+        return _sorted_apply_local(p, x, cfg, ffn, part)
     shape = x.shape
     d = shape[-1]
     x2d = x.reshape(-1, d)
@@ -149,6 +172,33 @@ def _sorted_apply(p: Params, x, cfg, ffn):
     out = torch.einsum("tkd,tk->td", out_rows.reshape(T, k, d),
                        weights.to(x.dtype))
     return out.reshape(shape), aux
+
+
+def _sorted_apply_local(p: Params, x, cfg, ffn, part):
+    """:func:`_sorted_apply` over ``part``'s experts ``[e0, e1)``: the
+    slots routed to them, sorted by expert, and the rest dropped.  Their
+    count is read on the host (one read a layer): the kernel's rows are
+    the sum of its groups."""
+    x = enter_model_region(x, part)
+    shape = x.shape
+    d = shape[-1]
+    x2d = x.reshape(-1, d)
+    T, k = x2d.shape[0], cfg.moe_top_k
+    experts, weights, aux = _route(p, x2d, cfg, part)
+    e0, e1 = part.block(cfg.moe_experts)
+    flat = experts.reshape(T * k)
+    mine = (flat >= e0) & (flat < e1)
+    key = torch.where(mine, flat - e0, e1 - e0)             # others last
+    order = torch.argsort(key, stable=True)[:int(mine.sum())]
+    group_sizes = torch.zeros(e1 - e0, dtype=torch.int64,
+                              device=x.device).index_add_(
+        0, key[order], torch.ones_like(order))
+    ys = ffn(p, x2d[order // k], group_sizes, x.dtype)
+    out_rows = torch.zeros((T * k, d), dtype=ys.dtype, device=x.device)
+    out_rows[order] = ys
+    out = torch.einsum("tkd,tk->td", out_rows.reshape(T, k, d),
+                       weights.to(x.dtype))
+    return leave_model_region(out.reshape(shape), part), aux
 
 
 def moe_apply_ragged(p: Params, x, cfg):
@@ -201,7 +251,14 @@ _BY_IMPL = {"gmm": moe_apply_gmm, "ragged": moe_apply_ragged,
             "dense": moe_apply_dense, "gathered": moe_apply_gathered}
 
 
-def moe_apply(p: Params, x, cfg):
+def moe_apply(p: Params, x, cfg, part=None):
+    if part is not None:
+        if cfg.moe_impl not in ("gmm", "ragged"):
+            raise NotImplementedError(
+                f"moe_impl={cfg.moe_impl!r} does not run on a participant's "
+                "experts: the sharded layers take 'gmm' or 'ragged'")
+        ffn = _gmm_ffn if cfg.moe_impl == "gmm" else _ragged_ffn
+        return _sorted_apply(p, x, cfg, ffn, part)
     if cfg.moe_impl == "ep":
         from ..parallel.ep_moe import ep_moe_apply
 

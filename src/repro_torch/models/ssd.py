@@ -14,6 +14,16 @@ sequential oracle.
 
 Shapes: x [B,S,H,P] (H = d_inner/P SSD heads), dt [B,S,H], A [H] (negative),
 B/C [B,S,G,N] with G groups broadcast over heads.
+
+Given a :class:`~repro_torch.parallel.tensor.Participant` (``part``), the
+full-sequence mixer runs its ``H / m`` heads: ``wz``, ``wx``,
+``conv_x_*`` and ``inner_norm`` are its block of ``d_inner``,
+``out_proj`` its rows; ``wbc``, ``wdt``, ``conv_bc_*``, ``A_log``, ``D``
+and ``dt_bias`` are replicated, and it reads their columns of its heads
+(and of the B/C groups they use).  ``inner_norm`` normalises over all of
+``d_inner``: the mean of squares is summed over ``"model"`` before the
+``rsqrt`` (:func:`sharded_rmsnorm`); a norm over one block alone would be
+another function.
 """
 from __future__ import annotations
 
@@ -24,6 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.tensor import (
+    enter_model_region,
+    leave_model_region,
+    sum_over_model,
+)
 from .layers import _normal, dtype_of, rmsnorm
 
 Params = dict[str, Any]
@@ -188,11 +203,69 @@ def _shift_reg(prev, cur, K: int):
     return torch.cat([prev.to(cur.dtype), cur], dim=1)[:, -(K - 1):, :]
 
 
+def sharded_rmsnorm(x, scale, n: int, part, eps: float = 1e-5):
+    """:func:`~repro_torch.models.layers.rmsnorm` over a dimension of ``n``
+    whose block ``x [..., n / m]`` (and ``scale``'s) this participant
+    holds: each block's mean of squares, weighted by its share of ``n``,
+    summed over ``"model"`` (its gradient too) before the ``rsqrt``.  On a
+    mesh of one shard the weight is 1 and the result ``rmsnorm``'s
+    bits."""
+    dtype = x.dtype
+    x = x.float()
+    var = sum_over_model(x.square().mean(dim=-1, keepdim=True)
+                         * (x.shape[-1] / n), part)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+def _ssm_sharded(p: Params, x, cfg, part):
+    """The full-sequence mixer over ``part``'s heads (module doc)."""
+    B, S, _ = x.shape
+    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    h0, h1 = part.block(H)
+    rep = H // G
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    if not (g1 - g0 == 1 or (h0 % rep == 0 and (h1 - h0) % rep == 0)):
+        raise NotImplementedError(
+            f"heads {h0}..{h1} split a group of {rep} heads sharing B/C")
+    x = enter_model_region(x, part)
+    cdt = x.dtype
+    z = x @ p["wz"].to(cdt)
+    xr = x @ p["wx"].to(cdt)
+    gn = G * N
+    bc_cols = torch.cat([torch.arange(g0 * N, g1 * N),
+                         gn + torch.arange(g0 * N, g1 * N)]).to(x.device)
+    bc = x @ p["wbc"][:, bc_cols].to(cdt)
+    dt = x @ p["wdt"][:, h0:h1].to(cdt)
+    xc = F.silu(causal_conv1d(xr, p["conv_x_w"], p["conv_x_b"]))
+    bcc = F.silu(causal_conv1d(bc, p["conv_bc_w"][:, bc_cols],
+                               p["conv_bc_b"][bc_cols]))
+    gl = (g1 - g0) * N
+    xs = xc.reshape(B, S, h1 - h0, P)
+    Bm = bcc[..., :gl].reshape(B, S, g1 - g0, N)
+    Cm = bcc[..., gl:].reshape(B, S, g1 - g0, N)
+    dt = F.softplus(dt.float() + p["dt_bias"][h0:h1].float())
+    A = -torch.exp(p["A_log"][h0:h1].float())
+    chunked = ops.ssd_chunked_cuda if cfg.ssm_impl == "cuda" else ssd_chunked
+    y, _ = chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + p["D"][h0:h1].to(cdt)[None, None, :, None] * xs
+    y = y.reshape(B, S, (h1 - h0) * P)
+    y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
+                        cfg.norm_eps)
+    return leave_model_region(y @ p["out_proj"].to(cdt), part)
+
+
 def ssm_apply(p: Params, x, cfg, state: SsmState | None = None,
-              return_state: bool = False):
+              return_state: bool = False, part=None):
     """Full-sequence mixer. x: [B, S, d] → [B, S, d] (and the state after
     the last step when ``return_state``).  A_log, dt_bias and inner_norm
-    are read in float32, as the reference reads them."""
+    are read in float32, as the reference reads them.  With ``part``, over
+    its heads (module doc; no state in or out)."""
+    if part is not None:
+        if state is not None or return_state:
+            raise NotImplementedError("the sharded mixer carries no state")
+        return _ssm_sharded(p, x, cfg, part)
     B, S, _ = x.shape
     cdt = x.dtype
     z, xr, bc, dt = _project(p, x, cdt)

@@ -86,9 +86,13 @@ class RankShards(Shards):
                 out = out[None]
                 continue
             w = self._wire(out, a)
-            parts = [torch.empty_like(w) for _ in range(n)]
-            dist.all_gather(parts, w, group=self.groups[a])
-            out = torch.stack(parts).to(x.device)
+            # received into one buffer (pinned where the operand was
+            # staged), so the stack costs no copy and returns to the card
+            # at the pinned rate
+            parts = torch.empty((n, *w.shape), dtype=w.dtype,
+                                pin_memory=w.is_pinned())
+            dist.all_gather(list(parts.unbind(0)), w, group=self.groups[a])
+            out = parts.to(x.device)
         return [out.reshape(-1, *x.shape)]
 
     def _all_to_all(self, xs, axis):

@@ -9,6 +9,9 @@ normalises them).  A mesh is a :class:`repro_torch.launch.mesh.Mesh` (or
 anything with ``.shape`` and ``.axis_names``).  :class:`NamedSharding`
 binds a spec to a mesh, and :func:`placements` turns a spec into the
 ``torch.distributed.tensor`` placements of a ``DeviceMesh``.
+:func:`shard_tree` cuts one participant's block of every leaf of a tree by
+its spec, and :func:`gather_tree` puts the blocks together again over a
+:class:`~repro_torch.parallel.collectives.Shards`.
 
 Axes: ``("data", "model")`` single-pod, ``("pod", "data", "model")``
 multi-pod.  Batch shards over pod×data; attention heads / FFN hidden /
@@ -26,6 +29,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from typing import Any
+
+import torch
 
 from .. import tree
 
@@ -78,6 +83,93 @@ def placements(spec_: Spec, mesh) -> list:
     return out
 
 
+def entry_axes(entry) -> tuple[str, ...]:
+    """The axes one spec entry names (none for ``None``)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _entries(sharding: NamedSharding, ndim: int) -> list:
+    return list(sharding.spec) + [None] * (ndim - len(sharding.spec))
+
+
+def shard_shape(shape, sharding: NamedSharding) -> tuple[int, ...]:
+    """One device's block of a leaf: each dimension ceil-divided by the
+    product of the sizes of the axes its spec entry names (XLA pads an
+    uneven shard)."""
+    mesh = sharding.mesh
+    return tuple(-(-dim // math.prod(mesh.shape[a] for a in entry_axes(e)))
+                 for dim, e in zip(shape, _entries(sharding, len(shape))))
+
+
+def shard_slices(shape, sharding: NamedSharding,
+                 coord: dict[str, int]) -> tuple[slice, ...]:
+    """The block of a ``shape`` leaf that the participant at ``coord``
+    (``{axis: index}``) holds: along each dimension whose entry names axes,
+    the ``i``-th of ``n`` runs of ``ceil(dim / n)`` elements, ``i`` the
+    participant's row-major index over those axes and ``n`` the product of
+    their sizes.  An uneven dimension leaves the last blocks shorter (or
+    empty), where XLA pads them."""
+    mesh = sharding.mesh
+    out = []
+    for dim, e in zip(shape, _entries(sharding, len(shape))):
+        i = 0
+        for a in entry_axes(e):
+            i = i * mesh.shape[a] + coord[a]
+        n = math.prod(mesh.shape[a] for a in entry_axes(e))
+        c = -(-dim // n)
+        out.append(slice(min(i * c, dim), min((i + 1) * c, dim)))
+    return tuple(out)
+
+
+def shard_tree(tree_: Any, shardings: Any, coord: dict[str, int]) -> Any:
+    """The participant at ``coord``'s block of every leaf of ``tree_``
+    (:func:`shard_slices`), by the :class:`NamedSharding` at the same
+    place in ``shardings``: contiguous copies, which hold nothing of the
+    whole tree."""
+    return tree.map(lambda leaf, sh: leaf[shard_slices(
+        leaf.shape, sh, coord)].clone(memory_format=torch.contiguous_format),
+                    tree_, shardings)
+
+
+def gather_tree(local: Any, shardings: Any, shards, like: Any) -> Any:
+    """:func:`shard_tree`'s inverse: the whole leaves, from the blocks the
+    participants of ``shards`` (a :class:`~.collectives.Shards`) hold.
+    ``local`` is this process's block tree, or a list of them in the order
+    of ``shards.coords`` (the list form); ``like`` a tree of the whole
+    leaves' shapes (``meta`` tensors will do).  Each sharded dimension is
+    padded to its ceil-divided block, all-gathered over its entry's axes
+    and cut back to the whole length, the minor dimension first; every
+    participant receives the same whole tree."""
+    parts = local if isinstance(local, list) else [local]
+    if len(parts) != len(shards.coords):
+        raise ValueError(f"{len(parts)} block trees for "
+                         f"{len(shards.coords)} held shards")
+    mesh_axes = tuple(shards.mesh.axis_names)
+
+    def whole(sh: NamedSharding, ref, *blocks):
+        blocks = list(blocks)
+        entries = _entries(sh, len(ref.shape))
+        for d in reversed(range(len(ref.shape))):
+            axes = entry_axes(entries[d])
+            if not axes:
+                continue
+            if axes != tuple(a for a in mesh_axes if a in axes):
+                raise ValueError(f"spec {sh.spec}: the axes of an entry "
+                                 "must be in the mesh's order")
+            c = shard_shape(ref.shape, sh)[d]
+            padded = [b if b.shape[d] == c else torch.nn.functional.pad(
+                b, [0, 0] * (b.dim() - 1 - d) + [0, c - b.shape[d]])
+                for b in blocks]
+            stacked = shards.all_gather(padded, axes)
+            blocks = [torch.cat(list(s.unbind(0)), dim=d).narrow(
+                d, 0, ref.shape[d]) for s in stacked]
+        return blocks[0]
+
+    return tree.map(whole, shardings, like, *parts)
+
+
 # ---------------------------------------------------------------------------
 # mesh helpers
 # ---------------------------------------------------------------------------
@@ -101,12 +193,16 @@ def model_size(mesh) -> int:
 # ---------------------------------------------------------------------------
 # parameter rules
 # ---------------------------------------------------------------------------
+def kv_shardable(cfg, m: int) -> bool:
+    """Whether ``wk`` / ``wv`` (and ``bk`` / ``bv``) shard over a model
+    axis of ``m``: where the kv heads divide it."""
+    return cfg.n_kv_heads > 0 and cfg.n_kv_heads % m == 0
+
+
 def param_spec(path_names: list[str], ndim: int, cfg, mesh) -> Spec:
     """Partition spec of one parameter leaf (rules above)."""
     name = path_names[-1]
-    kv_ok = (
-        cfg.n_kv_heads > 0 and cfg.n_kv_heads % model_size(mesh) == 0
-    )
+    kv_ok = kv_shardable(cfg, model_size(mesh))
 
     def last_dims(*s):
         """Pad with None on the left for stacked (block) leading dims."""

@@ -1,0 +1,212 @@
+"""Tensor parallelism written out: the collectives GSPMD inserts into the
+JAX package's sharded train step, as ``torch.autograd.Function`` s over a
+:class:`~repro_torch.parallel.collectives.Shards`.
+
+The JAX package jits its train step with ``in_shardings`` from its
+sharding rules and lets XLA insert the collectives.  Here each participant
+of a ``("data", "model")`` mesh (``("pod", "data", "model")`` too) runs the
+model on its block of every parameter (:func:`.sharding.shard_tree`) and
+its rows of the batch, and the model layers call these functions where a
+sharded region begins or ends:
+
+- :func:`enter_model_region` (Megatron's *f*): identity forward, psum of
+  the gradient over ``"model"`` backward.  A replicated activation enters
+  a region whose participants each use it for their own heads, experts,
+  columns or vocabulary rows, so each holds a part of its gradient.
+- :func:`leave_model_region` (*g*): psum forward, identity backward.  The
+  participants' partial outputs add up to the replicated activation, whose
+  gradient every participant holds whole.
+- :func:`sum_over_model`: psum both ways, for a sum whose result each
+  participant reads inside its own region (the sharded ``inner_norm``'s
+  mean of squares).
+- :func:`gather_vocab` and :func:`vocab_parallel_cross_entropy`: the
+  vocabulary-sharded logits whole, and the loss over them without
+  gathering them (max, sum of exponents and the label's logit, each
+  reduced over ``"model"``; the max carries no gradient).
+
+Every reduction is the parallel layers' own: a gather reduced in shard
+order (:meth:`Shards.psum`), never ``dist.all_reduce``, so the replicated
+activations hold the same bits on every model participant.  The MoE
+routers depend on it: participants that routed differently would run
+other collectives or train another function.  Over an axis of one shard
+nothing moves (the sum or mean of one is itself), so on a 1 × 1 mesh
+each function is the identity and the sharded model gives the unsharded
+model's bits.
+"""
+from __future__ import annotations
+
+import torch
+
+from .collectives import shards as as_shards
+from .sharding import dp_axes
+
+
+class Participant:
+    """This process's place in a data × model mesh: its :class:`Shards`
+    (one held shard), its index ``mi`` of ``m`` along ``"model"`` and ``di``
+    of ``dp`` over the data axes, and the collectives the model layers
+    take over each.  ``shards`` may be a :class:`Shards`, a
+    ``DeviceMesh`` or a :class:`~repro_torch.launch.mesh.Mesh` (one shard
+    only, the list form of a 1 × 1 mesh)."""
+
+    def __init__(self, shards) -> None:
+        sh = as_shards(shards)
+        if len(sh.coords) != 1:
+            raise ValueError(f"a participant holds one shard; these hold "
+                             f"{len(sh.coords)} (run one process a shard)")
+        self.shards = sh
+        self.mesh = sh.mesh
+        self.coord = dict(sh.coords[0])
+        names = self.mesh.axis_names
+        self.m = self.mesh.shape["model"] if "model" in names else 1
+        self.mi = self.coord.get("model", 0)
+        self.dp_axes = dp_axes(self.mesh)
+        self.dp = 1
+        self.di = 0
+        for a in self.dp_axes:
+            self.dp *= self.mesh.shape[a]
+            self.di = self.di * self.mesh.shape[a] + self.coord[a]
+
+    def block(self, n: int) -> tuple[int, int]:
+        """``[lo, hi)``: this participant's block of a dimension of ``n``
+        split over ``"model"`` (ceil-divided, as ``shard_tree`` cuts it)."""
+        c = -(-n // self.m)
+        return min(self.mi * c, n), min((self.mi + 1) * c, n)
+
+    def _model(self, op: str, x: torch.Tensor) -> torch.Tensor:
+        if self.m == 1:                  # the sum of one: nothing moves
+            return x
+        return getattr(self.shards, op)([x], "model")[0]
+
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        return self._model("psum", x)
+
+    def max_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over ``"model"`` (no gradient)."""
+        if self.m == 1:
+            return x
+        return self.shards.all_gather([x.detach()], "model")[0].amax(0)
+
+    def all_gather_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``[m, ...]``: every model participant's ``x``, in model order."""
+        if self.m == 1:
+            return x[None]
+        return self.shards.all_gather([x], "model")[0]
+
+    def _dp(self, op: str, x: torch.Tensor) -> torch.Tensor:
+        if self.dp == 1:
+            return x
+        return getattr(self.shards, op)([x], self.dp_axes)[0]
+
+    def psum_dp(self, x: torch.Tensor) -> torch.Tensor:
+        return self._dp("psum", x)
+
+    def pmean_dp(self, x: torch.Tensor) -> torch.Tensor:
+        return self._dp("pmean", x)
+
+    def all_gather_dp(self, x: torch.Tensor) -> torch.Tensor:
+        """``[dp, ...]``: every data participant's ``x``, in row-major
+        order over the data axes."""
+        if self.dp == 1:
+            return x[None]
+        return self.shards.all_gather([x], self.dp_axes)[0]
+
+
+def participant(shards) -> Participant | None:
+    """``shards`` as a :class:`Participant` (None stays None)."""
+    if shards is None or isinstance(shards, Participant):
+        return shards
+    return Participant(shards)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.part = part
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.part.psum_model(g), None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        return part.psum_model(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.part = part
+        return part.psum_model(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.part.psum_model(g), None
+
+
+class _GatherVocab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part, n):
+        c = -(-n // part.m)
+        ctx.part, ctx.width, ctx.block = part, x.shape[-1], c
+        x = torch.nn.functional.pad(x, (0, c - x.shape[-1]))
+        parts = part.all_gather_model(x)
+        return torch.cat(list(parts.unbind(0)), dim=-1)[..., :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        c, lo = ctx.block, ctx.part.mi * ctx.block
+        g = torch.nn.functional.pad(g, (0, ctx.part.m * c - g.shape[-1]))
+        return g[..., lo:lo + ctx.width], None, None
+
+
+def enter_model_region(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``"model"``."""
+    return _Enter.apply(x, part)
+
+
+def leave_model_region(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """The sum of every model participant's ``x``; the gradient as it
+    is."""
+    return _Leave.apply(x, part)
+
+
+def sum_over_model(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """The sum of every model participant's ``x``, each participant's
+    gradient summed too (the result is read inside a region)."""
+    return _Sum.apply(x, part)
+
+
+def gather_vocab(logits: torch.Tensor, part: Participant,
+                 vocab: int) -> torch.Tensor:
+    """Vocabulary-sharded logits ``[..., ceil(vocab / m)]`` whole: ``[...,
+    vocab]``, the blocks in model order (the last one's padding cut)."""
+    return _GatherVocab.apply(logits, part, vocab)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 part: Participant,
+                                 vocab: int) -> torch.Tensor:
+    """:func:`repro_torch.models.lm.cross_entropy` over this participant's
+    block of the vocabulary (``logits [..., V_local]``, columns
+    ``part.block(vocab)``): the row max over ``"model"`` (no gradient), the
+    sum of exponents and the label's logit (selected by comparing the
+    global column index with the label) each summed over ``"model"``.  Every
+    model participant returns the same bits."""
+    logits32 = logits.float()
+    m = part.max_model(logits32.amax(dim=-1, keepdim=True).detach())
+    total = leave_model_region(torch.exp(logits32 - m).sum(dim=-1), part)
+    lse = torch.log(total) + m[..., 0]
+    lo, hi = part.block(vocab)
+    col = lo + torch.arange(hi - lo, device=logits.device)
+    label_logit = leave_model_region(
+        torch.where(col == labels[..., None], logits32, 0.0).sum(dim=-1),
+        part)
+    return lse - label_logit

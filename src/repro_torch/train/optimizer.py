@@ -58,15 +58,21 @@ def make_schedule(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
     return sched
 
 
-def global_norm(grads: Any) -> torch.Tensor:
-    """The float32 norm of all leaves together."""
+def global_norm(grads: Any, reduce_sums: Callable | None = None
+                ) -> torch.Tensor:
+    """The float32 norm of all leaves together.  ``reduce_sums`` (the
+    sharded step's) maps the leaves' sums of squares, in flatten order, to
+    those of the whole leaves before they are added."""
     sums = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
+    if reduce_sums is not None:
+        sums = reduce_sums(sums)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        reduce_sums: Callable | None = None):
     """``(grads scaled to at most max_norm, the norm before)``."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, reduce_sums)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -92,6 +98,15 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
     """One AdamW step after clipping: ``(new params, new state, metrics)``
     with ``metrics = {"grad_norm", "lr"}``."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    new_params, new_state, lr = adamw_step(grads, state, params, cfg)
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_step(grads: Any, state: AdamWState, params: Any,
+               cfg: AdamWConfig):
+    """The AdamW step on clipped gradients, elementwise (so slices of
+    every tree give the slice of the result): ``(new params, new state,
+    lr)``."""
     step = state.step + 1
     lr = make_schedule(cfg)(step)
     t = step.to(torch.float32)
@@ -116,5 +131,4 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
     new_params = tree.unflatten(params, [o[0] for o in out])
     new_m = tree.unflatten(params, [o[1] for o in out])
     new_v = tree.unflatten(params, [o[2] for o in out])
-    return new_params, AdamWState(m=new_m, v=new_v, step=step), {
-        "grad_norm": gnorm, "lr": lr}
+    return new_params, AdamWState(m=new_m, v=new_v, step=step), lr

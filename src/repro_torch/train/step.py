@@ -8,6 +8,13 @@ whose output carried no gradient, say) raises instead of training the
 wrong function.  :func:`abstract_state` gives the state as ``meta``
 tensors and :func:`state_shardings` its shardings on a mesh
 (:mod:`repro_torch.parallel.sharding`), ZeRO-1 included.
+
+Given the mesh's shards and those shardings, :func:`make_train_step`
+builds the step that the JAX package jits with them, for one participant
+of a data × model mesh, on its block of the state
+(:func:`~repro_torch.parallel.sharding.shard_tree`): the collectives XLA
+would insert are written out (:mod:`repro_torch.parallel.tensor` in the
+model, :func:`sharded_grads` and :func:`psum_partial` here).
 """
 from __future__ import annotations
 
@@ -20,12 +27,23 @@ from ..models.api import Model
 from ..parallel.compress import ef_init, ef_compress
 from ..parallel.sharding import (
     NamedSharding,
+    batch_specs,
     dp_axes,
     dp_size,
+    entry_axes,
     param_shardings,
+    shard_tree,
     spec,
 )
-from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
+from ..parallel.tensor import Participant, participant
+from .optimizer import (
+    AdamWConfig,
+    AdamWState,
+    adamw_init,
+    adamw_step,
+    adamw_update,
+    clip_by_global_norm,
+)
 
 TrainState = dict  # {"params": ..., "opt": AdamWState, ["ef": residual]}
 
@@ -94,11 +112,38 @@ def state_shardings(abstract: TrainState, cfg, mesh, zero_opt: bool = False):
     return out
 
 
+def _microbatches(batch: dict, accum: int) -> list[dict]:
+    """``batch`` split into ``accum`` microbatches along its first axis."""
+    return [{k: v.reshape((accum, v.shape[0] // accum)
+                          + tuple(v.shape[1:]))[i]
+             for k, v in batch.items()} for i in range(accum)]
+
+
+def _accumulate(grad_fn: Callable, batch: dict, accum: int):
+    """``grad_fn(batch)`` (``(metrics, grad leaves)``), or with ``accum >
+    1`` the mean over the microbatches of its float32 gradients and of its
+    metrics."""
+    if accum <= 1:
+        return grad_fn(batch)
+    grads = metrics = None
+    for mb in _microbatches(batch, accum):
+        m, g = grad_fn(mb)
+        grads = ([b.float() for b in g] if grads is None
+                 else [a + b.float() for a, b in zip(grads, g)])
+        metrics = m if metrics is None else {k: metrics[k] + m[k]
+                                             for k in metrics}
+    return ({k: v / accum for k, v in metrics.items()},
+            [g / accum for g in grads])
+
+
 def make_train_step(
     model: Model,
     opt_cfg: AdamWConfig,
     accum: int = 1,
     compress: bool = False,
+    *,
+    shards=None,
+    shardings: TrainState | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Returns ``train_step(state, batch) → (state, metrics)``.
 
@@ -107,34 +152,40 @@ def make_train_step(
     gradients and their metrics before dividing by ``accum``.
     ``compress=True`` quantize-dequantizes the gradients (int8 + error
     feedback) before the optimizer.  The state is not modified: the step
-    returns a new one."""
+    returns a new one.
+
+    With ``shards`` (this process's shard of a data × model mesh: a
+    :class:`~repro_torch.parallel.collectives.Shards`, a ``DeviceMesh`` or
+    a :class:`~repro_torch.parallel.tensor.Participant`) and
+    ``shardings`` (:func:`state_shardings` on that mesh, ``zero_opt`` as
+    wanted), the step is the sharded one: ``state`` is this participant's
+    block of the state (``shard_tree(state, shardings, coord)``), ``batch``
+    the whole batch (each microbatch's rows are cut by ``batch_specs``),
+    and the metrics are the whole batch's, the same on every participant.
+    Its gradients are pmeaned over the data axes and those of
+    :func:`partial_grad_leaves` summed over ``"model"``; the clipping norm
+    counts a model-sharded leaf's squares over its blocks and a
+    replicated one's once; under ZeRO-1 (``m`` / ``v`` sharded over the
+    data axes) each participant updates its data slice of ``m``, ``v`` and
+    the parameter and the parameters are all-gathered over the data axes.
+    ``compress=True`` is not sharded (its int8 blocks run over each whole
+    flattened leaf) and raises."""
+    if shards is not None:
+        return _sharded_train_step(model, opt_cfg, accum, compress,
+                                   participant(shards), shardings)
 
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss, metrics = model.loss(tree.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return metrics, tree.unflatten(params, list(grads))
+        return metrics, list(grads)
 
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
-        if accum <= 1:
-            metrics, grads = grad_fn(params, batch)
-        else:
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            metrics = None
-            for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                m, g = grad_fn(params, mb)
-                grads = tree.map(lambda a, b: a + b.float(), grads, g)
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in metrics}
-            grads = tree.map(lambda g: g / accum, grads)
-            metrics = {k: v / accum for k, v in metrics.items()}
-
+        metrics, grads = _accumulate(lambda b: grad_fn(params, b), batch,
+                                     accum)
+        grads = tree.unflatten(params, grads)
         new_state: TrainState = {}
         if compress:
             grads, new_state["ef"] = ef_compress(grads, state["ef"])
@@ -143,5 +194,181 @@ def make_train_step(
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+#: Leaves replicated over ``"model"`` that the forward reads before a model
+#: region begins (``rmsnorm(x, norm_scale)`` ahead of each slot,
+#: ``final_norm`` ahead of the head): their gradient arrives whole through
+#: ``enter_model_region``.
+AHEAD_OF_REGION = ("norm_scale", "final_norm")
+
+
+def _model_sharded(sh: NamedSharding) -> bool:
+    return any("model" in entry_axes(e) for e in sh.spec)
+
+
+def partial_grad_leaves(param_sh) -> list[bool]:
+    """Per parameter leaf (flatten order): whether a participant's gradient
+    of it is partial over ``"model"``, to be summed over it.
+
+    The rule, from the model's code: a leaf replicated over ``"model"``
+    is read inside a model region, where each participant uses it only
+    for its own heads, experts or columns (and the MoE aux losses count on
+    model participant 0 alone), except the norm scales ahead of a region
+    (:data:`AHEAD_OF_REGION`).  In the decoder-only model that is the
+    router, the SSD's ``wbc``, ``wdt``, ``conv_bc_*``, ``A_log``, ``D`` and
+    ``dt_bias``, and ``wk`` / ``wv`` / ``bk`` / ``bv`` where the kv heads
+    do not divide the model axis.  A model-sharded leaf's gradient is
+    its block's whole."""
+    return [not _model_sharded(sh) and str(path[-1]) not in AHEAD_OF_REGION
+            for path, sh in tree.leaves_with_path(param_sh)]
+
+
+def _flat_reduce(ts: list, fn: Callable) -> list:
+    """``fn`` over the tensors ``ts`` flattened into one per dtype (one
+    collective each), split back to their shapes."""
+    out = list(ts)
+    by_dtype: dict = {}
+    for i, t in enumerate(ts):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = fn(torch.cat([ts[i].reshape(-1) for i in idx]))
+        for i, part in zip(idx, flat.split([ts[i].numel() for i in idx])):
+            out[i] = part.view(ts[i].shape)
+    return out
+
+
+def batch_rows(batch: dict, cfg, part: Participant) -> dict:
+    """``part``'s rows of ``batch`` by ``batch_specs`` (all of them where
+    the batch does not divide over the data axes)."""
+    specs = batch_specs(cfg, part.mesh, batch["tokens"].shape[0],
+                        has_embeds="embeds" in batch)
+    return shard_tree(batch, {k: NamedSharding(part.mesh, specs[k])
+                              for k in batch}, part.coord)
+
+
+def sharded_grads(model: Model, params, batch: dict, part: Participant,
+                  accum: int = 1):
+    """``(metrics, grads)`` of the sharded step before its sums over
+    ``"model"``: this participant's gradients of its parameter block
+    (``params``), for its rows of each microbatch of ``batch``, pmeaned
+    over the data axes; the whole batch's metrics."""
+    def grad_fn(mb):
+        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        loss, metrics = model.loss(tree.unflatten(params, leaves),
+                                   batch_rows(mb, model.cfg, part),
+                                   shards=part)
+        grads = torch.autograd.grad(loss, leaves)
+        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    metrics, grads = _accumulate(grad_fn, batch, accum)
+    return metrics, tree.unflatten(params, _flat_reduce(grads,
+                                                        part.pmean_dp))
+
+
+def psum_partial(grads, partial: list[bool], part: Participant):
+    """``grads`` with the leaves flagged in ``partial``
+    (:func:`partial_grad_leaves`) summed over ``"model"``."""
+    leaves = tree.leaves(grads)
+    idx = [i for i, p in enumerate(partial) if p]
+    if idx:
+        for i, g in zip(idx, _flat_reduce([leaves[i] for i in idx],
+                                          part.psum_model)):
+            leaves[i] = g
+    return tree.unflatten(grads, leaves)
+
+
+def _zero_cuts(shardings: TrainState) -> list:
+    """Per parameter leaf, ``(dim, axes)`` where ZeRO-1 shards its ``m``
+    over the data axes ``axes`` along ``dim`` (its parameter's entry
+    there is None), else None."""
+    out = []
+    for p_sh, m_sh in zip(tree.leaves(shardings["params"]),
+                          tree.leaves(shardings["opt"].m), strict=True):
+        cut = None
+        for d, (pe, me) in enumerate(zip(list(p_sh.spec) + [None] * len(
+                m_sh.spec), m_sh.spec)):
+            if pe is None and me is not None:
+                cut = (d, entry_axes(me))
+        out.append(cut)
+    return out
+
+
+def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
+                        compress: bool, part: Participant, shardings):
+    if compress:
+        raise NotImplementedError(
+            "compress=True does not run sharded: its int8 blocks and their "
+            "scales run over each whole flattened leaf, and a shard's blocks "
+            "are not the whole leaf's")
+    if shardings is None:
+        raise ValueError("the sharded step needs the state's shardings "
+                         "(state_shardings)")
+    p_sh = shardings["params"]
+    partial = partial_grad_leaves(p_sh)
+    sharded = [_model_sharded(sh) for sh in tree.leaves(p_sh)]
+    cuts = _zero_cuts(shardings)
+    mesh = part.mesh
+
+    def reduce_sums(sums: list) -> list:
+        """A model-sharded leaf's squares summed over its blocks."""
+        idx = [i for i, s in enumerate(sharded) if s]
+        if not idx:
+            return sums
+        whole = part.psum_model(torch.stack([sums[i] for i in idx]))
+        sums = list(sums)
+        for j, i in enumerate(idx):
+            sums[i] = whole[j]
+        return sums
+
+    def cut(t, c):
+        """This participant's data slice of a leaf under ZeRO-1."""
+        if c is None:
+            return t
+        d, axes = c
+        n, i = 1, 0
+        for a in axes:
+            n *= mesh.shape[a]
+            i = i * mesh.shape[a] + part.coord[a]
+        size = t.shape[d] // n
+        return t.narrow(d, i * size, size)
+
+    def gather_cut(slices: list) -> list:
+        """The ZeRO-1 slices of every participant of the data axes put
+        together along their dims, one all-gather for all leaves."""
+        idx = [i for i, c in enumerate(cuts) if c is not None]
+        out = list(slices)
+        if not idx:
+            return out
+        flat = torch.cat([slices[i].reshape(-1) for i in idx])
+        everyone = part.all_gather_dp(flat)
+        off = 0
+        for i in idx:
+            t, (d, _axes) = slices[i], cuts[i]
+            blocks = everyone[:, off:off + t.numel()].reshape(-1, *t.shape)
+            out[i] = torch.cat(list(blocks.unbind(0)), dim=d)
+            off += t.numel()
+        return out
+
+    def train_step(state: TrainState, batch: dict):
+        params = state["params"]
+        metrics, grads = sharded_grads(model, params, batch, part, accum)
+        grads = psum_partial(grads, partial, part)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip,
+                                           reduce_sums)
+        g_cut = [cut(g, c) for g, c in zip(tree.leaves(grads), cuts)]
+        p_cut = [cut(p, c) for p, c in zip(tree.leaves(params), cuts)]
+        new_cut, new_opt, lr = adamw_step(
+            tree.unflatten(params, g_cut), state["opt"],
+            tree.unflatten(params, p_cut), opt_cfg)
+        new_params = tree.unflatten(params,
+                                    gather_cut(tree.leaves(new_cut)))
+        return ({"params": new_params, "opt": new_opt},
+                {**metrics, "grad_norm": gnorm, "lr": lr})
 
     return train_step

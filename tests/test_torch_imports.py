@@ -224,6 +224,48 @@ def test_rank_form_of_parallel_imports_neither_jax_nor_repro():
     assert "BAD=\n" in out.stdout + "\n", out.stdout
 
 
+SLICE10 = r"""
+import os, sys, tempfile
+import torch
+import torch.distributed as dist
+import repro_torch.parallel.tensor
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import init_ranks, make_mesh
+from repro_torch.models import Model, smoke_variant
+from repro_torch.parallel.sharding import gather_tree, shard_tree
+from repro_torch.train import (AdamWConfig, abstract_state, init_state,
+                               make_train_step, state_shardings)
+
+cfg = smoke_variant(get_config("jamba_v0_1_52b"))
+model = Model(cfg)
+opt = AdamWConfig()
+state = init_state(model, None, opt, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    dm = init_ranks(make_mesh((1, 1), ("data", "model")), 0,
+                    os.path.join(d, "store"))
+    sh = state_shardings(abstract_state(model, opt), cfg,
+                         make_mesh((1, 1), ("data", "model")), zero_opt=True)
+    local = shard_tree(state, sh, {"data": 0, "model": 0})
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    local, metrics = make_train_step(model, opt, shards=dm, shardings=sh)(
+        local, {"tokens": tokens, "labels": tokens})
+    gather_tree(local, sh, repro_torch.parallel.tensor.Participant(dm).shards,
+                state)
+    dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_sharded_train_step_imports_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", SLICE10], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout + "\n", out.stdout
+
+
 SLICE7 = r"""
 import sys, tempfile
 import repro_torch.launch.dryrun, repro_torch.launch.report
