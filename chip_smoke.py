@@ -71,7 +71,12 @@ process exits non-zero):
                 (``replaced_ms``; null without the option or for a body
                 that did not change).  Then K2, K4 and K5 at
                 ``shard_path``'s sharded shapes (one participant's heads,
-                rows and experts), held and timed the same way.
+                rows and experts), and K2, K3 and K5 at
+                ``shard_serve_path``'s (K2 over the prefills' local
+                heads, K3 over granite's local cache at its split edges
+                and last step, K5 over granite's local experts' share of a
+                prefill's and of a step's slots), held the same way and
+                timed beside their library calls.
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -235,6 +240,30 @@ process exits non-zero):
                 collectives per rank and step.  The kernels are held
                 against their plain versions at these shapes (and timed)
                 in ``kernels``.
+                ``shard_serve_path`` (in the same 4 rank processes, its
+                own line): sharded prefill and decode through
+                ``Model.init_cache`` / ``prefill`` / ``decode`` with
+                ``shards=``, bf16, 8 x 1024 prompts, 16 teacher-forced
+                steps, a 1048-position cache: granite-moe-1b-a400m on
+                (1, 4) at 4 layers (head-sharded cache: K2, K3, K5),
+                glm4-9b on (1, 4) at 2 layers (hd-sharded: K2; K3 never
+                launches), mamba2-130m on (2, 2) at 24 layers (K4).  Per
+                rank and case: every call's launches exact (K5 three times
+                per MoE layer whose local slots are not none); float32 at
+                4 / 2 / 4 layers against rank 0's unsharded run (its
+                greedy tokens fed to both, its routing replayed): every
+                call's gathered logits and the gathered cache after the
+                prefill and after the last step within 1e-4 relative RMS,
+                tokens equal, and the first step under a control past
+                that limit (granite: K3
+                read with an exclusive mask; glm4: the partial scores not
+                summed over ``"model"``; mamba2: ``inner_norm`` per block
+                in the recurrent step); bf16 against rank 0's unsharded
+                bf16 run within ``serve_path``'s limit, routing ``moved``
+                within 3 %; the same logits and ``conv_bc`` bits on every
+                model participant of a data group; a full cache raises
+                ``IndexError`` on every rank.  Printed, not limited:
+                prefill and step ms per rank, collectives, peak GB.
 14. ``roofline``: for each timed path (the prefill and a decode step of
                 every served arch at its served depth, a train step of
                 granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
@@ -3489,6 +3518,30 @@ SHARD_BF16_LIMITS = {
     for arch, src in ((MOE_ARCH, MOE_ARCH), (SERVE_ARCH, MOE_ARCH),
                       (SSM_ARCH, SSM_ARCH))}
 SHARD_OPT = AdamWConfig()
+#: ``shard_serve_path``: sharded prefill and decode (``Model.init_cache`` /
+#: ``prefill`` / ``decode`` with ``shards=``) in ``shard_path``'s rank
+#: processes, bf16, ``SERVE_BATCH`` x ``PROMPT_LEN`` prompts and
+#: ``SHARD_SERVE_NEW`` greedy tokens into a cache of ``SHARD_SERVE_LEN``
+#: positions: granite-moe head-sharded (K2, K3, K5), glm4-9b hd-sharded
+#: (K2; K3 never), mamba2 with the batch over dp and its SSD heads over
+#: model (K4), at ``layers`` (cut for the phase's time: at 8 / 4 layers
+#: the whole run read 703.7 s on an H100), the float32 check at
+#: ``f32_layers``; ``layout`` is the attention cache's layout the case
+#: must take (None: no attention).
+SHARD_SERVE_NEW = 16
+SHARD_SERVE_LEN = PROMPT_LEN + SHARD_SERVE_NEW + 8
+SHARD_SERVE_CASES = {
+    MOE_ARCH: {"mesh": (1, 4), "layers": 4, "f32_layers": 4,
+               "layout": "head"},
+    SERVE_ARCH: {"mesh": (1, 4), "layers": 2, "f32_layers": 2,
+                 "layout": "hd"},
+    SSM_ARCH: {"mesh": (2, 2), "layers": 24, "f32_layers": 4,
+               "layout": None},
+}
+#: The float32 check's control per layout: one step of the sharded decode
+#: broken (``serve_control``), which must leave the limit.
+SHARD_SERVE_CONTROLS = {"head": "exclusive_mask", "hd": "unsummed_scores",
+                        None: "per_block_norm"}
 
 
 def shard_config(arch: str, layers: int | None, **kw):
@@ -3532,6 +3585,26 @@ def shard_kernel_shapes(gen, device) -> dict:
     E = cfg.moe_experts
     sizes = routed_sizes(gen, B // dp * S * cfg.moe_top_k, E, device)
     out["moe_gmm"] = (sizes[:E // m], cfg.d_model, cfg.expert_d_ff)
+    # shard_serve_path's: K2 at the prefills' local heads, K3 at granite's
+    # local cache at the last step, K5 at granite's local experts' share
+    # of a prefill's and of a step's routed slots
+    for key, arch in (("granite", MOE_ARCH), ("glm4", SERVE_ARCH)):
+        cfg = get_config(arch)
+        dp, m = SHARD_SERVE_CASES[arch]["mesh"]
+        H, KV = local_heads(cfg, m)
+        out[f"serve_flash_attention_{key}"] = (SERVE_BATCH // dp, PROMPT_LEN,
+                                               H, KV, cfg.head_dim)
+    cfg = get_config(MOE_ARCH)
+    dp, m = SHARD_SERVE_CASES[MOE_ARCH]["mesh"]
+    H, KV = local_heads(cfg, m)
+    out["serve_decode_attention_granite"] = (
+        SERVE_BATCH // dp, SHARD_SERVE_LEN, H, KV, cfg.head_dim,
+        PROMPT_LEN + SHARD_SERVE_NEW - 1)
+    for key, tokens in (("prefill", PROMPT_LEN), ("decode", 1)):
+        sizes = routed_sizes(gen, SERVE_BATCH // dp * tokens * cfg.moe_top_k,
+                             E, device)
+        out[f"serve_moe_gmm_{key}"] = (sizes[:E // m], cfg.d_model,
+                                       cfg.expert_d_ff)
     return out
 
 
@@ -3554,31 +3627,51 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
                                "sharded gate/up"), "sharded": "moe_gmm"})
         out.append({**gmm_case(gen, sizes, f, d, dtype, device,
                                "sharded down"), "sharded": "moe_gmm"})
+        for key in ("serve_flash_attention_granite",
+                    "serve_flash_attention_glm4"):
+            B, S, H, KV, D = shapes[key]
+            out.append({**flash_case(gen, B, S, H, KV, D, dtype, True,
+                                     device), "sharded": key})
+        B, S, H, KV, D, last = shapes["serve_decode_attention_granite"]
+        for n in sorted({last, *decode_corners(B, S, H, KV, device)}):
+            out.append({**decode_case(gen, B, S, H, KV, D, dtype, n, device),
+                        "sharded": "serve_decode_attention_granite"})
+        for key in ("prefill", "decode"):
+            sizes, d, f = shapes[f"serve_moe_gmm_{key}"]
+            for label, K, N in (("gate/up", d, f), ("down", f, d)):
+                out.append({**gmm_case(gen, sizes, K, N, dtype, device,
+                                       f"sharded {key} {label}"),
+                            "sharded": f"serve_moe_gmm_{key}"})
     return out
 
 
 def shard_kernel_timings(device, seed: int, flush) -> dict:
-    """K2, K4 and K5 (gate/up and down) at the sharded shapes, bf16, beside
-    their plain versions and library calls, with their bounds."""
+    """K2, K4 and K5 (gate/up and down) at ``shard_path``'s sharded shapes,
+    bf16, beside their plain versions and library calls, with their
+    bounds; K2, K3 and K5 (gate/up) at ``shard_serve_path``'s beside their
+    library calls only (every function timed costs a quarter-second
+    warm-up a round, and the phase's time is held)."""
     F = torch.nn.functional
     gen = torch.Generator(device=device).manual_seed(seed + 12)
     shapes = shard_kernel_shapes(gen, device)
     bf = torch.bfloat16
     out = {}
-    for key in ("flash_attention_granite", "flash_attention_glm4"):
+    for key in ("flash_attention_granite", "flash_attention_glm4",
+                "serve_flash_attention_granite",
+                "serve_flash_attention_glm4"):
         B, S, H, KV, D = shapes[key]
         q = _randn(gen, (B, S, H, D), bf, device)
         k = _randn(gen, (B, S, KV, D), bf, device)
         v = _randn(gen, (B, S, KV, D), bf, device)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = measure_fns({
-            "ms": lambda: flash_attention.flash_attention(q, k, v,
-                                                          causal=True),
-            "plain_ms": lambda: flash_attention.flash_attention_torch(
-                q, k, v, causal=True),
-            "library_ms": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)},
-            flush, rounds=2)
+        fns = {"ms": lambda: flash_attention.flash_attention(q, k, v,
+                                                             causal=True),
+               "library_ms": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+        if not key.startswith("serve_"):
+            fns["plain_ms"] = lambda: flash_attention.flash_attention_torch(
+                q, k, v, causal=True)
+        t = measure_fns(fns, flush, rounds=2)
         t.update(shape=[B, S, H, D], kv_heads=KV, causal=True,
                  dtype="bfloat16", **roofline.work_bound(
                      roofline.flash_work(B, S, S, H, KV, D, bf, True)))
@@ -3597,17 +3690,43 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
              **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q, bf)))
     out["ssd_scan"] = t
     del x, dt, A, Bm, Cm
-    sizes, d, f = shapes["moe_gmm"]
-    for key, K, N_ in (("moe_gmm_gate_up", d, f), ("moe_gmm_down", f, d)):
+    B, S, H, KV, D, last = shapes["serve_decode_attention_granite"]
+    q = _randn(gen, (B, H, D), bf, device)
+    kc = _randn(gen, (B, S, KV, D), bf, device)
+    vc = _randn(gen, (B, S, KV, D), bf, device)
+    n = torch.tensor(last, dtype=torch.int32, device=device)
+    valid = (torch.arange(S, device=device) <= n)[None, None, None, :]
+    q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+    t = measure_fns({
+        "ms": lambda: decode_attention.decode_attention(q, kc, vc, n),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=valid, enable_gqa=True)},
+        flush, rounds=2)
+    t.update(cache=[B, S, KV, D], heads=H, cache_len=last, dtype="bfloat16",
+             splits=decode_attention.split_plan(B, KV, H // KV, S,
+                                                sm_count(device)),
+             **roofline.work_bound(roofline.decode_work(B, H, KV, D,
+                                                        last + 1, bf)))
+    out["serve_decode_attention_granite"] = t
+    del q, kc, vc, q4, kt, vt
+    gmm_keys = [("moe_gmm_gate_up", "moe_gmm", 0), ("moe_gmm_down",
+                                                     "moe_gmm", 1)]
+    gmm_keys += [(f"serve_moe_gmm_{key}_gate_up", f"serve_moe_gmm_{key}", 0)
+                 for key in ("prefill", "decode")]
+    for key, shape_key, down in gmm_keys:
+        sizes, d, f = shapes[shape_key]
+        K, N_ = (f, d) if down else (d, f)
         E = sizes.numel()
         xs = _randn(gen, (int(sizes.sum()), K), bf, device)
         w = (torch.randn((E, K, N_), generator=gen, device=device)
              / K ** 0.5).to(bf)
         lib, lib_name = grouped_mm_library(xs, w, sizes)
-        t = measure_fns({
-            "ms": lambda: moe_gmm.grouped_matmul(xs, w, sizes),
-            "plain_ms": lambda: moe_gmm.grouped_matmul_torch(xs, w, sizes),
-            "library_ms": lib}, flush, rounds=2)
+        fns = {"ms": lambda: moe_gmm.grouped_matmul(xs, w, sizes),
+               "library_ms": lib}
+        if not key.startswith("serve_"):
+            fns["plain_ms"] = lambda: moe_gmm.grouped_matmul_torch(xs, w,
+                                                                   sizes)
+        t = measure_fns(fns, flush, rounds=2)
         M = int(sizes.sum())
         t.update(rows=M, experts=E, K=K, N=N_, library=lib_name,
                  active_experts=int((sizes > 0).sum()),
@@ -3878,6 +3997,11 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
                               "steps_s": time.time() - t1}
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    t0 = time.time()
+    out["serve"] = {arch: shard_serve_rank(seed, device, Participant(
+        meshes[case["mesh"]]), arch) for arch, case in
+        SHARD_SERVE_CASES.items()}
+    out["serve_seconds"] = time.time() - t0
     out["seconds"] = time.time() - t_spawn
     return out
 
@@ -4001,6 +4125,407 @@ def phase_shard(args, card: str, device) -> dict:
     if failed:
         emit({"phase": "shard_path", "ok": False, **run})
     check(not failed, "shard: " + ", ".join(failed))
+    return run, phase_shard_serve(ranks, card)
+
+
+# -- sharded prefill and decode ------------------------------------------------
+
+def serve_control(name: str):
+    """The patch of one ``shard_serve_path`` control, for the decode
+    steps: the hd layout's partial scores not summed over ``"model"``
+    (``unsummed_scores``), K3 read with an exclusive mask, ``cache_len -
+    1`` (``exclusive_mask``: the off-by-one that passes most random tests),
+    ``inner_norm`` per block in the recurrent step (``per_block_norm``)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, ssd
+
+    if name == "unsummed_scores":
+        return mock.patch.object(layers, "sum_partial_scores",
+                                 lambda scores, part: scores)
+    if name == "exclusive_mask":
+        mha_decode = ops.mha_decode
+        return mock.patch.object(
+            ops, "mha_decode",
+            lambda q, k, v, cache_len: mha_decode(q, k, v, cache_len - 1))
+    return mock.patch.object(
+        ssd, "sharded_rmsnorm", lambda x, scale, n, part, eps=1e-5:
+        layers.rmsnorm(x, scale, eps))
+
+
+def serve_layout(cfg, m: int):
+    """The attention cache's layout at a model axis of ``m``: ``"head"``
+    where the kv heads divide it, else ``"hd"`` (None: no attention)."""
+    from repro_torch.parallel.sharding import kv_shardable
+
+    if not any(s.mixer == "attn" for s in cfg.pattern()):
+        return None
+    return "head" if kv_shardable(cfg, m) else "hd"
+
+
+class RowRouting(Routing):
+    """A recorded routing of the whole batch replayed on one participant's
+    rows (its data block of every router call's slots); ``local_rows``:
+    each call's slots routed to the participant's experts, the rows its
+    K5 launches take."""
+
+    def __init__(self, recorded: list, part, cfg) -> None:
+        super().__init__()
+        self.recorded = [r.reshape(part.dp, -1, r.shape[-1])[part.di]
+                         for r in recorded]
+        e0, e1 = part.block(max(cfg.moe_experts, 1))
+        self.local_rows = [int(((r >= e0) & (r < e1)).sum())
+                           for r in self.recorded]
+
+
+def expected_shard_serve_launches(cfg, layout, local_rows: list,
+                                  calls: int) -> list[dict]:
+    """Kernel launches of each call on one participant (the prefill, then
+    the steps): K2 once per attention layer of the prefill, K3 once per
+    attention layer of a step in the head-sharded layout and never in the
+    hd-sharded one, K4 once per SSM layer of the prefill, K5 three times
+    per MoE layer of every call whose local slots (``local_rows``, one
+    entry a router call) are not none: the grouped-matmul wrapper does
+    not launch on zero rows."""
+    prefill, step = expected_launches(cfg)
+    n_moe = prefill["moe_gmm"] // 3
+    out = []
+    for c in range(calls):
+        want = dict(prefill if c == 0 else step)
+        if layout == "hd":
+            want["decode_attention"] = 0
+        if n_moe:
+            want["moe_gmm"] = 3 * sum(
+                n > 0 for n in local_rows[c * n_moe:(c + 1) * n_moe])
+        out.append(want)
+    return out
+
+
+def serve_prompts(cfg, seed: int, device) -> torch.Tensor:
+    """``serve_path``'s prompts of ``cfg`` as one ``[SERVE_BATCH,
+    PROMPT_LEN]`` batch."""
+    return torch.from_numpy(np.stack([r.prompt for r in serve_requests(
+        cfg, seed)])).to(device)
+
+
+def greedy_unsharded(model, params, prompts, device) -> dict:
+    """The unsharded prefill and ``SHARD_SERVE_NEW`` greedy steps: each
+    call's logits, the tokens fed (the prompt, then each step's input),
+    and the cache after the prefill (a copy) and after the last step."""
+    batch = {"tokens": prompts}
+    cache = model.init_cache(params, batch, SHARD_SERVE_LEN)
+    logits, cache = model.prefill(params, batch, cache)
+    out, tokens = [logits], [prompts]
+    after_prefill = tree.map(torch.clone, cache["slots"])
+    for _ in range(SHARD_SERVE_NEW):
+        tokens.append(out[-1][:, -1, :model.cfg.vocab].argmax(-1)[:, None]
+                      .to(torch.int32))
+        logits, cache = model.decode(params, tokens[-1], cache)
+        out.append(logits)
+    return {"logits": out, "tokens": tokens,
+            "caches": [after_prefill, cache["slots"]],
+            "len": int(cache["len"])}
+
+
+def sharded_call(fn, device, *args, part) -> tuple:
+    """One sharded serving call with the launch counters zeroed just
+    before it: ``(logits, cache, {"ms": CUDA events, "launches",
+    "collectives"})``."""
+    observed = []
+    zero_counts()
+    with collectives.observe(lambda kind, n: observed.append((kind, n))):
+        mark = Mark(device)
+        logits, cache = fn(*args, shards=part)
+        ms = mark.ms_to_now(device)
+    return logits, cache, {"ms": ms, "launches": kernel_counts(),
+                           "collectives": collective_counts(observed)}
+
+
+def sharded_steps(model, params, part, cache, tokens, device) -> tuple:
+    """Teacher-forced decode steps from ``cache``: logits and records."""
+    logits, records = [], []
+    for tok in tokens:
+        lg, cache, rec = sharded_call(model.decode, device, params, tok,
+                                      cache, part=part)
+        logits.append(lg)
+        records.append(rec)
+    return logits, records, cache
+
+
+def whole_rows(logits: list, part) -> list:
+    """Each call's logits of every row (gathered over the data axes)."""
+    return [part.all_gather_dp(lg).reshape(-1, *lg.shape[1:])
+            for lg in logits]
+
+
+def rel_rms(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
+    """``arch``'s float32 check: rank 0 runs the unsharded model greedily
+    (routing recorded) on the seeded parameters, every rank the sharded
+    cells on its block, fed rank 0's tokens with its routing replayed;
+    rank 0 holds every call's gathered logits, the greedy tokens and the
+    gathered cache after the prefill and after the last step to the
+    unsharded run's, and the first step again, from the prefill's cache,
+    under the case's control.  Readings are rank 0's (None elsewhere)."""
+    from repro_torch.convert import gather_cache
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+
+    case = SHARD_SERVE_CASES[arch]
+    cfg = shard_config(arch, case["f32_layers"], dtype="float32")
+    model = Model(cfg)
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    lead = dist.get_rank() == 0
+    routing = Routing()
+    ref = None
+    if lead:
+        with routing.record():
+            ref = greedy_unsharded(model, full, serve_prompts(
+                cfg, seed, device), device)
+    local = shard_tree(full, param_shardings(full, cfg, part.mesh),
+                       part.coord)
+    del full
+    shared = [{"tokens": [t.cpu() for t in ref["tokens"]],
+               "routing": [r.cpu() for r in routing.recorded]}
+              if lead else None]
+    dist.broadcast_object_list(shared, src=0)
+    tokens = [t.to(device) for t in shared[0]["tokens"]]
+    rows = RowRouting([r.to(device) for r in shared[0]["routing"]], part,
+                      cfg)
+    n_moe = expected_launches(cfg)[0]["moe_gmm"] // 3
+    step_routing = Routing()             # the control replays step 1's
+    step_routing.recorded = rows.recorded[n_moe:2 * n_moe]
+    batch = {"tokens": tokens[0]}
+    cache = model.init_cache(local, batch, SHARD_SERVE_LEN, shards=part)
+    with rows.replay() as flips:
+        lg, cache, rec = sharded_call(model.prefill, device, local, batch,
+                                      cache, part=part)
+        gathered = [gather_cache(cache, cfg, part, SERVE_BATCH)]
+        start = {**cache, "len": cache["len"].clone(),
+                 "slots": tree.map(torch.clone, cache["slots"])}
+        logits, records, cache = sharded_steps(model, local, part, cache,
+                                               tokens[1:], device)
+    logits, records = [lg, *logits], [rec, *records]
+    gathered.append(gather_cache(cache, cfg, part, SERVE_BATCH))
+    layout = serve_layout(cfg, part.m)
+    with step_routing.replay(), serve_control(SHARD_SERVE_CONTROLS[layout]):
+        control, _, _ = sharded_steps(model, local, part, start,
+                                      tokens[1:2], device)
+    whole, control = whole_rows(logits, part), whole_rows(control, part)
+    out = {"layers": cfg.n_layers, "records": records, "layout": layout,
+           "launches_expected": expected_shard_serve_launches(
+               cfg, layout, rows.local_rows, len(tokens)),
+           "fingerprints": [fingerprint(t) for t in logits],
+           "len": int(cache["len"]), "routing_flips": flips,
+           "control": SHARD_SERVE_CONTROLS[layout]}
+    if lead:
+        V = cfg.vocab
+        out.update(
+            logits_rel_rms=[rel_rms(g[..., :V], w[..., :V])
+                            for g, w in zip(whole, ref["logits"])],
+            tokens_equal=all(torch.equal(g[:, -1, :V].argmax(-1),
+                                         w[:, -1, :V].argmax(-1))
+                             for g, w in zip(whole, ref["logits"])),
+            cache_rel_rms=[max(rel_rms(g, w) for g, w in zip(
+                tree.leaves(got["slots"]), tree.leaves(want), strict=True))
+                for got, want in zip(gathered, ref["caches"])],
+            len_equal=int(gathered[-1]["len"]) == ref["len"],
+            control_rel_rms=rel_rms(control[0][..., :V],
+                                    ref["logits"][1][..., :V]))
+    return out
+
+
+def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
+    """``arch``'s bf16 run: rank 0 runs the unsharded model greedily with
+    the same kernels (routing recorded) on the seeded parameters cast to
+    bf16; every rank then runs the sharded cells on its block, fed those
+    tokens with that routing replayed, each call timed (CUDA events) with
+    its launches and collectives; then decodes until its cache is full
+    and once more, which must raise ``IndexError``."""
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+
+    case = SHARD_SERVE_CASES[arch]
+    cfg = shard_config(arch, case["layers"])
+    model = Model(cfg)
+    lead = dist.get_rank() == 0
+    routing = Routing()
+    ref = None
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    local = cast_params(shard_tree(full, param_shardings(full, cfg,
+                                                         part.mesh),
+                                   part.coord), cfg, device, in_place=True)
+    if lead:
+        served = cast_params(full, cfg, device, in_place=True)
+        with routing.record():
+            ref = greedy_unsharded(model, served, serve_prompts(
+                cfg, seed, device), device)
+        del served, ref["caches"]
+    del full
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+    shared = [{"tokens": [t.cpu() for t in ref["tokens"]],
+               "routing": [r.cpu() for r in routing.recorded]}
+              if lead else None]
+    dist.broadcast_object_list(shared, src=0)
+    tokens = [t.to(device) for t in shared[0]["tokens"]]
+    rows = RowRouting([r.to(device) for r in shared[0]["routing"]], part,
+                      cfg)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    batch = {"tokens": tokens[0]}
+    cache = model.init_cache(local, batch, SHARD_SERVE_LEN, shards=part)
+    conv_bc = []
+    with rows.replay() as flips:
+        lg, cache, rec = sharded_call(model.prefill, device, local, batch,
+                                      cache, part=part)
+        conv_bc.append([fingerprint(s["conv_bc"]) for s in
+                        cache["slots"].values() if "conv_bc" in s])
+        logits, records, cache = sharded_steps(model, local, part, cache,
+                                               tokens[1:], device)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    logits, records = [lg, *logits], [rec, *records]
+    conv_bc.append([fingerprint(s["conv_bc"]) for s in
+                    cache["slots"].values() if "conv_bc" in s])
+    fingerprints = [fingerprint(t) for t in logits]
+    length = int(cache["len"])
+    whole = whole_rows(logits, part)
+    full_error = None
+    if any("k" in s for s in cache["slots"].values()):
+        tok = torch.zeros_like(tokens[1])
+        while cache["pos"] < SHARD_SERVE_LEN:
+            _, cache = model.decode(local, tok, cache, shards=part)
+        try:
+            model.decode(local, tok, cache, shards=part)
+        except IndexError as e:
+            full_error = f"IndexError: {e}"
+    layout = serve_layout(cfg, part.m)
+    out = {"layers": cfg.n_layers, "records": records, "layout": layout,
+           "launches_expected": expected_shard_serve_launches(
+               cfg, layout, rows.local_rows, len(tokens)),
+           "local_rows_per_router_call": rows.local_rows,
+           "fingerprints": fingerprints, "conv_bc_fingerprints": conv_bc,
+           "len": length, "routing_flips": flips, "peak_memory_gb": peak,
+           "full_cache": full_error,
+           "has_kv": any("k" in s for s in cache["slots"].values())}
+    if lead:
+        V = cfg.vocab
+        out["logits_rel_rms"] = [rel_rms(g[..., :V].float(),
+                                         w[..., :V].float())
+                                 for g, w in zip(whole, ref["logits"])]
+    return out
+
+
+def shard_serve_rank(seed: int, device, part, arch: str) -> dict:
+    """One participant's ``shard_serve_path`` case: its float32 check and
+    its bf16 run."""
+    t0 = time.time()
+    f32 = shard_serve_f32(seed, device, arch, part)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.time()
+    bf16 = shard_serve_bf16(seed, device, arch, part)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"coord": part.coord, "di": part.di, "f32": f32, "bf16": bf16,
+            "f32_s": t1 - t0, "bf16_s": time.time() - t1}
+
+
+def phase_shard_serve(ranks: list, card: str) -> dict:
+    """``shard_serve_path``'s checks over every rank's readings (module
+    doc, phase 13)."""
+    out, failed = {}, []
+    for arch, case in SHARD_SERVE_CASES.items():
+        per = [r["serve"][arch] for r in ranks]
+        f32, bf16 = per[0]["f32"], per[0]["bf16"]
+        limit = SERVE_BF16_KERNEL_VS_PLAIN[arch]
+
+        def launches_exact(kind: str) -> bool:
+            return all(rec["launches"] == want for p in per for rec, want
+                       in zip(p[kind]["records"],
+                              p[kind]["launches_expected"], strict=True))
+
+        def same_bits(kind: str, key: str) -> bool:
+            groups: dict = {}
+            for p in per:
+                groups.setdefault(p["di"], set()).add(
+                    json.dumps([p[kind][key], p[kind]["len"]]))
+            return all(len(v) == 1 for v in groups.values())
+        checks = {
+            "layout": f32["layout"] == bf16["layout"] == case["layout"],
+            "launches": launches_exact("bf16"),
+            "f32_launches": launches_exact("f32"),
+            "f32_logits": max(f32["logits_rel_rms"]) <= SERVE_F32_REL_RMS,
+            "f32_tokens_equal": f32["tokens_equal"],
+            "f32_cache": max(f32["cache_rel_rms"]) <= SERVE_F32_REL_RMS
+            and f32["len_equal"],
+            "f32_control_past_limit": f32["control_rel_rms"]
+            > SERVE_F32_REL_RMS,
+            "f32_routing": flip_share(f32["routing_flips"], "float32")
+            <= ROUTING_FLIP_SHARE["float32"],
+            "bf16_logits": max(bf16["logits_rel_rms"]) <= limit,
+            "bf16_routing": routing_ok([bf16["routing_flips"]]),
+            "logits_bits_equal_across_model_ranks":
+                same_bits("bf16", "fingerprints")
+                and same_bits("f32", "fingerprints"),
+            "conv_bc_bits_equal_across_model_ranks":
+                same_bits("bf16", "conv_bc_fingerprints"),
+            "full_cache_raises_on_every_rank": all(
+                (p["bf16"]["full_cache"] or "").startswith("IndexError")
+                for p in per) if bf16["has_kv"] else True,
+        }
+        if bf16["layout"] == "hd":
+            checks["no_decode_kernel_in_hd_layout"] = all(
+                rec["launches"]["decode_attention"] == 0 for p in per
+                for kind in ("f32", "bf16") for rec in p[kind]["records"])
+        step_ms = [[rec["ms"] for rec in p["bf16"]["records"][1:]]
+                   for p in per]
+        out[arch] = {
+            "arch": get_config(arch).name,
+            "mesh": {"data": case["mesh"][0], "model": case["mesh"][1]},
+            "layout": {"head": "head-sharded", "hd": "hd-sharded",
+                       None: "no attention"}[bf16["layout"]],
+            "layers": bf16["layers"], "batch": SERVE_BATCH,
+            "prompt_len": PROMPT_LEN, "new_tokens": SHARD_SERVE_NEW,
+            "max_len": SHARD_SERVE_LEN, "gpu": card,
+            "prefill_ms_per_rank": [p["bf16"]["records"][0]["ms"]
+                                    for p in per],
+            "decode_ms_per_step_median_per_rank": [
+                statistics.median(m) for m in step_ms],
+            "decode_ms_per_step_rank0": step_ms[0],
+            "time_note": "four processes share one card and gloo copies "
+                         "through the host: not a multi-card time",
+            "peak_memory_gb_per_rank": [p["bf16"]["peak_memory_gb"]
+                                        for p in per],
+            "launches_prefill_rank0": bf16["records"][0]["launches"],
+            "launches_step_rank0": bf16["records"][1]["launches"],
+            "k5_launches_per_rank": [sum(rec["launches"]["moe_gmm"]
+                                         for rec in p["bf16"]["records"])
+                                     for p in per],
+            "collectives_prefill_rank0": bf16["records"][0]["collectives"],
+            "collectives_step_rank0": bf16["records"][1]["collectives"],
+            "f32": {k: f32[k] for k in (
+                "layers", "logits_rel_rms", "tokens_equal", "cache_rel_rms",
+                "len_equal", "control", "control_rel_rms", "routing_flips")},
+            "f32_limit_rel_rms": SERVE_F32_REL_RMS,
+            "bf16": {"max_rel_rms": max(bf16["logits_rel_rms"]),
+                     "rel_rms_per_call": bf16["logits_rel_rms"],
+                     "limit": limit, "routing_flips": bf16["routing_flips"],
+                     "routing_limit": ROUTING_FLIP_SHARE["bfloat16"]},
+            "full_cache_rank0": bf16["full_cache"],
+            "seconds_rank0": {"f32": per[0]["f32_s"],
+                              "bf16": per[0]["bf16_s"]},
+            "checks": checks}
+        failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+    run = {"ranks": SHARD_RANKS, "cases": out}
+    if failed:
+        emit({"phase": "shard_serve_path", "ok": False, **run})
+    check(not failed, "shard_serve: " + ", ".join(failed))
     return run
 
 
@@ -4466,11 +4991,15 @@ def run(args) -> None:
         emit({"phase": "kernels", **c})
     moe_ssd_timing = moe_ssd_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": moe_ssd_timing})
+    t0 = time.perf_counter()
     shard_checks = shard_kernel_checks(device, args.seed)
     for c in shard_checks:
         emit({"phase": "kernels", **c})
+    t1 = time.perf_counter()
     shard_timing = shard_kernel_timings(device, args.seed, flush)
-    emit({"phase": "kernels", "timings": {"sharded": shard_timing}})
+    emit({"phase": "kernels", "timings": {"sharded": shard_timing},
+          "sharded_seconds": {"checks": t1 - t0,
+                              "timings": time.perf_counter() - t1}})
 
     t0 = time.perf_counter()
     stream = make_stream(args)
@@ -4540,8 +5069,9 @@ def run(args) -> None:
     emit({"phase": "dist_path", "ok": True, **dist_run})
     del ep_ref, par_ref
     torch.cuda.empty_cache()
-    shard = phase_shard(args, card, device)
+    shard, shard_serve = phase_shard(args, card, device)
     emit({"phase": "shard_path", "ok": True, **shard})
+    emit({"phase": "shard_serve_path", "ok": True, **shard_serve})
     for res in phase_roofline(served, train):
         emit({"phase": "roofline", "ok": True, "gpu": card, **res})
     emit({"phase": "dryrun", "ok": True, **phase_dryrun()})
@@ -4571,6 +5101,25 @@ def run(args) -> None:
                                    if c["kernel"] == name
                                    and c["sharded"].startswith(key)),
                 **shard_timing[timed]}
+
+    def sharded_serve(name: str, arch: str, key: str | None = None,
+                      timed: str | None = None) -> dict:
+        """A kernel in a ``shard_serve_path`` case: its launches per rank
+        in the prefill and in a step (rank 0's), its checks' largest
+        error at that case's sharded shapes and its timing there."""
+        case = shard_serve["cases"][arch]
+        out = {"path": case["arch"], "mesh": case["mesh"],
+               "layout": case["layout"],
+               "launches_per_rank_prefill":
+                   case["launches_prefill_rank0"][name],
+               "launches_per_rank_step": case["launches_step_rank0"][name]}
+        if key:
+            out["max_abs_err"] = max(c["max_abs_err"] for c in shard_checks
+                                     if c["kernel"] == name
+                                     and c["sharded"] == key)
+        if timed:
+            out.update(shard_timing[timed])
+        return out
 
     def entry(name: str, replaces: str, per: str, arch: str, t: dict,
               checked: list) -> dict:
@@ -4651,7 +5200,14 @@ def run(args) -> None:
             "granite": sharded("flash_attention", "flash_attention_granite",
                                MOE_ARCH, "flash_attention_granite"),
             "glm4": sharded("flash_attention", "flash_attention_glm4",
-                            SERVE_ARCH, "flash_attention_glm4")}},
+                            SERVE_ARCH, "flash_attention_glm4")},
+        "sharded_serve": {
+            "granite": sharded_serve(
+                "flash_attention", MOE_ARCH, "serve_flash_attention_granite",
+                "serve_flash_attention_granite"),
+            "glm4": sharded_serve(
+                "flash_attention", SERVE_ARCH, "serve_flash_attention_glm4",
+                "serve_flash_attention_glm4")}},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
@@ -4666,13 +5222,22 @@ def run(args) -> None:
              "per_step": encdec["launches_per_call"]["decode"][
                  "decode_attention"],
              "cross_last_step": attn_timing["decode_attention_cross"],
-             "self_last_step": attn_timing["decode_attention_self"]}},
+             "self_last_step": attn_timing["decode_attention_self"]},
+         "sharded_serve": {
+             "granite": sharded_serve(
+                 "decode_attention", MOE_ARCH,
+                 "serve_decode_attention_granite",
+                 "serve_decode_attention_granite"),
+             "glm4": sharded_serve("decode_attention", SERVE_ARCH)}},
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
          "jamba_prefill": moe_ssd_timing["ssd_scan_jamba"],
          **trained("ssd_scan", SSM_ARCH),
-         "sharded": sharded("ssd_scan", "ssd_scan", SSM_ARCH, "ssd_scan")},
+         "sharded": sharded("ssd_scan", "ssd_scan", SSM_ARCH, "ssd_scan"),
+         "sharded_serve": {**sharded_serve("ssd_scan", SSM_ARCH),
+                           "shape_note": "the prefill's block is the "
+                                         "sharded step's: timed there"}},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
@@ -4694,7 +5259,17 @@ def run(args) -> None:
                       "moe_gmm"]},
          "sharded": {**sharded("moe_gmm", "moe_gmm", MOE_ARCH,
                                "moe_gmm_gate_up"),
-                     "down": shard_timing["moe_gmm_down"]}}],
+                     "down": shard_timing["moe_gmm_down"]},
+         "sharded_serve": {
+             **sharded_serve("moe_gmm", MOE_ARCH, "serve_moe_gmm_decode",
+                             "serve_moe_gmm_decode_gate_up"),
+             "launches_per_rank_run": shard_serve["cases"][MOE_ARCH][
+                 "k5_launches_per_rank"],
+             "prefill_max_abs_err": max(
+                 c["max_abs_err"] for c in shard_checks
+                 if c["sharded"] == "serve_moe_gmm_prefill"),
+             "prefill_gate_up": shard_timing[
+                 "serve_moe_gmm_prefill_gate_up"]}}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4718,9 +5293,9 @@ def main() -> None:
                          "bf16 runs are always at full depth)")
     ap.add_argument("--shard", action="store_true",
                     help="only build the kernels, hold them at the sharded "
-                         "shapes and run shard_path (bringing up the "
-                         "sharded step; the kernels line and the ok line "
-                         "are not printed)")
+                         "shapes and run shard_path and shard_serve_path "
+                         "(bringing up the sharded step and serving; the "
+                         "kernels line and the ok line are not printed)")
     ap.add_argument("--serve", nargs="+", metavar="ARCH",
                     help="only build the kernels and serve these archs, "
                          "each held to the serving checks (bringing up an "
@@ -4737,7 +5312,7 @@ def main() -> None:
 
 def shard_only(args) -> None:
     """``--shard``: the kernels at the sharded shapes, then ``shard_path``
-    alone."""
+    and ``shard_serve_path`` alone."""
     card = phase_env()
     device = torch.device("cuda")
     phase_build()
@@ -4748,8 +5323,9 @@ def shard_only(args) -> None:
         device, args.seed, flush)}})
     del flush
     torch.cuda.empty_cache()
-    emit({"phase": "shard_path", "ok": True,
-          **phase_shard(args, card, device)})
+    shard, shard_serve = phase_shard(args, card, device)
+    emit({"phase": "shard_path", "ok": True, **shard})
+    emit({"phase": "shard_serve_path", "ok": True, **shard_serve})
 
 
 def serve_only(args) -> None:

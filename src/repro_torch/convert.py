@@ -12,10 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tree
 from .device import resolve_device
 from .models.forecast_ssd import ForecastCell
 from .models import encdec, lm
-from .parallel.sharding import param_shardings, shard_tree
+from .parallel.collectives import shards as as_shards
+from .parallel.sharding import (
+    cache_shardings,
+    gather_tree,
+    param_shardings,
+    shard_tree,
+)
 from .train.optimizer import AdamWState
 
 _GATE_FIELDS = ("v", "peer_vsum", "inter_cnt", "intra_cnt", "rowmask",
@@ -117,6 +124,23 @@ def lm_shard_from_numpy(params, cfg, mesh, coord: dict,
     by the sharding rules (``param_shardings``, ``shard_tree``)."""
     full = lm_params_from_numpy(params, cfg, device)
     return shard_tree(full, param_shardings(full, cfg, mesh), coord)
+
+
+def gather_cache(cache: dict, cfg, shards, batch_size: int) -> dict:
+    """A participant's decode cache (``lm.init_cache(..., part=)``) whole:
+    every slot gathered (``gather_tree`` over ``cache_shardings``) from the
+    blocks the participants of ``shards`` (a ``Participant``, or what it
+    is made from) hold; ``"len"`` and ``"pos"`` as this one holds them.
+    Every participant receives the same tree, of new tensors (a later step
+    writes the cache in place)."""
+    sh = as_shards(getattr(shards, "shards", shards))
+    max_len = next((s["k"].shape[2] for s in cache["slots"].values()
+                    if "k" in s), 1)
+    like = lm.init_cache(cfg, batch_size, max_len, "meta")["slots"]
+    slots = gather_tree(cache["slots"], cache_shardings(
+        cfg, sh.mesh, like, batch_size), sh, like)
+    return {"len": cache["len"].clone(), "pos": cache["pos"],
+            "slots": tree.map(torch.clone, slots)}
 
 
 def lm_params_to_numpy(params) -> dict:

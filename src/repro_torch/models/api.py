@@ -17,8 +17,12 @@ configs (``enc_layers > 0``) through :mod:`.encdec`.
 :class:`~repro_torch.parallel.tensor.Participant`, or the ``Shards`` /
 ``DeviceMesh`` it is made from), given its block of the parameters
 (:func:`repro_torch.parallel.sharding.shard_tree`) and its rows of the
-batch.  Decoder-only configs only; without it every call is the
-unsharded one.
+batch.  ``init_cache``, ``prefill`` and ``decode`` take it too: there the
+participant is given the whole batch, as the reference's jitted serving
+cells are, keeps its block of the cache
+(:func:`repro_torch.convert.gather_cache` gathers it whole) and returns
+its rows' logits over the whole vocabulary.  Decoder-only configs only;
+without it every call is the unsharded one.
 """
 from __future__ import annotations
 
@@ -89,25 +93,33 @@ class Model:
         return participant(shards)
 
     # -- serving --------------------------------------------------------------
-    def init_cache(self, params: Params, batch: dict, max_len: int) -> dict:
+    def init_cache(self, params: Params, batch: dict, max_len: int,
+                   shards=None) -> dict:
+        """A zero cache for ``batch``; with ``shards``, the participant's
+        block of it (``cache_shardings``)."""
+        part = self._part(shards)
         if self.is_encdec:
             return encdec.init_cache(params, self.cfg, batch["enc_embeds"],
                                      max_len)
         bsz = batch["tokens"].shape[0]
-        return lm.init_cache(self.cfg, bsz, max_len, params["embed"].device)
+        return lm.init_cache(self.cfg, bsz, max_len, params["embed"].device,
+                             part=part)
 
-    def prefill(self, params: Params, batch: dict, cache: dict):
+    def prefill(self, params: Params, batch: dict, cache: dict,
+                shards=None):
+        part = self._part(shards)
         if self.is_encdec:
             # the encoder output is already in the cache (init_cache
             # encodes); prefill runs the decoder prompt into the self cache
             return encdec.prefill(params, self.cfg, batch["tokens"], cache)
         return lm.prefill(params, self.cfg, batch["tokens"], cache,
-                          embeds=batch.get("embeds"))
+                          embeds=batch.get("embeds"), part=part)
 
-    def decode(self, params: Params, tokens, cache: dict):
+    def decode(self, params: Params, tokens, cache: dict, shards=None):
+        part = self._part(shards)
         if self.is_encdec:
             return encdec.decode_step(params, self.cfg, tokens, cache)
-        return lm.decode_step(params, self.cfg, tokens, cache)
+        return lm.decode_step(params, self.cfg, tokens, cache, part=part)
 
     # -- bookkeeping ----------------------------------------------------------
     def param_count(self, active_only: bool = False) -> int:

@@ -15,7 +15,12 @@ column, ``wo`` by row), its kv heads (``wk`` / ``wv`` by column where the
 kv heads divide the model axis, else the columns of the kv heads its
 query heads read, from the replicated weights), its ``d_ff`` columns, in
 a region of :func:`~repro_torch.parallel.tensor.enter_model_region` and
-:func:`~repro_torch.parallel.tensor.leave_model_region`.
+:func:`~repro_torch.parallel.tensor.leave_model_region`.  With a cache,
+the participant keeps its block of it (``parallel/sharding.py``'s
+``cache_spec_for_kv``): its kv heads where they shard (head-sharded
+layout: a decode step runs the decode kernel over them), else a
+``head_dim`` block of every kv head (hd-sharded layout,
+:func:`attention_decode_sharded`).
 """
 from __future__ import annotations
 
@@ -190,23 +195,35 @@ def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
     return out @ p["wo"].to(out.dtype)
 
 
-def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part):
+def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
+                       kv_out: bool = False):
     """Self-attention over ``part``'s query heads ``part.block(H)``.  With
     ``wk`` / ``wv`` replicated, the kv heads those query heads read are
     projected from their columns: one kv head for all of them (glm4-9b at
     a model axis of 4: 8 heads over one, so n_rep 8), or, where the block
-    straddles kv groups unevenly, each query head's own (n_rep 1)."""
+    straddles kv groups unevenly, each query head's own (n_rep 1).
+
+    ``kv_out``: also return k (after rope) and v as a sharded cache keeps
+    them, ``(out, k, v)``: this participant's kv heads where they shard,
+    else every kv head at the whole ``head_dim`` (projected from the
+    replicated ``wk`` / ``wv``; rope pairs column ``i`` with ``i + hd/2``,
+    which another participant's ``head_dim`` block holds, so the cache
+    block is cut after it, by :func:`kv_cache_block`)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = dtype_of(cfg.dtype)
     h_lo, h_hi = part.block(H)
     x = enter_model_region(x, part)
     B, S = x.shape[:2]
+    heads = None
     if kv_shardable(cfg, part.m):
         cols, pick = slice(None), None
     else:
         n_rep = H // KV
         kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
-        cols = slice(kv_lo * hd, kv_hi * hd)
+        if kv_out:                            # every kv head, then q's
+            cols, heads = slice(None), slice(kv_lo, kv_hi)
+        else:
+            cols = slice(kv_lo * hd, kv_hi * hd)
         even = kv_hi - kv_lo == 1 or (
             h_lo % n_rep == 0 and (h_hi - h_lo) % n_rep == 0)
         pick = None if even else (h_lo - kv_lo * n_rep, n_rep)
@@ -220,15 +237,30 @@ def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part):
     q = q.reshape(B, S, h_hi - h_lo, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
-    if pick is not None:
-        first, n_rep = pick
-        k = _repeat_kv(k, n_rep)[:, :, first:first + h_hi - h_lo]
-        v = _repeat_kv(v, n_rep)[:, :, first:first + h_hi - h_lo]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = attend(q, k, v, cfg, causal)
+    k_att, v_att = k, v
+    if heads is not None:                     # the kv heads q reads
+        k_att = k[:, :, heads].contiguous()
+        v_att = v[:, :, heads].contiguous()
+    if pick is not None:
+        first, n_rep = pick
+        k_att = _repeat_kv(k_att, n_rep)[:, :, first:first + h_hi - h_lo]
+        v_att = _repeat_kv(v_att, n_rep)[:, :, first:first + h_hi - h_lo]
+    out = attend(q, k_att, v_att, cfg, causal)
     out = out.reshape(B, S, (h_hi - h_lo) * hd)
-    return leave_model_region(out @ p["wo"].to(out.dtype), part)
+    out = leave_model_region(out @ p["wo"].to(out.dtype), part)
+    return (out, k, v) if kv_out else out
+
+
+def kv_cache_block(t: torch.Tensor, cfg, part) -> torch.Tensor:
+    """A participant's block of k or v ``[..., KV', hd]`` from
+    :func:`_attention_sharded` as its cache keeps it: as it is where the
+    kv heads shard, else its ``head_dim`` columns ``part.block(hd)``."""
+    if kv_shardable(cfg, part.m):
+        return t
+    lo, hi = part.block(cfg.head_dim)
+    return t[..., lo:hi]
 
 
 def attend(q, k, v, cfg, causal: bool):
@@ -276,20 +308,114 @@ def attention_decode(p: Params, x, cfg, k_cache, v_cache, cache_len, *,
         index = cache_len.reshape(1).long()
         k_cache.index_copy_(1, index, k.to(k_cache.dtype))
         v_cache.index_copy_(1, index, v.to(v_cache.dtype))
-    if cfg.attention_impl == "cuda":
-        out = ops.mha_decode(q, k_cache, v_cache, cache_len)
-    else:
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        kk = _repeat_kv(k_cache, n_rep)
-        vv = _repeat_kv(v_cache, n_rep)
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
-        valid = torch.arange(S_max, device=x.device) <= cache_len
-        logits = torch.where(valid, logits, -1e30)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    out = _attend_cache(q, k_cache, v_cache, cache_len, cfg)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(out.dtype), k_cache, v_cache
+
+
+def _attend_cache(q, k_cache, v_cache, cache_len, cfg):
+    """q ``[B,1,H,hd]`` against whole-head caches ``[B,S,KV,hd]``,
+    positions ``<= cache_len``: the decode kernel under ``"cuda"``, else
+    the reference's plain decode."""
+    if cfg.attention_impl == "cuda":
+        return ops.mha_decode(q, k_cache, v_cache, cache_len)
+    n_rep = q.shape[2] // k_cache.shape[2]
+    kk = _repeat_kv(k_cache, n_rep)
+    vv = _repeat_kv(v_cache, n_rep)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
+    valid = torch.arange(k_cache.shape[1], device=q.device) <= cache_len
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
+def attention_decode_sharded(p: Params, x, cfg, k_cache, v_cache,
+                             cache_len, part):
+    """:func:`attention_decode` on ``part``'s block of the weights and of
+    the cache (``x [B, 1, d]`` its rows, replicated over ``"model"``):
+    its query heads ``part.block(H)``, roped at ``cache_len``, then
+
+    - head-sharded layout (the kv heads divide the model axis): its kv
+      heads projected, roped and written at ``cache_len`` into its cache
+      ``[B, S, KV/m, hd]``, and the decode kernel over them;
+    - hd-sharded layout: every kv head projected from the replicated
+      ``wk`` / ``wv`` and roped at the whole ``head_dim`` before its
+      columns ``part.block(hd)`` are written into its cache ``[B, S, KV,
+      hd/m]``; then :func:`_attend_hd_block`.
+
+    Then ``wo``'s rows of its heads, summed over ``"model"``."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    cdt = dtype_of(cfg.dtype)
+    h_lo, h_hi = part.block(H)
+    x = enter_model_region(x, part)
+    B = x.shape[0]
+    q = x @ p["wq"].to(cdt)
+    k = x @ p["wk"].to(cdt)
+    v = x @ p["wv"].to(cdt)
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    pos = cache_len.reshape(1, 1).expand(B, 1)
+    q = rope(q.reshape(B, 1, h_hi - h_lo, hd), pos, cfg.rope_theta)
+    k = rope(k.reshape(B, 1, -1, hd), pos, cfg.rope_theta)
+    v = v.reshape(B, 1, -1, hd)
+    check_cache_index(cache_len, k_cache.shape[1])
+    index = cache_len.reshape(1).long()
+    k_cache.index_copy_(1, index, kv_cache_block(k, cfg, part).to(
+        k_cache.dtype))
+    v_cache.index_copy_(1, index, kv_cache_block(v, cfg, part).to(
+        v_cache.dtype))
+    if kv_shardable(cfg, part.m):
+        out = _attend_cache(q, k_cache, v_cache, cache_len, cfg)
+    else:
+        out = _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part)
+    out = out.reshape(B, 1, (h_hi - h_lo) * hd)
+    return leave_model_region(out @ p["wo"].to(out.dtype), part)
+
+
+def sum_partial_scores(scores: torch.Tensor, part) -> torch.Tensor:
+    """The hd-sharded layout's partial scores summed over ``"model"``: a
+    gather summed in shard order, so every participant holds the same
+    bits."""
+    return part.psum_model(scores)
+
+
+def _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part):
+    """One-token attention over the hd-sharded layout's cache block
+    ``[B, S, KV, hd/m]`` (every kv head, this participant's ``head_dim``
+    columns): the reference's two decode products
+    (``src/repro/models/layers.py:227-232``) cut along ``head_dim``.
+
+    1. q of every head (all-gathered over ``"model"``, after rope at the
+       whole ``head_dim``), its block of columns;
+    2. float32 partial scores ``[B, H, S]`` against the cache block,
+       summed over ``"model"`` (:func:`sum_partial_scores`);
+    3. the scale ``1/sqrt(head_dim)`` of the whole head, the inclusive
+       mask ``pos <= cache_len``, the softmax;
+    4. the probabilities (rounded to the cache's dtype) times the v block
+       ``[B, H, hd/m]``, all-gathered over ``"model"``, the blocks joined
+       along ``head_dim`` in model order, this participant's heads kept.
+
+    The decode kernel does not run here: its function is whole-head
+    attention (and it takes ``head_dim`` 64 or 128 only).  Returns
+    ``[B, 1, H/m, hd]``."""
+    B, S, KV, _ = k_cache.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    lo, hi = part.block(hd)
+    h_lo, h_hi = part.block(H)
+    q_all = torch.cat(list(part.all_gather_model(q[:, 0]).unbind(0)), dim=1)
+    qb = q_all[..., lo:hi].float().reshape(B, KV, H // KV, hi - lo)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qb, k_cache.float())
+    scores = sum_partial_scores(scores, part) * (1.0 / math.sqrt(hd))
+    valid = torch.arange(S, device=q.device) <= cache_len
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bgrs,bsgd->bgrd", probs.float(), v_cache.float())
+    o = o.reshape(B, H, hi - lo).to(q.dtype)
+    o = torch.cat(list(part.all_gather_model(o).unbind(0)), dim=-1)
+    return o[:, None, h_lo:h_hi]
 
 
 # ---------------------------------------------------------------------------

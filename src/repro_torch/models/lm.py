@@ -33,6 +33,15 @@ in model regions (:mod:`.layers`, :mod:`.moe`, :mod:`.ssd`).  The loss a
 participant returns is its part of the whole batch's: its mean over the
 data axes is that loss, and so is its gradients' mean.  Without ``part``
 the code and its bits are the unsharded ones.
+
+``init_cache``, ``prefill`` and ``decode_step`` run so too, as the JAX
+package's ``prefill_step`` / ``decode_step`` cells jitted with
+``cache_shardings``: the participant allocates and fills its block of
+every cache slot, takes its rows of the (whole) batch it is given, and
+returns its rows' logits over the whole vocabulary (gathered over
+``"model"``).  The attention cache is head-sharded where the kv heads
+divide the model axis, else sharded over ``head_dim``; the fully-seq
+layout (a batch that does not divide over the data axes) raises.
 """
 from __future__ import annotations
 
@@ -41,21 +50,27 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tree
+from ..parallel.sharding import cache_shardings, kv_shardable, shard_slices
 from ..parallel.tensor import (
     enter_model_region,
+    gather_vocab,
     leave_model_region,
     vocab_parallel_cross_entropy,
 )
 from .config import ModelConfig
 from .layers import (
+    _attention_sharded,
     _project_qkv,
     attend,
     attention_apply,
     attention_decode,
+    attention_decode_sharded,
     attention_init,
     attention_shapes,
     check_cache_index,
     dtype_of,
+    kv_cache_block,
     mlp_apply,
     mlp_init,
     mlp_shapes,
@@ -309,7 +324,13 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device) -> dict:
+               device, part=None) -> dict:
+    """Zero caches of a batch of ``batch_size`` and ``max_len`` positions.
+    With ``part``, its block of every slot by ``cache_shardings``: the
+    shapes ``shard_tree`` would cut from the whole cache (``"len"``
+    replicated, ``"pos"`` its host mirror)."""
+    if part is not None:
+        return _init_cache_block(cfg, batch_size, max_len, device, part)
     cdt = dtype_of(cfg.dtype)
     cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=device),
                    "pos": 0, "slots": {}}
@@ -337,18 +358,68 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return cache
 
 
+def _check_cache_layout(cfg: ModelConfig, batch_size: int, part) -> None:
+    """Raise where ``part``'s mesh would give the cache a layout the
+    sharded layers do not run: the fully-seq one (a batch that does not
+    divide over the data axes splits the cache's sequence, so one step's
+    softmax would span participants), or attention slots whose kv heads
+    and ``head_dim`` both leave a remainder on the model axis."""
+    _check_rows(batch_size, part)
+    attn = any(s.mixer == "attn" for s in cfg.pattern())
+    if attn and not kv_shardable(cfg, part.m) and cfg.head_dim % part.m:
+        raise NotImplementedError(
+            f"{cfg.name}: neither {cfg.n_kv_heads} kv heads nor head_dim "
+            f"{cfg.head_dim} divide a model axis of {part.m}")
+
+
+def _init_cache_block(cfg: ModelConfig, batch_size: int, max_len: int,
+                      device, part) -> dict:
+    _check_cache_layout(cfg, batch_size, part)
+    whole = init_cache(cfg, batch_size, max_len, "meta")
+    sh = cache_shardings(cfg, part.mesh, whole["slots"], batch_size)
+
+    def block(leaf, s):
+        shape = [sl.stop - sl.start
+                 for sl in shard_slices(leaf.shape, s, part.coord)]
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return {"len": torch.zeros((), dtype=torch.int32, device=device),
+            "pos": 0, "slots": tree.map(block, whole["slots"], sh)}
+
+
+def _check_rows(batch_size: int, part) -> None:
+    if batch_size % part.dp:
+        raise NotImplementedError(
+            f"a batch of {batch_size} does not divide over {part.dp} data "
+            "participants: the fully-seq cache layout does not run sharded")
+
+
+def batch_block(t: torch.Tensor, part) -> torch.Tensor:
+    """``part``'s rows of a whole batch ``t`` (``batch_specs``: the
+    batch's ``dp`` blocks in row-major order over the data axes)."""
+    _check_rows(t.shape[0], part)
+    n = t.shape[0] // part.dp
+    return t[part.di * n:(part.di + 1) * n]
+
+
 def _kv_slots(cache: dict) -> list[dict]:
     """The attention slots of a cache: the only ones with a length."""
     return [slot for slot in cache["slots"].values() if "k" in slot]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict, embeds: torch.Tensor | None = None):
+            cache: dict, embeds: torch.Tensor | None = None, part=None):
     """Run the prompt through the model, filling the cache. Returns logits
     of the last position and the cache (written in place: K/V at
     ``[:S]``, zeros after, as the reference's padded copy; SSM slots hold
-    the state after the last prompt step)."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    the state after the last prompt step).  With ``part`` (module doc),
+    its rows of ``tokens`` (and ``embeds``) into its cache block, and its
+    rows' logits."""
+    if part is not None:
+        check_shardable(cfg, part.m)
+        tokens = batch_block(tokens, part)
+        if embeds is not None:
+            embeds = batch_block(embeds, part)
+    x = embed_inputs(params, cfg, tokens, embeds, part)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     for slot in _kv_slots(cache):
@@ -361,29 +432,45 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             p = bp[skey]
             h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
             if kind == "attn":
-                q, k, v = _project_qkv(p, h, h, cfg)
-                q = rope(q, positions, cfg.rope_theta)
-                k = rope(k, positions, cfg.rope_theta)
-                out = attend(q, k, v, cfg, causal=True)
-                out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-                x = x + out @ p["wo"].to(out.dtype)
+                if part is None:
+                    q, k, v = _project_qkv(p, h, h, cfg)
+                    q = rope(q, positions, cfg.rope_theta)
+                    k = rope(k, positions, cfg.rope_theta)
+                    out = attend(q, k, v, cfg, causal=True)
+                    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+                    x = x + out @ p["wo"].to(out.dtype)
+                else:
+                    out, k, v = _attention_sharded(p, h, cfg, positions,
+                                                   True, part, kv_out=True)
+                    x = x + out
+                    k = kv_cache_block(k, cfg, part)
+                    v = kv_cache_block(v, cfg, part)
                 c = cache["slots"][skey]
                 for name, t in (("k", k), ("v", v)):
                     c[name][i, :, :S] = t
                     c[name][i, :, S:] = 0
             elif kind == "ssm":
-                out, st = ssm_apply(p, h, cfg, return_state=True)
+                out, st = ssm_apply(p, h, cfg, return_state=True, part=part)
                 x = x + out
                 _write_state(cache["slots"][skey], i, st)
             elif kind == "mlp":
-                x = x + mlp_apply(p, h)
+                x = x + mlp_apply(p, h, part)
             else:
-                x = x + moe_apply(p, h, cfg)[0]
+                x = x + moe_apply(p, h, cfg, part)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(params, cfg, x[:, -1:, :])
+    logits = _step_logits(params, cfg, x[:, -1:, :], part)
     cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
     cache["pos"] = S
     return logits, cache
+
+
+def _step_logits(params: Params, cfg: ModelConfig, x, part):
+    """The head's logits; with ``part``, its block gathered over
+    ``"model"`` into the whole vocabulary."""
+    logits = head_logits(params, cfg, x, part)
+    if part is None:
+        return logits
+    return gather_vocab(logits, part, cfg.vocab_padded)
 
 
 def _write_state(slot: dict, i: int, st: SsmState) -> None:
@@ -394,14 +481,19 @@ def _write_state(slot: dict, i: int, st: SsmState) -> None:
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict):
+                cache: dict, part=None):
     """One decode step. tokens: [B, 1] → logits [B, 1, V], the cache with
     the new K/V written at ``len`` and ``len`` advanced by one.  Raises
     ``IndexError`` when the cache is full (the JAX package clamps the
-    write index instead)."""
+    write index instead; a participant checks its host mirror, the same
+    on every one).  With ``part`` (module doc), its rows of ``tokens``
+    and its rows' logits."""
     for slot in _kv_slots(cache):
         check_cache_index(cache["pos"], slot["k"].shape[2])
-    x = embed_inputs(params, cfg, tokens)
+    if part is not None:
+        check_shardable(cfg, part.m)
+        tokens = batch_block(tokens, part)
+    x = embed_inputs(params, cfg, tokens, part=part)
     cache_len = cache["len"]
     for i in range(cfg.n_blocks):
         bp = _block(params, i)
@@ -410,21 +502,25 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             h = rmsnorm(x, p["norm_scale"], cfg.norm_eps)
             if kind == "attn":
                 c = cache["slots"][skey]
-                out, _, _ = attention_decode(p, h, cfg, c["k"][i], c["v"][i],
-                                             cache_len)
+                if part is None:
+                    out, _, _ = attention_decode(p, h, cfg, c["k"][i],
+                                                 c["v"][i], cache_len)
+                else:
+                    out = attention_decode_sharded(p, h, cfg, c["k"][i],
+                                                   c["v"][i], cache_len, part)
                 x = x + out
             elif kind == "ssm":
                 c = cache["slots"][skey]
                 out, st = ssm_decode(p, h, cfg, SsmState(
-                    c["conv_x"][i], c["conv_bc"][i], c["ssm"][i]))
+                    c["conv_x"][i], c["conv_bc"][i], c["ssm"][i]), part)
                 x = x + out
                 _write_state(c, i, st)
             elif kind == "mlp":
-                x = x + mlp_apply(p, h)
+                x = x + mlp_apply(p, h, part)
             else:
-                x = x + moe_apply(p, h, cfg)[0]
+                x = x + moe_apply(p, h, cfg, part)[0]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(params, cfg, x)
+    logits = _step_logits(params, cfg, x, part)
     cache["len"] = cache_len + 1
     cache["pos"] += 1
     return logits, cache

@@ -178,7 +178,12 @@ def _sorted_apply_local(p: Params, x, cfg, ffn, part):
     """:func:`_sorted_apply` over ``part``'s experts ``[e0, e1)``: the
     slots routed to them, sorted by expert, and the rest dropped.  Their
     count is read on the host (one read a layer): the kernel's rows are
-    the sum of its groups."""
+    the sum of its groups.  The prefill and every decode step of sharded
+    serving run here too; a step routes few slots (granite-moe: 64 over
+    32 experts), so a participant may hold none, and the grouped-matmul
+    kernel does not launch on zero rows: ``gmm`` launches it three times
+    in each layer whose local row count is non-zero, and not at all in
+    the others."""
     x = enter_model_region(x, part)
     shape = x.shape
     d = shape[-1]

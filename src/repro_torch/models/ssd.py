@@ -23,7 +23,10 @@ and ``dt_bias`` are replicated, and it reads their columns of its heads
 (and of the B/C groups they use).  ``inner_norm`` normalises over all of
 ``d_inner``: the mean of squares is summed over ``"model"`` before the
 ``rsqrt`` (:func:`sharded_rmsnorm`); a norm over one block alone would be
-another function.
+another function.  Its state is its block of the cache's
+(``parallel/sharding.py``'s ``cache_shardings``): ``conv_x`` over its
+``d_inner`` columns, ``ssm`` over its heads, ``conv_bc`` whole (replicated
+over ``"model"``, the same bits on every participant).
 """
 from __future__ import annotations
 
@@ -218,17 +221,28 @@ def sharded_rmsnorm(x, scale, n: int, part, eps: float = 1e-5):
     return (x * scale.float()).to(dtype)
 
 
-def _ssm_sharded(p: Params, x, cfg, part):
-    """The full-sequence mixer over ``part``'s heads (module doc)."""
-    B, S, _ = x.shape
-    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
-        cfg.ssm_state
+def _local_groups(cfg, part) -> tuple[int, int, int, int]:
+    """``(h0, h1, g0, g1)``: ``part``'s SSD heads and the B/C groups they
+    read.  Raises where its heads take part of a group and another
+    participant's the rest unevenly."""
+    H, G = cfg.ssm_heads, cfg.ssm_groups
     h0, h1 = part.block(H)
     rep = H // G
     g0, g1 = h0 // rep, (h1 - 1) // rep + 1
     if not (g1 - g0 == 1 or (h0 % rep == 0 and (h1 - h0) % rep == 0)):
         raise NotImplementedError(
             f"heads {h0}..{h1} split a group of {rep} heads sharing B/C")
+    return h0, h1, g0, g1
+
+
+def _ssm_sharded(p: Params, x, cfg, part, return_state: bool = False):
+    """The full-sequence mixer over ``part``'s heads (module doc); with
+    ``return_state``, also the state after the last step over them, as
+    :func:`ssm_apply` returns it unsharded."""
+    B, S, _ = x.shape
+    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    h0, h1, g0, g1 = _local_groups(cfg, part)
     x = enter_model_region(x, part)
     cdt = x.dtype
     z = x @ p["wz"].to(cdt)
@@ -248,12 +262,20 @@ def _ssm_sharded(p: Params, x, cfg, part):
     dt = F.softplus(dt.float() + p["dt_bias"][h0:h1].float())
     A = -torch.exp(p["A_log"][h0:h1].float())
     chunked = ops.ssd_chunked_cuda if cfg.ssm_impl == "cuda" else ssd_chunked
-    y, _ = chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y, h_final = chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["D"][h0:h1].to(cdt)[None, None, :, None] * xs
     y = y.reshape(B, S, (h1 - h0) * P)
     y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
                         cfg.norm_eps)
-    return leave_model_region(y @ p["out_proj"].to(cdt), part)
+    out = leave_model_region(y @ p["out_proj"].to(cdt), part)
+    if not return_state:
+        return out
+    K = cfg.ssm_conv
+    # conv_bc's state is every B/C column: bc is that where this
+    # participant reads every group, else the last K-1 steps' projection
+    bc_all = bc if g1 - g0 == G else x[:, -(K - 1):] @ p["wbc"].to(cdt)
+    return out, SsmState(conv_x=_shift_reg(None, xr, K),
+                         conv_bc=_shift_reg(None, bc_all, K), ssm=h_final)
 
 
 def ssm_apply(p: Params, x, cfg, state: SsmState | None = None,
@@ -261,11 +283,12 @@ def ssm_apply(p: Params, x, cfg, state: SsmState | None = None,
     """Full-sequence mixer. x: [B, S, d] → [B, S, d] (and the state after
     the last step when ``return_state``).  A_log, dt_bias and inner_norm
     are read in float32, as the reference reads them.  With ``part``, over
-    its heads (module doc; no state in or out)."""
+    its heads (module doc; no state in, its block of the state out)."""
     if part is not None:
-        if state is not None or return_state:
-            raise NotImplementedError("the sharded mixer carries no state")
-        return _ssm_sharded(p, x, cfg, part)
+        if state is not None:
+            raise NotImplementedError("the sharded mixer starts from no "
+                                      "state")
+        return _ssm_sharded(p, x, cfg, part, return_state)
     B, S, _ = x.shape
     cdt = x.dtype
     z, xr, bc, dt = _project(p, x, cdt)
@@ -296,9 +319,12 @@ def ssm_apply(p: Params, x, cfg, state: SsmState | None = None,
     )
 
 
-def ssm_decode(p: Params, x, cfg, state: SsmState):
+def ssm_decode(p: Params, x, cfg, state: SsmState, part=None):
     """One-token recurrent step. x: [B, 1, d] → (out [B, 1, d], new state);
-    ``state`` is not modified."""
+    ``state`` is not modified.  With ``part``, over its heads and its
+    block of the state (:func:`_ssm_decode_sharded`)."""
+    if part is not None:
+        return _ssm_decode_sharded(p, x, cfg, state, part)
     B = x.shape[0]
     cdt = x.dtype
     z, xr, bc, dt = _project(p, x, cdt)                  # [B, 1, *]
@@ -325,5 +351,48 @@ def ssm_decode(p: Params, x, cfg, state: SsmState):
     y = y.reshape(B, 1, di)
     y = rmsnorm(y * F.silu(z), p["inner_norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(cdt)
+    return out, SsmState(conv_x=win_x[:, 1:, :], conv_bc=win_bc[:, 1:, :],
+                         ssm=h)
+
+
+def _ssm_decode_sharded(p: Params, x, cfg, state: SsmState, part):
+    """:func:`ssm_decode` over ``part``'s heads (module doc): its
+    ``conv_x`` columns and its heads' ``dt``, ``A``, ``D`` and ``dt_bias``;
+    the B/C window whole (its state is replicated) and the groups its
+    heads read; ``inner_norm`` through :func:`sharded_rmsnorm`; then
+    ``out_proj``'s rows, summed over ``"model"``."""
+    B = x.shape[0]
+    P, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    h0, h1, g0, g1 = _local_groups(cfg, part)
+    x = enter_model_region(x, part)
+    cdt = x.dtype
+    z = x @ p["wz"].to(cdt)
+    xr = x @ p["wx"].to(cdt)
+    bc = x @ p["wbc"].to(cdt)
+    dt = x @ p["wdt"][:, h0:h1].to(cdt)
+    win_x = torch.cat([state.conv_x.to(cdt), xr], dim=1)
+    win_bc = torch.cat([state.conv_bc.to(cdt), bc], dim=1)
+    xc = F.silu(torch.einsum("bkc,kc->bc", win_x, p["conv_x_w"].to(cdt))
+                + p["conv_x_b"].to(cdt))
+    bcc = F.silu(torch.einsum("bkc,kc->bc", win_bc, p["conv_bc_w"].to(cdt))
+                 + p["conv_bc_b"].to(cdt))
+    gn = G * N
+    xs = xc.reshape(B, h1 - h0, P)
+    Bm = bcc[..., g0 * N:g1 * N].reshape(B, g1 - g0, N)
+    Cm = bcc[..., gn + g0 * N:gn + g1 * N].reshape(B, g1 - g0, N)
+    rep = (h1 - h0) // (g1 - g0)
+    Bh = Bm.repeat_interleave(rep, dim=1).float()
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    dt = F.softplus(dt[:, 0, :].float() + p["dt_bias"][h0:h1].float())
+    A = -torch.exp(p["A_log"][h0:h1].float())
+    h = state.ssm.float()
+    h = h * torch.exp(dt * A[None, :])[:, :, None, None] + (
+        dt[:, :, None, None] * xs.float()[..., None] * Bh[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h).to(cdt)
+    y = y + p["D"][h0:h1].to(cdt)[None, :, None] * xs
+    y = y.reshape(B, 1, (h1 - h0) * P)
+    y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
+                        cfg.norm_eps)
+    out = leave_model_region(y @ p["out_proj"].to(cdt), part)
     return out, SsmState(conv_x=win_x[:, 1:, :], conv_bc=win_bc[:, 1:, :],
                          ssm=h)

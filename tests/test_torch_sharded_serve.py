@@ -1,0 +1,519 @@
+"""Sharded prefill and decode: ``Model.init_cache`` / ``prefill`` /
+``decode`` with ``shards=`` against the unsharded port and the JAX
+package's serving cells.
+
+The JAX package jits ``prefill_step`` / ``decode_step`` with
+``cache_shardings``; the port runs them one participant a process, on its
+block of the weights and of the cache (``parallel/sharding.py``), with the
+collectives written out.  Here, on the CPU with the kernels' plain
+versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
+
+- the layouts fall as the smoke configs give them: granite-moe on (2, 2)
+  and olmoe on (1, 4) head-sharded (kv 2 / 4), granite-moe on (1, 4),
+  glm4 and jamba hd-sharded (kv 2 or 1, head_dim 16); mamba2 and jamba
+  carry SSM slots;
+- ``init_cache(part=)`` allocates exactly what ``shard_tree`` cuts from
+  the whole cache, for every decoder-only arch at both meshes;
+- a (1, 1) mesh gives the unsharded logits and cache byte for byte;
+- one spawn of 4 gloo ranks runs every case's sharded prefill and decode
+  steps on seeded numpy parameters (both packages' form), teacher-forced
+  with the JAX run's greedy tokens, the unsharded port's routing
+  replayed: every
+  call's logits, the greedy tokens and the gathered cache (after the
+  prefill and after the last step) are held to the unsharded port at
+  ``chip_smoke.py``'s float32 limit, and the logits to the JAX package's
+  ``Model.prefill`` / ``Model.decode`` (jitted) as ``test_torch_serve.py``
+  holds the unsharded port; every model participant of a data group
+  returns the same bits; each case's controls (the hd layout's partial
+  scores not summed over ``"model"``, the decode kernel read with an
+  exclusive mask, ``inner_norm`` per block in the recurrent step) exceed
+  the limit; a full cache raises ``IndexError`` on every rank;
+- the fully-seq layout, the encoder-decoder and ``moe_impl="ep"`` raise.
+"""
+from __future__ import annotations
+
+import hashlib
+from contextlib import nullcontext
+from dataclasses import replace
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import tree
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.convert import (
+    gather_cache,
+    lm_params_from_numpy,
+    lm_params_to_numpy,
+    lm_shard_from_numpy,
+)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import init_ranks, make_mesh, run_ranks
+from repro_torch.models import Model, layers, lm, moe, smoke_variant, ssd
+from repro_torch.parallel.collectives import Shards
+from repro_torch.parallel.sharding import (
+    cache_shardings,
+    cache_spec_for_kv,
+    shard_tree,
+    spec,
+)
+from repro_torch.parallel.tensor import Participant
+
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+WORLD = 4
+JOIN_S = 300.0
+KERNEL_PATHS = dict(attention_impl="cuda", moe_impl="gmm", ssm_impl="cuda")
+#: ``chip_smoke.py``'s float32 limit (``serve_path.f32_variant``):
+#: logits and each gathered cache leaf, relative RMS.
+REL_RMS = 1e-4
+#: the JAX comparison's, as ``tests/test_torch_serve.py`` holds the
+#: unsharded port
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+BATCH, PROMPT, STEPS = 4, 16, 4
+MAX_LEN = PROMPT + STEPS + 8
+#: (arch, mesh): the attention cache's layout (None: no attention).
+CASES = {
+    ("granite_moe_1b_a400m", "2x2"): "head",
+    ("granite_moe_1b_a400m", "1x4"): "hd",
+    ("olmoe_1b_7b", "1x4"): "head",
+    ("glm4_9b", "1x4"): "hd",
+    ("glm4_9b", "2x2"): "hd",
+    ("jamba_v0_1_52b", "1x4"): "hd",
+    ("mamba2_130m", "2x2"): None,
+    ("mamba2_130m", "1x4"): None,
+}
+ARCHS = sorted({a for a, _ in CASES})
+SSM_ARCHS = ("jamba_v0_1_52b", "mamba2_130m")
+CASE_IDS = [f"{a}-{m}" for a, m in CASES]
+#: a full cache is decoded into on these cases
+FULL_CASES = (("granite_moe_1b_a400m", "2x2"), ("glm4_9b", "1x4"))
+
+
+def port_cfg(arch: str):
+    return replace(smoke_variant(get_config(arch)), **KERNEL_PATHS)
+
+
+def controls(arch: str, layout) -> list[str]:
+    """The controls of a case: each breaks one step of the sharded
+    decode, so its logits must leave the limit."""
+    out = []
+    if layout == "hd":
+        out.append("unsummed_scores")
+    if layout == "head":
+        out.append("exclusive_mask")
+    if arch in SSM_ARCHS:
+        out.append("per_block_norm")
+    return out
+
+
+def _exclusive(mha_decode):
+    def call(q, k_cache, v_cache, cache_len):
+        return mha_decode(q, k_cache, v_cache, cache_len - 1)
+    return call
+
+
+def control_patch(name: str):
+    """The patch that makes control ``name`` (inside the decode steps)."""
+    if name == "unsummed_scores":
+        return mock.patch.object(layers, "sum_partial_scores",
+                                 lambda scores, part: scores)
+    if name == "exclusive_mask":
+        return mock.patch.object(ops, "mha_decode",
+                                 _exclusive(ops.mha_decode))
+    return mock.patch.object(
+        ssd, "sharded_rmsnorm", lambda x, scale, n, part, eps=1e-5:
+        layers.rmsnorm(x, scale, eps))
+
+
+def rel_rms(got, want) -> float:
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+class OneShard(Shards):
+    """One participant of ``mesh`` at ``coord``, with no collectives (for
+    what a participant computes alone)."""
+
+    def __init__(self, mesh, coord: dict) -> None:
+        self.mesh = mesh
+        self.coords = [dict(coord)]
+
+
+# -- layouts and shapes -------------------------------------------------------
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_smoke_layouts_fall_as_the_configs_give(arch, mesh_name):
+    cfg = port_cfg(arch)
+    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    layout = CASES[arch, mesh_name]
+    kv = cache_spec_for_kv(cfg, mesh, BATCH)
+    if layout == "head":
+        assert kv == spec(None, "data", None, "model", None)
+    elif layout == "hd":
+        assert kv == spec(None, "data", None, None, "model")
+        assert cfg.n_kv_heads in (1, 2) and cfg.head_dim == 16
+    kinds = {s.mixer for s in cfg.pattern()}
+    assert ("attn" in kinds) == (layout is not None)
+    assert ("ssm" in kinds) == (arch in SSM_ARCHS)
+
+
+def decoder_archs() -> list[str]:
+    return [a for a in ARCH_IDS if not get_config(a).enc_layers]
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", decoder_archs())
+def test_init_cache_allocates_what_shard_tree_cuts(arch, mesh_name):
+    cfg = smoke_variant(get_config(arch))
+    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    whole = lm.init_cache(cfg, BATCH, MAX_LEN, "cpu")
+    sh = cache_shardings(cfg, mesh, whole["slots"], BATCH)
+    for coord in ({"data": d, "model": m} for d in range(mesh.shape["data"])
+                  for m in range(mesh.shape["model"])):
+        part = Participant(OneShard(mesh, coord))
+        local = lm.init_cache(cfg, BATCH, MAX_LEN, "cpu", part=part)
+        want = shard_tree(whole["slots"], sh, coord)
+        for got, cut in zip(tree.leaves(local["slots"]), tree.leaves(want),
+                            strict=True):
+            assert got.shape == cut.shape and got.dtype == cut.dtype
+            assert not got.any()
+        assert local["pos"] == 0 and int(local["len"]) == 0
+        assert local["len"].shape == ()
+
+
+@pytest.mark.parametrize("form", ["plain", "kernels"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_one_by_one_mesh_is_the_unsharded_serving_byte_for_byte(arch,
+                                                                   form):
+    cfg = smoke_variant(get_config(arch))
+    if form == "kernels":
+        cfg = replace(cfg, **KERNEL_PATHS)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.from_numpy(prompts())}
+    runs = []
+    for shards in (None, make_mesh((1, 1), ("data", "model"))):
+        cache = model.init_cache(params, batch, MAX_LEN, shards=shards)
+        logits, cache = model.prefill(params, batch, cache, shards=shards)
+        out = [logits]
+        for _ in range(STEPS):
+            nxt = out[-1][:, -1].argmax(-1)[:, None].to(torch.int32)
+            logits, cache = model.decode(params, nxt, cache, shards=shards)
+            out.append(logits)
+        runs.append((out, cache))
+    (want, want_cache), (got, got_cache) = runs
+    assert all(sha(g) == sha(w) for g, w in zip(got, want, strict=True))
+    for g, w in zip(tree.leaves(got_cache["slots"]),
+                    tree.leaves(want_cache["slots"]), strict=True):
+        assert sha(g) == sha(w)
+    assert got_cache["pos"] == want_cache["pos"] == PROMPT + STEPS
+    assert int(got_cache["len"]) == int(want_cache["len"])
+
+
+# -- what does not run sharded ------------------------------------------------
+
+def test_a_batch_smaller_than_the_data_axis_raises():
+    cfg = port_cfg("granite_moe_1b_a400m")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    part = Participant(OneShard(mesh, {"data": 0, "model": 0}))
+    with pytest.raises(NotImplementedError, match="fully-seq"):
+        lm.init_cache(cfg, 1, MAX_LEN, "cpu", part=part)
+    with pytest.raises(NotImplementedError, match="fully-seq"):
+        lm.batch_block(torch.zeros((3, PROMPT), dtype=torch.int32), part)
+
+
+@pytest.mark.parametrize("call", ["init_cache", "prefill", "decode"])
+def test_the_encoder_decoder_does_not_serve_sharded(call):
+    model = Model(smoke_variant(get_config("seamless_m4t_medium")))
+    args = {"init_cache": ({}, {}, MAX_LEN), "prefill": ({}, {}, {}),
+            "decode": ({}, None, {})}[call]
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        getattr(model, call)(*args,
+                             shards=make_mesh((1, 1), ("data", "model")))
+
+
+@pytest.mark.parametrize("call", ["prefill", "decode"])
+def test_ep_moe_does_not_serve_sharded(call):
+    cfg = replace(smoke_variant(get_config("granite_moe_1b_a400m")),
+                  moe_impl="ep")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    batch = {"tokens": torch.from_numpy(prompts())}
+    cache = model.init_cache(params, batch, MAX_LEN, shards=mesh)
+    with pytest.raises(NotImplementedError, match="ep"):
+        if call == "prefill":
+            model.prefill(params, batch, cache, shards=mesh)
+        else:
+            model.decode(params, batch["tokens"][:, :1], cache, shards=mesh)
+
+
+# -- four ranks ---------------------------------------------------------------
+
+def prompts() -> np.ndarray:
+    return np.random.default_rng(2).integers(
+        0, 256, (BATCH, PROMPT)).astype(np.int32)
+
+
+def np_params(arch: str) -> dict:
+    """Seeded smoke parameters as the JAX package holds them (nested dicts
+    of numpy arrays), norm scales, SSD ``D`` and conv biases perturbed so
+    that they count."""
+    out = lm_params_to_numpy(Model(smoke_variant(get_config(arch))).init(
+        torch.Generator().manual_seed(1), device="cpu"))
+    rng = np.random.default_rng(1)
+    for slot in out["blocks"].values():
+        for name in list(slot):
+            if name in ("norm_scale", "inner_norm", "D", "conv_x_b",
+                        "conv_bc_b"):
+                slot[name] = (slot[name] + rng.normal(
+                    0.0, 0.1, slot[name].shape)).astype(np.float32)
+    return out
+
+
+def jax_run(arch: str, params: dict):
+    """The JAX package's jitted prefill and greedy decode steps on
+    ``params``: each call's logits and the tokens the steps fed.  (JAX is
+    imported here, not with the module: the rank processes import this
+    module and need only the port.)"""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as ref_config
+    from repro.models import Model as RefModel
+    from repro.models import smoke_variant as ref_smoke
+
+    model = RefModel(ref_smoke(ref_config(arch)))
+    params = jax.tree.map(jnp.asarray, params)
+    batch = {"tokens": jnp.asarray(prompts())}
+    cache = model.init_cache(params, batch, MAX_LEN)
+    logits, cache = jax.jit(model.prefill)(params, batch, cache)
+    decode = jax.jit(model.decode)
+    want, feed = [np.asarray(logits)], []
+    for _ in range(STEPS):
+        nxt = jnp.argmax(logits[:, -1, :], axis=-1).astype(jnp.int32)[:,
+                                                                      None]
+        feed.append(np.array(nxt))
+        logits, cache = decode(params, nxt, cache)
+        want.append(np.asarray(logits))
+    return want, feed
+
+
+def port_run(arch: str, np_params, feed):
+    """The unsharded port on the same parameters, teacher-forced with
+    ``feed``: every call's logits, the cache after the prefill and after
+    the last step, and the routing it recorded."""
+    cfg = port_cfg(arch)
+    model = Model(cfg)
+    params = lm_params_from_numpy(np_params, cfg, "cpu")
+    batch = {"tokens": torch.from_numpy(prompts())}
+    recorded = []
+
+    def keep(probs, experts):
+        recorded.append(experts.clone())
+        return experts
+    with moe.routing_hook(keep):
+        cache = model.init_cache(params, batch, MAX_LEN)
+        logits, cache = model.prefill(params, batch, cache)
+        out = [logits]
+        caches = [tree.map(torch.clone, cache["slots"])]
+        for tok in feed:
+            logits, cache = model.decode(params, torch.from_numpy(tok), cache)
+            out.append(logits)
+        caches.append(cache["slots"])
+    return {"logits": out, "caches": caches, "routing": recorded,
+            "len": int(cache["len"]), "pos": cache["pos"]}
+
+
+def _replayer(recorded: list, part):
+    """Replays ``recorded`` (the unsharded run's experts, in call order)
+    on this participant's rows: its data block of each call's slots."""
+    calls = iter(recorded)
+
+    def hook(probs, experts):
+        return next(calls).reshape(part.dp, -1, experts.shape[-1])[part.di]
+    return hook
+
+
+def _serve(part, arch: str, np_params, feed, routing, control=None,
+           gathered: bool = True) -> dict:
+    """Prefill and teacher-forced decode steps of ``arch`` on this
+    participant, ``control`` patched into the steps."""
+    cfg = port_cfg(arch)
+    model = Model(cfg)
+    params = lm_shard_from_numpy(np_params, cfg, part.mesh, part.coord,
+                                 "cpu")
+    batch = {"tokens": torch.from_numpy(prompts())}
+    caches = []
+    with moe.routing_hook(_replayer(routing, part)):
+        cache = model.init_cache(params, batch, MAX_LEN, shards=part)
+        logits, cache = model.prefill(params, batch, cache, shards=part)
+        out = [logits]
+        if gathered:
+            caches.append(gather_cache(cache, cfg, part, BATCH)["slots"])
+        with control_patch(control) if control else nullcontext():
+            for tok in feed:
+                logits, cache = model.decode(params, torch.from_numpy(tok),
+                                             cache, shards=part)
+                out.append(logits)
+    if gathered:
+        caches.append(gather_cache(cache, cfg, part, BATCH)["slots"])
+    return {"logits": out, "caches": caches, "len": int(cache["len"]),
+            "pos": cache["pos"], "shas": [sha(t) for t in out],
+            "cache": cache, "model": model, "params": params}
+
+
+def _full_cache(run: dict, part) -> str | None:
+    """Decode into the case's cache until it is full; the error raised
+    by the step past it."""
+    model, params, cache = run["model"], run["params"], run["cache"]
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32)
+    while cache["pos"] < MAX_LEN:
+        _, cache = model.decode(params, tok, cache, shards=part)
+    try:
+        model.decode(params, tok, cache, shards=part)
+    except IndexError as e:
+        return f"IndexError: {e}"
+    return None
+
+
+def _rank_cases(rank: int, store: str, refs: dict) -> dict:
+    torch.set_num_threads(1)
+    dm = init_ranks(make_mesh(MESHES["2x2"], ("data", "model")), rank,
+                    store)
+    meshes = {"2x2": dm, "1x4": make_mesh(MESHES["1x4"], ("data", "model"))
+              .device_mesh()}
+    out = {}
+    for (arch, mesh_name), layout in CASES.items():
+        part = Participant(meshes[mesh_name])
+        ref = refs[arch]
+        run = _serve(part, arch, ref["params"], ref["feed"], ref["routing"])
+        case = {k: run[k] for k in ("logits", "caches", "len", "pos",
+                                    "shas")}
+        case.update(coord=part.coord, di=part.di, dp=part.dp)
+        if (arch, mesh_name) in FULL_CASES:
+            case["full"] = _full_cache(run, part)
+        case["controls"] = {
+            name: _serve(part, arch, ref["params"], ref["feed"],
+                         ref["routing"], name, gathered=False)["logits"]
+            for name in controls(arch, layout)}
+        out[arch, mesh_name] = case
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference():
+    out = {}
+    for arch in ARCHS:
+        params = np_params(arch)
+        want, feed = jax_run(arch, params)
+        out[arch] = {"params": params, "jax": want, "feed": feed,
+                     "port": port_run(arch, params, feed)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    store = str(tmp_path_factory.mktemp("sharded_serve") / "store")
+    refs = {a: {"params": r["params"], "feed": r["feed"],
+                "routing": r["port"]["routing"]}
+            for a, r in reference.items()}
+    return run_ranks(_rank_cases, WORLD, store, refs, timeout_s=JOIN_S)
+
+
+def rows(t, case: dict):
+    n = BATCH // case["dp"]
+    return t[case["di"] * n:(case["di"] + 1) * n]
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_sharded_logits_equal_the_unsharded_port(ranks, reference, arch,
+                                                 mesh_name):
+    want = reference[arch]["port"]["logits"]
+    for r in ranks:
+        case = r[arch, mesh_name]
+        assert len(case["logits"]) == STEPS + 1
+        for call, (g, w) in enumerate(zip(case["logits"], want,
+                                          strict=True)):
+            assert g.shape == (BATCH // case["dp"], 1, 256)
+            assert rel_rms(g, rows(w, case)) <= REL_RMS, (case["coord"],
+                                                          call)
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_sharded_greedy_tokens_equal_the_unsharded_port(ranks, reference,
+                                                        arch, mesh_name):
+    want = reference[arch]["port"]["logits"]
+    for r in ranks:
+        case = r[arch, mesh_name]
+        for g, w in zip(case["logits"], want, strict=True):
+            assert torch.equal(g[:, -1].argmax(-1),
+                               rows(w, case)[:, -1].argmax(-1))
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_gathered_cache_equals_the_unsharded_cache(ranks, reference, arch,
+                                                   mesh_name):
+    port = reference[arch]["port"]
+    for r in ranks:
+        case = r[arch, mesh_name]
+        assert case["len"] == port["len"] == PROMPT + STEPS
+        assert case["pos"] == port["pos"]
+        for got, want in zip(case["caches"], port["caches"], strict=True):
+            for g, w in zip(tree.leaves(got), tree.leaves(want),
+                            strict=True):
+                assert g.shape == w.shape
+                assert rel_rms(g, w) <= REL_RMS, case["coord"]
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_sharded_logits_match_jax(ranks, reference, arch, mesh_name):
+    want = reference[arch]["jax"]
+    for r in ranks:
+        case = r[arch, mesh_name]
+        for call, (g, w) in enumerate(zip(case["logits"], want,
+                                          strict=True)):
+            np.testing.assert_allclose(
+                g.numpy(), rows(w, case), **LOGIT_TOL,
+                err_msg=f"{arch} {mesh_name} {case['coord']} call {call}")
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_each_control_leaves_the_limit(ranks, reference, arch, mesh_name):
+    names = controls(arch, CASES[arch, mesh_name])
+    assert names
+    want = reference[arch]["port"]["logits"]
+    for r in ranks:
+        case = r[arch, mesh_name]
+        assert sorted(case["controls"]) == sorted(names)
+        for name, logits in case["controls"].items():
+            assert rel_rms(logits[0], rows(want[0], case)) <= REL_RMS
+            worst = max(rel_rms(g, rows(w, case))
+                        for g, w in zip(logits[1:], want[1:], strict=True))
+            assert worst > REL_RMS, (name, case["coord"], worst)
+
+
+@pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
+def test_model_participants_of_a_data_group_return_the_same_bits(
+        ranks, arch, mesh_name):
+    groups: dict = {}
+    for r in ranks:
+        case = r[arch, mesh_name]
+        groups.setdefault(case["di"], set()).add(
+            (tuple(case["shas"]), case["len"], case["pos"]))
+    assert len(groups) == MESHES[mesh_name][0]
+    assert all(len(v) == 1 for v in groups.values())
+
+
+@pytest.mark.parametrize("case", FULL_CASES, ids=lambda c: "-".join(c))
+def test_a_full_cache_raises_index_error_on_every_rank(ranks, case):
+    for r in ranks:
+        assert r[case]["full"] is not None
+        assert r[case]["full"].startswith("IndexError")
