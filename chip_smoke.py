@@ -76,7 +76,21 @@ process exits non-zero):
                 heads, K3 over granite's local cache at its split edges
                 and last step, K5 over granite's local experts' share of a
                 prefill's and of a step's slots), held the same way and
-                timed beside their library calls.
+                timed beside their library calls; the same for the
+                fully-seq cases (batch 1 x 512: K2 over granite's (4, 1)
+                and glm4's (2, 2) local heads, K3's statistics form over
+                granite's 262-position block with ``cache_len`` -1, 0,
+                its middle and its last, K4 over mamba2's (2, 2) heads,
+                K5 over all 32 of granite's experts).  K3's statistics
+                form at the JAX package's ``long_500k`` decode (jamba's
+                attention width, q ``[1, 32, 128]`` over a 524 288 x 8 x
+                128 bf16 cache drawn N(0, 1), cut into 4 blocks of
+                131 072, the token in block 2): each block's ``(o, m,
+                l)`` against its plain version, the four combined by
+                ``combine_blocks`` against the default K3 over the whole
+                cache (2e-2), block 3 giving ``m = -1e30``, ``l = 0``,
+                ``o = 0``; one full block's launch timed beside its plain
+                version and SDPA, with its bound.
 4. ``main_path`` drives the per-tick fleet diagnosis sweep through its user
                 entry points — ``StepDelta`` bytes into a ``FleetAggregator``
                 (default retention, ``attribution=True``), then driven ticks of
@@ -262,8 +276,26 @@ process exits non-zero):
                 bf16 run within ``serve_path``'s limit, routing ``moved``
                 within 3 %; the same logits and ``conv_bc`` bits on every
                 model participant of a data group; a full cache raises
-                ``IndexError`` on every rank.  Printed, not limited:
-                prefill and step ms per rank, collectives, peak GB.
+                ``IndexError`` on every rank.  Then the fully-seq cache
+                layout (a batch that does not divide over the data axes:
+                every rank takes every row, its cache block is a block of
+                the positions), batch 1 x 512 prompt, 16 steps into the
+                same cache (on dp 4 blocks of 262: the steps cross into
+                rank 2's block at 524, rank 3's holds no valid position):
+                granite-moe on (4, 1) at 24 layers (whole heads: K2, K3's
+                statistics form on every rank's block, the blocks'
+                softmax combined across dp, K5 over all 32 experts),
+                glm4-9b on (2, 2) at 2 layers (``head_dim`` blocks of the
+                positions: K2; K3 never), mamba2 on (2, 2) at 24 layers
+                (its batch whole, K4); float32 at 4 / 2 / 4 layers with
+                the controls: the block's ``cache_len`` not offset by its
+                start (granite), the blocks averaged with equal weights
+                (glm4), ``inner_norm`` per block (mamba2); bf16 within
+                ``serve_path``'s limits; the same bits on all four ranks;
+                a full cache (granite, prefilled to 1040 positions)
+                raises ``IndexError`` on every rank.  Printed, not
+                limited: prefill and step ms per rank, collectives, peak
+                GB.
 14. ``roofline``: for each timed path (the prefill and a decode step of
                 every served arch at its served depth, a train step of
                 granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
@@ -358,6 +390,7 @@ from repro_torch.models import (  # noqa: E402
     ForecastConfig,
     Model,
     forecast_init,
+    lm,
 )
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models.ssd import ssd_chunked as ssd_chunked_plain  # noqa: E402
@@ -409,6 +442,12 @@ MAX_LEN = PROMPT_LEN + MAX_NEW + 8
 #: attention and SSD kernels', and the grouped matmul's.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 GMM_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: K3's statistics-form ``o`` and the blocks' combine, held by relative RMS
+#: (over a long block ``o`` is small, about sqrt(e / positions), and the
+#: elementwise ``ATTN_TOL`` would pass ``o = 0``).  bf16 ``p`` rounded at
+#: the kernel's split maxima, not the block's, reads about 2e-3 (the plain
+#: splits emulated at 16 384 positions); the controls read about 1.
+STATS_REL_RMS = 1e-2
 #: The MoE (K5) and Mamba2 (K4) serving paths, at the same batch, prompt
 #: and new tokens as glm4-9b's.
 MOE_ARCH = "granite_moe_1b_a400m"
@@ -1040,6 +1079,46 @@ def decode_case(gen, B, S, H, KV, D, dtype, cache_len, device):
                                                     sm_count(device))
     return {**res, **compare(got, want, ATTN_TOL[dtype],
                              f"decode_attention {res}")}
+
+
+def decode_stats_case(gen, B, S, H, KV, D, dtype, cache_len, device, q=None,
+                      kv=None) -> tuple[dict, tuple]:
+    """K3's statistics form against its plain version on one block of a
+    cache (``q`` and ``kv`` given, else drawn): ``o``, ``m`` and ``l`` each
+    within K3's tolerance (``l`` relative to its size), ``o`` also within
+    ``STATS_REL_RMS``; a ``cache_len`` of -1 must give ``m = -1e30``, ``l =
+    0`` and ``o = 0`` exactly.  Returns the readings, the kernel's ``(o, m,
+    l)`` and the plain version's ``o``."""
+    q = _randn(gen, (B, H, D), dtype, device) if q is None else q
+    k, v = kv or (_randn(gen, (B, S, KV, D), dtype, device),
+                  _randn(gen, (B, S, KV, D), dtype, device))
+    n = torch.tensor(cache_len, dtype=torch.int32, device=device)
+    got = decode_attention.decode_attention(q, k, v, n, stats=True)
+    torch.cuda.synchronize()
+    want = decode_attention.decode_attention_stats_torch(q, k, v, n)
+    res = {"kernel": "decode_attention", "form": "statistics",
+           "cache": list(k.shape), "heads": H,
+           "dtype": str(dtype).removeprefix("torch."),
+           "cache_len": cache_len}
+    if dtype == torch.bfloat16:
+        res["splits"] = decode_attention.split_plan(B, KV, H // KV, S,
+                                                    sm_count(device))
+    tol = ATTN_TOL[dtype]
+    o, m, l = (compare(g, w, tol, f"decode_attention stats {name} {res}")
+               for name, g, w in zip("oml", got, want))
+    check(all(t.dtype == torch.float32 for t in got),
+          f"the statistics form is not float32: {res}")
+    if cache_len < 0:
+        check(not got[0].any() and not got[2].any()
+              and bool((got[1] == -1e30).all()),
+              f"a block with no valid position: {res}")
+    else:
+        o["o_rel_rms"] = rel_rms(got[0], want[0])
+        check(o["o_rel_rms"] <= STATS_REL_RMS,
+              f"decode_attention stats o past {STATS_REL_RMS} relative "
+              f"RMS: {res} {o}")
+    return ({**res, **o, "m_max_abs_err": m["max_abs_err"],
+             "l_max_abs_err": l["max_abs_err"]}, got, want[0])
 
 
 def decode_corners(B, S, H, KV, device) -> list[int]:
@@ -3527,21 +3606,54 @@ SHARD_OPT = AdamWConfig()
 #: model (K4), at ``layers`` (cut for the phase's time: at 8 / 4 layers
 #: the whole run read 703.7 s on an H100), the float32 check at
 #: ``f32_layers``; ``layout`` is the attention cache's layout the case
-#: must take (None: no attention).
+#: must take (``lm.serve_layout``; None: no attention).  The fully-seq
+#: cases (keys ``arch/fully_seq``) take a batch of 1 that no data axis of
+#: more than one divides, with ``FS_PROMPT_LEN`` prompts into the same
+#: cache: on dp 4 its blocks are 262 positions long, so the 16 steps write
+#: 512-527 and cross from rank 1's block into rank 2's at 524, and rank
+#: 3's holds no valid position; on dp 2 (blocks of 524) they cross at 524
+#: too.  ``full_cache``: the case decodes into a full cache (re-prefilled
+#: to ``SHARD_SERVE_LEN - 8`` positions where its steps end short of
+#: that).
 SHARD_SERVE_NEW = 16
 SHARD_SERVE_LEN = PROMPT_LEN + SHARD_SERVE_NEW + 8
+FS_PROMPT_LEN = 512
 SHARD_SERVE_CASES = {
-    MOE_ARCH: {"mesh": (1, 4), "layers": 4, "f32_layers": 4,
-               "layout": "head"},
-    SERVE_ARCH: {"mesh": (1, 4), "layers": 2, "f32_layers": 2,
-                 "layout": "hd"},
-    SSM_ARCH: {"mesh": (2, 2), "layers": 24, "f32_layers": 4,
-               "layout": None},
+    MOE_ARCH: {"arch": MOE_ARCH, "mesh": (1, 4), "layers": 4,
+               "f32_layers": 4, "layout": "head", "batch": SERVE_BATCH,
+               "prompt": PROMPT_LEN, "full_cache": True},
+    SERVE_ARCH: {"arch": SERVE_ARCH, "mesh": (1, 4), "layers": 2,
+                 "f32_layers": 2, "layout": "hd", "batch": SERVE_BATCH,
+                 "prompt": PROMPT_LEN, "full_cache": True},
+    SSM_ARCH: {"arch": SSM_ARCH, "mesh": (2, 2), "layers": 24,
+               "f32_layers": 4, "layout": None, "batch": SERVE_BATCH,
+               "prompt": PROMPT_LEN, "full_cache": False},
+    f"{MOE_ARCH}/fully_seq": {
+        "arch": MOE_ARCH, "mesh": (4, 1), "layers": 24, "f32_layers": 4,
+        "layout": "seq", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "full_cache": True},
+    f"{SERVE_ARCH}/fully_seq": {
+        "arch": SERVE_ARCH, "mesh": (2, 2), "layers": 2, "f32_layers": 2,
+        "layout": "seq_hd", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "full_cache": False},
+    f"{SSM_ARCH}/fully_seq": {
+        "arch": SSM_ARCH, "mesh": (2, 2), "layers": 24, "f32_layers": 4,
+        "layout": None, "batch": 1, "prompt": FS_PROMPT_LEN,
+        "full_cache": False},
 }
 #: The float32 check's control per layout: one step of the sharded decode
 #: broken (``serve_control``), which must leave the limit.
 SHARD_SERVE_CONTROLS = {"head": "exclusive_mask", "hd": "unsummed_scores",
+                        "seq": "unoffset_cache_len",
+                        "seq_hd": "equal_block_weights",
                         None: "per_block_norm"}
+#: K3's statistics form at the JAX package's ``long_500k`` decode:
+#: jamba-v0.1-52b's attention width (32 heads over 8 kv heads of 128)
+#: against a cache of ``LONG_CACHE`` positions cut into ``LONG_BLOCKS``
+#: blocks (its sequence over a data axis of 4), the token in block 2.
+LONG_CACHE = 524_288
+LONG_BLOCKS = 4
+LONG_CACHE_LEN = 2 * LONG_CACHE // LONG_BLOCKS + 54_321
 
 
 def shard_config(arch: str, layers: int | None, **kw):
@@ -3605,6 +3717,30 @@ def shard_kernel_shapes(gen, device) -> dict:
                              E, device)
         out[f"serve_moe_gmm_{key}"] = (sizes[:E // m], cfg.d_model,
                                        cfg.expert_d_ff)
+    # the fully-seq cases' (batch 1 x FS_PROMPT_LEN): K2 over granite's
+    # (4, 1) and glm4's (2, 2) local heads, K3's statistics form over
+    # granite's block of positions, K4 over mamba2's (2, 2) heads, K5 over
+    # granite's local experts (all of them at a model axis of one) for a
+    # prefill's and a step's slots
+    for key, arch in (("granite", MOE_ARCH), ("glm4", SERVE_ARCH)):
+        cfg = get_config(arch)
+        dp, m = SHARD_SERVE_CASES[f"{arch}/fully_seq"]["mesh"]
+        H, KV = local_heads(cfg, m)
+        out[f"fs_flash_attention_{key}"] = (1, FS_PROMPT_LEN, H, KV,
+                                            cfg.head_dim)
+    cfg = get_config(MOE_ARCH)
+    dp, m = SHARD_SERVE_CASES[f"{MOE_ARCH}/fully_seq"]["mesh"]
+    H, KV = local_heads(cfg, m)
+    out["fs_decode_stats_granite"] = (1, -(-SHARD_SERVE_LEN // dp), H, KV,
+                                      cfg.head_dim)
+    for key, tokens in (("prefill", FS_PROMPT_LEN), ("decode", 1)):
+        sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
+        out[f"fs_moe_gmm_{key}"] = (sizes[:E // m], cfg.d_model,
+                                    cfg.expert_d_ff)
+    cfg = get_config(SSM_ARCH)
+    dp, m = SHARD_SERVE_CASES[f"{SSM_ARCH}/fully_seq"]["mesh"]
+    out["fs_ssd_scan"] = (1, FS_PROMPT_LEN, cfg.ssm_heads // m,
+                          cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk)
     return out
 
 
@@ -3642,7 +3778,98 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
                 out.append({**gmm_case(gen, sizes, K, N, dtype, device,
                                        f"sharded {key} {label}"),
                             "sharded": f"serve_moe_gmm_{key}"})
+        for key in ("fs_flash_attention_granite", "fs_flash_attention_glm4"):
+            B, S, H, KV, D = shapes[key]
+            out.append({**flash_case(gen, B, S, H, KV, D, dtype, True,
+                                     device), "sharded": key})
+        B, S, H, KV, D = shapes["fs_decode_stats_granite"]
+        for n in (-1, 0, S // 2, S - 1):
+            out.append({**decode_stats_case(gen, B, S, H, KV, D, dtype, n,
+                                            device)[0],
+                        "sharded": "fs_decode_stats_granite"})
+        B, S, H, G, N, Q = shapes["fs_ssd_scan"]
+        out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device),
+                    "sharded": "fs_ssd_scan"})
+        for key in ("prefill", "decode"):
+            sizes, d, f = shapes[f"fs_moe_gmm_{key}"]
+            for label, K, N in (("gate/up", d, f), ("down", f, d)):
+                out.append({**gmm_case(gen, sizes, K, N, dtype, device,
+                                       f"fully-seq {key} {label}"),
+                            "sharded": f"fs_moe_gmm_{key}"})
     return out
+
+
+def long_stats(device, seed: int, flush) -> dict:
+    """K3's statistics form at the ``long_500k`` decode (``LONG_CACHE``):
+    each of the ``LONG_BLOCKS`` blocks against its plain version, their
+    ``combine_blocks`` against the default K3 over the whole cache within
+    K3's bf16 tolerance, the last block (past the token) empty; then one
+    full block's launch timed beside its plain version and SDPA, with its
+    bound from ``roofline.decode_work``."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    cfg = get_config(HYBRID_ARCH)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    q = _randn(gen, (1, H, D), bf, device)
+    k = _randn(gen, (1, LONG_CACHE, KV, D), bf, device)
+    v = _randn(gen, (1, LONG_CACHE, KV, D), bf, device)
+    blk = LONG_CACHE // LONG_BLOCKS
+    checks, stats, wants = [], [], []
+    for i in range(LONG_BLOCKS):
+        lo = i * blk
+        local = max(-1, min(LONG_CACHE_LEN - lo, blk - 1))
+        res, got, want = decode_stats_case(
+            gen, 1, blk, H, KV, D, bf, local, device, q=q,
+            kv=(k[:, lo:lo + blk], v[:, lo:lo + blk]))
+        checks.append({**res, "block": i})
+        stats.append(got)
+        wants.append(want)
+    o, m, l = (torch.stack(t) for t in zip(*stats))
+    combined = decode_attention.combine_blocks(o, m, l)
+    whole = decode_attention.decode_attention(
+        q, k, v, torch.tensor(LONG_CACHE_LEN, dtype=torch.int32,
+                              device=device))
+    combine = compare(combined, whole, ATTN_TOL[bf],
+                      "the blocks' combine against K3 over the whole cache")
+    combine["rel_rms"] = rel_rms(combined, whole)
+    # The controls, which must leave STATS_REL_RMS: block 1's o read as
+    # block 0's, and the blocks that hold a position averaged with equal
+    # weights (l · exp(m − M) dropped).
+    controls = {
+        "another_block_o": rel_rms(o[1], wants[0]),
+        "equal_block_weights": rel_rms(decode_attention.combine_blocks(
+            o, torch.zeros_like(m), (l > 0).float()), whole)}
+    combine["controls_rel_rms"] = controls
+    check(combine["rel_rms"] <= STATS_REL_RMS,
+          f"the blocks' combine past {STATS_REL_RMS} relative RMS: {combine}")
+    check(min(controls.values()) > STATS_REL_RMS,
+          f"a statistics-form control within {STATS_REL_RMS}: {controls}")
+    check(LONG_CACHE_LEN // blk == 2 and LONG_BLOCKS == 4,
+          "the token must lie in block 2 of 4")
+    del o, m, l, stats, wants, combined, whole
+    kb, vb = k[:, :blk], v[:, :blk]
+    nb = torch.tensor(blk - 1, dtype=torch.int32, device=device)
+    q4, kt, vt = q[:, :, None, :], kb.transpose(1, 2), vb.transpose(1, 2)
+    t = measure_fns({
+        "ms": lambda: decode_attention.decode_attention(q, kb, vb, nb,
+                                                        stats=True),
+        "plain_ms": lambda: decode_attention.decode_attention_stats_torch(
+            q, kb, vb, nb),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, enable_gqa=True)}, flush, rounds=2)
+    t.update(cache=[1, blk, KV, D], heads=H, cache_len=blk - 1,
+             whole_cache=[1, LONG_CACHE, KV, D],
+             whole_cache_len=LONG_CACHE_LEN, dtype="bfloat16",
+             splits=decode_attention.split_plan(1, KV, H // KV, blk,
+                                                sm_count(device)),
+             **roofline.work_bound(roofline.decode_work(
+                 1, H, KV, D, blk, bf, stats=True)))
+    del q, k, v, kb, vb, q4, kt, vt
+    torch.cuda.empty_cache()
+    return {"checks": checks, "combine": combine, "timing": t,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "o_rel_rms": max(c.get("o_rel_rms", 0.0) for c in checks)}
 
 
 def shard_kernel_timings(device, seed: int, flush) -> dict:
@@ -3974,8 +4201,8 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
     started_s = time.time() - t_spawn
     device = torch.device(device_type)
     dm = init_ranks(make_mesh((2, 2), ("data", "model")), rank, store)
-    meshes = {(2, 2): dm,
-              (1, 4): make_mesh((1, 4), ("data", "model")).device_mesh()}
+    meshes = {(2, 2): dm, **{shape: make_mesh(shape, ("data", "model"))
+                             .device_mesh() for shape in ((1, 4), (4, 1))}}
     # what every process pays once before its first step: the device's
     # context and its first product, and the import of torch._dynamo
     # that torch.utils.checkpoint makes on its first call
@@ -3998,8 +4225,8 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
         if device.type == "cuda":
             torch.cuda.empty_cache()
     t0 = time.time()
-    out["serve"] = {arch: shard_serve_rank(seed, device, Participant(
-        meshes[case["mesh"]]), arch) for arch, case in
+    out["serve"] = {key: shard_serve_rank(seed, device, Participant(
+        meshes[case["mesh"]]), key) for key, case in
         SHARD_SERVE_CASES.items()}
     out["serve_seconds"] = time.time() - t0
     out["seconds"] = time.time() - t_spawn
@@ -4124,6 +4351,10 @@ def phase_shard(args, card: str, device) -> dict:
            "rank_seconds": [r["seconds"] for r in ranks], "cases": out}
     if failed:
         emit({"phase": "shard_path", "ok": False, **run})
+        # the serving cases ran in the same ranks: their checks and
+        # readings too, before the run fails
+        emit({"phase": "shard_serve_path", "ok": True,
+              **phase_shard_serve(ranks, card)})
     check(not failed, "shard: " + ", ".join(failed))
     return run, phase_shard_serve(ranks, card)
 
@@ -4135,7 +4366,11 @@ def serve_control(name: str):
     steps: the hd layout's partial scores not summed over ``"model"``
     (``unsummed_scores``), K3 read with an exclusive mask, ``cache_len -
     1`` (``exclusive_mask``: the off-by-one that passes most random tests),
-    ``inner_norm`` per block in the recurrent step (``per_block_norm``)."""
+    the fully-seq block's ``cache_len`` not offset by the block's start
+    (``unoffset_cache_len``: the off-by-a-block that layout invites), the
+    fully-seq blocks averaged with equal weights (``equal_block_weights``:
+    ``l · exp(m − M)`` dropped), ``inner_norm`` per block in the recurrent
+    step (``per_block_norm``)."""
     from unittest import mock
 
     from repro_torch.kernels import ops
@@ -4149,31 +4384,30 @@ def serve_control(name: str):
         return mock.patch.object(
             ops, "mha_decode",
             lambda q, k, v, cache_len: mha_decode(q, k, v, cache_len - 1))
+    if name == "unoffset_cache_len":
+        block_len = layers.block_cache_len
+        return mock.patch.object(layers, "block_cache_len",
+                                 lambda c, s_lo, n: block_len(c, 0, n))
+    if name == "equal_block_weights":
+        return mock.patch.object(layers, "combine_blocks",
+                                 lambda o, m, l: o.mean(dim=0))
     return mock.patch.object(
         ssd, "sharded_rmsnorm", lambda x, scale, n, part, eps=1e-5:
         layers.rmsnorm(x, scale, eps))
 
 
-def serve_layout(cfg, m: int):
-    """The attention cache's layout at a model axis of ``m``: ``"head"``
-    where the kv heads divide it, else ``"hd"`` (None: no attention)."""
-    from repro_torch.parallel.sharding import kv_shardable
-
-    if not any(s.mixer == "attn" for s in cfg.pattern()):
-        return None
-    return "head" if kv_shardable(cfg, m) else "hd"
-
-
 class RowRouting(Routing):
     """A recorded routing of the whole batch replayed on one participant's
-    rows (its data block of every router call's slots); ``local_rows``:
-    each call's slots routed to the participant's experts, the rows its
-    K5 launches take."""
+    rows (its data block of every router call's slots, or every slot where
+    the batch does not divide over the data axes); ``local_rows``: each
+    call's slots routed to the participant's experts, the rows its K5
+    launches take."""
 
-    def __init__(self, recorded: list, part, cfg) -> None:
+    def __init__(self, recorded: list, part, cfg, batch: int) -> None:
         super().__init__()
+        split = lm.rows_part(part, batch).rows_split
         self.recorded = [r.reshape(part.dp, -1, r.shape[-1])[part.di]
-                         for r in recorded]
+                         if split else r for r in recorded]
         e0, e1 = part.block(max(cfg.moe_experts, 1))
         self.local_rows = [int(((r >= e0) & (r < e1)).sum())
                            for r in self.recorded]
@@ -4183,8 +4417,10 @@ def expected_shard_serve_launches(cfg, layout, local_rows: list,
                                   calls: int) -> list[dict]:
     """Kernel launches of each call on one participant (the prefill, then
     the steps): K2 once per attention layer of the prefill, K3 once per
-    attention layer of a step in the head-sharded layout and never in the
-    hd-sharded one, K4 once per SSM layer of the prefill, K5 three times
+    attention layer of a step in the head-sharded and the fully-seq
+    whole-head layouts (its statistics form there, on every participant's
+    block, an empty one too) and never in the ``head_dim`` ones, K4 once
+    per SSM layer of the prefill, K5 three times
     per MoE layer of every call whose local slots (``local_rows``, one
     entry a router call) are not none: the grouped-matmul wrapper does
     not launch on zero rows."""
@@ -4193,7 +4429,7 @@ def expected_shard_serve_launches(cfg, layout, local_rows: list,
     out = []
     for c in range(calls):
         want = dict(prefill if c == 0 else step)
-        if layout == "hd":
+        if layout in ("hd", "seq_hd"):
             want["decode_attention"] = 0
         if n_moe:
             want["moe_gmm"] = 3 * sum(
@@ -4202,11 +4438,12 @@ def expected_shard_serve_launches(cfg, layout, local_rows: list,
     return out
 
 
-def serve_prompts(cfg, seed: int, device) -> torch.Tensor:
-    """``serve_path``'s prompts of ``cfg`` as one ``[SERVE_BATCH,
-    PROMPT_LEN]`` batch."""
+def serve_prompts(cfg, seed: int, device, batch: int = SERVE_BATCH,
+                  length: int = PROMPT_LEN) -> torch.Tensor:
+    """The first ``length`` tokens of the first ``batch`` of
+    ``serve_path``'s prompts of ``cfg``, as one batch."""
     return torch.from_numpy(np.stack([r.prompt for r in serve_requests(
-        cfg, seed)])).to(device)
+        cfg, seed)])[:batch, :length]).to(device)
 
 
 def greedy_unsharded(model, params, prompts, device) -> dict:
@@ -4253,8 +4490,11 @@ def sharded_steps(model, params, part, cache, tokens, device) -> tuple:
     return logits, records, cache
 
 
-def whole_rows(logits: list, part) -> list:
-    """Each call's logits of every row (gathered over the data axes)."""
+def whole_rows(logits: list, part, batch: int) -> list:
+    """Each call's logits of every row (gathered over the data axes where
+    the rows are split over them)."""
+    if not lm.rows_part(part, batch).rows_split:
+        return list(logits)
     return [part.all_gather_dp(lg).reshape(-1, *lg.shape[1:])
             for lg in logits]
 
@@ -4264,8 +4504,8 @@ def rel_rms(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
-    """``arch``'s float32 check: rank 0 runs the unsharded model greedily
+def shard_serve_f32(seed: int, device, key: str, part) -> dict:
+    """Case ``key``'s float32 check: rank 0 runs the unsharded model greedily
     (routing recorded) on the seeded parameters, every rank the sharded
     cells on its block, fed rank 0's tokens with its routing replayed;
     rank 0 holds every call's gathered logits, the greedy tokens and the
@@ -4275,8 +4515,9 @@ def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
     from repro_torch.convert import gather_cache
     from repro_torch.parallel.sharding import param_shardings, shard_tree
 
-    case = SHARD_SERVE_CASES[arch]
-    cfg = shard_config(arch, case["f32_layers"], dtype="float32")
+    case = SHARD_SERVE_CASES[key]
+    B = case["batch"]
+    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
     model = Model(cfg)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
     lead = dist.get_rank() == 0
@@ -4285,7 +4526,7 @@ def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
     if lead:
         with routing.record():
             ref = greedy_unsharded(model, full, serve_prompts(
-                cfg, seed, device), device)
+                cfg, seed, device, B, case["prompt"]), device)
     local = shard_tree(full, param_shardings(full, cfg, part.mesh),
                        part.coord)
     del full
@@ -4295,7 +4536,7 @@ def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
     dist.broadcast_object_list(shared, src=0)
     tokens = [t.to(device) for t in shared[0]["tokens"]]
     rows = RowRouting([r.to(device) for r in shared[0]["routing"]], part,
-                      cfg)
+                      cfg, B)
     n_moe = expected_launches(cfg)[0]["moe_gmm"] // 3
     step_routing = Routing()             # the control replays step 1's
     step_routing.recorded = rows.recorded[n_moe:2 * n_moe]
@@ -4304,18 +4545,19 @@ def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
     with rows.replay() as flips:
         lg, cache, rec = sharded_call(model.prefill, device, local, batch,
                                       cache, part=part)
-        gathered = [gather_cache(cache, cfg, part, SERVE_BATCH)]
+        gathered = [gather_cache(cache, cfg, part, B)]
         start = {**cache, "len": cache["len"].clone(),
                  "slots": tree.map(torch.clone, cache["slots"])}
         logits, records, cache = sharded_steps(model, local, part, cache,
                                                tokens[1:], device)
     logits, records = [lg, *logits], [rec, *records]
-    gathered.append(gather_cache(cache, cfg, part, SERVE_BATCH))
-    layout = serve_layout(cfg, part.m)
+    gathered.append(gather_cache(cache, cfg, part, B))
+    layout = lm.serve_layout(cfg, part, B)
     with step_routing.replay(), serve_control(SHARD_SERVE_CONTROLS[layout]):
         control, _, _ = sharded_steps(model, local, part, start,
                                       tokens[1:2], device)
-    whole, control = whole_rows(logits, part), whole_rows(control, part)
+    whole, control = (whole_rows(logits, part, B),
+                      whole_rows(control, part, B))
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
@@ -4339,17 +4581,20 @@ def shard_serve_f32(seed: int, device, arch: str, part) -> dict:
     return out
 
 
-def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
-    """``arch``'s bf16 run: rank 0 runs the unsharded model greedily with
-    the same kernels (routing recorded) on the seeded parameters cast to
-    bf16; every rank then runs the sharded cells on its block, fed those
-    tokens with that routing replayed, each call timed (CUDA events) with
-    its launches and collectives; then decodes until its cache is full
+def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
+    """Case ``key``'s bf16 run: rank 0 runs the unsharded model greedily
+    with the same kernels (routing recorded) on the seeded parameters cast
+    to bf16; every rank then runs the sharded cells on its block, fed
+    those tokens with that routing replayed, each call timed (CUDA events)
+    with its launches and collectives; then, in a ``full_cache`` case,
+    decodes until its cache is full (from a cache prefilled again to
+    ``SHARD_SERVE_LEN - 8`` positions where the steps ended short of it)
     and once more, which must raise ``IndexError``."""
     from repro_torch.parallel.sharding import param_shardings, shard_tree
 
-    case = SHARD_SERVE_CASES[arch]
-    cfg = shard_config(arch, case["layers"])
+    case = SHARD_SERVE_CASES[key]
+    B = case["batch"]
+    cfg = shard_config(case["arch"], case["layers"])
     model = Model(cfg)
     lead = dist.get_rank() == 0
     routing = Routing()
@@ -4362,7 +4607,7 @@ def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
         served = cast_params(full, cfg, device, in_place=True)
         with routing.record():
             ref = greedy_unsharded(model, served, serve_prompts(
-                cfg, seed, device), device)
+                cfg, seed, device, B, case["prompt"]), device)
         del served, ref["caches"]
     del full
     on_card = device.type == "cuda"
@@ -4374,7 +4619,7 @@ def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
     dist.broadcast_object_list(shared, src=0)
     tokens = [t.to(device) for t in shared[0]["tokens"]]
     rows = RowRouting([r.to(device) for r in shared[0]["routing"]], part,
-                      cfg)
+                      cfg, B)
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4394,25 +4639,32 @@ def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
                     cache["slots"].values() if "conv_bc" in s])
     fingerprints = [fingerprint(t) for t in logits]
     length = int(cache["len"])
-    whole = whole_rows(logits, part)
+    whole = whole_rows(logits, part, B)
     full_error = None
-    if any("k" in s for s in cache["slots"].values()):
+    if case["full_cache"]:
         tok = torch.zeros_like(tokens[1])
+        start = SHARD_SERVE_LEN - 8
+        if cache["pos"] != start:
+            long = torch.cat([tokens[0]] * -(-start // tokens[0].shape[1]),
+                             dim=1)[:, :start]
+            cache = model.init_cache(local, {"tokens": long},
+                                     SHARD_SERVE_LEN, shards=part)
+            _, cache = model.prefill(local, {"tokens": long}, cache,
+                                     shards=part)
         while cache["pos"] < SHARD_SERVE_LEN:
             _, cache = model.decode(local, tok, cache, shards=part)
         try:
             model.decode(local, tok, cache, shards=part)
         except IndexError as e:
             full_error = f"IndexError: {e}"
-    layout = serve_layout(cfg, part.m)
+    layout = lm.serve_layout(cfg, part, B)
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
            "local_rows_per_router_call": rows.local_rows,
            "fingerprints": fingerprints, "conv_bc_fingerprints": conv_bc,
            "len": length, "routing_flips": flips, "peak_memory_gb": peak,
-           "full_cache": full_error,
-           "has_kv": any("k" in s for s in cache["slots"].values())}
+           "full_cache": full_error}
     if lead:
         V = cfg.vocab
         out["logits_rel_rms"] = [rel_rms(g[..., :V].float(),
@@ -4421,15 +4673,15 @@ def shard_serve_bf16(seed: int, device, arch: str, part) -> dict:
     return out
 
 
-def shard_serve_rank(seed: int, device, part, arch: str) -> dict:
+def shard_serve_rank(seed: int, device, part, key: str) -> dict:
     """One participant's ``shard_serve_path`` case: its float32 check and
     its bf16 run."""
     t0 = time.time()
-    f32 = shard_serve_f32(seed, device, arch, part)
+    f32 = shard_serve_f32(seed, device, key, part)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t1 = time.time()
-    bf16 = shard_serve_bf16(seed, device, arch, part)
+    bf16 = shard_serve_bf16(seed, device, key, part)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return {"coord": part.coord, "di": part.di, "f32": f32, "bf16": bf16,
@@ -4440,21 +4692,26 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
     """``shard_serve_path``'s checks over every rank's readings (module
     doc, phase 13)."""
     out, failed = {}, []
-    for arch, case in SHARD_SERVE_CASES.items():
-        per = [r["serve"][arch] for r in ranks]
+    for key, case in SHARD_SERVE_CASES.items():
+        arch = case["arch"]
+        per = [r["serve"][key] for r in ranks]
         f32, bf16 = per[0]["f32"], per[0]["bf16"]
         limit = SERVE_BF16_KERNEL_VS_PLAIN[arch]
+        rows_whole = case["batch"] % case["mesh"][0] != 0
 
         def launches_exact(kind: str) -> bool:
             return all(rec["launches"] == want for p in per for rec, want
                        in zip(p[kind]["records"],
                               p[kind]["launches_expected"], strict=True))
 
-        def same_bits(kind: str, key: str) -> bool:
+        def same_bits(kind: str, reading: str) -> bool:
+            """The same ``reading`` on every participant holding the same
+            rows: of a data group, or all of them where the rows are
+            whole."""
             groups: dict = {}
             for p in per:
-                groups.setdefault(p["di"], set()).add(
-                    json.dumps([p[kind][key], p[kind]["len"]]))
+                groups.setdefault(0 if rows_whole else p["di"], set()).add(
+                    json.dumps([p[kind][reading], p[kind]["len"]]))
             return all(len(v) == 1 for v in groups.values())
         checks = {
             "layout": f32["layout"] == bf16["layout"] == case["layout"],
@@ -4477,21 +4734,25 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
                 same_bits("bf16", "conv_bc_fingerprints"),
             "full_cache_raises_on_every_rank": all(
                 (p["bf16"]["full_cache"] or "").startswith("IndexError")
-                for p in per) if bf16["has_kv"] else True,
+                for p in per) if case["full_cache"] else True,
         }
-        if bf16["layout"] == "hd":
+        if bf16["layout"] in ("hd", "seq_hd"):
             checks["no_decode_kernel_in_hd_layout"] = all(
                 rec["launches"]["decode_attention"] == 0 for p in per
                 for kind in ("f32", "bf16") for rec in p[kind]["records"])
         step_ms = [[rec["ms"] for rec in p["bf16"]["records"][1:]]
                    for p in per]
-        out[arch] = {
+        out[key] = {
             "arch": get_config(arch).name,
             "mesh": {"data": case["mesh"][0], "model": case["mesh"][1]},
             "layout": {"head": "head-sharded", "hd": "hd-sharded",
+                       "seq": "fully-seq, whole heads",
+                       "seq_hd": "fully-seq, head_dim blocks",
                        None: "no attention"}[bf16["layout"]],
-            "layers": bf16["layers"], "batch": SERVE_BATCH,
-            "prompt_len": PROMPT_LEN, "new_tokens": SHARD_SERVE_NEW,
+            "rows": "whole on every rank" if rows_whole
+            else "a data block a rank",
+            "layers": bf16["layers"], "batch": case["batch"],
+            "prompt_len": case["prompt"], "new_tokens": SHARD_SERVE_NEW,
             "max_len": SHARD_SERVE_LEN, "gpu": card,
             "prefill_ms_per_rank": [p["bf16"]["records"][0]["ms"]
                                     for p in per],
@@ -4521,7 +4782,7 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
             "seconds_rank0": {"f32": per[0]["f32_s"],
                               "bf16": per[0]["bf16_s"]},
             "checks": checks}
-        failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+        failed += [f"{key}: {k}" for k, ok in checks.items() if not ok]
     run = {"ranks": SHARD_RANKS, "cases": out}
     if failed:
         emit({"phase": "shard_serve_path", "ok": False, **run})
@@ -4997,9 +5258,12 @@ def run(args) -> None:
         emit({"phase": "kernels", **c})
     t1 = time.perf_counter()
     shard_timing = shard_kernel_timings(device, args.seed, flush)
+    t2 = time.perf_counter()
+    long_k3 = long_stats(device, args.seed, flush)
     emit({"phase": "kernels", "timings": {"sharded": shard_timing},
-          "sharded_seconds": {"checks": t1 - t0,
-                              "timings": time.perf_counter() - t1}})
+          "long_500k_statistics_form": long_k3,
+          "sharded_seconds": {"checks": t1 - t0, "timings": t2 - t1,
+                              "long_500k": time.perf_counter() - t2}})
 
     t0 = time.perf_counter()
     stream = make_stream(args)
@@ -5102,14 +5366,14 @@ def run(args) -> None:
                                    and c["sharded"].startswith(key)),
                 **shard_timing[timed]}
 
-    def sharded_serve(name: str, arch: str, key: str | None = None,
+    def sharded_serve(name: str, case_key: str, key: str | None = None,
                       timed: str | None = None) -> dict:
         """A kernel in a ``shard_serve_path`` case: its launches per rank
         in the prefill and in a step (rank 0's), its checks' largest
         error at that case's sharded shapes and its timing there."""
-        case = shard_serve["cases"][arch]
+        case = shard_serve["cases"][case_key]
         out = {"path": case["arch"], "mesh": case["mesh"],
-               "layout": case["layout"],
+               "layout": case["layout"], "batch": case["batch"],
                "launches_per_rank_prefill":
                    case["launches_prefill_rank0"][name],
                "launches_per_rank_step": case["launches_step_rank0"][name]}
@@ -5207,7 +5471,14 @@ def run(args) -> None:
                 "serve_flash_attention_granite"),
             "glm4": sharded_serve(
                 "flash_attention", SERVE_ARCH, "serve_flash_attention_glm4",
-                "serve_flash_attention_glm4")}},
+                "serve_flash_attention_glm4")},
+        "sharded_serve_fully_seq": {
+            "granite": sharded_serve(
+                "flash_attention", f"{MOE_ARCH}/fully_seq",
+                "fs_flash_attention_granite"),
+            "glm4": sharded_serve(
+                "flash_attention", f"{SERVE_ARCH}/fully_seq",
+                "fs_flash_attention_glm4")}},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
@@ -5228,7 +5499,18 @@ def run(args) -> None:
                  "decode_attention", MOE_ARCH,
                  "serve_decode_attention_granite",
                  "serve_decode_attention_granite"),
-             "glm4": sharded_serve("decode_attention", SERVE_ARCH)}},
+             "glm4": sharded_serve("decode_attention", SERVE_ARCH)},
+         "sharded_serve_fully_seq": {
+             "form": "statistics (o, m, l) over each rank's block of "
+                     "positions, combined across dp",
+             "granite": sharded_serve(
+                 "decode_attention", f"{MOE_ARCH}/fully_seq",
+                 "fs_decode_stats_granite"),
+             "glm4": sharded_serve("decode_attention",
+                                   f"{SERVE_ARCH}/fully_seq"),
+             "long_500k": {"block": long_k3["timing"],
+                           "max_abs_err": long_k3["max_abs_err"],
+                           "combine": long_k3["combine"]}}},
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
@@ -5237,7 +5519,9 @@ def run(args) -> None:
          "sharded": sharded("ssd_scan", "ssd_scan", SSM_ARCH, "ssd_scan"),
          "sharded_serve": {**sharded_serve("ssd_scan", SSM_ARCH),
                            "shape_note": "the prefill's block is the "
-                                         "sharded step's: timed there"}},
+                                         "sharded step's: timed there"},
+         "sharded_serve_fully_seq": sharded_serve(
+             "ssd_scan", f"{SSM_ARCH}/fully_seq", "fs_ssd_scan")},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
@@ -5269,7 +5553,15 @@ def run(args) -> None:
                  c["max_abs_err"] for c in shard_checks
                  if c["sharded"] == "serve_moe_gmm_prefill"),
              "prefill_gate_up": shard_timing[
-                 "serve_moe_gmm_prefill_gate_up"]}}],
+                 "serve_moe_gmm_prefill_gate_up"]},
+         "sharded_serve_fully_seq": {
+             **sharded_serve("moe_gmm", f"{MOE_ARCH}/fully_seq",
+                             "fs_moe_gmm_decode"),
+             "launches_per_rank_run": shard_serve["cases"][
+                 f"{MOE_ARCH}/fully_seq"]["k5_launches_per_rank"],
+             "prefill_max_abs_err": max(
+                 c["max_abs_err"] for c in shard_checks
+                 if c["sharded"] == "fs_moe_gmm_prefill")}}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5320,7 +5612,8 @@ def shard_only(args) -> None:
         emit({"phase": "kernels", **c})
     flush = torch.zeros(32 << 20, dtype=torch.float32, device=device)
     emit({"phase": "kernels", "timings": {"sharded": shard_kernel_timings(
-        device, args.seed, flush)}})
+        device, args.seed, flush)},
+        "long_500k_statistics_form": long_stats(device, args.seed, flush)})
     del flush
     torch.cuda.empty_cache()
     shard, shard_serve = phase_shard(args, card, device)

@@ -130,13 +130,13 @@ def gather_cache(cache: dict, cfg, shards, batch_size: int) -> dict:
     """A participant's decode cache (``lm.init_cache(..., part=)``) whole:
     every slot gathered (``gather_tree`` over ``cache_shardings``) from the
     blocks the participants of ``shards`` (a ``Participant``, or what it
-    is made from) hold; ``"len"`` and ``"pos"`` as this one holds them.
+    is made from) hold (sequence blocks too, in the fully-seq layout);
+    ``"len"`` and ``"pos"`` as this one holds them.
     Every participant receives the same tree, of new tensors (a later step
     writes the cache in place)."""
     sh = as_shards(getattr(shards, "shards", shards))
-    max_len = next((s["k"].shape[2] for s in cache["slots"].values()
-                    if "k" in s), 1)
-    like = lm.init_cache(cfg, batch_size, max_len, "meta")["slots"]
+    like = lm.init_cache(cfg, batch_size, lm.cache_size(cache) or 1,
+                         "meta")["slots"]
     slots = gather_tree(cache["slots"], cache_shardings(
         cfg, sh.mesh, like, batch_size), sh, like)
     return {"len": cache["len"].clone(), "pos": cache["pos"],

@@ -57,6 +57,15 @@
 // heads, batch), K and V converted to f32 in shared memory, scalar FMAs
 // (the tensor cores would round float32 to TF32), the partials through
 // global scratch the wrapper allocates, then a combine kernel.
+//
+// The statistics form (`decode_attention_stats_fwd`), for a caller that
+// holds one block of a cache whose other blocks lie elsewhere (the
+// fully-seq cache layout: the sequence split over the data axes): the same
+// launches, whose combine also writes its m* = max m and sum(l * w) per
+// (batch, head), with the output in float32, not rounded.  A caller's
+// combine of such blocks (w_b = l_b * exp(m_b - max m)) is the combine of
+// the splits of all of them.  A block past the current token has a
+// cache_len of -1: it loads nothing and writes m = -1e30, l = 0, out = 0.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,12 +199,14 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int D>
+// STATS: also the combine's m* (m_out) and sum(l * w) (l_out), [B, H].
+template <typename T, int D, bool STATS>
 __global__ void decode_combine(const float* __restrict__ m,
                                const float* __restrict__ l,
                                const float* __restrict__ acc,
                                const int* __restrict__ cache_len,
-                               T* __restrict__ out, int H, int n_s,
+                               T* __restrict__ out, float* __restrict__ m_out,
+                               float* __restrict__ l_out, int H, int n_s,
                                long long o_sb, long long o_sh) {
     const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
     const int len = *cache_len;
@@ -210,6 +221,10 @@ __global__ void decode_combine(const float* __restrict__ m,
         den = fmaf(l[base + s], w, den);
     }
     out[b * o_sb + h * o_sh + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+    if (STATS && d == 0) {
+        m_out[static_cast<long long>(b) * H + h] = m_star;
+        l_out[static_cast<long long>(b) * H + h] = den;
+    }
 }
 
 
@@ -227,11 +242,14 @@ constexpr int bf16_smem_bytes() {
 
 // Grid (n_splits, KV * n_groups, B), clusters of (n_splits, 1, 1): block x
 // is split x of its (batch, kv head, head group) and rank x of its cluster.
-template <int D>
+// STATS: the output is float32, not rounded to bf16, and the combine's m*
+// (m_out) and sum(l * w) (l_out), [B, H], are written beside it.
+template <int D, bool STATS>
 __global__ void __launch_bounds__(BF16_WARPS * 32)
 decode_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const int* __restrict__ cache_len,
-            bf16* __restrict__ out, int S, int n_rep, int n_groups,
+            void* __restrict__ out, float* __restrict__ m_out,
+            float* __restrict__ l_out, int S, int n_rep, int n_groups,
             int split_len, float scale, long long q_sb, long long q_sh,
             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
             long long v_ss, long long v_sh, long long o_sb, long long o_sh) {
@@ -456,20 +474,34 @@ decode_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 den = fmaf(l[sp], wt, den);
             }
         }
-        out[b * o_sb + (h0 + hh) * o_sh + i % D] =
-            __float2bfloat16_rn(num / fmaxf(den, 1e-30f));
+        const float o = num / fmaxf(den, 1e-30f);
+        const long long at = b * o_sb + (h0 + hh) * o_sh + i % D;
+        if constexpr (STATS) {
+            static_cast<float*>(out)[at] = o;
+            if (i % D == 0) {
+                const long long row = static_cast<long long>(b)
+                                      * (gridDim.y / n_groups) * n_rep
+                                      + h0 + hh;
+                m_out[row] = m_star;
+                l_out[row] = den;
+            }
+        } else {
+            static_cast<bf16*>(out)[at] = __float2bfloat16_rn(o);
+        }
     }
     cluster.sync();   // no block leaves while another still reads it
 }
 
-template <int D>
+template <int D, bool STATS>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const int* cache_len, void* out, int B, int S, int H,
-                        int KV, int split_len, int n_splits, float scale,
+                        const int* cache_len, void* out, float* m_out,
+                        float* l_out, int B, int S, int H, int KV,
+                        int split_len, int n_splits, float scale,
                         const long long* st, cudaStream_t stream) {
     constexpr int smem = bf16_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        decode_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_bf16<D, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     const int n_rep = H / KV;
     const int n_groups = (n_rep + HG - 1) / HG;
@@ -486,17 +518,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(
-        &cfg, decode_bf16<D>, static_cast<const bf16*>(q),
+        &cfg, decode_bf16<D, STATS>, static_cast<const bf16*>(q),
         static_cast<const bf16*>(k), static_cast<const bf16*>(v), cache_len,
-        static_cast<bf16*>(out), S, n_rep, n_groups, split_len, scale, st[0],
+        out, m_out, l_out, S, n_rep, n_groups, split_len, scale, st[0],
         st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
 }
 
-template <int D>
+template <int D, bool STATS>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* cache_len, float* m, float* l, float* acc,
-                       void* out, int B, int S, int H, int KV, float scale,
-                       const long long* st, cudaStream_t stream) {
+                       void* out, float* m_out, float* l_out, int B, int S,
+                       int H, int KV, float scale, const long long* st,
+                       cudaStream_t stream) {
     constexpr int smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         decode_partial<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -513,9 +546,46 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
         st[7]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    decode_combine<float, D><<<dim3(H, B), D, 0, stream>>>(
-        m, l, acc, cache_len, static_cast<float*>(out), H, n_s, st[8], st[9]);
+    decode_combine<float, D, STATS><<<dim3(H, B), D, 0, stream>>>(
+        m, l, acc, cache_len, static_cast<float*>(out), m_out, l_out, H, n_s,
+        st[8], st[9]);
     return cudaGetLastError();
+}
+
+// The launches of both entry points; STATS as in decode_bf16.
+template <bool STATS>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* cache_len, void* m, void* l, void* acc, void* out,
+             float* m_out, float* l_out, int B, int S, int H, int KV, int D,
+             int dtype, float scale, const long long* st, int split_len,
+             int n_splits, void* stream) {
+    const int* len = static_cast<const int*>(cache_len);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) {
+        if (n_splits < 1 || n_splits > MAX_SPLITS || split_len < 1
+                || split_len % SPLIT_MULTIPLE
+                || static_cast<long long>(n_splits - 1) * split_len >= S
+                || static_cast<long long>(n_splits) * split_len < S)
+            return static_cast<int>(cudaErrorInvalidValue);
+        if (D == 64)
+            return launch_bf16<64, STATS>(q, k, v, len, out, m_out, l_out, B,
+                                          S, H, KV, split_len, n_splits,
+                                          scale, st, s);
+        if (D == 128)
+            return launch_bf16<128, STATS>(q, k, v, len, out, m_out, l_out,
+                                           B, S, H, KV, split_len, n_splits,
+                                           scale, st, s);
+    }
+    float* mf = static_cast<float*>(m);
+    float* lf = static_cast<float*>(l);
+    float* af = static_cast<float*>(acc);
+    if (dtype == 0 && D == 64)
+        return launch_f32<64, STATS>(q, k, v, len, mf, lf, af, out, m_out,
+                                     l_out, B, S, H, KV, scale, st, s);
+    if (dtype == 0 && D == 128)
+        return launch_f32<128, STATS>(q, k, v, len, mf, lf, af, out, m_out,
+                                      l_out, B, S, H, KV, scale, st, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -526,7 +596,8 @@ extern "C" int decode_attention_split() { return SPLIT; }
 // dtype: 0 = float32, 1 = bfloat16; scale is the caller's 1/sqrt(D) rounded
 // to float.  q and out are [B, H, D], the caches [B, S, KV, D]; strides are
 // in elements (q: batch, head; k, v: batch, position, head; out: batch,
-// head), D (64 or 128) is contiguous.  cache_len is a device int32.
+// head), D (64 or 128) is contiguous.  cache_len is a device int32 (a
+// negative one selects no position).
 // float32: m, l ([B, H, n_s]) and acc ([B, H, n_s, D]) are contiguous f32
 // scratch with n_s = ceil(S / decode_attention_split()); split_len and
 // n_splits are not read.  bfloat16: m, l and acc are not read; the cache is
@@ -543,27 +614,26 @@ extern "C" int decode_attention_fwd(
     int n_splits, void* stream) {
     const long long st[10] = {q_sb, q_sh, k_sb, k_ss, k_sh,
                               v_sb, v_ss, v_sh, o_sb, o_sh};
-    const int* len = static_cast<const int*>(cache_len);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) {
-        if (n_splits < 1 || n_splits > MAX_SPLITS || split_len < 1
-                || split_len % SPLIT_MULTIPLE
-                || static_cast<long long>(n_splits - 1) * split_len >= S
-                || static_cast<long long>(n_splits) * split_len < S)
-            return static_cast<int>(cudaErrorInvalidValue);
-        if (D == 64)
-            return launch_bf16<64>(q, k, v, len, out, B, S, H, KV, split_len,
-                                   n_splits, scale, st, s);
-        if (D == 128)
-            return launch_bf16<128>(q, k, v, len, out, B, S, H, KV, split_len,
-                                    n_splits, scale, st, s);
-    }
-    float* mf = static_cast<float*>(m);
-    float* lf = static_cast<float*>(l);
-    float* af = static_cast<float*>(acc);
-    if (dtype == 0 && D == 64)
-        return launch_f32<64>(q, k, v, len, mf, lf, af, out, B, S, H, KV, scale, st, s);
-    if (dtype == 0 && D == 128)
-        return launch_f32<128>(q, k, v, len, mf, lf, af, out, B, S, H, KV, scale, st, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<false>(q, k, v, cache_len, m, l, acc, out, nullptr,
+                           nullptr, B, S, H, KV, D, dtype, scale, st,
+                           split_len, n_splits, stream);
+}
+
+// The statistics form: decode_attention_fwd's arguments, with out a float32
+// [B, H, D] (the block's normalised output, not rounded) and m_out, l_out
+// contiguous float32 [B, H]: the max logit over the valid positions (-1e30
+// where there is none) and sum exp(logit - m) over them (0 where none).
+extern "C" int decode_attention_stats_fwd(
+    const void* q, const void* k, const void* v, const void* cache_len,
+    void* m, void* l, void* acc, void* out, void* m_out, void* l_out, int B,
+    int S, int H, int KV, int D, int dtype, float scale, long long q_sb,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_sh, int split_len, int n_splits, void* stream) {
+    const long long st[10] = {q_sb, q_sh, k_sb, k_ss, k_sh,
+                              v_sb, v_ss, v_sh, o_sb, o_sh};
+    return dispatch<true>(q, k, v, cache_len, m, l, acc, out,
+                          static_cast<float*>(m_out),
+                          static_cast<float*>(l_out), B, S, H, KV, D, dtype,
+                          scale, st, split_len, n_splits, stream);
 }

@@ -20,6 +20,12 @@ be a multiple of the split (the reference asserts a multiple of 512).
   bfloat16 kernel cuts it (:func:`split_plan`): per-split partials and the
   kernel's combine, in plain PyTorch, so the CPU tests reach the combine's
   numerics.
+- :func:`decode_attention_stats_torch` — the statistics form in plain
+  PyTorch: the normalised output in float32 and the block's ``m`` (max
+  logit) and ``l`` (``Σ exp(logit − m)``), for a cache split into blocks
+  held apart (the fully-seq cache layout); :func:`combine_blocks` combines
+  such blocks, on every device (it is a handful of elementwise operations,
+  not a kernel).
 - :func:`decode_attention` — CUDA tensors launch ``csrc/decode_attention.cu``
   on the current stream or raise (bfloat16: one launch, the splits of one
   (batch, kv head) in one thread-block cluster that combines them; float32:
@@ -28,7 +34,9 @@ be a multiple of the split (the reference asserts a multiple of 512).
   ``meta`` tensors (the dry run) take the kernel's checks, then an empty
   output, and its work over the whole cache (``cache_len`` is not known on
   meta; a cell decodes at its full context) goes to the active step
-  counter (:func:`repro_torch.launch.roofline.decode_work`).
+  counter (:func:`repro_torch.launch.roofline.decode_work`).  With
+  ``stats=True`` it returns the statistics form ``(o, m, l)`` from the same
+  launches (``csrc``'s ``decode_attention_stats_fwd``).
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ TILE = 64
 SPLIT_MULTIPLE = 16
 MAX_SPLITS = 8
 
-_fn = None
+_fns: dict = {}
 
 
 @functools.lru_cache(maxsize=256)
@@ -79,23 +87,25 @@ def split_plan(B: int, KV: int, n_rep: int, S: int,
     return -(-S // length), length
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _kernel_fn(stats: bool = False):
+    """The entry point of the default form, or of the statistics form
+    (two more pointers, ``m`` and ``l``, after the output)."""
+    if stats not in _fns:
         lib = build.load("decode_attention")
         lib.decode_attention_split.restype = ctypes.c_int
         if lib.decode_attention_split() != SPLIT:
             raise RuntimeError("decode_attention.cu and its wrapper disagree "
                                "on the split size")
-        fn = lib.decode_attention_fwd
+        fn = (lib.decode_attention_stats_fwd if stats
+              else lib.decode_attention_fwd)
         fn.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p]
+            [ctypes.c_void_p] * (10 if stats else 8) + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_longlong] * 10
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[stats] = fn
+    return _fns[stats]
 
 
 def decode_attention_torch(q, k_cache, v_cache, cache_len) -> torch.Tensor:
@@ -112,6 +122,42 @@ def decode_attention_torch(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     logits = torch.where(valid, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     return torch.einsum("bhk,bkhd->bhd", p, vv.float()).to(q.dtype)
+
+
+def decode_attention_stats_torch(q, k_cache, v_cache, cache_len):
+    """The statistics form in plain PyTorch: float32 ``(o [B, H, D], m [B,
+    H], l [B, H])`` with ``m`` the max logit over the positions ``<=
+    cache_len`` (``-1e30`` where there is none: a ``cache_len`` of -1),
+    ``p = exp(logit − m)`` there and 0 elsewhere, ``l = Σ p`` and ``o =
+    Σ round(p)·v / max(l, 1e-30)`` (``p`` rounded to the value dtype), so
+    a block with no valid position gives ``o = 0``, ``l = 0``."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    kk = k_cache.repeat_interleave(H // KV, dim=2).float()
+    vv = v_cache.repeat_interleave(H // KV, dim=2).float()
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), kk) * (1.0 / math.sqrt(D))
+    valid = torch.arange(S, device=q.device) <= cache_len
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhk,bkhd->bhd", p.to(v_cache.dtype).float(), vv)
+    return acc / l.clamp_min(1e-30)[..., None], m, l
+
+
+def combine_blocks(o, m, l) -> torch.Tensor:
+    """The statistics forms of ``n`` blocks of one cache, stacked on a
+    leading block dimension (``o [n, ..., D]``, ``m``, ``l [n, ...]``),
+    combined in block order: ``M = max m``, ``w = l · exp(m − M)``, ``Σ
+    w·o / max(Σ w, 1e-30)``, float32.  The same inputs give the same bits
+    on every device of one type (the sums run block by block)."""
+    M = m.amax(dim=0)
+    w = l * torch.exp(m - M)
+    num, den = w[0, ..., None] * o[0], w[0]
+    for i in range(1, o.shape[0]):
+        num = num + w[i, ..., None] * o[i]
+        den = den + w[i]
+    return num / den.clamp_min(1e-30)[..., None]
 
 
 def decode_attention_splits_torch(q, k_cache, v_cache, cache_len,
@@ -189,12 +235,18 @@ def _check(q, k, v) -> None:
         raise ValueError("q and the caches lie on different devices")
 
 
-def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, stats: bool = False):
     """One-token attention on the tensors' own device.  ``cache_len`` is
-    a 0-d int32 tensor on that device (on the CPU an ``int`` will do)."""
+    a 0-d int32 tensor on that device (on the CPU an ``int`` will do); it
+    may be -1 (no valid position).  With ``stats``, the statistics form
+    ``(o, m, l)`` (:func:`decode_attention_stats_torch`) from the same
+    launches."""
     global LAUNCHES
     _check(q, k_cache, v_cache)
     if q.device.type == "cpu":
+        if stats:
+            return decode_attention_stats_torch(q, k_cache, v_cache,
+                                                cache_len)
         return decode_attention_torch(q, k_cache, v_cache, cache_len)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
@@ -210,8 +262,17 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
 
         roofline.count_kernel("decode_attention", roofline.decode_work(
             B, H, KV, D, S, q.dtype))
+        if stats:
+            return (torch.empty((B, H, D), device=q.device),
+                    torch.empty((B, H), device=q.device),
+                    torch.empty((B, H), device=q.device))
         return torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, D), dtype=torch.float32 if stats else q.dtype,
+                      device=q.device)
+    block_stats = ((torch.empty((B, H), dtype=torch.float32,
+                                device=q.device),
+                    torch.empty((B, H), dtype=torch.float32,
+                                device=q.device)) if stats else ())
     if q.dtype == torch.bfloat16:
         n_splits, split_len = split_plan(B, KV, H // KV, S,
                                          sm_count(q.device))
@@ -231,11 +292,12 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
                *(t.stride(i) for t in (k_cache, v_cache) for i in range(3)),
                out.stride(0), out.stride(1))
     with torch.cuda.device(q.device):
-        rc = _kernel_fn()(
+        rc = _kernel_fn(stats)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in scratch),
-            out.data_ptr(), B, S, H, KV, D, DTYPES[q.dtype],
+            out.data_ptr(), *(t.data_ptr() for t in block_stats),
+            B, S, H, KV, D, DTYPES[q.dtype],
             1.0 / math.sqrt(D), *strides, split_len, n_splits,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -244,4 +306,4 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
             f"decode_attention_fwd launch failed: CUDA error {rc}"
         )
     LAUNCHES += 1
-    return out
+    return (out, *block_stats) if stats else out

@@ -37,6 +37,12 @@ def mha_decode(q, k_cache, v_cache, cache_len):
     return decode_attention(q[:, 0], k_cache, v_cache, cache_len)[:, None]
 
 
+def mha_decode_stats(q, k_cache, v_cache, cache_len):
+    """:func:`mha_decode`'s statistics form over one block of a cache:
+    float32 ``(o [B,H,D], m [B,H], l [B,H])``; ``cache_len`` may be -1."""
+    return decode_attention(q[:, 0], k_cache, v_cache, cache_len, stats=True)
+
+
 def ssd_chunked_cuda(x, dt, A, Bm, Cm, chunk: int, h0=None):
     """The contract of ``models.ssd.ssd_chunked``: x ``[B,S,H,P]``, dt
     ``[B,S,H]`` (float32, after the softplus), A ``[H]`` (float32), Bm/Cm

@@ -102,11 +102,14 @@ def flash_work(B, Sq, Sk, H, KV, D, dtype, causal: bool) -> dict:
             "dtype": dtype}
 
 
-def decode_work(B, H, KV, D, valid, dtype) -> dict:
+def decode_work(B, H, KV, D, valid, dtype, stats: bool = False) -> dict:
     """K3: ``valid`` cache positions of K and V read once per kv head, q
-    read and the output written once; the two products over them."""
+    read and the output written once; the two products over them.  The
+    statistics form (``stats``) writes its output in float32 and a float32
+    ``m`` and ``l`` per (batch, head) beside it."""
+    out = 4 * B * H * (D + 2) if stats else _elt(dtype) * B * H * D
     return {"flops": 4 * B * H * D * valid,
-            "bytes": _elt(dtype) * D * (2 * B * valid * KV + 2 * B * H),
+            "bytes": _elt(dtype) * D * (2 * B * valid * KV + B * H) + out,
             "dtype": dtype}
 
 

@@ -19,10 +19,12 @@ configs (``enc_layers > 0``) through :mod:`.encdec`.
 (:func:`repro_torch.parallel.sharding.shard_tree`) and its rows of the
 batch.  ``init_cache``, ``prefill`` and ``decode`` take it too: there the
 participant is given the whole batch, as the reference's jitted serving
-cells are, keeps its block of the cache
-(:func:`repro_torch.convert.gather_cache` gathers it whole) and returns
-its rows' logits over the whole vocabulary.  Decoder-only configs only;
-without it every call is the unsharded one.
+cells are, keeps its block of the cache in the layout the batch takes
+(``parallel/sharding.py``'s ``cache_layout``; a batch that does not divide
+over the data axes takes the fully-seq one, every row on every
+participant) (:func:`repro_torch.convert.gather_cache` gathers it whole)
+and returns its rows' logits over the whole vocabulary.  Decoder-only
+configs only; without it every call is the unsharded one.
 """
 from __future__ import annotations
 

@@ -16,11 +16,14 @@ kv heads divide the model axis, else the columns of the kv heads its
 query heads read, from the replicated weights), its ``d_ff`` columns, in
 a region of :func:`~repro_torch.parallel.tensor.enter_model_region` and
 :func:`~repro_torch.parallel.tensor.leave_model_region`.  With a cache,
-the participant keeps its block of it (``parallel/sharding.py``'s
-``cache_spec_for_kv``): its kv heads where they shard (head-sharded
-layout: a decode step runs the decode kernel over them), else a
-``head_dim`` block of every kv head (hd-sharded layout,
-:func:`attention_decode_sharded`).
+the participant keeps its block of it in the layout
+``parallel/sharding.py``'s ``cache_layout`` names: its kv heads (``"head"``:
+a decode step runs the decode kernel over them), a ``head_dim`` block of
+every kv head (``"hd"``), or, where the batch does not divide over the
+data axes, a block of the positions (``"seq"``: whole heads, the decode
+kernel's statistics form over the block; ``"seq_hd"``: its ``head_dim``
+block of them), whose softmax is combined across the data axes
+(:func:`attention_decode_sharded`).
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.decode_attention import (
+    combine_blocks,
+    decode_attention_stats_torch,
+)
 from ..parallel.sharding import kv_shardable
 from ..parallel.tensor import enter_model_region, leave_model_region
 
@@ -203,12 +210,12 @@ def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
     a model axis of 4: 8 heads over one, so n_rep 8), or, where the block
     straddles kv groups unevenly, each query head's own (n_rep 1).
 
-    ``kv_out``: also return k (after rope) and v as a sharded cache keeps
-    them, ``(out, k, v)``: this participant's kv heads where they shard,
-    else every kv head at the whole ``head_dim`` (projected from the
-    replicated ``wk`` / ``wv``; rope pairs column ``i`` with ``i + hd/2``,
-    which another participant's ``head_dim`` block holds, so the cache
-    block is cut after it, by :func:`kv_cache_block`)."""
+    ``kv_out``: also return k (after rope) and v, ``(out, k, v)``: this
+    participant's kv heads where they shard, else every kv head at the
+    whole ``head_dim`` (projected from the replicated ``wk`` / ``wv``;
+    rope pairs column ``i`` with ``i + hd/2``, which another
+    participant's ``head_dim`` block holds, so the cache block is cut
+    after it, by :func:`kv_cache_blocks`)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = dtype_of(cfg.dtype)
     h_lo, h_hi = part.block(H)
@@ -253,14 +260,21 @@ def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
     return (out, k, v) if kv_out else out
 
 
-def kv_cache_block(t: torch.Tensor, cfg, part) -> torch.Tensor:
-    """A participant's block of k or v ``[..., KV', hd]`` from
-    :func:`_attention_sharded` as its cache keeps it: as it is where the
-    kv heads shard, else its ``head_dim`` columns ``part.block(hd)``."""
+def kv_cache_blocks(k, v, cfg, part, layout: str):
+    """A participant's blocks of k and v ``[B, S, KV', hd]`` (from
+    :func:`_attention_sharded` or a decode step's projection) as its cache
+    keeps them in ``layout``, every position: as they are in ``"head"``
+    and ``"seq"`` (its kv heads; every one at a model axis of one), else
+    its ``head_dim`` columns ``part.block(hd)`` of every kv head.  Where
+    the kv heads shard (``"seq_hd"`` only) they are first gathered over
+    ``"model"``, k and v in one gather."""
+    if layout in ("head", "seq"):
+        return k, v
     if kv_shardable(cfg, part.m):
-        return t
+        kv = part.all_gather_model(torch.stack([k, v]))
+        k, v = torch.cat(list(kv.unbind(0)), dim=-2).unbind(0)
     lo, hi = part.block(cfg.head_dim)
-    return t[..., lo:hi]
+    return k[..., lo:hi], v[..., lo:hi]
 
 
 def attend(q, k, v, cfg, causal: bool):
@@ -331,18 +345,27 @@ def _attend_cache(q, k_cache, v_cache, cache_len, cfg):
 
 
 def attention_decode_sharded(p: Params, x, cfg, k_cache, v_cache,
-                             cache_len, part):
+                             cache_len, part, layout: str = "head",
+                             s_lo: int = 0, write: bool = True):
     """:func:`attention_decode` on ``part``'s block of the weights and of
     the cache (``x [B, 1, d]`` its rows, replicated over ``"model"``):
-    its query heads ``part.block(H)``, roped at ``cache_len``, then
+    its query heads ``part.block(H)``, roped at ``cache_len``, then by
+    the cache's ``layout`` (``parallel/sharding.py``'s ``cache_layout``):
 
-    - head-sharded layout (the kv heads divide the model axis): its kv
-      heads projected, roped and written at ``cache_len`` into its cache
-      ``[B, S, KV/m, hd]``, and the decode kernel over them;
-    - hd-sharded layout: every kv head projected from the replicated
-      ``wk`` / ``wv`` and roped at the whole ``head_dim`` before its
-      columns ``part.block(hd)`` are written into its cache ``[B, S, KV,
-      hd/m]``; then :func:`_attend_hd_block`.
+    - ``"head"`` (the kv heads divide the model axis): its kv heads
+      projected, roped and written at ``cache_len`` into its cache ``[B,
+      S, KV/m, hd]``, and the decode kernel over them;
+    - ``"hd"``: every kv head projected from the replicated ``wk`` /
+      ``wv`` and roped at the whole ``head_dim`` before its columns
+      ``part.block(hd)`` are written into its cache ``[B, S, KV, hd/m]``;
+      then :func:`_attend_hd_block`;
+    - ``"seq"`` and ``"seq_hd"``: the cache holds the positions ``[s_lo,
+      s_lo + S)`` of every row, whole heads or a ``head_dim`` block as
+      above; the new k / v are projected and written, at ``cache_len -
+      s_lo``, only where ``write`` (the caller's host mirror of the
+      position says that this block holds it); then :func:`_attend_seq_block` or
+      :func:`_attend_hd_block` over the block, the blocks' softmax
+      combined across the data axes.
 
     Then ``wo``'s rows of its heads, summed over ``"model"``."""
     H, hd = cfg.n_heads, cfg.head_dim
@@ -351,26 +374,32 @@ def attention_decode_sharded(p: Params, x, cfg, k_cache, v_cache,
     x = enter_model_region(x, part)
     B = x.shape[0]
     q = x @ p["wq"].to(cdt)
-    k = x @ p["wk"].to(cdt)
-    v = x @ p["wv"].to(cdt)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
     pos = cache_len.reshape(1, 1).expand(B, 1)
     q = rope(q.reshape(B, 1, h_hi - h_lo, hd), pos, cfg.rope_theta)
-    k = rope(k.reshape(B, 1, -1, hd), pos, cfg.rope_theta)
-    v = v.reshape(B, 1, -1, hd)
-    check_cache_index(cache_len, k_cache.shape[1])
-    index = cache_len.reshape(1).long()
-    k_cache.index_copy_(1, index, kv_cache_block(k, cfg, part).to(
-        k_cache.dtype))
-    v_cache.index_copy_(1, index, kv_cache_block(v, cfg, part).to(
-        v_cache.dtype))
-    if kv_shardable(cfg, part.m):
+    if write:
+        k = x @ p["wk"].to(cdt)
+        v = x @ p["wv"].to(cdt)
+        if "bk" in p:
+            k = k + p["bk"].to(cdt)
+            v = v + p["bv"].to(cdt)
+        k = rope(k.reshape(B, 1, -1, hd), pos, cfg.rope_theta)
+        v = v.reshape(B, 1, -1, hd)
+        local = cache_len - s_lo if s_lo else cache_len
+        check_cache_index(local, k_cache.shape[1])
+        index = local.reshape(1).long()
+        k, v = kv_cache_blocks(k, v, cfg, part, layout)
+        k_cache.index_copy_(1, index, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, index, v.to(v_cache.dtype))
+    if layout == "head":
         out = _attend_cache(q, k_cache, v_cache, cache_len, cfg)
+    elif layout == "seq":
+        out = _attend_seq_block(q, k_cache, v_cache, cache_len, s_lo, cfg,
+                                part)
     else:
-        out = _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part)
+        out = _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part,
+                               s_lo if layout == "seq_hd" else None)
     out = out.reshape(B, 1, (h_hi - h_lo) * hd)
     return leave_model_region(out @ p["wo"].to(out.dtype), part)
 
@@ -382,9 +411,47 @@ def sum_partial_scores(scores: torch.Tensor, part) -> torch.Tensor:
     return part.psum_model(scores)
 
 
-def _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part):
-    """One-token attention over the hd-sharded layout's cache block
-    ``[B, S, KV, hd/m]`` (every kv head, this participant's ``head_dim``
+def block_cache_len(cache_len, s_lo: int, n: int) -> torch.Tensor:
+    """The index of the current token in a block of ``n`` positions that
+    starts at ``s_lo``, on the device: ``cache_len - s_lo`` clamped to
+    ``[-1, n - 1]`` (-1: the block starts past the token and holds no
+    valid position)."""
+    return (cache_len - s_lo).clamp(-1, n - 1).to(torch.int32)
+
+
+def combine_over_dp(o, m, l, part) -> torch.Tensor:
+    """Every data participant's block statistics ``(o [..., D], m, l
+    [...])`` gathered in one gather (packed as ``[..., D + 2]`` float32)
+    and combined in block order (:func:`combine_blocks`): the same bits on
+    every participant."""
+    D = o.shape[-1]
+    packed = torch.cat([o.float(), m.float()[..., None], l.float()[..., None]],
+                       dim=-1)
+    g = part.all_gather_dp(packed)
+    return combine_blocks(g[..., :D], g[..., D], g[..., D + 1])
+
+
+def _attend_seq_block(q, k_cache, v_cache, cache_len, s_lo: int, cfg, part):
+    """One-token attention of the fully-seq layout's whole-head form (a
+    model axis of one): q ``[B, 1, H, hd]`` against this participant's
+    block of positions ``[B, S, KV, hd]`` starting at ``s_lo``, the token
+    at its block index :func:`block_cache_len`; the decode kernel's
+    statistics form under ``"cuda"`` (launched on a block with no valid
+    position too), else its plain version; the blocks combined across the
+    data axes (:func:`combine_over_dp`), cast to q's dtype."""
+    local = block_cache_len(cache_len, s_lo, k_cache.shape[1])
+    if cfg.attention_impl == "cuda":
+        o, m, l = ops.mha_decode_stats(q, k_cache, v_cache, local)
+    else:
+        o, m, l = decode_attention_stats_torch(q[:, 0], k_cache, v_cache,
+                                               local)
+    return combine_over_dp(o, m, l, part).to(q.dtype)[:, None]
+
+
+def _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part,
+                     s_lo: int | None = None):
+    """One-token attention over a ``head_dim`` block of the cache ``[B, S,
+    KV, hd/m]`` (every kv head, this participant's ``head_dim``
     columns): the reference's two decode products
     (``src/repro/models/layers.py:227-232``) cut along ``head_dim``.
 
@@ -393,10 +460,15 @@ def _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part):
     2. float32 partial scores ``[B, H, S]`` against the cache block,
        summed over ``"model"`` (:func:`sum_partial_scores`);
     3. the scale ``1/sqrt(head_dim)`` of the whole head, the inclusive
-       mask ``pos <= cache_len``, the softmax;
-    4. the probabilities (rounded to the cache's dtype) times the v block
-       ``[B, H, hd/m]``, all-gathered over ``"model"``, the blocks joined
-       along ``head_dim`` in model order, this participant's heads kept.
+       mask ``pos <= cache_len`` over the positions' global index;
+    4. the hd-sharded layout (``s_lo`` None: the block is every
+       position): the softmax, the probabilities (rounded to the cache's
+       dtype) times the v block ``[B, H, hd/m]``; the fully-seq layout
+       (the block starts at ``s_lo``): the block's ``m`` (max), ``l = Σ
+       p`` and ``Σ round(p)·v / l`` with ``p = exp(score − m)``, combined
+       across the data axes (:func:`combine_over_dp`);
+    5. all-gathered over ``"model"``, the blocks joined along ``head_dim``
+       in model order, this participant's heads kept.
 
     The decode kernel does not run here: its function is whole-head
     attention (and it takes ``head_dim`` 64 or 128 only).  Returns
@@ -409,10 +481,18 @@ def _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part):
     qb = q_all[..., lo:hi].float().reshape(B, KV, H // KV, hi - lo)
     scores = torch.einsum("bgrd,bsgd->bgrs", qb, k_cache.float())
     scores = sum_partial_scores(scores, part) * (1.0 / math.sqrt(hd))
-    valid = torch.arange(S, device=q.device) <= cache_len
+    valid = (torch.arange(S, device=q.device) + (s_lo or 0)) <= cache_len
     scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bgrs,bsgd->bgrd", probs.float(), v_cache.float())
+    if s_lo is None:
+        probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        o = torch.einsum("bgrs,bsgd->bgrd", probs.float(), v_cache.float())
+    else:
+        m = scores.amax(dim=-1)
+        p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+        l = p.sum(dim=-1)
+        o = torch.einsum("bgrs,bsgd->bgrd", p.to(v_cache.dtype).float(),
+                         v_cache.float()) / l.clamp_min(1e-30)[..., None]
+        o = combine_over_dp(o, m, l, part)
     o = o.reshape(B, H, hi - lo).to(q.dtype)
     o = torch.cat(list(part.all_gather_model(o).unbind(0)), dim=-1)
     return o[:, None, h_lo:h_hi]

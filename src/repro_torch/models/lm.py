@@ -39,9 +39,13 @@ package's ``prefill_step`` / ``decode_step`` cells jitted with
 ``cache_shardings``: the participant allocates and fills its block of
 every cache slot, takes its rows of the (whole) batch it is given, and
 returns its rows' logits over the whole vocabulary (gathered over
-``"model"``).  The attention cache is head-sharded where the kv heads
-divide the model axis, else sharded over ``head_dim``; the fully-seq
-layout (a batch that does not divide over the data axes) raises.
+``"model"``).  The attention cache takes the layout ``cache_layout``
+names: head-sharded where the kv heads divide the model axis, else
+sharded over ``head_dim``; where the batch does not divide over the data
+axes, fully-seq: every participant takes every row (``batch_specs``
+replicates them), and its cache block is a block of the positions
+(``[s_lo, s_hi)`` of ``part.dp_block``), whole heads or a ``head_dim``
+block.  A sharded cache also holds ``"max_len"``, its whole length.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree
-from ..parallel.sharding import cache_shardings, kv_shardable, shard_slices
+from ..parallel.sharding import cache_layout, cache_shardings, shard_slices
 from ..parallel.tensor import (
     enter_model_region,
     gather_vocab,
@@ -70,7 +74,7 @@ from .layers import (
     attention_shapes,
     check_cache_index,
     dtype_of,
-    kv_cache_block,
+    kv_cache_blocks,
     mlp_apply,
     mlp_init,
     mlp_shapes,
@@ -328,7 +332,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     """Zero caches of a batch of ``batch_size`` and ``max_len`` positions.
     With ``part``, its block of every slot by ``cache_shardings``: the
     shapes ``shard_tree`` would cut from the whole cache (``"len"``
-    replicated, ``"pos"`` its host mirror)."""
+    replicated, ``"pos"`` its host mirror, ``"max_len"`` the whole
+    length; the fully-seq layout's last block is the shorter, and a
+    length that would leave a block empty raises)."""
     if part is not None:
         return _init_cache_block(cfg, batch_size, max_len, device, part)
     cdt = dtype_of(cfg.dtype)
@@ -358,23 +364,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     return cache
 
 
-def _check_cache_layout(cfg: ModelConfig, batch_size: int, part) -> None:
-    """Raise where ``part``'s mesh would give the cache a layout the
-    sharded layers do not run: the fully-seq one (a batch that does not
-    divide over the data axes splits the cache's sequence, so one step's
-    softmax would span participants), or attention slots whose kv heads
-    and ``head_dim`` both leave a remainder on the model axis."""
-    _check_rows(batch_size, part)
-    attn = any(s.mixer == "attn" for s in cfg.pattern())
-    if attn and not kv_shardable(cfg, part.m) and cfg.head_dim % part.m:
-        raise NotImplementedError(
-            f"{cfg.name}: neither {cfg.n_kv_heads} kv heads nor head_dim "
-            f"{cfg.head_dim} divide a model axis of {part.m}")
+def serve_layout(cfg: ModelConfig, part, batch_size: int) -> str | None:
+    """The attention cache's layout for a batch of ``batch_size`` on
+    ``part``'s mesh (``cache_layout``; None where no slot attends).
+    Raises ``NotImplementedError`` for a layout the sharded layers do not
+    run."""
+    if not any(s.mixer == "attn" for s in cfg.pattern()):
+        return None
+    return cache_layout(cfg, part.mesh, batch_size)
 
 
 def _init_cache_block(cfg: ModelConfig, batch_size: int, max_len: int,
                       device, part) -> dict:
-    _check_cache_layout(cfg, batch_size, part)
+    layout = serve_layout(cfg, part, batch_size)
+    if layout in ("seq", "seq_hd") and -(-max_len // part.dp) * (
+            part.dp - 1) >= max_len:
+        raise ValueError(f"a cache of {max_len} positions leaves a block "
+                         f"of the {part.dp} data participants empty")
     whole = init_cache(cfg, batch_size, max_len, "meta")
     sh = cache_shardings(cfg, part.mesh, whole["slots"], batch_size)
 
@@ -383,22 +389,33 @@ def _init_cache_block(cfg: ModelConfig, batch_size: int, max_len: int,
                  for sl in shard_slices(leaf.shape, s, part.coord)]
         return torch.zeros(shape, dtype=leaf.dtype, device=device)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
-            "pos": 0, "slots": tree.map(block, whole["slots"], sh)}
+            "pos": 0, "max_len": max_len,
+            "slots": tree.map(block, whole["slots"], sh)}
 
 
-def _check_rows(batch_size: int, part) -> None:
-    if batch_size % part.dp:
-        raise NotImplementedError(
-            f"a batch of {batch_size} does not divide over {part.dp} data "
-            "participants: the fully-seq cache layout does not run sharded")
+def rows_part(part, batch_size: int):
+    """``part`` as it takes a batch of ``batch_size``: its data block of
+    the rows, or every row where the batch does not divide over the data
+    axes (``batch_specs``' replicated batch; :meth:`whole_rows`)."""
+    return part if batch_size % part.dp == 0 else part.whole_rows()
 
 
 def batch_block(t: torch.Tensor, part) -> torch.Tensor:
     """``part``'s rows of a whole batch ``t`` (``batch_specs``: the
-    batch's ``dp`` blocks in row-major order over the data axes)."""
-    _check_rows(t.shape[0], part)
+    batch's ``dp`` blocks in row-major order over the data axes, or every
+    row where ``part`` holds every row: :func:`rows_part`)."""
+    if not part.rows_split:
+        return t
     n = t.shape[0] // part.dp
     return t[part.di * n:(part.di + 1) * n]
+
+
+def cache_size(cache: dict) -> int | None:
+    """The whole length of a cache's attention slots (a participant's
+    block may hold fewer positions); None where no slot attends."""
+    if "max_len" in cache:
+        return cache["max_len"]
+    return next((s["k"].shape[2] for s in _kv_slots(cache)), None)
 
 
 def _kv_slots(cache: dict) -> list[dict]:
@@ -413,19 +430,25 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``[:S]``, zeros after, as the reference's padded copy; SSM slots hold
     the state after the last prompt step).  With ``part`` (module doc),
     its rows of ``tokens`` (and ``embeds``) into its cache block, and its
-    rows' logits."""
+    rows' logits: in the fully-seq layout every row, and the positions of
+    its cache block."""
+    layout, size = None, cache_size(cache)
     if part is not None:
         check_shardable(cfg, part.m)
+        layout = serve_layout(cfg, part, tokens.shape[0])
+        part = rows_part(part, tokens.shape[0])
         tokens = batch_block(tokens, part)
         if embeds is not None:
             embeds = batch_block(embeds, part)
     x = embed_inputs(params, cfg, tokens, embeds, part)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
-    for slot in _kv_slots(cache):
-        if S > slot["k"].shape[2]:
-            raise ValueError(f"prompt of {S} tokens does not fit a cache of "
-                             f"{slot['k'].shape[2]}")
+    if size is not None and S > size:
+        raise ValueError(f"prompt of {S} tokens does not fit a cache of "
+                         f"{size}")
+    lo, hi = (part.dp_block(size) if layout in ("seq", "seq_hd")
+              else (0, size))
+    n = min(max(S - lo, 0), hi - lo) if size is not None else 0
     for i in range(cfg.n_blocks):
         bp = _block(params, i)
         for skey, kind, _role in _slot_keys(cfg):
@@ -443,12 +466,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     out, k, v = _attention_sharded(p, h, cfg, positions,
                                                    True, part, kv_out=True)
                     x = x + out
-                    k = kv_cache_block(k, cfg, part)
-                    v = kv_cache_block(v, cfg, part)
+                    k, v = kv_cache_blocks(k, v, cfg, part, layout)
                 c = cache["slots"][skey]
                 for name, t in (("k", k), ("v", v)):
-                    c[name][i, :, :S] = t
-                    c[name][i, :, S:] = 0
+                    c[name][i, :, :n] = t[:, lo:lo + n]
+                    c[name][i, :, n:] = 0
             elif kind == "ssm":
                 out, st = ssm_apply(p, h, cfg, return_state=True, part=part)
                 x = x + out
@@ -486,13 +508,22 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the new K/V written at ``len`` and ``len`` advanced by one.  Raises
     ``IndexError`` when the cache is full (the JAX package clamps the
     write index instead; a participant checks its host mirror, the same
-    on every one).  With ``part`` (module doc), its rows of ``tokens``
-    and its rows' logits."""
-    for slot in _kv_slots(cache):
-        check_cache_index(cache["pos"], slot["k"].shape[2])
+    on every one, against the whole length).  With ``part`` (module doc),
+    its rows of ``tokens`` and its rows' logits; in the fully-seq layout
+    the new k / v are written only by the participants whose block holds
+    the position, which the host mirror says."""
+    size = cache_size(cache)
+    if size is not None:
+        check_cache_index(cache["pos"], size)
+    layout, lo, write = None, 0, True
     if part is not None:
         check_shardable(cfg, part.m)
+        layout = serve_layout(cfg, part, tokens.shape[0])
+        part = rows_part(part, tokens.shape[0])
         tokens = batch_block(tokens, part)
+        if layout in ("seq", "seq_hd"):
+            lo, hi = part.dp_block(size)
+            write = lo <= cache["pos"] < hi
     x = embed_inputs(params, cfg, tokens, part=part)
     cache_len = cache["len"]
     for i in range(cfg.n_blocks):
@@ -506,8 +537,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     out, _, _ = attention_decode(p, h, cfg, c["k"][i],
                                                  c["v"][i], cache_len)
                 else:
-                    out = attention_decode_sharded(p, h, cfg, c["k"][i],
-                                                   c["v"][i], cache_len, part)
+                    out = attention_decode_sharded(
+                        p, h, cfg, c["k"][i], c["v"][i], cache_len, part,
+                        layout, lo, write)
                 x = x + out
             elif kind == "ssm":
                 c = cache["slots"][skey]

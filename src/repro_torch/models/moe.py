@@ -116,14 +116,15 @@ def _router(p: Params, x2d: torch.Tensor, cfg):
 def _route(p: Params, x2d: torch.Tensor, cfg, part=None):
     """Router: top-k expert ids ``[T, k]`` and renormalised weights
     ``[T, k]`` (float32), and the aux losses.  x2d: ``[T, d]``.  With
-    ``part``, the load is the mean over the data axes, ``lb`` this data
-    participant's part of the whole batch's (their mean is it), and the
-    aux losses carry no gradient off model participant 0."""
+    ``part``, the load is the mean over the data axes (where the rows are
+    split over them), ``lb`` this data participant's part of the whole
+    batch's (their mean is it), and the aux losses carry no gradient off
+    model participant 0."""
     logits, probs, experts, weights = _router(p, x2d, cfg)
     E = cfg.moe_experts
     onehot = F.one_hot(experts, E).float()                      # [T, k, E]
     load = onehot.sum(dim=(0, 1)) / onehot.sum().clamp_min(1.0)
-    if part is not None:
+    if part is not None and part.rows_split:
         load = part.pmean_dp(load)
     importance = probs.mean(dim=0)
     lb = E * torch.sum(load * importance)

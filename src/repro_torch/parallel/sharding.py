@@ -23,6 +23,9 @@ Decode caches pick one of three layouts:
   - head-sharded   [nb, B@dp, S, KV@model, hd]   when KV divides model
   - hd-sharded     [nb, B@dp, S, KV, hd@model]   when it doesn't
   - fully-seq      [nb, B, S@dp, KV, hd@model]   when batch < dp size
+:func:`cache_layout` names the one a batch takes (the fully-seq layout in
+two forms: whole heads at a model axis of one, ``head_dim`` blocks
+above).
 """
 from __future__ import annotations
 
@@ -297,6 +300,32 @@ def cache_spec_for_kv(cfg, mesh, batch_size: int) -> Spec:
     if batch_ok:
         return spec(None, dp, None, None, "model" if hd_ok else None)
     return spec(None, None, dp, None, "model" if hd_ok else None)
+
+
+def cache_layout(cfg, mesh, batch_size: int) -> str:
+    """The layout :func:`cache_spec_for_kv` gives a batch of
+    ``batch_size``, read off the spec: ``"head"`` (the batch over dp, the
+    kv heads over model), ``"hd"`` (the batch over dp, ``head_dim`` over
+    model), ``"seq"`` (the sequence over dp, whole heads: a model axis of
+    one) or ``"seq_hd"`` (the sequence over dp, ``head_dim`` over a model
+    axis of more than one).  Raises ``NotImplementedError`` for the spec
+    that keeps whole heads on a model axis of more than one (neither the
+    kv heads nor ``head_dim`` divide it): the sharded layers do not run
+    it."""
+    s = cache_spec_for_kv(cfg, mesh, batch_size)
+    m = model_size(mesh)
+    if s[2] is None:
+        if s[3] == "model":
+            return "head"
+        if s[4] == "model" and m > 1:
+            return "hd"
+    elif m == 1:
+        return "seq"
+    elif s[4] == "model":
+        return "seq_hd"
+    raise NotImplementedError(
+        f"{cfg.name}: neither {cfg.n_kv_heads} kv heads nor head_dim "
+        f"{cfg.head_dim} divide a model axis of {m}")
 
 
 def cache_shardings(cfg, mesh, abstract_cache: Any, batch_size: int):

@@ -35,6 +35,8 @@ model's bits.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from .collectives import shards as as_shards
@@ -47,7 +49,11 @@ class Participant:
     of ``dp`` over the data axes, and the collectives the model layers
     take over each.  ``shards`` may be a :class:`Shards`, a
     ``DeviceMesh`` or a :class:`~repro_torch.launch.mesh.Mesh` (one shard
-    only, the list form of a 1 × 1 mesh)."""
+    only, the list form of a 1 × 1 mesh).  ``rows_split``: whether the
+    participant holds its data block of the batch's rows (the default), or
+    every row (:meth:`whole_rows`)."""
+
+    rows_split = True
 
     def __init__(self, shards) -> None:
         sh = as_shards(shards)
@@ -72,6 +78,22 @@ class Participant:
         split over ``"model"`` (ceil-divided, as ``shard_tree`` cuts it)."""
         c = -(-n // self.m)
         return min(self.mi * c, n), min((self.mi + 1) * c, n)
+
+    def dp_block(self, n: int) -> tuple[int, int]:
+        """``[lo, hi)``: this participant's block of a dimension of ``n``
+        split over the data axes (ceil-divided, as ``shard_tree`` cuts
+        it)."""
+        c = -(-n // self.dp)
+        return min(self.di * c, n), min((self.di + 1) * c, n)
+
+    def whole_rows(self) -> "Participant":
+        """This participant given every row of the batch, as
+        ``batch_specs`` replicates a batch that does not divide over the
+        data axes: a mean over those axes of what the rows give is what
+        this participant holds already."""
+        out = copy.copy(self)
+        out.rows_split = False
+        return out
 
     def _model(self, op: str, x: torch.Tensor) -> torch.Tensor:
         if self.m == 1:                  # the sum of one: nothing moves

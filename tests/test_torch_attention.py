@@ -372,3 +372,127 @@ def test_decode_kernel_refuses_what_16_byte_loads_cannot_take():
         port_decode.check_kernel_inputs(torch.zeros(2, 8, 32, dtype=bf),
                                         kv[..., :32], kv[..., :32])
     assert port_decode.LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's statistics form (K3 over one block of a cache)
+# ---------------------------------------------------------------------------
+def _stats_blocks(q, k, v, cache_len: int, bounds):
+    """The statistics form over each block ``[lo, hi)`` of the cache, the
+    token at its block index ``cache_len - lo`` clamped to ``[-1, hi - lo
+    - 1]``, stacked."""
+    parts = [port_decode.decode_attention(
+        q, k[:, lo:hi], v[:, lo:hi],
+        torch.tensor(max(-1, min(cache_len - lo, hi - lo - 1)),
+                     dtype=torch.int32), stats=True) for lo, hi in bounds]
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+@pytest.mark.parametrize("cache_len,bounds", [
+    (7, [(0, 8), (8, 16), (16, 24), (24, 30)]),     # at a block's last
+    (8, [(0, 8), (8, 16), (16, 24), (24, 30)]),     # at a block's first
+    (12, [(0, 8), (8, 16), (16, 24), (24, 30)]),    # two blocks empty
+    (27, [(0, 11), (11, 13), (13, 30)]),            # uneven blocks
+    (0, [(0, 8), (8, 16), (16, 24), (24, 30)]),     # the first position
+    (29, [(0, 15), (15, 30)]),                      # the last position
+])
+def test_stats_blocks_combine_to_the_whole_cache(cache_len, bounds):
+    """Blocks of the statistics form, combined by ``combine_blocks``, give
+    the plain version over the whole cache and the JAX package's decode
+    oracle."""
+    rng = np.random.default_rng([8, cache_len, len(bounds)])
+    B, S, KV, n_rep, D = 2, 30, 2, 4, 16
+    q = _normal(rng, B, KV * n_rep, D)
+    k, v = _normal(rng, B, S, KV, D), _normal(rng, B, S, KV, D)
+    o, m, l = _stats_blocks(_t(q), _t(k), _t(v), cache_len, bounds)
+    got = port_decode.combine_blocks(o, m, l)
+    whole = port_decode.decode_attention_torch(
+        _t(q), _t(k), _t(v), torch.tensor(cache_len, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), **TOL)
+    for b in range(B):
+        want = np.asarray(ref.decode_attention_ref(
+            jnp.asarray(q[b]), jnp.asarray(k[b].transpose(1, 0, 2)),
+            jnp.asarray(v[b].transpose(1, 0, 2)), cache_len, n_rep=n_rep))
+        np.testing.assert_allclose(got[b].numpy(), want, **TOL)
+    for i, (lo, _) in enumerate(bounds):
+        if lo > cache_len:                    # past the token: empty
+            assert (m[i] == -1e30).all() and not l[i].any()
+            assert not o[i].any()
+        else:
+            assert (l[i] >= 1).all() and (m[i] > -1e30).all()
+    assert port_decode.LAUNCHES == 0
+
+
+def test_stats_of_a_block_with_no_valid_position():
+    """``cache_len = -1``: ``m = -1e30``, ``l = 0``, ``o = 0`` (float32),
+    whatever the block holds; in bfloat16 too."""
+    g = torch.Generator().manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, 8, 64, generator=g).to(dtype)
+        k = torch.randn(1, 262, 2, 64, generator=g).to(dtype)
+        o, m, l = port_decode.decode_attention(
+            q, k, k, torch.tensor(-1, dtype=torch.int32), stats=True)
+        assert o.dtype == m.dtype == l.dtype == torch.float32
+        assert o.shape == (1, 8, 64) and m.shape == l.shape == (1, 8)
+        assert not o.any() and not l.any() and (m == -1e30).all()
+
+
+def test_stats_in_bfloat16_are_the_plain_versions_rounding():
+    """bf16 blocks of a 262-position block length: the combine is within
+    the kernel's bf16 tolerance of the default form over the whole cache,
+    and the statistics form's output is float32, the default's bf16."""
+    g = torch.Generator().manual_seed(10)
+    q = torch.randn(1, 16, 64, generator=g).bfloat16()
+    k = torch.randn(1, 1048, 8, 64, generator=g).bfloat16()
+    v = torch.randn(1, 1048, 8, 64, generator=g).bfloat16()
+    bounds = [(i * 262, (i + 1) * 262) for i in range(4)]
+    for cache_len in (511, 523, 524):
+        o, m, l = _stats_blocks(q, k, v, cache_len, bounds)
+        got = port_decode.combine_blocks(o, m, l)
+        want = port_decode.decode_attention(
+            q, k, v, torch.tensor(cache_len, dtype=torch.int32))
+        assert want.dtype == torch.bfloat16 and got.dtype == torch.float32
+        torch.testing.assert_close(got, want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_stats_form_takes_the_kernels_checks_on_meta():
+    """On ``meta`` tensors (the dry run) the statistics form takes the
+    kernel's checks and returns float32 shapes: a block of 262 positions
+    is taken, a head_dim the kernel lacks is refused, never passed to a
+    plain version."""
+    from repro_torch.launch import roofline
+
+    bf = torch.bfloat16
+    q = torch.empty(1, 16, 64, dtype=bf, device="meta")
+    kv = torch.empty(1, 262, 8, 64, dtype=bf, device="meta")
+    n = torch.empty((), dtype=torch.int32, device="meta")
+    with roofline.StepCounter() as counter:
+        o, m, l = port_decode.decode_attention(q, kv, kv, n, stats=True)
+        port_decode.decode_attention(q, kv, kv, n)
+    assert (o.shape, m.shape, l.shape) == ((1, 16, 64), (1, 16), (1, 16))
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    assert counter.kernels["decode_attention"]["launches"] == 2
+    with pytest.raises(ValueError, match="head_dim"):
+        port_decode.decode_attention(q[..., :16], kv[..., :16],
+                                     kv[..., :16], n, stats=True)
+    assert port_decode.LAUNCHES == 0
+
+
+def test_the_stats_entry_point_takes_the_wrappers_arguments():
+    """``decode_attention_stats_fwd`` in ``csrc/decode_attention.cu`` has
+    the default entry point's arguments with ``m_out`` and ``l_out`` after
+    the output: the ctypes binding the wrapper declares."""
+    import re
+
+    src = (Path(port_decode.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+
+    def params(name):
+        sig = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{",
+                        src, re.S).group(1)
+        return [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    default, stats = params("decode_attention_fwd"), params(
+        "decode_attention_stats_fwd")
+    i = default.index("out") + 1
+    assert stats == default[:i] + ["m_out", "l_out"] + default[i:]
+    assert len(stats) == 30

@@ -28,7 +28,20 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   scores not summed over ``"model"``, the decode kernel read with an
   exclusive mask, ``inner_norm`` per block in the recurrent step) exceed
   the limit; a full cache raises ``IndexError`` on every rank;
-- the fully-seq layout, the encoder-decoder and ``moe_impl="ep"`` raise.
+- the fully-seq layout (a batch that does not divide over the data
+  axes: every participant takes every row, its cache block is a block of
+  the positions) in both forms: whole heads at a model axis of one
+  (``"seq"``: granite-moe and jamba on (4, 1), batch 1 and 2, the decode
+  kernel's statistics form over the block), ``head_dim`` blocks above it
+  (``"seq_hd"``: granite-moe, whose kv heads divide the model axis, and
+  glm4 on (2, 2)), and mamba2 on (2, 2) with its batch whole.  A cache of
+  30 positions is cut into blocks of 8, 8, 8 and 6 on dp 4: the prompt of
+  16 fills ranks 0 and 1, the steps write into rank 2's block and rank 3's
+  stays empty.  Each case is held as above (every rank returns the same
+  bits, the rows being replicated), with its controls: the block's
+  ``cache_len`` not offset by its start, the blocks averaged with equal
+  weights;
+- the encoder-decoder and ``moe_impl="ep"`` raise.
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from repro_torch.launch.mesh import init_ranks, make_mesh, run_ranks
 from repro_torch.models import Model, layers, lm, moe, smoke_variant, ssd
 from repro_torch.parallel.collectives import Shards
 from repro_torch.parallel.sharding import (
+    cache_layout,
     cache_shardings,
     cache_spec_for_kv,
     shard_tree,
@@ -61,7 +75,7 @@ from repro_torch.parallel.sharding import (
 )
 from repro_torch.parallel.tensor import Participant
 
-MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
 WORLD = 4
 JOIN_S = 300.0
 KERNEL_PATHS = dict(attention_impl="cuda", moe_impl="gmm", ssm_impl="cuda")
@@ -89,21 +103,44 @@ SSM_ARCHS = ("jamba_v0_1_52b", "mamba2_130m")
 CASE_IDS = [f"{a}-{m}" for a, m in CASES]
 #: a full cache is decoded into on these cases
 FULL_CASES = (("granite_moe_1b_a400m", "2x2"), ("glm4_9b", "1x4"))
+#: The fully-seq cases, (arch, mesh, batch): the attention cache's layout
+#: (None: no attention), in a cache of ``FS_MAX_LEN`` positions.
+FS_CASES = {
+    ("granite_moe_1b_a400m", "4x1", 1): "seq",
+    ("granite_moe_1b_a400m", "2x2", 1): "seq_hd",
+    ("glm4_9b", "2x2", 1): "seq_hd",
+    ("jamba_v0_1_52b", "4x1", 1): "seq",
+    ("mamba2_130m", "2x2", 1): None,
+    ("granite_moe_1b_a400m", "4x1", 2): "seq",
+}
+FS_IDS = [f"{a}-{m}-b{b}" for a, m, b in FS_CASES]
+FS_MAX_LEN = 30
+FS_FULL_CASES = (("granite_moe_1b_a400m", "4x1", 1),)
+#: each data participant's block of the cache's positions: blocks of 8, 8,
+#: 8 and 6 on dp 4, two of 15 on dp 2; the positions a block holds after
+#: the prefill and after the last step
+FS_FILLED = {4: [(8, 8), (8, 8), (0, STEPS), (0, 0)],
+             2: [(15, 15), (PROMPT - 15, PROMPT + STEPS - 15)]}
 
 
 def port_cfg(arch: str):
     return replace(smoke_variant(get_config(arch)), **KERNEL_PATHS)
 
 
-def controls(arch: str, layout) -> list[str]:
-    """The controls of a case: each breaks one step of the sharded
-    decode, so its logits must leave the limit."""
+def controls(arch: str, layout, m: int = 2) -> list[str]:
+    """The controls of a case on a model axis of ``m``: each breaks one
+    step of the sharded decode, so its logits must leave the limit (a
+    norm per block is the norm where there is one block)."""
     out = []
     if layout == "hd":
         out.append("unsummed_scores")
     if layout == "head":
         out.append("exclusive_mask")
-    if arch in SSM_ARCHS:
+    if layout == "seq":
+        out.append("unoffset_cache_len")
+    if layout in ("seq", "seq_hd"):
+        out.append("equal_block_weights")
+    if arch in SSM_ARCHS and m > 1:
         out.append("per_block_norm")
     return out
 
@@ -122,6 +159,13 @@ def control_patch(name: str):
     if name == "exclusive_mask":
         return mock.patch.object(ops, "mha_decode",
                                  _exclusive(ops.mha_decode))
+    if name == "unoffset_cache_len":
+        block_len = layers.block_cache_len
+        return mock.patch.object(layers, "block_cache_len",
+                                 lambda c, s_lo, n: block_len(c, 0, n))
+    if name == "equal_block_weights":
+        return mock.patch.object(layers, "combine_blocks",
+                                 lambda o, m, l: o.mean(dim=0))
     return mock.patch.object(
         ssd, "sharded_rmsnorm", lambda x, scale, n, part, eps=1e-5:
         layers.rmsnorm(x, scale, eps))
@@ -219,14 +263,89 @@ def test_a_one_by_one_mesh_is_the_unsharded_serving_byte_for_byte(arch,
 
 # -- what does not run sharded ------------------------------------------------
 
-def test_a_batch_smaller_than_the_data_axis_raises():
-    cfg = port_cfg("granite_moe_1b_a400m")
-    mesh = make_mesh((2, 2), ("data", "model"))
+@pytest.mark.parametrize("arch,mesh_name,batch", list(FS_CASES),
+                         ids=FS_IDS)
+def test_fully_seq_layouts_fall_as_the_configs_give(arch, mesh_name, batch):
+    cfg = port_cfg(arch)
+    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    layout = FS_CASES[arch, mesh_name, batch]
+    assert cache_spec_for_kv(cfg, mesh, batch)[1:3] == (None, "data")
+    if layout:
+        assert cache_layout(cfg, mesh, batch) == layout
     part = Participant(OneShard(mesh, {"data": 0, "model": 0}))
-    with pytest.raises(NotImplementedError, match="fully-seq"):
-        lm.init_cache(cfg, 1, MAX_LEN, "cpu", part=part)
-    with pytest.raises(NotImplementedError, match="fully-seq"):
-        lm.batch_block(torch.zeros((3, PROMPT), dtype=torch.int32), part)
+    assert lm.serve_layout(cfg, part, batch) == layout
+    if arch == "granite_moe_1b_a400m" and mesh_name == "2x2":
+        # the kv heads divide the model axis, and the cache is hd-sharded
+        assert cfg.n_kv_heads % 2 == 0 and layout == "seq_hd"
+    whole = lm.init_cache(cfg, batch, FS_MAX_LEN, "meta")
+    for path, sh in tree.leaves_with_path(cache_shardings(
+            cfg, mesh, whole["slots"], batch)):
+        if str(path[-1]) in ("conv_x", "conv_bc", "ssm"):
+            assert sh.spec[1] is None          # the batch is whole
+
+
+@pytest.mark.parametrize("mesh_name", ["4x1", "2x2"])
+@pytest.mark.parametrize("arch", decoder_archs())
+def test_fully_seq_init_cache_allocates_what_shard_tree_cuts(arch,
+                                                             mesh_name):
+    cfg = smoke_variant(get_config(arch))
+    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    whole = lm.init_cache(cfg, 1, FS_MAX_LEN, "cpu")
+    sh = cache_shardings(cfg, mesh, whole["slots"], 1)
+    attn = any(s.mixer == "attn" for s in cfg.pattern())
+    dp = mesh.shape["data"]
+    for coord in ({"data": d, "model": m} for d in range(dp)
+                  for m in range(mesh.shape["model"])):
+        part = Participant(OneShard(mesh, coord))
+        local = lm.init_cache(cfg, 1, FS_MAX_LEN, "cpu", part=part)
+        want = shard_tree(whole["slots"], sh, coord)
+        for got, cut in zip(tree.leaves(local["slots"]), tree.leaves(want),
+                            strict=True):
+            assert got.shape == cut.shape and got.dtype == cut.dtype
+        assert local["max_len"] == FS_MAX_LEN
+        assert lm.cache_size(local) == FS_MAX_LEN
+        if attn:
+            lo, hi = part.dp_block(FS_MAX_LEN)
+            slot = next(s for s in local["slots"].values() if "k" in s)
+            assert slot["k"].shape[:3] == (cfg.n_blocks, 1, hi - lo)
+            assert hi - lo == {4: [8, 8, 8, 6], 2: [15, 15]}[dp][
+                coord["data"]]
+
+
+def test_a_cache_that_leaves_a_sequence_block_empty_raises():
+    cfg = port_cfg("granite_moe_1b_a400m")
+    mesh = make_mesh((4, 1), ("data", "model"))
+    part = Participant(OneShard(mesh, {"data": 0, "model": 0}))
+    with pytest.raises(ValueError, match="empty"):
+        lm.init_cache(cfg, 1, 5, "cpu", part=part)
+    lm.init_cache(cfg, 1, 7, "cpu", part=part)
+
+
+def test_a_batch_that_does_not_divide_over_dp_is_taken_whole():
+    mesh = make_mesh((2, 2), ("data", "model"))
+    part = Participant(OneShard(mesh, {"data": 1, "model": 0}))
+    t = torch.arange(3 * PROMPT, dtype=torch.int32).reshape(3, PROMPT)
+    assert torch.equal(lm.batch_block(t, lm.rows_part(part, 3)), t)
+    assert lm.rows_part(part, 3).rows_split is False
+    assert lm.rows_part(part, 4) is part
+    assert torch.equal(lm.batch_block(torch.cat([t, t[:1]]),
+                                      lm.rows_part(part, 4)),
+                       torch.cat([t, t[:1]])[2:])
+
+
+def test_a_model_axis_of_one_keeps_every_parameter_whole():
+    """``lm_shard_from_numpy`` at (4, 1): every participant holds every
+    leaf of the JAX package's tree, whole and equal."""
+    arch = "jamba_v0_1_52b"
+    cfg = port_cfg(arch)
+    params = np_params(arch)
+    whole = lm_params_from_numpy(params, cfg, "cpu")
+    mesh = make_mesh((4, 1), ("data", "model"))
+    for d in range(4):
+        got = lm_shard_from_numpy(params, cfg, mesh, {"data": d, "model": 0},
+                                  "cpu")
+        for g, w in zip(tree.leaves(got), tree.leaves(whole), strict=True):
+            assert g.shape == w.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("call", ["init_cache", "prefill", "decode"])
@@ -257,9 +376,9 @@ def test_ep_moe_does_not_serve_sharded(call):
 
 # -- four ranks ---------------------------------------------------------------
 
-def prompts() -> np.ndarray:
+def prompts(batch: int = BATCH) -> np.ndarray:
     return np.random.default_rng(2).integers(
-        0, 256, (BATCH, PROMPT)).astype(np.int32)
+        0, 256, (BATCH, PROMPT)).astype(np.int32)[:batch]
 
 
 def np_params(arch: str) -> dict:
@@ -278,11 +397,13 @@ def np_params(arch: str) -> dict:
     return out
 
 
-def jax_run(arch: str, params: dict):
+def jax_run(arch: str, params: dict, batch_size: int = BATCH,
+            max_len: int = MAX_LEN):
     """The JAX package's jitted prefill and greedy decode steps on
-    ``params``: each call's logits and the tokens the steps fed.  (JAX is
-    imported here, not with the module: the rank processes import this
-    module and need only the port.)"""
+    ``params`` (the first ``batch_size`` prompts, a cache of ``max_len``):
+    each call's logits and the tokens the steps fed.  (JAX is imported
+    here, not with the module: the rank processes import this module and
+    need only the port.)"""
     import jax
     import jax.numpy as jnp
 
@@ -292,8 +413,8 @@ def jax_run(arch: str, params: dict):
 
     model = RefModel(ref_smoke(ref_config(arch)))
     params = jax.tree.map(jnp.asarray, params)
-    batch = {"tokens": jnp.asarray(prompts())}
-    cache = model.init_cache(params, batch, MAX_LEN)
+    batch = {"tokens": jnp.asarray(prompts(batch_size))}
+    cache = model.init_cache(params, batch, max_len)
     logits, cache = jax.jit(model.prefill)(params, batch, cache)
     decode = jax.jit(model.decode)
     want, feed = [np.asarray(logits)], []
@@ -306,21 +427,22 @@ def jax_run(arch: str, params: dict):
     return want, feed
 
 
-def port_run(arch: str, np_params, feed):
+def port_run(arch: str, np_params, feed, batch_size: int = BATCH,
+             max_len: int = MAX_LEN):
     """The unsharded port on the same parameters, teacher-forced with
     ``feed``: every call's logits, the cache after the prefill and after
     the last step, and the routing it recorded."""
     cfg = port_cfg(arch)
     model = Model(cfg)
     params = lm_params_from_numpy(np_params, cfg, "cpu")
-    batch = {"tokens": torch.from_numpy(prompts())}
+    batch = {"tokens": torch.from_numpy(prompts(batch_size))}
     recorded = []
 
     def keep(probs, experts):
         recorded.append(experts.clone())
         return experts
     with moe.routing_hook(keep):
-        cache = model.init_cache(params, batch, MAX_LEN)
+        cache = model.init_cache(params, batch, max_len)
         logits, cache = model.prefill(params, batch, cache)
         out = [logits]
         caches = [tree.map(torch.clone, cache["slots"])]
@@ -332,50 +454,73 @@ def port_run(arch: str, np_params, feed):
             "len": int(cache["len"]), "pos": cache["pos"]}
 
 
-def _replayer(recorded: list, part):
+def _replayer(recorded: list, part, batch_size: int):
     """Replays ``recorded`` (the unsharded run's experts, in call order)
-    on this participant's rows: its data block of each call's slots."""
+    on this participant's rows: its data block of each call's slots, or
+    every slot where the batch does not divide over the data axes."""
     calls = iter(recorded)
 
     def hook(probs, experts):
-        return next(calls).reshape(part.dp, -1, experts.shape[-1])[part.di]
+        rec = next(calls)
+        if not lm.rows_part(part, batch_size).rows_split:
+            return rec
+        return rec.reshape(part.dp, -1, experts.shape[-1])[part.di]
     return hook
 
 
+def _filled(cache: dict) -> int | None:
+    """The positions of this participant's block of the first attention
+    slot that hold a k (None: no attention slot)."""
+    slot = next((s for s in cache["slots"].values() if "k" in s), None)
+    if slot is None:
+        return None
+    return int(slot["k"].ne(0).flatten(3).any(-1).any(0).any(0).sum())
+
+
 def _serve(part, arch: str, np_params, feed, routing, control=None,
-           gathered: bool = True) -> dict:
+           gathered: bool = True, batch_size: int = BATCH,
+           max_len: int = MAX_LEN) -> dict:
     """Prefill and teacher-forced decode steps of ``arch`` on this
-    participant, ``control`` patched into the steps."""
+    participant, ``control`` patched into the steps; the steps' calls of
+    the decode kernel's statistics form counted."""
     cfg = port_cfg(arch)
     model = Model(cfg)
     params = lm_shard_from_numpy(np_params, cfg, part.mesh, part.coord,
                                  "cpu")
-    batch = {"tokens": torch.from_numpy(prompts())}
-    caches = []
-    with moe.routing_hook(_replayer(routing, part)):
-        cache = model.init_cache(params, batch, MAX_LEN, shards=part)
+    batch = {"tokens": torch.from_numpy(prompts(batch_size))}
+    caches, filled = [], []
+    stats = mock.patch.object(ops, "mha_decode_stats",
+                              wraps=ops.mha_decode_stats)
+    with moe.routing_hook(_replayer(routing, part, batch_size)):
+        cache = model.init_cache(params, batch, max_len, shards=part)
         logits, cache = model.prefill(params, batch, cache, shards=part)
         out = [logits]
+        filled.append(_filled(cache))
         if gathered:
-            caches.append(gather_cache(cache, cfg, part, BATCH)["slots"])
-        with control_patch(control) if control else nullcontext():
+            caches.append(gather_cache(cache, cfg, part,
+                                       batch_size)["slots"])
+        with (control_patch(control) if control else nullcontext()), \
+                stats as stats_calls:
             for tok in feed:
                 logits, cache = model.decode(params, torch.from_numpy(tok),
                                              cache, shards=part)
                 out.append(logits)
+    filled.append(_filled(cache))
     if gathered:
-        caches.append(gather_cache(cache, cfg, part, BATCH)["slots"])
+        caches.append(gather_cache(cache, cfg, part, batch_size)["slots"])
     return {"logits": out, "caches": caches, "len": int(cache["len"]),
             "pos": cache["pos"], "shas": [sha(t) for t in out],
+            "filled": filled, "stats_calls": stats_calls.call_count,
             "cache": cache, "model": model, "params": params}
 
 
-def _full_cache(run: dict, part) -> str | None:
+def _full_cache(run: dict, part, batch_size: int = BATCH,
+                max_len: int = MAX_LEN) -> str | None:
     """Decode into the case's cache until it is full; the error raised
     by the step past it."""
     model, params, cache = run["model"], run["params"], run["cache"]
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32)
-    while cache["pos"] < MAX_LEN:
+    tok = torch.zeros((batch_size, 1), dtype=torch.int32)
+    while cache["pos"] < max_len:
         _, cache = model.decode(params, tok, cache, shards=part)
     try:
         model.decode(params, tok, cache, shards=part)
@@ -388,8 +533,8 @@ def _rank_cases(rank: int, store: str, refs: dict) -> dict:
     torch.set_num_threads(1)
     dm = init_ranks(make_mesh(MESHES["2x2"], ("data", "model")), rank,
                     store)
-    meshes = {"2x2": dm, "1x4": make_mesh(MESHES["1x4"], ("data", "model"))
-              .device_mesh()}
+    meshes = {"2x2": dm, **{name: make_mesh(MESHES[name], ("data", "model"))
+                            .device_mesh() for name in ("1x4", "4x1")}}
     out = {}
     for (arch, mesh_name), layout in CASES.items():
         part = Participant(meshes[mesh_name])
@@ -405,17 +550,42 @@ def _rank_cases(rank: int, store: str, refs: dict) -> dict:
                          ref["routing"], name, gathered=False)["logits"]
             for name in controls(arch, layout)}
         out[arch, mesh_name] = case
+    for (arch, mesh_name, batch), layout in FS_CASES.items():
+        part = Participant(meshes[mesh_name])
+        ref = refs[arch, batch]
+        kw = dict(batch_size=batch, max_len=FS_MAX_LEN)
+        run = _serve(part, arch, ref["params"], ref["feed"], ref["routing"],
+                     **kw)
+        case = {k: run[k] for k in ("logits", "caches", "len", "pos",
+                                    "shas", "filled", "stats_calls")}
+        case.update(coord=part.coord, di=part.di, dp=part.dp)
+        if (arch, mesh_name, batch) in FS_FULL_CASES:
+            case["full"] = _full_cache(run, part, **kw)
+        case["controls"] = {
+            name: _serve(part, arch, ref["params"], ref["feed"],
+                         ref["routing"], name, gathered=False,
+                         **kw)["logits"]
+            for name in controls(arch, layout, part.m)}
+        out[arch, mesh_name, batch] = case
     return out
 
 
 @pytest.fixture(scope="module")
 def reference():
+    """Keyed by arch (``CASES``' batch and cache) and by (arch, batch)
+    (``FS_CASES``' cache)."""
     out = {}
     for arch in ARCHS:
         params = np_params(arch)
         want, feed = jax_run(arch, params)
         out[arch] = {"params": params, "jax": want, "feed": feed,
                      "port": port_run(arch, params, feed)}
+    for arch, batch in sorted({(a, b) for a, _, b in FS_CASES}):
+        params = out[arch]["params"] if arch in out else np_params(arch)
+        want, feed = jax_run(arch, params, batch, FS_MAX_LEN)
+        out[arch, batch] = {"params": params, "jax": want, "feed": feed,
+                            "port": port_run(arch, params, feed, batch,
+                                             FS_MAX_LEN)}
     return out
 
 
@@ -517,3 +687,107 @@ def test_a_full_cache_raises_index_error_on_every_rank(ranks, case):
     for r in ranks:
         assert r[case]["full"] is not None
         assert r[case]["full"].startswith("IndexError")
+
+
+# -- the fully-seq layout on four ranks ---------------------------------------
+
+fs_cases = pytest.mark.parametrize("arch,mesh_name,batch", list(FS_CASES),
+                                   ids=FS_IDS)
+
+
+@fs_cases
+def test_fully_seq_logits_equal_the_unsharded_port(ranks, reference, arch,
+                                                   mesh_name, batch):
+    want = reference[arch, batch]["port"]["logits"]
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        assert len(case["logits"]) == STEPS + 1
+        for call, (g, w) in enumerate(zip(case["logits"], want,
+                                          strict=True)):
+            assert g.shape == (batch, 1, 256)
+            assert rel_rms(g, w) <= REL_RMS, (case["coord"], call)
+            assert torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+
+
+@fs_cases
+def test_fully_seq_gathered_cache_equals_the_unsharded_cache(
+        ranks, reference, arch, mesh_name, batch):
+    port = reference[arch, batch]["port"]
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        assert case["len"] == port["len"] == PROMPT + STEPS
+        assert case["pos"] == port["pos"]
+        for got, want in zip(case["caches"], port["caches"], strict=True):
+            for g, w in zip(tree.leaves(got), tree.leaves(want),
+                            strict=True):
+                assert g.shape == w.shape
+                assert rel_rms(g, w) <= REL_RMS, case["coord"]
+
+
+@fs_cases
+def test_fully_seq_logits_match_jax(ranks, reference, arch, mesh_name,
+                                    batch):
+    want = reference[arch, batch]["jax"]
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        for call, (g, w) in enumerate(zip(case["logits"], want,
+                                          strict=True)):
+            np.testing.assert_allclose(
+                g.numpy(), w, **LOGIT_TOL,
+                err_msg=f"{arch} {mesh_name} {case['coord']} call {call}")
+
+
+@fs_cases
+def test_fully_seq_each_control_leaves_the_limit(ranks, reference, arch,
+                                                 mesh_name, batch):
+    names = controls(arch, FS_CASES[arch, mesh_name, batch],
+                     MESHES[mesh_name][1])
+    assert names
+    want = reference[arch, batch]["port"]["logits"]
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        assert sorted(case["controls"]) == sorted(names)
+        for name, logits in case["controls"].items():
+            assert rel_rms(logits[0], want[0]) <= REL_RMS
+            worst = max(rel_rms(g, w)
+                        for g, w in zip(logits[1:], want[1:], strict=True))
+            assert worst > REL_RMS, (name, case["coord"], worst)
+
+
+@fs_cases
+def test_fully_seq_every_rank_returns_the_same_bits(ranks, arch, mesh_name,
+                                                    batch):
+    got = {(tuple(r[arch, mesh_name, batch]["shas"]),
+            r[arch, mesh_name, batch]["len"],
+            r[arch, mesh_name, batch]["pos"]) for r in ranks}
+    assert len(got) == 1
+
+
+@fs_cases
+def test_fully_seq_blocks_hold_their_positions(ranks, arch, mesh_name,
+                                               batch):
+    """Each data participant's block holds the prompt's positions that
+    fall in it after the prefill and the steps' after the last step (rank
+    2's block empty at the prefill, rank 3's throughout on dp 4); the
+    statistics form runs once per attention layer and step on every rank
+    in the whole-head form, its empty blocks too, and never in the
+    ``head_dim`` one."""
+    layout = FS_CASES[arch, mesh_name, batch]
+    cfg = port_cfg(arch)
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern()) * cfg.n_blocks
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        if layout is None:
+            assert case["filled"] == [None, None]
+        else:
+            assert tuple(case["filled"]) == FS_FILLED[case["dp"]][
+                case["di"]], case["coord"]
+        want = STEPS * n_attn if layout == "seq" else 0
+        assert case["stats_calls"] == want, case["coord"]
+
+
+@pytest.mark.parametrize("case", FS_FULL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_fully_seq_full_cache_raises_index_error_on_every_rank(ranks, case):
+    for r in ranks:
+        assert (r[case]["full"] or "").startswith("IndexError")
