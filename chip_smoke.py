@@ -253,7 +253,28 @@ process exits non-zero):
                 ms per rank, spawn-to-ready seconds, peak GB per rank,
                 collectives per rank and step.  The kernels are held
                 against their plain versions at these shapes (and timed)
-                in ``kernels``.
+                in ``kernels``.  Then ``compress=True`` on the three-axis
+                mesh ``("pod", "data", "model")`` (2, 1, 2):
+                olmoe-1b-7b at 1 layer (K2 over 8 of 16 heads, K5 over 32
+                of 64 experts), 4 x 512, 3 bf16 steps; in every step on
+                every rank the sharded ``ef_compress`` of the step's
+                gradient block byte-equal to ``ef_compress`` of the
+                gradient and residual gathered for the check, cut to the
+                block, and the scales taken per shard (no max over
+                ``"model"``) breaking it on leaves whose int8 blocks
+                straddle the model cut (the ``head``'s) and nowhere else;
+                float32 at 1 layer, rank 0's unsharded compressed steps
+                (routing recorded and replayed on each rank's rows):
+                step 1's loss within ``grad_f32``'s limit, every loss
+                within 1e-5, and after the third step the gathered
+                parameters, moments and residual within 1e-5 of each
+                leaf's scale on at least 99 % of the elements.  Then the
+                collective count (its own line): every rank's record of
+                one train step of each case above and of the prefill and
+                first decode step of each ``shard_serve_path`` case
+                (kind, order, operand bytes) equal to the same call run
+                on ``meta`` over ``MetaShards`` at the rank's coordinate,
+                the dry run's count.
                 ``shard_serve_path`` (in the same 4 rank processes, its
                 own line): sharded prefill and decode through
                 ``Model.init_cache`` / ``prefill`` / ``decode`` with
@@ -311,7 +332,12 @@ process exits non-zero):
                 measured peak memory.
 15. ``dryrun``: ``python -m repro_torch.launch.dryrun --all --mesh both``
                 into a temporary directory, every cell ``ok``, the report's
-                two tables printed.
+                two tables printed; every cell's collectives counted (one
+                participant's sharded program on meta) but exactly those
+                the sharded layers refuse (mamba2-130m's and the
+                encoder-decoder's, on both meshes), each naming its
+                refusal; ``dominant`` tallied over compute, memory and
+                collective; a few cells' collective bytes by kind.
 16. ``examples``: the six ``repro_torch.examples`` on the GPU with their
                 smallest documented arguments, each ending with ``OK``, its
                 kernel launches counted: K1 once per packed sweep,
@@ -366,7 +392,7 @@ from repro_torch.core import (  # noqa: E402
     train_forecaster,
 )
 from repro_torch.core.fleet import GateStaging  # noqa: E402
-from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
+from repro_torch.configs import ShapeSpec, cells, get_config  # noqa: E402
 from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.core.forecast import PREDICTED_STRAGGLER  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, HostDataLoader  # noqa: E402
@@ -498,7 +524,11 @@ SERVE_BF16_MARGIN = 1.5
 #: 0.0350 / 0.1104, mamba2 0.0158 / 0.0845, jamba (8 layers) 0.0160 /
 #: 0.0741, codeqwen 0.0713 / 0.1919, granite-3-8b 0.0784 / 0.1994,
 #: granite-8b 0.0721 / 0.1972, olmoe 0.0611 / 0.1788: every sound reading
-#: under its limit and every control past it, as at seed 0.
+#: under its limit and every control past it, as at seed 0.  The
+#: encoder-decoder and the VLM at seed 1 (``--serve seamless_m4t_medium
+#: internvl2_26b --seed 1``, NVIDIA H100 80GB HBM3, 700.00 W): seamless
+#: 0.0223 / 0.0392, internvl2 (8 layers, with patches) 0.0477 / 0.1611,
+#: both under their limits with their controls past them.
 SERVE_BF16_KERNEL_VS_PLAIN = {"glm4_9b": 0.12, "granite_moe_1b_a400m": 0.055,
                               "mamba2_130m": 0.04,
                               "seamless_m4t_medium": 0.03,
@@ -3588,7 +3618,10 @@ SHARD_CASES = {
 #: bf16: step 1's loss and global gradient norm against the unsharded bf16
 #: step on the same parameters and batch (routing replayed), relative, at
 #: ``train_path``'s ``grad_bf16`` limits; glm4-9b has no ``train_path``
-#: reading and takes granite-moe's.  float32: the loss and every gathered
+#: reading and takes granite-moe's (its loss read 2.02e-5 / 5.39e-5 at
+#: seeds 0 / 1 with each region end's bf16 partials summed, 1.33e-5 /
+#: 2.47e-5 with them formed in float32 and rounded once: NVIDIA H100 80GB
+#: HBM3, 700.00 W).  float32: the loss and every gathered
 #: gradient leaf against the unsharded step at ``grad_f32``'s limits, and
 #: the same gradients without the sum over ``"model"`` of the partial
 #: leaves (the control) must lie past the leaf limit.
@@ -3597,6 +3630,28 @@ SHARD_BF16_LIMITS = {
     for arch, src in ((MOE_ARCH, MOE_ARCH), (SERVE_ARCH, MOE_ARCH),
                       (SSM_ARCH, SSM_ARCH))}
 SHARD_OPT = AdamWConfig()
+#: ``shard_path``'s compressed case: ``make_train_step(..., compress=True,
+#: shards=)`` on the three-axis mesh ``COMPRESS_AXES`` (pod 2, data 1,
+#: model 2; the batch over pod x data), bf16, ``SHARD_STEPS`` steps, and
+#: its float32 check at ``f32_layers``.  olmoe-1b-7b runs K2 (8 of 16
+#: heads a participant) and K5 (32 of 64 experts), and its ``head``
+#: (2048 x 50304, cut by columns: 25 152 a participant) has int8 blocks
+#: that straddle the model cut, where the scales need the max over
+#: ``"model"``.  Cut to one of its 16 layers for the card's memory: at a
+#: model axis of 2 every rank holds half of every leaf, so the four
+#: ranks on one card hold two whole states; glm4-9b at 2 layers (1.65 B
+#: parameters, 1.24 B of them its embedding and head) needs ~40 GB a rank
+#: with its moments and residual, and granite-moe's blocks all fall on
+#: whole int8 blocks at model 2.
+SHARD_COMPRESS = {"arch": "olmoe_1b_7b", "mesh": (2, 1, 2), "layers": 1,
+                  "batch": (4, 512), "f32_layers": 1}
+COMPRESS_AXES = ("pod", "data", "model")
+#: ``tests/test_torch_train.py``'s three-step rule: params, moments and
+#: the residual (on its gradient's scale, 127 x its own) within 1e-5 of
+#: each leaf's scale on all but 1 % of the elements, and the losses within
+#: 1e-5 relative; step 1's loss also within ``TRAIN_F32_LOSS_RTOL``.
+COMPRESS_STEP_TOL = 1e-5
+COMPRESS_OUTLIER_SHARE = 0.01
 #: ``shard_serve_path``: sharded prefill and decode (``Model.init_cache`` /
 #: ``prefill`` / ``decode`` with ``shards=``) in ``shard_path``'s rank
 #: processes, bf16, ``SERVE_BATCH`` x ``PROMPT_LEN`` prompts and
@@ -3980,16 +4035,20 @@ def fingerprint(t: torch.Tensor) -> int:
     return int(total)
 
 
-def zero_moments(shardings, abstract, device):
-    """Zero AdamW moments of one participant's blocks: ``abstract``'s
-    leaves' shapes cut by ``shardings``."""
+def zero_blocks(shardings, abstract, device):
+    """Float32 zeros of one participant's blocks: ``abstract``'s leaves'
+    shapes cut by ``shardings``."""
     from repro_torch.parallel.sharding import shard_shape
 
-    def zeros(sh, leaf):
-        return torch.zeros(shard_shape(leaf.shape, sh), dtype=torch.float32,
-                           device=device)
-    return AdamWState(m=tree.map(zeros, shardings.m, abstract.m),
-                      v=tree.map(zeros, shardings.v, abstract.v),
+    return tree.map(lambda sh, leaf: torch.zeros(
+        shard_shape(leaf.shape, sh), dtype=torch.float32, device=device),
+        shardings, abstract)
+
+
+def zero_moments(shardings, abstract, device):
+    """Zero AdamW moments of one participant's blocks."""
+    return AdamWState(m=zero_blocks(shardings.m, abstract.m, device),
+                      v=zero_blocks(shardings.v, abstract.v, device),
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -4147,6 +4206,7 @@ def shard_steps(seed: int, device, arch: str, part, routing_rec: list
             "step_ms": ms, "loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]),
             "launches": launches, "collectives": collective_counts(observed),
+            "record": observed if i == 0 else None,
             "routing_flips": flips,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                if on_card else None),
@@ -4191,6 +4251,385 @@ def shard_steps(seed: int, device, arch: str, part, routing_rec: list
             "specs": specs}
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype, shape and bytes, compared on the device."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def straddling(like, shardings, mesh) -> list[str]:
+    """The leaves whose 256-element int8 blocks (``parallel/compress.py``,
+    over each whole flattened leaf) hold elements of more than one
+    participant of ``mesh``: there the scales need the max over
+    ``"model"``."""
+    import itertools
+
+    from repro_torch.parallel.compress import BLOCK, block_runs
+    from repro_torch.parallel.sharding import shard_slices
+
+    coords = [dict(zip(mesh.axis_names, c)) for c in itertools.product(
+        *(range(mesh.shape[a]) for a in mesh.axis_names))]
+    out = []
+    for (path, leaf), sh in zip(tree.leaves_with_path(like),
+                                tree.leaves(shardings)):
+        shape, n = tuple(leaf.shape), leaf.numel()
+        for c in coords:
+            offsets, length = block_runs(shape, shard_slices(shape, sh, c))
+            if 0 < length < n and any(
+                    o % BLOCK or ((o + length) % BLOCK and o + length != n)
+                    for o in offsets):
+                out.append("/".join(str(k) for k in path))
+                break
+    return out
+
+
+def compress_check(part, call, names: list) -> dict:
+    """One step's sharded compression (``call``: the arguments and result
+    of its ``ef_compress_sharded``) against ``ef_compress`` of each leaf's
+    gradient and residual gathered for the check, cut to this
+    participant's block, byte for byte; and the same with the scales
+    taken per shard (no max over ``"model"``, the control): the leaves
+    where that breaks the equality."""
+    import copy
+
+    from repro_torch.parallel.compress import ef_compress, ef_compress_sharded
+    from repro_torch.parallel.sharding import gather_tree, shard_slices
+
+    (grads, residual, p_sh, like, _part), (deq, res) = call
+    per_shard = copy.copy(part)
+    per_shard.max_model = lambda x: x
+    c_deq, _ = ef_compress_sharded(grads, residual, p_sh, like, per_shard)
+    equal, broken = [], []
+    for name, g, r, d, rr, cd, sh, w in zip(
+            names, tree.leaves(grads), tree.leaves(residual),
+            tree.leaves(deq), tree.leaves(res), tree.leaves(c_deq),
+            tree.leaves(p_sh), tree.leaves(like), strict=True):
+        (wd,), (wr,) = ef_compress([gather_tree(g, sh, part.shards, w)],
+                                   [gather_tree(r, sh, part.shards, w)])
+        cut = shard_slices(tuple(w.shape), sh, part.coord)
+        equal.append(bits_equal(d, wd[cut]) and bits_equal(rr, wr[cut]))
+        if not bits_equal(cd, wd[cut]):
+            broken.append(name)
+        del wd, wr
+    return {"leaves": len(equal), "equal": all(equal),
+            "unequal": [n for n, e in zip(names, equal) if not e],
+            "control_broken": broken}
+
+
+def compress_f32(seed: int, device, part) -> dict:
+    """The compressed case in float32 at ``f32_layers``: rank 0 runs
+    ``SHARD_STEPS`` unsharded compressed steps (routing recorded), every
+    rank the sharded ones on its block of the same state and batches, the
+    routing replayed on its rows; rank 0 holds each step's loss and, after
+    the last, every gathered leaf of the parameters, moments and residual
+    to its own by the three-step rule.  Readings are rank 0's (None
+    elsewhere)."""
+    from repro_torch.parallel.compress import ef_init
+    from repro_torch.parallel.sharding import gather_tree, shard_tree
+
+    case = SHARD_COMPRESS
+    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
+    model = Model(cfg)
+    B, S = case["batch"]
+    batches = [train_batch(cfg, B, S, seed, i, device)
+               for i in range(SHARD_STEPS)]
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    abstract = train_step_mod.abstract_state(model, SHARD_OPT, compress=True)
+    sh = train_step_mod.state_shardings(abstract, cfg, part.mesh)
+    local = {"params": shard_tree(full, sh["params"], part.coord),
+             "opt": zero_moments(sh["opt"], abstract["opt"], device),
+             "ef": zero_blocks(sh["ef"], abstract["ef"], device)}
+    lead = dist.get_rank() == 0
+    routing = Routing()
+    ref_losses, ref_state = None, None
+    if lead:
+        step = train_step_mod.make_train_step(model, SHARD_OPT,
+                                              compress=True)
+        state = {"params": full, "opt": train_step_mod.adamw_init(full),
+                 "ef": ef_init(full)}
+        ref_losses = []
+        with routing.record():
+            for b in batches:
+                state, metrics = step(state, b)
+                ref_losses.append(float(metrics["loss"]))
+        ref_state = tree.map(lambda t: t.cpu(), state)
+        del state
+    del full
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    shared = [[r.cpu() for r in routing.recorded] if lead else None]
+    dist.broadcast_object_list(shared, src=0)
+    rows = RowRouting([r.to(device) for r in shared[0]], part, cfg, B)
+    step = train_step_mod.make_train_step(model, SHARD_OPT, compress=True,
+                                          shards=part, shardings=sh)
+    losses = []
+    zero_counts()
+    with rows.replay() as flips:
+        for b in batches:
+            local, metrics = step(local, b)
+            losses.append(float(metrics["loss"]))
+    launches = kernel_counts()
+    groups = {"params": ("params", 1.0), "m": ("m", 1.0), "v": ("v", 1.0),
+              "ef": ("ef", 127.0)}
+
+    def part_of(state, name):
+        return state["opt"]._asdict()[name] if name in ("m", "v") else \
+            state[name]
+    outliers = {}
+    for name, (key, factor) in groups.items():
+        off = total = 0
+        wants = tree.leaves(part_of(ref_state, key)) if lead else None
+        for i, (loc, s, w_) in enumerate(zip(
+                tree.leaves(part_of(local, key)),
+                tree.leaves(part_of(sh, key)),
+                tree.leaves(part_of(abstract, key)), strict=True)):
+            got = gather_tree(loc, s, part.shards, w_)
+            if lead:
+                want = wants[i].to(device)
+                scale = factor * want.abs().max().clamp_min(1e-30)
+                off += int(((got - want).abs() > COMPRESS_STEP_TOL * scale)
+                           .sum())
+                total += want.numel()
+            del got
+        outliers[name] = {"outside": off, "elements": total}
+    out = {"layers": cfg.n_layers, "losses": losses, "launches": launches,
+           "launches_expected": {k: v * SHARD_STEPS for k, v in
+                                 expected_train_launches(cfg).items()},
+           "routing_flips": flips}
+    if lead:
+        out.update(unsharded_losses=ref_losses,
+                   loss_rel=[abs(a - b) / abs(b)
+                             for a, b in zip(losses, ref_losses)],
+                   outliers=outliers)
+    return out
+
+
+def compress_steps(seed: int, device, part) -> dict:
+    """``SHARD_STEPS`` sharded bf16 compressed steps of the compressed
+    case, from seeded parameters, zero moments and residual: per step its
+    launches, loss, :func:`compress_check` of the step's own compression
+    and its time (CUDA events) without the check's.  The check runs inside
+    the step, as soon as its compression returns, so that no step's
+    gradient, compressed gradient or residual outlives it: four ranks of
+    the case fill most of the card."""
+    from unittest import mock
+
+    from repro_torch.parallel import compress as compress_mod
+    from repro_torch.parallel.sharding import shard_tree
+
+    case = SHARD_COMPRESS
+    cfg = shard_config(case["arch"], case["layers"])
+    model = Model(cfg)
+    abstract = train_step_mod.abstract_state(model, SHARD_OPT, compress=True)
+    sh = train_step_mod.state_shardings(abstract, cfg, part.mesh)
+    full = model.init(torch.Generator(device=device).manual_seed(seed))
+    state = {"params": shard_tree(full, sh["params"], part.coord),
+             "opt": zero_moments(sh["opt"], abstract["opt"], device),
+             "ef": zero_blocks(sh["ef"], abstract["ef"], device)}
+    del full
+    like = model.abstract_params()
+    names = ["/".join(str(k) for k in path)
+             for path, _ in tree.leaves_with_path(like)]
+    step = train_step_mod.make_train_step(model, SHARD_OPT, compress=True,
+                                          shards=part, shardings=sh)
+    checks = []
+
+    def checked(*a):
+        out = compress_mod.ef_compress_sharded(*a)
+        mark = Mark(device)
+        checks.append(compress_check(part, (a, out), names))
+        checks[-1]["ms"] = mark.ms_to_now(device)
+        return out
+    B, S = case["batch"]
+    on_card = device.type == "cuda"
+    runs = []
+    for i in range(SHARD_STEPS):
+        batch = train_batch(cfg, B, S, seed, i, device)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with mock.patch.object(train_step_mod, "ef_compress_sharded",
+                               checked):
+            a = Mark(device)
+            state, metrics = step(state, batch)
+            ms = a.ms_to_now(device)
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        check_ = checks.pop()
+        runs.append({"step_ms": ms - check_["ms"],
+                     "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "launches": launches, "peak_memory_gb": peak,
+                     "compress": check_})
+    del state
+    return {"layers": cfg.n_layers, "runs": runs,
+            "launches_expected": expected_train_launches(cfg),
+            "straddling": straddling(like, sh["params"], part.mesh)}
+
+
+def compress_rank(seed: int, device, part) -> dict:
+    t0 = time.time()
+    f32 = compress_f32(seed, device, part)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.time()
+    steps = compress_steps(seed, device, part)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"coord": part.coord, "f32": f32, **steps, "f32_s": t1 - t0,
+            "steps_s": time.time() - t1}
+
+
+def phase_compress(ranks: list, card: str) -> dict:
+    """The compressed case's checks over every rank's readings."""
+    case = SHARD_COMPRESS
+    per = [r["compress"] for r in ranks]
+    lead = per[0]
+    f32 = lead["f32"]
+    straddle = set(lead["straddling"])
+    share = {k: v["outside"] / v["elements"] for k, v in
+             f32["outliers"].items()}
+    checks = {
+        "launches": all(r_["launches"] == p["launches_expected"]
+                        for p in per for r_ in p["runs"]),
+        "f32_launches": all(p["f32"]["launches"]
+                            == p["f32"]["launches_expected"] for p in per),
+        "compressed_gradient_bytes_equal": all(
+            r_["compress"]["equal"] for p in per for r_ in p["runs"]),
+        "control_breaks_a_straddling_leaf": bool(straddle) and all(
+            r_["compress"]["control_broken"]
+            and set(r_["compress"]["control_broken"]) <= straddle
+            for p in per for r_ in p["runs"]),
+        "f32_step1_loss": f32["loss_rel"][0] <= TRAIN_F32_LOSS_RTOL,
+        "f32_losses": max(f32["loss_rel"]) <= COMPRESS_STEP_TOL,
+        "f32_state_three_step_rule": all(
+            v <= COMPRESS_OUTLIER_SHARE for v in share.values()),
+        "f32_routing": flip_share(f32["routing_flips"], "float32")
+        <= ROUTING_FLIP_SHARE["float32"],
+        "metrics_equal_on_every_rank": all(
+            len({(p["runs"][n]["loss"], p["runs"][n]["grad_norm"])
+                 for p in per}) == 1 for n in range(SHARD_STEPS)),
+        "losses_finite": all(np.isfinite(r_["loss"]) for r_ in
+                             lead["runs"]),
+    }
+    steady = [r_["step_ms"] for p in per for r_ in p["runs"][1:]]
+    out = {"arch": get_config(case["arch"]).name,
+           "mesh": dict(zip(COMPRESS_AXES, case["mesh"])),
+           "layers": lead["layers"], "batch": case["batch"][0],
+           "seq": case["batch"][1], "steps": SHARD_STEPS, "gpu": card,
+           "step_ms_per_rank": [[r_["step_ms"] for r_ in p["runs"]]
+                                for p in per],
+           "step_ms_median_steps_2_on": statistics.median(steady),
+           "peak_memory_gb_per_rank": [max(r_["peak_memory_gb"] or 0
+                                           for r_ in p["runs"])
+                                       for p in per],
+           "losses": [r_["loss"] for r_ in lead["runs"]],
+           "launches_per_rank_step": lead["runs"][0]["launches"],
+           "leaves": lead["runs"][0]["compress"]["leaves"],
+           "straddling_leaves": sorted(straddle),
+           "control_broken_rank0": [r_["compress"]["control_broken"]
+                                    for r_ in lead["runs"]],
+           "f32": {"layers": f32["layers"], "loss_rel": f32["loss_rel"],
+                   "losses": f32["losses"],
+                   "outside_share": share,
+                   "routing_flips": f32["routing_flips"]},
+           "f32_s_rank0": lead["f32_s"], "steps_s_rank0": lead["steps_s"],
+           "checks": checks}
+    return out
+
+
+def meta_train_record(arch: str, coord: dict) -> list:
+    """``shard_steps``' step of ``arch``'s case run on ``meta`` over
+    ``MetaShards`` at ``coord``: each ``(kind, operand bytes)``."""
+    from repro_torch.parallel.collectives import MetaShards
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.parallel.tensor import Participant
+
+    case = SHARD_CASES[arch]
+    cfg = shard_config(arch, case["layers"])
+    model = Model(cfg)
+    mesh = make_mesh(case["mesh"], ("data", "model"))
+    abstract = train_step_mod.abstract_state(model, SHARD_OPT)
+    sh = train_step_mod.state_shardings(abstract, cfg, mesh,
+                                        zero_opt=case["zero_opt"])
+    part = Participant(MetaShards(mesh, coord))
+    step = train_step_mod.make_train_step(model, SHARD_OPT, shards=part,
+                                          shardings=sh)
+    B, S = case["batch"]
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    record: list = []
+    with collectives.observe(lambda kind, n: record.append((kind, n))):
+        step(shard_tree(abstract, sh, coord), batch)
+    return record
+
+
+def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
+    """``shard_serve_bf16``'s prefill and first decode step of case
+    ``key`` run on ``meta`` over ``MetaShards`` at ``coord``: each call's
+    ``(kind, operand bytes)``."""
+    from repro_torch.parallel.collectives import MetaShards
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+    from repro_torch.parallel.tensor import Participant
+
+    case = SHARD_SERVE_CASES[key]
+    cfg = shard_config(case["arch"], case["layers"])
+    model = Model(cfg)
+    mesh = make_mesh(case["mesh"], ("data", "model"))
+    whole = cast_params(model.abstract_params(), cfg, torch.device("meta"))
+    params = shard_tree(whole, param_shardings(whole, cfg, mesh), coord)
+    part = Participant(MetaShards(mesh, coord))
+    batch = {"tokens": torch.empty((case["batch"], case["prompt"]),
+                                   dtype=torch.int32, device="meta")}
+    cache = model.init_cache(params, batch, SHARD_SERVE_LEN, shards=part)
+    prefill, decode = [], []
+    with collectives.observe(lambda kind, n: prefill.append((kind, n))):
+        _, cache = model.prefill(params, batch, cache, shards=part)
+    with collectives.observe(lambda kind, n: decode.append((kind, n))):
+        model.decode(params, batch["tokens"][:, :1], cache, shards=part)
+    return prefill, decode
+
+
+def phase_collective_count(ranks: list) -> dict:
+    """Every rank's record of one train step of each ``SHARD_CASES``
+    entry and of the prefill and first decode step of each
+    ``SHARD_SERVE_CASES`` entry, against the same call run on ``meta``
+    over ``MetaShards`` at the rank's coordinate (the dry run's count):
+    equal call for call, kind, order and bytes."""
+    out, failed = {}, []
+    for arch in SHARD_CASES:
+        calls = []
+        for r in ranks:
+            case = r["cases"][arch]
+            calls.append((case["runs"][0]["record"],
+                          meta_train_record(arch, case["coord"])))
+        out[f"train/{arch}"] = calls
+    for key in SHARD_SERVE_CASES:
+        for r in ranks:
+            case = r["serve"][key]
+            meta = meta_serve_records(key, case["coord"])
+            for name, i in (("prefill", 0), ("decode", 1)):
+                out.setdefault(f"{name}/{key}", []).append(
+                    (case["bf16"]["records"][i]["record"], meta[i]))
+    summary = {}
+    for name, calls in out.items():
+        equal = [card == meta for card, meta in calls]
+        card0 = calls[0][0]
+        summary[name] = {"calls": len(card0),
+                         "bytes": sum(n for _, n in card0),
+                         "by_kind": collective_counts(card0),
+                         "equal_on_ranks": equal}
+        if not all(equal):
+            failed.append(name)
+    emit({"phase": "collective_count", "ok": not failed,
+          "records_rank0": {name: calls[0][0]
+                            for name, calls in out.items()}})
+    check(not failed, f"collective count: the meta count differs from the "
+          f"card's record in {failed}")
+    return summary
+
+
 def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
                device_type: str, routings: dict) -> dict:
     """One participant of ``shard_path`` (a process of its own): joins the
@@ -4203,6 +4642,7 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
     dm = init_ranks(make_mesh((2, 2), ("data", "model")), rank, store)
     meshes = {(2, 2): dm, **{shape: make_mesh(shape, ("data", "model"))
                              .device_mesh() for shape in ((1, 4), (4, 1))}}
+    three_axis = make_mesh(SHARD_COMPRESS["mesh"], COMPRESS_AXES).device_mesh()
     # what every process pays once before its first step: the device's
     # context and its first product, and the import of torch._dynamo
     # that torch.utils.checkpoint makes on its first call
@@ -4224,6 +4664,9 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
                               "steps_s": time.time() - t1}
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    t0 = time.time()
+    out["compress"] = compress_rank(seed, device, Participant(three_axis))
+    out["compress_seconds"] = time.time() - t0
     t0 = time.time()
     out["serve"] = {key: shard_serve_rank(seed, device, Participant(
         meshes[case["mesh"]]), key) for key, case in
@@ -4342,13 +4785,18 @@ def phase_shard(args, card: str, device) -> dict:
             "routing_flips_step1": step1["routing_flips"],
             "zero": lead["zero"], "checks": checks}
         failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+    compressed = phase_compress(ranks, card)
+    failed += [f"compress: {k}" for k, ok in compressed["checks"].items()
+               if not ok]
     run = {"ranks": SHARD_RANKS, "device": f"{device.type}:0 in every rank",
            "backend": "gloo, CUDA tensors staged through pinned host "
                       "buffers", "references_s": t0 - t_ref,
            "seconds": seconds,
            "started_s": [r["started_s"] for r in ranks],
            "spawn_to_ready_s": [r["ready_s"] for r in ranks],
-           "rank_seconds": [r["seconds"] for r in ranks], "cases": out}
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "compress_seconds_rank0": ranks[0]["compress_seconds"],
+           "cases": out, "compressed": compressed}
     if failed:
         emit({"phase": "shard_path", "ok": False, **run})
         # the serving cases ran in the same ranks: their checks and
@@ -4356,6 +4804,7 @@ def phase_shard(args, card: str, device) -> dict:
         emit({"phase": "shard_serve_path", "ok": True,
               **phase_shard_serve(ranks, card)})
     check(not failed, "shard: " + ", ".join(failed))
+    run["collective_count"] = phase_collective_count(ranks)
     return run, phase_shard_serve(ranks, card)
 
 
@@ -4476,7 +4925,8 @@ def sharded_call(fn, device, *args, part) -> tuple:
         logits, cache = fn(*args, shards=part)
         ms = mark.ms_to_now(device)
     return logits, cache, {"ms": ms, "launches": kernel_counts(),
-                           "collectives": collective_counts(observed)}
+                           "collectives": collective_counts(observed),
+                           "record": observed}
 
 
 def sharded_steps(model, params, part, cache, tokens, device) -> tuple:
@@ -5113,9 +5563,45 @@ def phase_dryrun() -> dict:
           f"{failed}: {proc.stderr[-2000:]}")
     print(report.dryrun_table(rows), flush=True)
     print(report.roofline_table(rows, mesh="single"), flush=True)
+    refused = {(r["arch"], r["shape"], r["mesh"]) for r in rows
+               if r["roofline"]["collective_bytes_per_device"] is None}
+    want = {(a, s.name, m) for a, s in cells()
+            if sharded_refusal(a) for m in ("single", "multi")}
+    unnamed = [r["arch"] for r in rows
+               if (r["arch"], r["shape"], r["mesh"]) in refused
+               and not r["collectives"]["skipped"]]
+    check(refused == want and not unnamed,
+          f"dry run: collectives uncounted in {sorted(refused)}, expected "
+          f"{sorted(want)}; no reason in {unnamed}")
+    shown = {f"{r['mesh']} {r['arch']} {r['shape']}":
+             r["collectives"]["bytes_by_kind"] for r in rows
+             if (r["arch"], r["shape"]) in DRYRUN_SHOWN}
     return {"cells": len(rows), "seconds": seconds, "jobs": jobs,
             "dominant": {d: sum(r["roofline"]["dominant"] == d for r in rows)
-                         for d in ("compute", "memory", "collective")}}
+                         for d in ("compute", "memory", "collective")},
+            "collectives_uncounted": sorted(
+                f"{m} {a} {s}" for a, s, m in refused),
+            "collective_bytes_by_kind": shown}
+
+
+#: Cells whose collective bytes by kind ``dryrun`` prints, on both meshes.
+DRYRUN_SHOWN = (("glm4_9b", "train_4k"), ("glm4_9b", "decode_32k"),
+                ("granite_moe_1b_a400m", "train_4k"),
+                ("jamba_v0_1_52b", "long_500k"))
+
+
+def sharded_refusal(arch: str) -> bool:
+    """Whether the sharded layers refuse ``arch`` on the production
+    meshes' model axis of 16: an encoder-decoder, or a dimension they
+    split by whole units that 16 does not divide."""
+    cfg = get_config(arch)
+    if cfg.enc_layers:
+        return True
+    try:
+        lm.check_shardable(cfg, 16)
+    except NotImplementedError:
+        return True
+    return False
 
 
 # -- the examples ----------------------------------------------------------------

@@ -21,14 +21,30 @@ the port's explicit collectives and the hand-written kernels' work.
   ceil-divided by the product of its spec entry's axis sizes, as XLA pads
   an uneven shard); ``temp_size_in_bytes`` has no counterpart on meta and
   is null.
-- Collective bytes are those of the port's explicit collectives (the ep
-  MoE's dispatch, combine, output gather and aux reductions, each counted
-  once with one participant's operand bytes, as an HLO collective over
-  every data-parallel group at once).  An auto-sharded cell has none: its
-  step runs unsharded on meta, and the explicit collectives of the
-  sharded step (``parallel/tensor.py``, ``train/step.py``) are not counted
-  yet, so its ``collective_bytes`` is null: ``dominant`` is taken over
-  compute and memory.
+- Collective bytes are one participant's: the sharded program that the
+  port runs one participant a rank (``make_train_step(..., shards=)``,
+  ``Model.prefill`` / ``decode(..., shards=)``, the fully-seq layout for
+  a batch that does not divide over the data axes) is run for the
+  participant at the all-zero coordinate, on its blocks of the cell's
+  inputs (``shard_tree`` under the shardings above, ZeRO-1 and
+  ``--accum`` as given), over
+  :class:`~repro_torch.parallel.collectives.MetaShards`, and each of its
+  collectives counted once with its operand bytes, as an HLO collective
+  over every group at once.  The count depends on the mesh and is taken
+  for each.  An MoE cell's FLOPs and bytes are the dense formulation's
+  (the reference's rule), its collectives those of the port's only
+  sharded MoE, ``"gmm"`` (``collectives.source``); on meta a participant
+  cannot read its routed row count, so its experts take their even share
+  of the slots (``moe.local_rows``), which no collective's size depends
+  on.  An ``--moe-impl ep`` cell counts the ep MoE's explicit dispatch,
+  combine, output gather and aux reductions in its unsharded step, as
+  before.  A cell the sharded layers refuse (mamba2-130m's 24 SSD heads
+  on a model axis of 16, the encoder-decoder) keeps ``collective_bytes``
+  null and names the refusal (``collectives.skipped``): ``dominant`` is
+  then taken over compute and memory.  The collective term is the bytes
+  over ``LINK_BW``, one NVLink 4 GPU's rate, though a production mesh of
+  256 or 512 GPUs is far larger than one NVLink domain: the term is a
+  floor.
 
 Results go one JSON per cell under ``dryrun_results_torch/`` (never the
 reference's ``dryrun_results/``); a finished cell is not run again unless
@@ -53,6 +69,7 @@ import torch
 from .. import tree
 from ..configs import ARCH_IDS, SHAPES, ShapeSpec, cells, get_config, shapes_for
 from ..models.api import Model
+from ..parallel.collectives import MetaShards, observe
 from ..parallel.sharding import (
     NamedSharding,
     batch_specs,
@@ -61,19 +78,21 @@ from ..parallel.sharding import (
     dp_size,
     param_shardings,
     shard_shape,
+    shard_tree,
     spec,
 )
+from ..parallel.tensor import Participant
 from ..serve.engine import cast_params
 from ..train.optimizer import AdamWConfig
 from ..train.step import abstract_state, make_train_step, state_shardings
 from . import specs as S
 from .mesh import make_production_mesh
-from .roofline import Roofline, StepCounter, model_flops_for
+from .roofline import CollectiveStats, Roofline, StepCounter, model_flops_for
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "dryrun_results_torch")
 
-RESULT_VERSION = 2  # bump to invalidate cached cell JSONs
+RESULT_VERSION = 3  # bump to invalidate cached cell JSONs
 
 
 def make_cell_cfg(arch: str, *, moe_impl: str | None = None,
@@ -146,6 +165,64 @@ def build_cell(cfg, shape: ShapeSpec, mesh, *, accum: int = 1,
                                                  ins["cache"])
 
 
+def collective_cfg(cfg):
+    """The config whose sharded program the collectives are counted on: an
+    MoE cell's through the port's sharded MoE, ``"gmm"`` (its ``"ep"``
+    cells count their unsharded step's explicit collectives instead)."""
+    if cfg.moe_experts and cfg.moe_impl not in ("gmm", "ep"):
+        return replace(cfg, moe_impl="gmm")
+    return cfg
+
+
+def sharded_step(cfg, shape: ShapeSpec, mesh, args, shardings, *,
+                 accum: int = 1):
+    """The sharded program of the cell for the participant at the
+    all-zero coordinate of ``mesh``, over :class:`MetaShards`, on its
+    blocks of ``args`` (``build_cell``'s, cut by its ``shardings``): a
+    callable of no arguments."""
+    coord = {a: 0 for a in mesh.axis_names}
+    part = Participant(MetaShards(mesh, coord))
+    model = Model(cfg)
+    if shape.kind == "train":
+        state = shard_tree(args["state"], shardings["state"], coord)
+        step = make_train_step(model, AdamWConfig(), accum=accum,
+                               shards=part, shardings=shardings["state"])
+        return lambda: step(state, args["batch"])
+    params = shard_tree(args["params"], shardings["params"], coord)
+    size = shape.seq_len        # the cache build_cell gives run_cell
+    if shape.kind == "prefill":
+        batch = args["batch"]
+
+        def prefill():
+            cache = model.init_cache(params, batch, size, shards=part)
+            return model.prefill(params, batch, cache, shards=part)
+        return prefill
+    tokens = args["tokens"]
+
+    def decode():
+        cache = model.init_cache(params, {"tokens": tokens}, size,
+                                 shards=part)
+        return model.decode(params, tokens, cache, shards=part)
+    return decode
+
+
+def count_collectives(step) -> dict:
+    """The collectives of one run of ``step``, or the refusal of a sharded
+    program the sharded layers do not run (``NotImplementedError``; any
+    other error propagates)."""
+    stats = CollectiveStats()
+    t0 = time.time()
+    try:
+        with observe(stats.add):
+            step()
+    except NotImplementedError as e:
+        return {"skipped": f"{type(e).__name__}: {e}",
+                "seconds": time.time() - t0}
+    return {"bytes_by_kind": dict(stats.bytes_by_kind),
+            "count_by_kind": dict(stats.count_by_kind), "skipped": None,
+            "seconds": time.time() - t0}
+
+
 def argument_bytes(args, shardings) -> int:
     """Per-device bytes of every tensor leaf of ``args`` under its
     sharding (host values such as the cache's ``"pos"`` hold none)."""
@@ -178,7 +255,8 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str, *,
              ) -> dict:
     """One cell on one mesh kind, its result written to ``results_dir``.
     ``counts``: a dict shared by calls that may reuse each other's count
-    of the step (it depends on the mesh only through the ep dispatch)."""
+    of the step (the unsharded step's depends on the mesh only through the
+    ep dispatch, the sharded program's collectives on the mesh)."""
     os.makedirs(results_dir, exist_ok=True)
     suffix = f"__{tag}" if tag else ""
     path = os.path.join(
@@ -208,15 +286,29 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str, *,
         if key not in counts:
             counts[key] = count_step(step)
         counted = counts[key]
-        explicit = sum(counted["coll_count_by_kind"].values()) > 0
+        if cfg.moe_impl == "ep":
+            coll = {"bytes_by_kind": counted["coll_bytes_by_kind"],
+                    "count_by_kind": counted["coll_count_by_kind"],
+                    "skipped": None, "source": "ep (unsharded step)"}
+        else:
+            ccfg = collective_cfg(cfg)
+            ckey = ("collectives", ccfg, shape.name, accum, zero_opt,
+                    tuple(mesh.shape.items()))
+            if ckey not in counts:
+                counts[ckey] = count_collectives(sharded_step(
+                    ccfg, shape, mesh, args, shardings, accum=accum))
+            coll = {k: v for k, v in counts[ckey].items() if k != "seconds"}
+            coll["source"] = ("sharded program, MoE 'gmm'"
+                              if ccfg is not cfg else "sharded program")
+        counted_coll = coll["skipped"] is None
         cost = {
             "flops": counted["flops"] / chips,
             "bytes": counted["bytes"] / chips,
             "bytes_upper": counted["bytes_upper"] / chips,
-            "coll_bytes_by_kind": counted["coll_bytes_by_kind"],
-            "coll_count_by_kind": counted["coll_count_by_kind"],
-            "coll_bytes": (float(sum(counted["coll_bytes_by_kind"].values()))
-                           if explicit else None),
+            "coll_bytes_by_kind": coll.get("bytes_by_kind", {}),
+            "coll_count_by_kind": coll.get("count_by_kind", {}),
+            "coll_bytes": (float(sum(coll["bytes_by_kind"].values()))
+                           if counted_coll else None),
             "kernels": counted["kernels"],
         }
         roof = Roofline.build(
@@ -240,6 +332,8 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str, *,
             "collectives": {
                 "bytes_by_kind": cost["coll_bytes_by_kind"],
                 "count_by_kind": cost["coll_count_by_kind"],
+                "source": coll["source"],
+                "skipped": coll["skipped"],
             },
             "roofline": roof.to_dict(),
             "overrides": {"moe_impl": moe_impl,

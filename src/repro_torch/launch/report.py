@@ -4,9 +4,15 @@
     PYTHONPATH=src python -m repro_torch.launch.report            # markdown tables
     PYTHONPATH=src python -m repro_torch.launch.report --variants # incl. tag variants
 
-The roofline is the H100's (:mod:`repro_torch.launch.roofline`); a
-collective term the dry run could not count (an auto-sharded cell) prints
-as "n/a".
+The roofline is the H100's (:mod:`repro_torch.launch.roofline`).  The
+collective column is one participant's sharded program, counted on meta
+(:mod:`repro_torch.launch.dryrun`): an MoE cell's through the sharded
+``"gmm"`` MoE, whose routed row count on meta is each participant's even
+share of the slots; an ``ep`` cell's from its unsharded step.  A cell the
+sharded layers refuse (uneven SSD heads, the encoder-decoder) prints the
+refusal's short form where its bytes would be, and its collective term as
+"n/a".  The collective term is over one NVLink 4 GPU's rate
+(``LINK_BW``), on meshes far larger than one NVLink domain.
 """
 from __future__ import annotations
 
@@ -48,6 +54,16 @@ def fmt_s(v: float | None) -> str:
     return "n/a" if v is None else f"{v:.3e}"
 
 
+def skipped_note(r: dict) -> str:
+    """A short form of why a cell's collectives were not counted."""
+    why = r.get("collectives", {}).get("skipped") or ""
+    if "encoder-decoder" in why:
+        return "n/a: encoder-decoder not sharded"
+    if "does not divide" in why:
+        return "n/a: uneven model blocks"
+    return f"n/a: {why[:40]}" if why else "n/a"
+
+
 def dryrun_table(rows: list[dict]) -> str:
     lines = [
         "| mesh | arch | shape | status | args/dev | temp/dev | "
@@ -64,7 +80,7 @@ def dryrun_table(rows: list[dict]) -> str:
         mem = r.get("memory_analysis", {})
         coll = r.get("collectives", {}).get("bytes_by_kind", {})
         if r["roofline"]["collective_bytes_per_device"] is None:
-            coll_s = "n/a"
+            coll_s = skipped_note(r)
         else:
             coll_s = ", ".join(
                 f"{k}={fmt_bytes(v)}" for k, v in sorted(coll.items()) if v

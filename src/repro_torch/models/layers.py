@@ -39,7 +39,7 @@ from ..kernels.decode_attention import (
     decode_attention_stats_torch,
 )
 from ..parallel.sharding import kv_shardable
-from ..parallel.tensor import enter_model_region, leave_model_region
+from ..parallel.tensor import enter_model_region, leave_model_region_product
 
 Params = dict[str, Any]
 
@@ -256,7 +256,8 @@ def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
         v_att = _repeat_kv(v_att, n_rep)[:, :, first:first + h_hi - h_lo]
     out = attend(q, k_att, v_att, cfg, causal)
     out = out.reshape(B, S, (h_hi - h_lo) * hd)
-    out = leave_model_region(out @ p["wo"].to(out.dtype), part)
+    out = leave_model_region_product(torch.matmul, part, out,
+                                     p["wo"].to(out.dtype))
     return (out, k, v) if kv_out else out
 
 
@@ -401,7 +402,8 @@ def attention_decode_sharded(p: Params, x, cfg, k_cache, v_cache,
         out = _attend_hd_block(q, k_cache, v_cache, cache_len, cfg, part,
                                s_lo if layout == "seq_hd" else None)
     out = out.reshape(B, 1, (h_hi - h_lo) * hd)
-    return leave_model_region(out @ p["wo"].to(out.dtype), part)
+    return leave_model_region_product(torch.matmul, part, out,
+                                      p["wo"].to(out.dtype))
 
 
 def sum_partial_scores(scores: torch.Tensor, part) -> torch.Tensor:
@@ -529,5 +531,7 @@ def mlp_apply(p: Params, x, part=None):
     cdt = x.dtype
     g = x @ p["w_gate"].to(cdt)
     u = x @ p["w_up"].to(cdt)
-    out = (F.silu(g) * u) @ p["w_down"].to(cdt)
-    return out if part is None else leave_model_region(out, part)
+    if part is None:
+        return (F.silu(g) * u) @ p["w_down"].to(cdt)
+    return leave_model_region_product(torch.matmul, part, F.silu(g) * u,
+                                      p["w_down"].to(cdt))

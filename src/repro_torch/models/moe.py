@@ -47,7 +47,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.moe_gmm import grouped_matmul_torch
-from ..parallel.tensor import enter_model_region, leave_model_region
+from ..parallel.tensor import enter_model_region, leave_model_region_product
 from .layers import _normal, dtype_of
 
 Params = dict[str, Any]
@@ -178,9 +178,12 @@ def _sorted_apply(p: Params, x, cfg, ffn, part=None):
 def _sorted_apply_local(p: Params, x, cfg, ffn, part):
     """:func:`_sorted_apply` over ``part``'s experts ``[e0, e1)``: the
     slots routed to them, sorted by expert, and the rest dropped.  Their
-    count is read on the host (one read a layer): the kernel's rows are
-    the sum of its groups.  The prefill and every decode step of sharded
-    serving run here too; a step routes few slots (granite-moe: 64 over
+    count is read on the host (one read a layer; :func:`local_rows`): the
+    kernel's rows are the sum of its groups.  The combine's partial is
+    summed over ``"model"`` by
+    :func:`~repro_torch.parallel.tensor.leave_model_region_product`.
+    The prefill and every decode step of sharded serving run here too; a
+    step routes few slots (granite-moe: 64 over
     32 experts), so a participant may hold none, and the grouped-matmul
     kernel does not launch on zero rows: ``gmm`` launches it three times
     in each layer whose local row count is non-zero, and not at all in
@@ -195,16 +198,30 @@ def _sorted_apply_local(p: Params, x, cfg, ffn, part):
     flat = experts.reshape(T * k)
     mine = (flat >= e0) & (flat < e1)
     key = torch.where(mine, flat - e0, e1 - e0)             # others last
-    order = torch.argsort(key, stable=True)[:int(mine.sum())]
+    order = torch.argsort(key, stable=True)[:local_rows(
+        mine, T * k, e1 - e0, cfg.moe_experts)]
     group_sizes = torch.zeros(e1 - e0, dtype=torch.int64,
                               device=x.device).index_add_(
         0, key[order], torch.ones_like(order))
     ys = ffn(p, x2d[order // k], group_sizes, x.dtype)
     out_rows = torch.zeros((T * k, d), dtype=ys.dtype, device=x.device)
     out_rows[order] = ys
-    out = torch.einsum("tkd,tk->td", out_rows.reshape(T, k, d),
-                       weights.to(x.dtype))
-    return leave_model_region(out.reshape(shape), part), aux
+    out = leave_model_region_product(
+        lambda r, w: torch.einsum("tkd,tk->td", r, w), part,
+        out_rows.reshape(T, k, d), weights.to(x.dtype))
+    return out.reshape(shape), aux
+
+
+def local_rows(mine: torch.Tensor, slots: int, local_experts: int,
+               experts: int) -> int:
+    """The count of routed slots a participant's experts take: read on the
+    host from ``mine``, or, where it lies on ``meta`` (the dry run, which
+    holds no routing), the participant's even share of the ``slots``,
+    ``ceil(slots · local_experts / experts)``.  The collectives do not
+    depend on it: the region end sums ``[T, d]``."""
+    if mine.device.type == "meta":
+        return -(-slots * local_experts // experts)
+    return int(mine.sum())
 
 
 def moe_apply_ragged(p: Params, x, cfg):

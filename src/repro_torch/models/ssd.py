@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..parallel.tensor import (
     enter_model_region,
-    leave_model_region,
+    leave_model_region_product,
     sum_over_model,
 )
 from .layers import _normal, dtype_of, rmsnorm
@@ -267,7 +267,8 @@ def _ssm_sharded(p: Params, x, cfg, part, return_state: bool = False):
     y = y.reshape(B, S, (h1 - h0) * P)
     y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
                         cfg.norm_eps)
-    out = leave_model_region(y @ p["out_proj"].to(cdt), part)
+    out = leave_model_region_product(torch.matmul, part, y,
+                                     p["out_proj"].to(cdt))
     if not return_state:
         return out
     K = cfg.ssm_conv
@@ -393,6 +394,7 @@ def _ssm_decode_sharded(p: Params, x, cfg, state: SsmState, part):
     y = y.reshape(B, 1, (h1 - h0) * P)
     y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
                         cfg.norm_eps)
-    out = leave_model_region(y @ p["out_proj"].to(cdt), part)
+    out = leave_model_region_product(torch.matmul, part, y,
+                                     p["out_proj"].to(cdt))
     return out, SsmState(conv_x=win_x[:, 1:, :], conv_bc=win_bc[:, 1:, :],
                          ssm=h)

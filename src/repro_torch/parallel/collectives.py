@@ -3,8 +3,8 @@
 The JAX package runs its parallel layers under ``shard_map`` on M devices,
 each holding one shard, and moves data between them with collectives.  The
 port runs the same per-shard bodies over a :class:`Shards`: the shards of a
-mesh that this process holds, and the collectives between them.  Two forms
-implement it:
+mesh that this process holds, and the collectives between them.  Three
+forms implement it:
 
 - :class:`ListShards`, what a bare :class:`~repro_torch.launch.mesh.Mesh`
   gives: every shard in this process, their tensors a Python list on one
@@ -12,7 +12,12 @@ implement it:
 - :class:`~repro_torch.parallel.dist.RankShards`, what a
   ``torch.distributed`` ``DeviceMesh`` gives: one shard a rank, this
   rank's, the collectives ``torch.distributed`` calls over the mesh's
-  process groups.
+  process groups;
+- :class:`MetaShards`, one participant of any mesh run alone: each
+  collective returns tensors of the shape, dtype and device that the
+  participant would receive, and computes nothing.  On ``meta`` tensors it
+  costs nothing: the dry run runs one participant's sharded program with
+  it and counts its collectives.
 
 Every collective takes a list of the held shards' tensors (in the order of
 ``Shards.coords``) and returns what each of them receives:
@@ -192,6 +197,38 @@ class ListShards(Shards):
             for src, dst in zip(g, g[1:]):
                 out[dst] = xs[src]
         return out
+
+
+class MetaShards(Shards):
+    """One participant of ``mesh`` at ``coord`` (``{axis: index}``), alone:
+    every collective reports as the other forms do and returns empty
+    tensors (``new_empty``) of the gathered, exchanged, permuted or summed
+    shape, on the operand's device.  Whatever they hold is never read
+    where the tensors lie on ``meta``; on another device they are
+    uninitialised."""
+
+    def __init__(self, mesh, coord: dict) -> None:
+        unknown = set(coord) ^ set(mesh.axis_names)
+        if unknown:
+            raise ValueError(f"coordinate {coord} does not name the axes of "
+                             f"{mesh}")
+        self.mesh = mesh
+        self.coords = [dict(coord)]
+
+    def _all_gather(self, xs, axes):
+        (x,) = xs
+        n = 1
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return [x.new_empty((n, *x.shape))]
+
+    def _all_to_all(self, xs, axis):
+        (x,) = xs
+        return [[b.new_empty(b.shape) for b in x]]
+
+    def _ppermute_next(self, xs, axis):
+        (x,) = xs
+        return [x.new_empty(x.shape)]
 
 
 def shards(mesh) -> Shards:

@@ -200,6 +200,24 @@ def leave_model_region(x: torch.Tensor, part: Participant) -> torch.Tensor:
     return _Leave.apply(x, part)
 
 
+def leave_model_region_product(fn, part: Participant,
+                               *operands: torch.Tensor) -> torch.Tensor:
+    """The region end of a product: ``fn(*operands)`` (each participant's
+    partial, e.g. its rows of ``wo`` times its heads' columns) summed over
+    ``"model"``, as :func:`leave_model_region` sums it.  With ``part.m >
+    1`` the partials are formed in float32 (the operands upcast, which is
+    exact for bf16), summed in shard order and rounded once to the first
+    operand's dtype: the reference's bf16 all-reduce sums partials each
+    rounded to bf16 first, so this is more exact than it.  With ``part.m
+    == 1`` it is ``leave_model_region(fn(*operands))``, the unsharded
+    bits."""
+    if part.m == 1:
+        return leave_model_region(fn(*operands), part)
+    dtype = operands[0].dtype
+    partial = fn(*(o.float() for o in operands))
+    return leave_model_region(partial, part).to(dtype)
+
+
 def sum_over_model(x: torch.Tensor, part: Participant) -> torch.Tensor:
     """The sum of every model participant's ``x``, each participant's
     gradient summed too (the result is read inside a region)."""

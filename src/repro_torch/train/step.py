@@ -24,7 +24,7 @@ import torch
 
 from .. import tree
 from ..models.api import Model
-from ..parallel.compress import ef_init, ef_compress
+from ..parallel.compress import ef_compress, ef_compress_sharded, ef_init
 from ..parallel.sharding import (
     NamedSharding,
     batch_specs,
@@ -168,8 +168,10 @@ def make_train_step(
     replicated one's once; under ZeRO-1 (``m`` / ``v`` sharded over the
     data axes) each participant updates its data slice of ``m``, ``v`` and
     the parameter and the parameters are all-gathered over the data axes.
-    ``compress=True`` is not sharded (its int8 blocks run over each whole
-    flattened leaf) and raises."""
+    ``compress=True`` quantize-dequantizes the summed gradients before the
+    clip, as the unsharded step does, with the int8 blocks and scales of
+    each whole leaf (:func:`~repro_torch.parallel.compress.ef_compress_sharded`):
+    ``state["ef"]`` is the participant's block of the residual."""
     if shards is not None:
         return _sharded_train_step(model, opt_cfg, accum, compress,
                                    participant(shards), shardings)
@@ -247,7 +249,8 @@ def batch_rows(batch: dict, cfg, part: Participant) -> dict:
     """``part``'s rows of ``batch`` by ``batch_specs`` (all of them where
     the batch does not divide over the data axes)."""
     specs = batch_specs(cfg, part.mesh, batch["tokens"].shape[0],
-                        has_embeds="embeds" in batch)
+                        has_embeds="embeds" in batch,
+                        encdec="enc_embeds" in batch)
     return shard_tree(batch, {k: NamedSharding(part.mesh, specs[k])
                               for k in batch}, part.coord)
 
@@ -301,11 +304,6 @@ def _zero_cuts(shardings: TrainState) -> list:
 
 def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
                         compress: bool, part: Participant, shardings):
-    if compress:
-        raise NotImplementedError(
-            "compress=True does not run sharded: its int8 blocks and their "
-            "scales run over each whole flattened leaf, and a shard's blocks "
-            "are not the whole leaf's")
     if shardings is None:
         raise ValueError("the sharded step needs the state's shardings "
                          "(state_shardings)")
@@ -314,6 +312,7 @@ def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
     sharded = [_model_sharded(sh) for sh in tree.leaves(p_sh)]
     cuts = _zero_cuts(shardings)
     mesh = part.mesh
+    like = model.abstract_params()
 
     def reduce_sums(sums: list) -> list:
         """A model-sharded leaf's squares summed over its blocks."""
@@ -359,6 +358,10 @@ def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
         params = state["params"]
         metrics, grads = sharded_grads(model, params, batch, part, accum)
         grads = psum_partial(grads, partial, part)
+        new_state: TrainState = {}
+        if compress:
+            grads, new_state["ef"] = ef_compress_sharded(
+                grads, state["ef"], p_sh, like, part)
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip,
                                            reduce_sums)
         g_cut = [cut(g, c) for g, c in zip(tree.leaves(grads), cuts)]
@@ -368,7 +371,8 @@ def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
             tree.unflatten(params, p_cut), opt_cfg)
         new_params = tree.unflatten(params,
                                     gather_cut(tree.leaves(new_cut)))
-        return ({"params": new_params, "opt": new_opt},
-                {**metrics, "grad_norm": gnorm, "lr": lr})
+        new_state["params"] = new_params
+        new_state["opt"] = new_opt
+        return new_state, {**metrics, "grad_norm": gnorm, "lr": lr}
 
     return train_step

@@ -13,7 +13,12 @@
   (exact).
 - ``run_cell`` end to end on meta for a dense, an MoE and an SSM cell at
   full size: ``status == "ok"``, the reference's result keys, and
-  ``report.py`` renders them.
+  ``report.py`` renders them; the dense and MoE cells count one
+  participant's sharded collectives on both meshes (the MoE's through
+  ``"gmm"``), the SSM cell names why it is not counted;
+- the cells the sharded layers refuse are exactly mamba2-130m's (24 SSD
+  heads on a model axis of 16) and the encoder-decoder's, read off the
+  configs, and each names its refusal.
 """
 from __future__ import annotations
 
@@ -131,11 +136,20 @@ def test_shard_shape_ceil_divides():
                               sharding.NamedSharding(mesh, ())) == (64, 3, 33, 5)
 
 
+#: (arch, shape): the cells whose collectives the sharded layers refuse
+#: to run, on both production meshes
+REFUSED = {("mamba2_130m", s) for s in ("train_4k", "prefill_32k",
+                                        "decode_32k", "long_500k")} | {
+    ("seamless_m4t_medium", s) for s in ("train_4k", "prefill_32k",
+                                         "decode_32k")}
+
+
 @pytest.mark.parametrize("arch,shape", [("granite_8b", "prefill_32k"),
                                         ("granite_moe_1b_a400m", "train_4k"),
                                         ("mamba2_130m", "decode_32k")])
 def test_run_cell_on_meta_at_full_size(arch, shape, tmp_path, capsys):
     counts: dict = {}
+    refused = (arch, shape) in REFUSED
     for mesh_kind in ("single", "multi"):
         r = dryrun.run_cell(arch, SHAPES[shape], mesh_kind, force=True,
                             results_dir=str(tmp_path), counts=counts)
@@ -147,9 +161,22 @@ def test_run_cell_on_meta_at_full_size(arch, shape, tmp_path, capsys):
         roof = r["roofline"]
         assert roof["chips"] == (256 if mesh_kind == "single" else 512)
         assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0
-        # auto-sharded: GSPMD's collectives are not counted
-        assert roof["collective_bytes_per_device"] is None
-        assert roof["dominant"] in ("compute", "memory")
+        coll = r["collectives"]
+        if refused:
+            assert roof["collective_bytes_per_device"] is None
+            assert roof["collective_s"] is None
+            assert "does not divide" in coll["skipped"]
+            assert roof["dominant"] in ("compute", "memory")
+        else:
+            # one participant's sharded program, counted on meta
+            assert coll["skipped"] is None
+            assert roof["collective_bytes_per_device"] > 0
+            assert roof["collective_bytes_per_device"] == sum(
+                coll["bytes_by_kind"].values())
+            assert coll["count_by_kind"]["all-reduce"] > 0
+            assert coll["source"] == ("sharded program, MoE 'gmm'"
+                                      if "moe" in arch else
+                                      "sharded program")
         kernels = r["cost"]["kernels"]
         cfg = dryrun.make_cell_cfg(arch)
         if cfg.ssm_state:
@@ -158,10 +185,13 @@ def test_run_cell_on_meta_at_full_size(arch, shape, tmp_path, capsys):
             assert kernels["flash_attention"]["launches"] >= cfg.n_layers
         with open(tmp_path / f"{mesh_kind}__{arch}__{shape}.json") as f:
             assert json.load(f) == r
-    assert len(counts) == 1     # one count of the step for both meshes
+    # one count of the step for both meshes, one of the collectives a mesh
+    assert len(counts) == 3
     rows = report.load(results_dir=str(tmp_path))
     table = report.dryrun_table(rows)
-    assert table.count("| ok |") == 2 and "n/a" in table
+    assert table.count("| ok |") == 2
+    assert ("n/a: uneven model blocks" in table) == refused
+    assert ("all-reduce=" in table) != refused
     roof = report.roofline_table(rows, mesh="multi")
     assert f"| {arch} | {shape} |" in roof
     report.main(["--results-dir", str(tmp_path)])
@@ -207,3 +237,57 @@ def test_gmm_cell_counts_the_kernel_and_its_plain_backward(tmp_path):
 def test_port_results_never_land_in_the_reference_directory():
     assert dryrun.RESULTS_DIR.endswith("dryrun_results_torch")
     assert report.RESULTS_DIR.endswith("dryrun_results_torch")
+
+
+def test_the_refused_cells_are_read_off_the_configs():
+    """A cell's collectives are refused where the sharded layers do not run
+    its model on a model axis of 16: an encoder-decoder, or a dimension
+    they split by whole units that 16 does not divide.  Each refused
+    cell's sharded program raises the refusal, on both meshes."""
+    from repro_torch.models import lm
+
+    def refuses(arch: str) -> bool:
+        cfg = get_config(arch)
+        if cfg.enc_layers:
+            return True
+        try:
+            lm.check_shardable(cfg, 16)
+        except NotImplementedError:
+            return True
+        return False
+    assert {(a, s.name) for a, s in cells() if refuses(a)} == REFUSED
+    for arch, shape in sorted(REFUSED):
+        for mesh_kind in ("single", "multi"):
+            mesh = dryrun.make_production_mesh(multi_pod=mesh_kind == "multi")
+            cfg = dryrun.make_cell_cfg(arch)
+            args, shardings, _ = dryrun.build_cell(cfg, SHAPES[shape], mesh)
+            got = dryrun.count_collectives(dryrun.sharded_step(
+                dryrun.collective_cfg(cfg), SHAPES[shape], mesh, args,
+                shardings))
+            assert got["skipped"].startswith("NotImplementedError"), got
+            assert ("encoder-decoder" if "seamless" in arch
+                    else "ssm_heads") in got["skipped"]
+
+
+def test_the_collective_count_follows_zero1_and_the_mesh(tmp_path):
+    """ZeRO-1 adds the all-gather of the data slices of every moment's
+    update; the multi-pod mesh halves each data participant's rows."""
+    shape = SHAPES["train_4k"]
+    counts: dict = {}
+    got = {}
+    for zero in (False, True):
+        for mesh_kind in ("single", "multi"):
+            r = dryrun.run_cell("granite_moe_1b_a400m", shape, mesh_kind,
+                                force=True, zero_opt=zero, counts=counts,
+                                results_dir=str(tmp_path / str(zero)))
+            assert r["status"] == "ok", r.get("traceback")
+            got[zero, mesh_kind] = r["collectives"]
+    assert len(counts) == 1 + 4
+    for mesh_kind in ("single", "multi"):
+        plain, zero = got[False, mesh_kind], got[True, mesh_kind]
+        assert zero["count_by_kind"]["all-gather"] == \
+            plain["count_by_kind"]["all-gather"] + 1
+        assert zero["bytes_by_kind"]["all-gather"] > \
+            plain["bytes_by_kind"]["all-gather"]
+    assert got[False, "multi"]["bytes_by_kind"]["all-reduce"] < \
+        got[False, "single"]["bytes_by_kind"]["all-reduce"]

@@ -11,7 +11,9 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
 - the layouts fall as the smoke configs give them: granite-moe on (2, 2)
   and olmoe on (1, 4) head-sharded (kv 2 / 4), granite-moe on (1, 4),
   glm4 and jamba hd-sharded (kv 2 or 1, head_dim 16); mamba2 and jamba
-  carry SSM slots;
+  carry SSM slots; on the three-axis ``("pod", "data", "model")`` meshes,
+  the batch over pod × data, granite-moe (2, 1, 2) and glm4 (2, 2, 1)
+  head-sharded, mamba2 (2, 1, 2);
 - ``init_cache(part=)`` allocates exactly what ``shard_tree`` cuts from
   the whole cache, for every decoder-only arch at both meshes;
 - a (1, 1) mesh gives the unsharded logits and cache byte for byte;
@@ -37,15 +39,23 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   glm4 on (2, 2)), and mamba2 on (2, 2) with its batch whole.  A cache of
   30 positions is cut into blocks of 8, 8, 8 and 6 on dp 4: the prompt of
   16 fills ranks 0 and 1, the steps write into rank 2's block and rank 3's
-  stays empty.  Each case is held as above (every rank returns the same
+  stays empty; glm4 on (2, 2, 1), batch 1, divides neither pod nor data.
+  Each case is held as above (every rank returns the same
   bits, the rows being replicated), with its controls: the block's
   ``cache_len`` not offset by its start, the blocks averaged with equal
   weights;
+- every rank's collectives in the prefill and one decode step of
+  granite-moe, glm4 and mamba2 on every mesh (batch 4, and batch 1 in the
+  fully-seq layout), call for call, equal those of the same calls run on
+  ``meta`` over ``MetaShards`` at the rank's coordinate (the dry run's
+  count);
 - the encoder-decoder and ``moe_impl="ep"`` raise.
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
+import math
 from contextlib import nullcontext
 from dataclasses import replace
 from unittest import mock
@@ -65,17 +75,27 @@ from repro_torch.convert import (
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import init_ranks, make_mesh, run_ranks
 from repro_torch.models import Model, layers, lm, moe, smoke_variant, ssd
-from repro_torch.parallel.collectives import Shards
+from repro_torch.parallel.collectives import MetaShards, observe
 from repro_torch.parallel.sharding import (
     cache_layout,
     cache_shardings,
     cache_spec_for_kv,
+    dp_axes,
+    dp_size,
+    param_shardings,
     shard_tree,
     spec,
 )
 from repro_torch.parallel.tensor import Participant
 
-MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model")),
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
+          "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+#: the archs whose collectives are recorded, at these batch sizes
+RECORD_ARCHS = ("granite_moe_1b_a400m", "glm4_9b", "mamba2_130m")
+RECORD_BATCHES = (4, 1)
 WORLD = 4
 JOIN_S = 300.0
 KERNEL_PATHS = dict(attention_impl="cuda", moe_impl="gmm", ssm_impl="cuda")
@@ -97,6 +117,9 @@ CASES = {
     ("jamba_v0_1_52b", "1x4"): "hd",
     ("mamba2_130m", "2x2"): None,
     ("mamba2_130m", "1x4"): None,
+    ("granite_moe_1b_a400m", "2x1x2"): "head",
+    ("glm4_9b", "2x2x1"): "head",
+    ("mamba2_130m", "2x1x2"): None,
 }
 ARCHS = sorted({a for a, _ in CASES})
 SSM_ARCHS = ("jamba_v0_1_52b", "mamba2_130m")
@@ -112,6 +135,7 @@ FS_CASES = {
     ("jamba_v0_1_52b", "4x1", 1): "seq",
     ("mamba2_130m", "2x2", 1): None,
     ("granite_moe_1b_a400m", "4x1", 2): "seq",
+    ("glm4_9b", "2x2x1", 1): "seq",
 }
 FS_IDS = [f"{a}-{m}-b{b}" for a, m, b in FS_CASES]
 FS_MAX_LEN = 30
@@ -125,6 +149,33 @@ FS_FILLED = {4: [(8, 8), (8, 8), (0, STEPS), (0, 0)],
 
 def port_cfg(arch: str):
     return replace(smoke_variant(get_config(arch)), **KERNEL_PATHS)
+
+
+def meta_cfg(arch: str):
+    """:func:`port_cfg` with the attention and SSD forms that take ``meta``
+    tensors at smoke size (the kernels' wrappers check their shapes on
+    meta, and take head_dim 64 / 128 only); no collective depends on the
+    form."""
+    return replace(port_cfg(arch), attention_impl="dense",
+                   ssm_impl="chunked")
+
+
+def mesh_of(name: str):
+    return make_mesh(*MESHES[name])
+
+
+def all_coords(mesh) -> list[dict]:
+    names = mesh.axis_names
+    return [dict(zip(names, c)) for c in itertools.product(
+        *(range(mesh.shape[a]) for a in names))]
+
+
+def zero_coord(mesh) -> dict:
+    return {a: 0 for a in mesh.axis_names}
+
+
+def model_size(mesh_name: str) -> int:
+    return MESHES[mesh_name][0][-1]
 
 
 def controls(arch: str, layout, m: int = 2) -> list[str]:
@@ -181,27 +232,19 @@ def sha(t: torch.Tensor) -> str:
                           .numpy().tobytes()).hexdigest()
 
 
-class OneShard(Shards):
-    """One participant of ``mesh`` at ``coord``, with no collectives (for
-    what a participant computes alone)."""
-
-    def __init__(self, mesh, coord: dict) -> None:
-        self.mesh = mesh
-        self.coords = [dict(coord)]
-
-
 # -- layouts and shapes -------------------------------------------------------
 
 @pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
 def test_smoke_layouts_fall_as_the_configs_give(arch, mesh_name):
     cfg = port_cfg(arch)
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     layout = CASES[arch, mesh_name]
     kv = cache_spec_for_kv(cfg, mesh, BATCH)
+    dp = dp_axes(mesh)
     if layout == "head":
-        assert kv == spec(None, "data", None, "model", None)
+        assert kv == spec(None, dp, None, "model", None)
     elif layout == "hd":
-        assert kv == spec(None, "data", None, None, "model")
+        assert kv == spec(None, dp, None, None, "model")
         assert cfg.n_kv_heads in (1, 2) and cfg.head_dim == 16
     kinds = {s.mixer for s in cfg.pattern()}
     assert ("attn" in kinds) == (layout is not None)
@@ -216,12 +259,11 @@ def decoder_archs() -> list[str]:
 @pytest.mark.parametrize("arch", decoder_archs())
 def test_init_cache_allocates_what_shard_tree_cuts(arch, mesh_name):
     cfg = smoke_variant(get_config(arch))
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     whole = lm.init_cache(cfg, BATCH, MAX_LEN, "cpu")
     sh = cache_shardings(cfg, mesh, whole["slots"], BATCH)
-    for coord in ({"data": d, "model": m} for d in range(mesh.shape["data"])
-                  for m in range(mesh.shape["model"])):
-        part = Participant(OneShard(mesh, coord))
+    for coord in all_coords(mesh):
+        part = Participant(MetaShards(mesh, coord))
         local = lm.init_cache(cfg, BATCH, MAX_LEN, "cpu", part=part)
         want = shard_tree(whole["slots"], sh, coord)
         for got, cut in zip(tree.leaves(local["slots"]), tree.leaves(want),
@@ -267,12 +309,14 @@ def test_a_one_by_one_mesh_is_the_unsharded_serving_byte_for_byte(arch,
                          ids=FS_IDS)
 def test_fully_seq_layouts_fall_as_the_configs_give(arch, mesh_name, batch):
     cfg = port_cfg(arch)
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     layout = FS_CASES[arch, mesh_name, batch]
-    assert cache_spec_for_kv(cfg, mesh, batch)[1:3] == (None, "data")
+    assert batch % math.prod(mesh.shape[a] for a in dp_axes(mesh)) != 0
+    assert cache_spec_for_kv(cfg, mesh, batch)[1:3] == (
+        None, spec(dp_axes(mesh))[0])
     if layout:
         assert cache_layout(cfg, mesh, batch) == layout
-    part = Participant(OneShard(mesh, {"data": 0, "model": 0}))
+    part = Participant(MetaShards(mesh, zero_coord(mesh)))
     assert lm.serve_layout(cfg, part, batch) == layout
     if arch == "granite_moe_1b_a400m" and mesh_name == "2x2":
         # the kv heads divide the model axis, and the cache is hd-sharded
@@ -284,19 +328,18 @@ def test_fully_seq_layouts_fall_as_the_configs_give(arch, mesh_name, batch):
             assert sh.spec[1] is None          # the batch is whole
 
 
-@pytest.mark.parametrize("mesh_name", ["4x1", "2x2"])
+@pytest.mark.parametrize("mesh_name", ["4x1", "2x2", "2x2x1", "2x1x2"])
 @pytest.mark.parametrize("arch", decoder_archs())
 def test_fully_seq_init_cache_allocates_what_shard_tree_cuts(arch,
                                                              mesh_name):
     cfg = smoke_variant(get_config(arch))
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     whole = lm.init_cache(cfg, 1, FS_MAX_LEN, "cpu")
     sh = cache_shardings(cfg, mesh, whole["slots"], 1)
     attn = any(s.mixer == "attn" for s in cfg.pattern())
-    dp = mesh.shape["data"]
-    for coord in ({"data": d, "model": m} for d in range(dp)
-                  for m in range(mesh.shape["model"])):
-        part = Participant(OneShard(mesh, coord))
+    dp = dp_size(mesh)
+    for coord in all_coords(mesh):
+        part = Participant(MetaShards(mesh, coord))
         local = lm.init_cache(cfg, 1, FS_MAX_LEN, "cpu", part=part)
         want = shard_tree(whole["slots"], sh, coord)
         for got, cut in zip(tree.leaves(local["slots"]), tree.leaves(want),
@@ -308,14 +351,13 @@ def test_fully_seq_init_cache_allocates_what_shard_tree_cuts(arch,
             lo, hi = part.dp_block(FS_MAX_LEN)
             slot = next(s for s in local["slots"].values() if "k" in s)
             assert slot["k"].shape[:3] == (cfg.n_blocks, 1, hi - lo)
-            assert hi - lo == {4: [8, 8, 8, 6], 2: [15, 15]}[dp][
-                coord["data"]]
+            assert hi - lo == {4: [8, 8, 8, 6], 2: [15, 15]}[dp][part.di]
 
 
 def test_a_cache_that_leaves_a_sequence_block_empty_raises():
     cfg = port_cfg("granite_moe_1b_a400m")
     mesh = make_mesh((4, 1), ("data", "model"))
-    part = Participant(OneShard(mesh, {"data": 0, "model": 0}))
+    part = Participant(MetaShards(mesh, {"data": 0, "model": 0}))
     with pytest.raises(ValueError, match="empty"):
         lm.init_cache(cfg, 1, 5, "cpu", part=part)
     lm.init_cache(cfg, 1, 7, "cpu", part=part)
@@ -323,7 +365,7 @@ def test_a_cache_that_leaves_a_sequence_block_empty_raises():
 
 def test_a_batch_that_does_not_divide_over_dp_is_taken_whole():
     mesh = make_mesh((2, 2), ("data", "model"))
-    part = Participant(OneShard(mesh, {"data": 1, "model": 0}))
+    part = Participant(MetaShards(mesh, {"data": 1, "model": 0}))
     t = torch.arange(3 * PROMPT, dtype=torch.int32).reshape(3, PROMPT)
     assert torch.equal(lm.batch_block(t, lm.rows_part(part, 3)), t)
     assert lm.rows_part(part, 3).rows_split is False
@@ -529,13 +571,37 @@ def _full_cache(run: dict, part, batch_size: int = BATCH,
     return None
 
 
+def _record_case(part, arch: str, np_params, batch_size: int) -> dict:
+    """Each ``(kind, operand bytes)`` this rank's collectives report in the
+    prefill and in one decode step of ``arch`` (a batch of
+    ``batch_size``)."""
+    cfg = port_cfg(arch)
+    model = Model(cfg)
+    params = lm_shard_from_numpy(np_params, cfg, part.mesh, part.coord,
+                                 "cpu")
+    batch = {"tokens": torch.from_numpy(prompts(batch_size))}
+    cache = model.init_cache(params, batch, MAX_LEN, shards=part)
+    out = {"prefill": [], "decode": []}
+    with observe(lambda kind, n: out["prefill"].append((kind, n))):
+        _, cache = model.prefill(params, batch, cache, shards=part)
+    with observe(lambda kind, n: out["decode"].append((kind, n))):
+        model.decode(params, batch["tokens"][:, :1], cache, shards=part)
+    return out
+
+
 def _rank_cases(rank: int, store: str, refs: dict) -> dict:
     torch.set_num_threads(1)
-    dm = init_ranks(make_mesh(MESHES["2x2"], ("data", "model")), rank,
-                    store)
-    meshes = {"2x2": dm, **{name: make_mesh(MESHES[name], ("data", "model"))
-                            .device_mesh() for name in ("1x4", "4x1")}}
-    out = {}
+    dm = init_ranks(mesh_of("2x2"), rank, store)
+    meshes = {name: dm if name == "2x2" else mesh_of(name).device_mesh()
+              for name in MESHES}
+    out = {"records": {}, "coords": {}}
+    for name, mesh in meshes.items():
+        part = Participant(mesh)
+        out["coords"][name] = part.coord
+        for arch in RECORD_ARCHS:
+            for b in RECORD_BATCHES:
+                out["records"][name, arch, b] = _record_case(
+                    part, arch, refs[arch]["params"], b)
     for (arch, mesh_name), layout in CASES.items():
         part = Participant(meshes[mesh_name])
         ref = refs[arch]
@@ -548,7 +614,7 @@ def _rank_cases(rank: int, store: str, refs: dict) -> dict:
         case["controls"] = {
             name: _serve(part, arch, ref["params"], ref["feed"],
                          ref["routing"], name, gathered=False)["logits"]
-            for name in controls(arch, layout)}
+            for name in controls(arch, layout, part.m)}
         out[arch, mesh_name] = case
     for (arch, mesh_name, batch), layout in FS_CASES.items():
         part = Participant(meshes[mesh_name])
@@ -657,7 +723,7 @@ def test_sharded_logits_match_jax(ranks, reference, arch, mesh_name):
 
 @pytest.mark.parametrize("arch,mesh_name", list(CASES), ids=CASE_IDS)
 def test_each_control_leaves_the_limit(ranks, reference, arch, mesh_name):
-    names = controls(arch, CASES[arch, mesh_name])
+    names = controls(arch, CASES[arch, mesh_name], model_size(mesh_name))
     assert names
     want = reference[arch]["port"]["logits"]
     for r in ranks:
@@ -678,7 +744,7 @@ def test_model_participants_of_a_data_group_return_the_same_bits(
         case = r[arch, mesh_name]
         groups.setdefault(case["di"], set()).add(
             (tuple(case["shas"]), case["len"], case["pos"]))
-    assert len(groups) == MESHES[mesh_name][0]
+    assert len(groups) == math.prod(MESHES[mesh_name][0][:-1])
     assert all(len(v) == 1 for v in groups.values())
 
 
@@ -741,7 +807,7 @@ def test_fully_seq_logits_match_jax(ranks, reference, arch, mesh_name,
 def test_fully_seq_each_control_leaves_the_limit(ranks, reference, arch,
                                                  mesh_name, batch):
     names = controls(arch, FS_CASES[arch, mesh_name, batch],
-                     MESHES[mesh_name][1])
+                     model_size(mesh_name))
     assert names
     want = reference[arch, batch]["port"]["logits"]
     for r in ranks:
@@ -791,3 +857,48 @@ def test_fully_seq_blocks_hold_their_positions(ranks, arch, mesh_name,
 def test_fully_seq_full_cache_raises_index_error_on_every_rank(ranks, case):
     for r in ranks:
         assert (r[case]["full"] or "").startswith("IndexError")
+
+
+# -- the collectives on meta: the dry run's count -----------------------------
+
+def meta_record(arch: str, mesh, coord: dict, batch_size: int) -> dict:
+    """Each ``(kind, operand bytes)`` of the prefill and of one decode
+    step of ``arch`` run on ``meta`` over ``MetaShards`` at ``coord``."""
+    cfg = meta_cfg(arch)
+    model = Model(cfg)
+    whole = model.abstract_params()
+    params = shard_tree(whole, param_shardings(whole, cfg, mesh), coord)
+    part = Participant(MetaShards(mesh, coord))
+    batch = {"tokens": torch.empty((batch_size, PROMPT), dtype=torch.int32,
+                                   device="meta")}
+    cache = model.init_cache(params, batch, MAX_LEN, shards=part)
+    out = {"prefill": [], "decode": []}
+    with observe(lambda kind, n: out["prefill"].append((kind, n))):
+        _, cache = model.prefill(params, batch, cache, shards=part)
+    with observe(lambda kind, n: out["decode"].append((kind, n))):
+        logits, _ = model.decode(params, batch["tokens"][:, :1], cache,
+                                 shards=part)
+    assert logits.device.type == "meta"
+    return out
+
+
+@pytest.mark.parametrize("batch", RECORD_BATCHES)
+@pytest.mark.parametrize("arch", RECORD_ARCHS)
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_the_meta_count_is_every_rank_record(ranks, mesh_name, arch, batch):
+    """Call for call: kind, order and one participant's operand bytes, in
+    the prefill and in a decode step."""
+    mesh = mesh_of(mesh_name)
+    # a step moves something where the model axis splits the layers, the
+    # blocks of the positions are combined across the data axes, or the
+    # MoE load is averaged over them
+    cfg, dp = port_cfg(arch), dp_size(mesh)
+    split = batch % dp == 0
+    attends = any(s.mixer == "attn" for s in cfg.pattern())
+    moves = model_size(mesh_name) > 1 or dp > 1 and (
+        (not split and attends) or (split and cfg.moe_experts > 0))
+    for r in ranks:
+        got = r["records"][mesh_name, arch, batch]
+        want = meta_record(arch, mesh, r["coords"][mesh_name], batch)
+        assert bool(got["decode"]) == moves
+        assert got == want, (mesh_name, r["coords"][mesh_name])

@@ -9,15 +9,17 @@ out (``parallel/tensor.py``).  Here, on the CPU with the kernels' plain
 versions at smoke size:
 
 - ``shard_tree`` / ``gather_tree`` round-trip every leaf of every arch's
-  smoke train state (ZeRO-1 moments included) at meshes (2, 2) and
-  (1, 4), and a tree of uneven leaves; no leaf of the ten configs at
+  smoke train state (ZeRO-1 moments included) at meshes (2, 2), (1, 4)
+  and the three-axis ``("pod", "data", "model")`` (2, 1, 2) and
+  (2, 2, 1), and a tree of uneven leaves; no leaf of the ten configs at
   their published size is uneven at a model axis of 4;
 - a (1, 1) mesh gives the unsharded step's state and metrics byte for
   byte;
 - one spawn of 4 gloo ranks (a ``FileStore`` under the test's temporary
   directory) runs granite-moe (kv heads sharded), glm4 (smoke kv 1,
-  replicated), mamba2 and jamba on (2, 2) and (1, 4), the same numpy
-  parameters and batch: the loss, the metrics
+  replicated), mamba2 and jamba on every mesh above (the batch over pod
+  × data on the three-axis ones), the same numpy parameters and batch:
+  the loss, the metrics
   and every gathered gradient leaf are held to the unsharded port
   (``LOSS_RTOL`` relative, ``GRAD_REL_RMS`` relative RMS, the chip run's
   float32 limits) and to ``jax.value_and_grad`` of the reference's loss;
@@ -28,12 +30,33 @@ versions at smoke size:
   ZeRO-1's slices and parameters equal the others' bit for bit, and
   every participant holding a block holds its bits; a routing recorded
   unsharded replays in the sharded run;
-- ``compress=True`` raises.
+- every rank's collectives in one train step (with and without ZeRO-1) of
+  granite-moe, glm4 and mamba2 on every mesh, call for call (kind, order,
+  operand bytes), equal those of the same step run on ``meta`` over
+  ``MetaShards`` at the rank's coordinate (the dry run's count); the
+  MoE's row-count stand-in on meta changes no record;
+- a bf16 region end with a model axis of 2 or 4 is the float32 sum of the
+  participants' float32 partials in shard order, rounded once;
+- ``compress=True``: ``ef_compress_sharded`` on every participant's block
+  is ``ef_compress`` of the whole leaves cut to it, byte for byte, at
+  model 2 and 4, cuts on the first and a later dim and sizes off the
+  256-element blocks; three sharded compressed steps of mamba2
+  (``accum=2``) on (2, 2) and (2, 1, 2), each from the unsharded port's
+  state before it: the compressed gradient of every step byte-equal to
+  ``ef_compress`` of the gathered one (scales taken per shard, without
+  the max over ``"model"``, break it), and the state after each held to
+  the unsharded port's and to the JAX package's step from the same state
+  by the ≥ 99 % rule of ``tests/test_torch_train.py``.  (Chained, the
+  sharded steps leave that rule from the second step on: a gradient that
+  sums in another order rounds an element to the neighbouring int8 value
+  in the first step, and the second step's gradients all move with it.)
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
 from dataclasses import replace
+from unittest import mock
 
 import jax
 import numpy as np
@@ -55,17 +78,19 @@ from repro_torch.launch.mesh import init_ranks, make_mesh, run_ranks
 from repro_torch.models import Model, lm, moe, smoke_variant
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.ssd import sharded_rmsnorm
-from repro_torch.parallel.collectives import ListShards
+from repro_torch.parallel import compress as port_compress
+from repro_torch.parallel.collectives import ListShards, MetaShards, observe
 from repro_torch.parallel.sharding import (
     NamedSharding,
     entry_axes,
     gather_tree,
     param_shardings,
     shard_shape,
+    shard_slices,
     shard_tree,
     spec,
 )
-from repro_torch.parallel.tensor import Participant
+from repro_torch.parallel.tensor import Participant, leave_model_region_product
 from repro_torch.train import (
     AdamWConfig,
     abstract_state,
@@ -77,7 +102,18 @@ from repro_torch.train import (
 from repro_torch.train import step as train_step
 
 ARCHS = ("granite_moe_1b_a400m", "glm4_9b", "mamba2_130m", "jamba_v0_1_52b")
-MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
+          "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+#: the archs whose collectives are recorded (``RECORD_ARCHS``) and the
+#: meshes of the sharded compressed steps
+RECORD_ARCHS = ("granite_moe_1b_a400m", "glm4_9b", "mamba2_130m")
+#: the meshes whose model axis splits anything
+MODEL_MESHES = [n for n, (shape, _) in MESHES.items() if shape[-1] > 1]
+COMPRESS_ARCH = "mamba2_130m"
+COMPRESS_MESHES = ("2x2", "2x1x2")
+COMPRESS_STEPS = 3
 WORLD = 4
 JOIN_S = 300.0
 KERNEL_PATHS = dict(attention_impl="cuda", moe_impl="gmm", ssm_impl="cuda",
@@ -98,6 +134,25 @@ def port_cfg(arch: str):
     """The smoke config on its kernel paths (their plain versions on CPU
     tensors), under remat."""
     return replace(smoke_variant(get_config(arch)), **KERNEL_PATHS)
+
+
+def meta_cfg(arch: str):
+    """:func:`port_cfg` with the attention and SSD forms that take ``meta``
+    tensors at smoke size (the kernels' wrappers check their shapes on
+    meta, and take head_dim 64 / 128 only); no collective depends on the
+    form."""
+    return replace(port_cfg(arch), attention_impl="dense",
+                   ssm_impl="chunked")
+
+
+def mesh_of(name: str):
+    return make_mesh(*MESHES[name])
+
+
+def all_coords(mesh) -> list[dict]:
+    names = mesh.axis_names
+    return [dict(zip(names, c)) for c in itertools.product(
+        *(range(mesh.shape[a]) for a in names))]
 
 
 def np_batch(vocab: int, seed: int) -> dict:
@@ -144,8 +199,8 @@ def smoke_state(arch: str):
     return cfg, model, state
 
 
-def round_trip(tree_, shardings, mesh_shape) -> None:
-    sh = ListShards(make_mesh(mesh_shape, ("data", "model")))
+def round_trip(tree_, shardings, mesh) -> None:
+    sh = ListShards(mesh)
     parts = [shard_tree(tree_, shardings, c) for c in sh.coords]
     for part in parts:
         for leaf, s, block in zip(tree.leaves(tree_), tree.leaves(shardings),
@@ -161,15 +216,15 @@ def round_trip(tree_, shardings, mesh_shape) -> None:
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_shard_and_gather_round_trip_every_leaf(arch, mesh_name):
     cfg, model, state = smoke_state(arch)
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     shardings = state_shardings(abstract_state(model, OPT), cfg, mesh,
                                 zero_opt=True)
-    round_trip(state, shardings, MESHES[mesh_name])
+    round_trip(state, shardings, mesh)
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_uneven_leaves_round_trip_with_the_last_blocks_shorter(mesh_name):
-    mesh = make_mesh(MESHES[mesh_name], ("data", "model"))
+    mesh = mesh_of(mesh_name)
     gen = torch.Generator().manual_seed(3)
     shapes = {"a": ((5, 3), spec("model", None)),
               "b": ((7,), spec(("data", "model"))),
@@ -177,10 +232,11 @@ def test_uneven_leaves_round_trip_with_the_last_blocks_shorter(mesh_name):
               "d": ((2, 6), spec(None, "model"))}
     tree_ = {k: torch.randn(s, generator=gen) for k, (s, _) in shapes.items()}
     shardings = {k: NamedSharding(mesh, p) for k, (_, p) in shapes.items()}
-    round_trip(tree_, shardings, MESHES[mesh_name])
-    last = shard_tree(tree_, shardings, {"data": MESHES[mesh_name][0] - 1,
-                                         "model": MESHES[mesh_name][1] - 1})
-    assert last["b"].numel() < -(-7 // 4)          # the last block shorter
+    round_trip(tree_, shardings, mesh)
+    last = shard_tree(tree_, shardings, {a: n - 1
+                                         for a, n in mesh.shape.items()})
+    n = mesh.shape["data"] * mesh.shape["model"]
+    assert last["b"].numel() < -(-7 // n)          # the last block shorter
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -233,17 +289,6 @@ def test_a_one_by_one_mesh_is_the_unsharded_step_byte_for_byte(arch, form):
         for a, b in zip(tree.leaves(got_state), tree.leaves(want_state),
                         strict=True):
             assert same(a, b), accum
-
-
-def test_compress_raises_under_sharding():
-    cfg = smoke_variant(get_config("granite_moe_1b_a400m"))
-    model = Model(cfg)
-    mesh = make_mesh((1, 1), ("data", "model"))
-    shardings = state_shardings(abstract_state(model, OPT, compress=True),
-                                cfg, mesh)
-    with pytest.raises(NotImplementedError, match="compress=True"):
-        make_train_step(model, OPT, compress=True, shards=mesh,
-                        shardings=shardings)
 
 
 # -- four ranks ---------------------------------------------------------------
@@ -343,17 +388,124 @@ def _step_case(part, np_params, batches):
     return out
 
 
+def _record_case(part, arch: str, np_params, batch) -> dict:
+    """Each ``(kind, operand bytes)`` this rank's collectives report in
+    one sharded train step of ``arch``, without and with ZeRO-1."""
+    cfg = port_cfg(arch)
+    model = Model(cfg)
+    params = lm_params_from_numpy(np_params, cfg, "cpu")
+    full = {"params": params, "opt": adamw_init(params)}
+    out = {}
+    for zero in (False, True):
+        sh = state_shardings(abstract_state(model, OPT), cfg, part.mesh,
+                             zero_opt=zero)
+        step = make_train_step(model, OPT, shards=part, shardings=sh)
+        state = shard_tree(full, sh, part.coord)
+        record: list = []
+        with observe(lambda kind, n: record.append((kind, n))):
+            step(state, torch_batch(batch))
+        out[zero] = record
+    return out
+
+
+def _fault1_case(part) -> dict:
+    """A bf16 region end of a product on this rank's block of seeded
+    operands: ``a [2, 3, 24]`` cut along its last dim, ``w [24, 5]`` by
+    rows."""
+    gen = torch.Generator().manual_seed(11)
+    a = torch.randn((2, 3, 24), generator=gen).to(torch.bfloat16)
+    w = torch.randn((24, 5), generator=gen).to(torch.bfloat16)
+    lo, hi = part.block(24)
+    out = leave_model_region_product(torch.matmul, part, a[..., lo:hi],
+                                     w[lo:hi])
+    return {"out": out, "m": part.m, "a": a, "w": w}
+
+
+class _Captured:
+    """``ef_compress_sharded`` as the step calls it, its inputs and
+    outputs kept."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+        self.fn = port_compress.ef_compress_sharded
+
+    def __call__(self, grads, residual, shardings, like, part):
+        out = self.fn(grads, residual, shardings, like, part)
+        self.calls.append((grads, residual, shardings, like, out))
+        return out
+
+
+class _PerShard(Participant):
+    """A participant whose max over ``"model"`` is its own: the scales
+    taken per shard (the control)."""
+
+    def max_model(self, x):
+        return x
+
+
+def _compress_case(part, states: list, batches: list) -> dict:
+    """A sharded compressed step of ``COMPRESS_ARCH`` (``accum=2``) from
+    this participant's block of each of ``states`` on the batch of the
+    same index: after each its metrics and the gathered state; the
+    compressed gradient and residual gathered, the gathered inputs they
+    were computed from, and the same with the scales taken per shard."""
+    cfg = port_cfg(COMPRESS_ARCH)
+    model = Model(cfg)
+    sh = state_shardings(abstract_state(model, OPT, compress=True), cfg,
+                         part.mesh)
+    step = make_train_step(model, OPT, 2, compress=True, shards=part,
+                           shardings=sh)
+    cap = _Captured()
+    control = _PerShard(part.shards)
+    runs = []
+    with mock.patch.object(train_step, "ef_compress_sharded", cap):
+        for state, b in zip(states, batches, strict=True):
+            local, metrics = step(shard_tree(state, sh, part.coord),
+                                  torch_batch(b))
+            grads, residual, g_sh, like, (deq, res) = cap.calls[-1]
+            c_deq, c_res = port_compress.ef_compress_sharded(
+                grads, residual, g_sh, like, control)
+
+            def whole(t):
+                return gather_tree(t, g_sh, part.shards, like)
+            runs.append({"metrics": dict(metrics),
+                         "state": gather_tree(local, sh, part.shards,
+                                              state),
+                         "grads": whole(grads), "residual": whole(residual),
+                         "deq": whole(deq), "res": whole(res),
+                         "control": whole(c_deq)})
+    # ZeRO-1 cuts the moments after the compression: the same bits
+    zsh = state_shardings(abstract_state(model, OPT, compress=True), cfg,
+                          part.mesh, zero_opt=True)
+    zstep = make_train_step(model, OPT, 2, compress=True, shards=part,
+                            shardings=zsh)
+    zero = [gather_tree(zstep(shard_tree(state, zsh, part.coord),
+                              torch_batch(b))[0], zsh, part.shards, state)
+            for state, b in zip(states, batches, strict=True)]
+    return {"runs": runs, "calls": len(cap.calls), "zero1": zero,
+            "zero1_cut": [s_.spec for s_ in tree.leaves(zsh["opt"].m)]
+            != [s_.spec for s_ in tree.leaves(sh["opt"].m)]}
+
+
 def _rank_cases(rank: int, store: str, np_params: dict, batches: list,
-                routing: list) -> dict:
+                routing: list, compress_states: list) -> dict:
     torch.set_num_threads(1)
-    dm = init_ranks(make_mesh(MESHES["2x2"], ("data", "model")), rank,
-                    store)
-    meshes = {"2x2": dm, "1x4": make_mesh(MESHES["1x4"], ("data", "model"))
-              .device_mesh()}
-    out = {"rank": rank, "grads": {}, "norm": {}}
+    dm = init_ranks(mesh_of("2x2"), rank, store)
+    meshes = {name: dm if name == "2x2" else mesh_of(name).device_mesh()
+              for name in MESHES}
+    out = {"rank": rank, "grads": {}, "norm": {}, "records": {},
+           "fault1": {}, "compress": {}, "coords": {}}
     for name, mesh in meshes.items():
         part = Participant(mesh)
+        out["coords"][name] = part.coord
         out["norm"][name] = _norm_case(part)
+        out["fault1"][name] = _fault1_case(part)
+        for arch in RECORD_ARCHS:
+            out["records"][name, arch] = _record_case(
+                part, arch, np_params[arch], batches[0])
+        if name in COMPRESS_MESHES:
+            out["compress"][name] = _compress_case(
+                part, compress_states, batches + [batches[0]])
         for arch in ARCHS:
             out["grads"][name, arch] = _grads_case(part, arch,
                                                    np_params[arch],
@@ -410,9 +562,31 @@ def reference():
     routing, moved_metrics, moved_grads = _moved_routing(
         params["granite_moe_1b_a400m"], batches[0])
     return {"params": params, "batches": batches, "routing": routing,
+            "compress": compress_chain(batches + [batches[0]]),
             "moved": (moved_metrics, moved_grads),
             "unsharded": {arch: unsharded(arch, params[arch], batches[0])
                           for arch in ARCHS}}
+
+
+def compress_chain(batches: list) -> dict:
+    """The unsharded port's compressed steps (``accum=2``) over
+    ``batches`` from a seeded state (JAX package numpy parameters, zero
+    moments, a random residual so that the first step's correction
+    counts): every state, the first included, and each step's
+    metrics."""
+    cfg = port_cfg(COMPRESS_ARCH)
+    params = lm_params_from_numpy(np_params(COMPRESS_ARCH), cfg, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    state = {"params": params, "opt": adamw_init(params),
+             "ef": tree.map(lambda p: 1e-3 * torch.randn(
+                 p.shape, generator=gen), params)}
+    step = make_train_step(Model(cfg), OPT, 2, compress=True)
+    states, metrics = [state], []
+    for b in batches:
+        state, m = step(state, torch_batch(b))
+        states.append(state)
+        metrics.append(m)
+    return {"states": states, "metrics": metrics}
 
 
 @pytest.fixture(scope="module")
@@ -420,6 +594,7 @@ def ranks(reference, tmp_path_factory):
     store = str(tmp_path_factory.mktemp("sharded") / "store")
     return run_ranks(_rank_cases, WORLD, store, reference["params"],
                      reference["batches"], reference["routing"],
+                     reference["compress"]["states"][:COMPRESS_STEPS],
                      timeout_s=JOIN_S)
 
 
@@ -447,7 +622,7 @@ def test_sharded_gradients_equal_the_unsharded_step(ranks, reference, arch,
         assert got["metrics"].keys() == reference["unsharded"][arch][0].keys()
 
 
-@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("mesh_name", MODEL_MESHES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_without_the_model_sum_of_partial_gradients_the_step_fails(
         ranks, reference, arch, mesh_name):
@@ -456,8 +631,7 @@ def test_without_the_model_sum_of_partial_gradients_the_step_fails(
     (the norm scales ahead of a region come whole)."""
     cfg = port_cfg(arch)
     partial = train_step.partial_grad_leaves(param_shardings(
-        Model(cfg).abstract_params(), cfg,
-        make_mesh(MESHES[mesh_name], ("data", "model"))))
+        Model(cfg).abstract_params(), cfg, mesh_of(mesh_name)))
     assert any(partial)
     for r in ranks:
         e = errors(r["grads"][mesh_name, arch], reference["unsharded"][arch])
@@ -489,7 +663,7 @@ def test_sharded_gradients_equal_jax_value_and_grad(ranks, reference, arch):
             assert max(errs) <= JAX_GRAD_TOL, (mesh_name, errs)
 
 
-@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("mesh_name", MODEL_MESHES)
 def test_sharded_inner_norm_is_the_whole_norm(ranks, mesh_name):
     gen = torch.Generator().manual_seed(7)
     n = 32
@@ -613,3 +787,306 @@ def test_participants_of_a_block_hold_the_same_bits(ranks, zero):
                 held.setdefault(key, set()).add(h)
         assert all(len(v) == 1 for v in held.values())
         assert len(held) > len(specs)
+
+
+# -- the collectives on meta: the dry run's count -----------------------------
+
+def meta_record(arch: str, mesh, coord: dict, zero: bool) -> list:
+    """Each ``(kind, operand bytes)`` of one sharded train step of
+    ``arch`` run on ``meta`` over ``MetaShards`` at ``coord``."""
+    cfg = meta_cfg(arch)
+    model = Model(cfg)
+    abstract = abstract_state(model, OPT)
+    sh = state_shardings(abstract, cfg, mesh, zero_opt=zero)
+    part = Participant(MetaShards(mesh, coord))
+    step = make_train_step(model, OPT, shards=part, shardings=sh)
+    batch = {k: torch.empty((BATCH, SEQ), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    record: list = []
+    with observe(lambda kind, n: record.append((kind, n))):
+        step(shard_tree(abstract, sh, coord), batch)
+    return record
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["plain", "zero1"])
+@pytest.mark.parametrize("arch", RECORD_ARCHS)
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_the_meta_count_is_every_rank_record(ranks, mesh_name, arch, zero):
+    """Call for call: kind, order and one participant's operand bytes."""
+    mesh = mesh_of(mesh_name)
+    for r in ranks:
+        got = r["records"][mesh_name, arch][zero]
+        assert {k for k, _ in got} >= {"all-reduce"}
+        assert got == meta_record(arch, mesh, r["coords"][mesh_name],
+                                  zero), (r["rank"], mesh_name)
+
+
+@pytest.mark.parametrize("mesh_name", ["2x2", "2x1x2"])
+def test_the_moe_row_stand_in_changes_no_record(mesh_name):
+    """On meta a participant's experts take their even share of the
+    ``T·k`` slots; every other count gives the same collectives (the
+    region end sums ``[T, d]``)."""
+    assert moe.local_rows(torch.empty(8, device="meta"), 64, 8, 32) == 16
+    assert moe.local_rows(torch.empty(8, device="meta"), 65, 8, 32) == 17
+    assert moe.local_rows(torch.tensor([True, False, True]), 3, 1, 2) == 2
+    mesh = mesh_of(mesh_name)
+    coord = {a: 0 for a in mesh.axis_names}
+    arch = "granite_moe_1b_a400m"
+    even = meta_record(arch, mesh, coord, False)
+    seen = []
+
+    def every_slot(mine, slots, local_experts, experts):
+        seen.append(slots)
+        return slots
+    with mock.patch.object(moe, "local_rows", every_slot):
+        assert meta_record(arch, mesh, coord, False) == even
+    assert seen and all(n == BATCH // 2 * SEQ * port_cfg(arch).moe_top_k
+                        for n in seen)
+
+
+# -- a region end in float32 --------------------------------------------------
+
+@pytest.mark.parametrize("mesh_name", MODEL_MESHES)
+def test_a_bf16_region_end_rounds_the_float32_sum_once(ranks, mesh_name):
+    """With a model axis of more than one, each participant's partial is
+    formed in float32, the partials summed in shard order and the sum
+    rounded once to bf16; the reference's bf16 sum of partials each
+    rounded first gives other bits."""
+    for r in ranks:
+        case = r["fault1"][mesh_name]
+        m, a, w = case["m"], case["a"], case["w"]
+        c = -(-a.shape[-1] // m)
+        parts = [a[..., i * c:(i + 1) * c].float() @ w[i * c:(i + 1) * c]
+                 .float() for i in range(m)]
+        want = torch.stack(parts).sum(dim=0).to(torch.bfloat16)
+        assert case["out"].dtype == torch.bfloat16 and same(case["out"],
+                                                            want)
+        rounded = torch.stack([p.to(torch.bfloat16) for p in parts]).sum(
+            dim=0)
+        assert not torch.equal(rounded, want)
+
+
+# -- compress=True ------------------------------------------------------------
+
+class _Gathered:
+    """A participant of a list of every participant's block: its max over
+    ``"model"`` is the largest of the maxima the list has reported (every
+    participant runs once to report, then again to use them)."""
+
+    def __init__(self, coord: dict, maxima: list, report: bool) -> None:
+        self.coord, self.maxima, self.report = coord, maxima, report
+
+    def max_model(self, x):
+        if self.report:
+            self.maxima.append(x)
+            return x
+        return torch.stack(self.maxima).amax(0)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_sharded_ef_compress_is_the_whole_leaves_byte_for_byte(m):
+    mesh = make_mesh((1, m), ("data", "model"))
+    gen = torch.Generator().manual_seed(4)
+    shapes = {"first": ((37, 300), spec("model", None)),
+              "last": ((3, 5, 333), spec(None, None, "model")),
+              "flat": ((1000,), spec("model")),
+              "cols": ((9, 70), spec(None, "model")),
+              "whole": ((4, 257), spec())}
+    grads = {k: torch.randn(s, generator=gen) * 10.0 ** torch.randn(
+        s, generator=gen) for k, (s, _) in shapes.items()}
+    residual = {k: 1e-2 * torch.randn(s, generator=gen)
+                for k, (s, _) in shapes.items()}
+    sh = {k: NamedSharding(mesh, p) for k, (_, p) in shapes.items()}
+    assert all(math_prod(s) % 256 for s, _ in shapes.values())
+    want_d, want_r = port_compress.ef_compress(grads, residual)
+    coords = all_coords(mesh)
+    maxima: list = []
+    for c in coords:
+        port_compress.ef_compress_sharded(
+            shard_tree(grads, sh, c), shard_tree(residual, sh, c), sh, grads,
+            _Gathered(c, maxima, True))
+    for c in coords:
+        got_d, got_r = port_compress.ef_compress_sharded(
+            shard_tree(grads, sh, c), shard_tree(residual, sh, c), sh, grads,
+            _Gathered(c, maxima, False))
+        for got, want in ((got_d, want_d), (got_r, want_r)):
+            cut = shard_tree(want, sh, c)
+            for k in shapes:
+                assert same(got[k], cut[k]), (m, k, c)
+
+
+def test_block_runs_are_the_positions_a_block_holds():
+    shape = (3, 4, 5)
+    whole = torch.arange(60).reshape(shape)
+    for sl in ((slice(0, 3), slice(1, 3), slice(0, 5)),
+               (slice(1, 2), slice(0, 4), slice(2, 4)),
+               (slice(0, 3), slice(0, 4), slice(0, 5))):
+        offsets, length = port_compress.block_runs(shape, sl)
+        got = torch.cat([torch.arange(o, o + length) for o in offsets])
+        assert torch.equal(got, whole[sl].reshape(-1))
+
+
+def math_prod(shape) -> int:
+    return int(np.prod(shape))
+
+
+def straddling(like, shardings, coords) -> set:
+    """The leaves (flatten order) whose 256-element blocks hold elements of
+    more than one participant."""
+    out = set()
+    for i, (leaf, sh) in enumerate(zip(tree.leaves(like),
+                                       tree.leaves(shardings))):
+        n = leaf.numel()
+        for c in coords:
+            offsets, length = port_compress.block_runs(
+                tuple(leaf.shape), shard_slices(tuple(leaf.shape), sh, c))
+            if length == n or length == 0:
+                continue
+            if any(o % 256 or ((o + length) % 256 and o + length != n)
+                   for o in offsets):
+                out.add(i)
+    return out
+
+
+@pytest.mark.parametrize("mesh_name", COMPRESS_MESHES)
+def test_the_step_compresses_the_whole_leaves_byte_for_byte(ranks,
+                                                            mesh_name):
+    """In every step, on every rank, the compressed gradient and residual
+    are ``ef_compress`` of the gathered gradient and residual; the scales
+    taken per shard break it on leaves whose blocks straddle a shard
+    boundary, and only there."""
+    cfg = port_cfg(COMPRESS_ARCH)
+    mesh = mesh_of(mesh_name)
+    like = Model(cfg).abstract_params()
+    across = straddling(like, param_shardings(like, cfg, mesh),
+                        all_coords(mesh))
+    assert across
+    for r in ranks:
+        case = r["compress"][mesh_name]
+        assert case["calls"] == COMPRESS_STEPS
+        broken = set()
+        for run in case["runs"]:
+            want_d, want_r = port_compress.ef_compress(run["grads"],
+                                                       run["residual"])
+            for got, want in ((run["deq"], want_d), (run["res"], want_r)):
+                for g, w in zip(tree.leaves(got), tree.leaves(want),
+                                strict=True):
+                    assert same(g, w)
+            broken |= {i for i, (g, w) in enumerate(zip(
+                tree.leaves(run["control"]), tree.leaves(want_d)))
+                if not same(g, w)}
+        assert broken and broken <= across, (broken, across)
+
+
+@pytest.mark.parametrize("mesh_name", COMPRESS_MESHES)
+def test_zero1_cuts_the_moments_after_the_compression(ranks, mesh_name):
+    """The sharded compressed step under ZeRO-1 gives the same state bit
+    for bit: the compression sees the whole gradient block either way."""
+    for r in ranks:
+        case = r["compress"][mesh_name]
+        assert case["zero1_cut"]
+        for run, zero in zip(case["runs"], case["zero1"], strict=True):
+            for a, b in zip(tree.leaves(run["state"]), tree.leaves(zero),
+                            strict=True):
+                assert same(a, b)
+
+
+#: ``tests/test_torch_train.py``'s three-step rule: 1e-5 of each leaf's
+#: scale on all but 1 % of the elements (the residual on its gradient's
+#: scale, 127 × its own), and the metrics to 1e-5 relative.
+STEP_TOL = 1e-5
+STEP_OUTLIER_SHARE = 0.01
+
+
+def outliers(got, want, factor: float = 1.0) -> tuple[int, int]:
+    off = total = 0
+    for g, w in zip(got, want, strict=True):
+        g, w = np.asarray(g, dtype=np.float64), np.asarray(w,
+                                                           dtype=np.float64)
+        scale = factor * max(float(np.abs(w).max()), 1e-30)
+        off += int((np.abs(g - w) > STEP_TOL * scale).sum())
+        total += w.size
+    return off, total
+
+
+def state_parts(state) -> dict:
+    """Params, moments and residual of a port state, each as the JAX
+    package's numpy leaves."""
+    return {"params": state["params"], "m": state["opt"].m,
+            "v": state["opt"].v, "ef": state["ef"]}
+
+
+def hold_three_steps(runs, want_states, want_metrics) -> None:
+    for i, (run, want, wm) in enumerate(zip(runs, want_states, want_metrics,
+                                            strict=True)):
+        for k, v in wm.items():
+            assert float(run["metrics"][k]) == pytest.approx(
+                float(v), rel=STEP_TOL, abs=1e-8), (i, k)
+        got = state_parts(run["state"])
+        for name, factor in (("params", 1.0), ("m", 1.0), ("v", 1.0),
+                             ("ef", 127.0)):
+            off, total = outliers(
+                jax.tree.leaves(lm_params_to_numpy(got[name])),
+                want[name], factor)
+            assert off <= STEP_OUTLIER_SHARE * total, (i, name, off, total)
+
+
+def compress_batches(reference) -> list:
+    b = reference["batches"]
+    return b + [b[0]]
+
+
+def numpy_parts(state) -> dict:
+    return {k: jax.tree.leaves(lm_params_to_numpy(v))
+            for k, v in state_parts(state).items()}
+
+
+@pytest.mark.parametrize("mesh_name", COMPRESS_MESHES)
+def test_sharded_compressed_steps_keep_the_unsharded_port(ranks, reference,
+                                                          mesh_name):
+    chain = reference["compress"]
+    want = [numpy_parts(s) for s in chain["states"][1:]]
+    for r in ranks:
+        hold_three_steps(r["compress"][mesh_name]["runs"], want,
+                         chain["metrics"])
+
+
+@requires_grad_through_barrier
+@pytest.mark.parametrize("mesh_name", COMPRESS_MESHES)
+def test_sharded_compressed_steps_keep_the_jax_steps(ranks, reference,
+                                                     mesh_name):
+    """Each sharded step against the JAX package's compressed step from
+    the same state, on the same batch."""
+    import jax.numpy as jnp
+
+    import repro.train as ref_train
+    from repro.models import Model as RefModel
+
+    rcfg = ref_smoke(ref_config(COMPRESS_ARCH))
+    opt_kw = dict(lr=OPT.lr, warmup_steps=OPT.warmup_steps,
+                  total_steps=OPT.total_steps)
+    ref_step = jax.jit(ref_train.make_train_step(
+        RefModel(rcfg), ref_train.AdamWConfig(**opt_kw), accum=2,
+        compress=True))
+
+    def jax_tree(t):
+        return jax.tree.map(jnp.asarray, lm_params_to_numpy(t))
+    states, metrics = [], []
+    for start, b in zip(reference["compress"]["states"],
+                        compress_batches(reference)):
+        ref_state = {"params": jax_tree(start["params"]),
+                     "opt": ref_train.AdamWState(
+                         m=jax_tree(start["opt"].m),
+                         v=jax_tree(start["opt"].v),
+                         step=jnp.asarray(int(start["opt"].step),
+                                          jnp.int32)),
+                     "ef": jax_tree(start["ef"])}
+        ref_state, m = ref_step(ref_state, jax.tree.map(jnp.asarray, b))
+        states.append({
+            "params": jax.tree.leaves(ref_state["params"]),
+            "m": jax.tree.leaves(ref_state["opt"].m),
+            "v": jax.tree.leaves(ref_state["opt"].v),
+            "ef": jax.tree.leaves(ref_state["ef"])})
+        metrics.append(m)
+    for r in ranks:
+        hold_three_steps(r["compress"][mesh_name]["runs"], states, metrics)
