@@ -81,7 +81,16 @@ process exits non-zero):
                 and glm4's (2, 2) local heads, K3's statistics form over
                 granite's 262-position block with ``cache_len`` -1, 0,
                 its middle and its last, K4 over mamba2's (2, 2) heads,
-                K5 over all 32 of granite's experts).  K3's statistics
+                K5 over all 32 of granite's experts); the same for the
+                encoder-decoder's sharded shapes (seamless on (1, 4): K2
+                at the encoder ``[8,256,4,64]`` non-causal, the decoder's
+                self ``[8,1024,4,64]`` and cross ``[8,1024→256,4,64]``, K3
+                over the self ``[8,1048,4,64]`` and cross ``[8,256,4,64]``
+                caches) and ``uneven_path``'s (K4 ``[2,512,2,64]``, a
+                participant's 96 channels at offset 32 of its two head
+                slots, the others zero: their ``y`` and state exactly
+                zero), each timed beside its plain version and SDPA.  K3's
+                statistics
                 form at the JAX package's ``long_500k`` decode (jamba's
                 attention width, q ``[1, 32, 128]`` over a 524 288 x 8 x
                 128 bf16 cache drawn N(0, 1), cut into 4 blocks of
@@ -236,7 +245,11 @@ process exits non-zero):
                 (1, 4) at 2 layers (kv heads replicated, n_rep 8: K2) and
                 mamba2-130m on (2, 2) at 8 layers with ZeRO-1 (12 SSD heads a
                 participant, ``inner_norm`` summed over the model axis:
-                K4), bf16, ``remat``, 3 steps each from seeded parameters
+                K4) and seamless-m4t-medium on (1, 4) at 4 + 4 layers, 4 x
+                512 + 128 frames (the encoder-decoder: K2 over 4 heads, its
+                float32 control the encoder's output outside the model
+                region, since it has no partial leaf there), bf16,
+                ``remat``, 3 steps each from seeded parameters
                 and ``launch.train``'s batches.  Per rank and case: K2,
                 K4 and K5's exact launches a step; float32 at 4 layers (2
                 for glm4), the routing of rank 0's unsharded run replayed:
@@ -273,8 +286,8 @@ process exits non-zero):
                 one train step of each case above and of the prefill and
                 first decode step of each ``shard_serve_path`` case
                 (kind, order, operand bytes) equal to the same call run
-                on ``meta`` over ``MetaShards`` at the rank's coordinate,
-                the dry run's count.
+                on ``meta`` over ``MetaShards`` at the rank's coordinate
+                (each rank runs its own, in parallel), the dry run's count.
                 ``shard_serve_path`` (in the same 4 rank processes, its
                 own line): sharded prefill and decode through
                 ``Model.init_cache`` / ``prefill`` / ``decode`` with
@@ -282,7 +295,13 @@ process exits non-zero):
                 steps, a 1048-position cache: granite-moe-1b-a400m on
                 (1, 4) at 4 layers (head-sharded cache: K2, K3, K5),
                 glm4-9b on (1, 4) at 2 layers (hd-sharded: K2; K3 never
-                launches), mamba2-130m on (2, 2) at 24 layers (K4).  Per
+                launches), mamba2-130m on (2, 2) at 24 layers (K4),
+                seamless-m4t-medium on (1, 4) at 4 + 4 layers with 256
+                frames (``init_cache`` encodes its rows: K2 once per
+                encoder layer; K2 twice per decoder layer of a prefill, K3
+                twice per decoder layer of a step; its control every
+                participant's cross K/V projected from participant 0's
+                kv heads, a cache built and prefilled under it).  Per
                 rank and case: every call's launches exact (K5 three times
                 per MoE layer whose local slots are not none); float32 at
                 4 / 2 / 4 layers against rank 0's unsharded run (its
@@ -316,7 +335,21 @@ process exits non-zero):
                 a full cache (granite, prefilled to 1040 positions)
                 raises ``IndexError`` on every rank.  Printed, not
                 limited: prefill and step ms per rank, collectives, peak
-                GB.
+                GB.  Then ``uneven_path`` (its own line, after the 4
+                ranks have exited): mamba2-130m on (1, 16), the production
+                cut of its 24 SSD heads (96 channels, 1.5 heads a
+                participant), in 16 rank processes on the one card: the
+                train case at 4 of 24 layers, 2 x 512, 2 bf16 steps,
+                float32 at 4 layers, and the serving case, 2 x 512
+                prompts, 8 steps, a cache of 528, each held as above, the
+                serving case's float32 control the blocks' channels
+                mapped to heads from a head boundary (read on the logits
+                and the gathered state); the whole SSD state's bits equal on all
+                16 ranks after the prefill and after the last step (it is
+                all-gathered from the participants' channels); K4 once per
+                SSM layer of a prefill and twice a train step; its
+                collective count (``uneven_collective_count``); one
+                summary line of the two new cases' times.
 14. ``roofline``: for each timed path (the prefill and a decode step of
                 every served arch at its served depth, a train step of
                 granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
@@ -331,12 +364,13 @@ process exits non-zero):
                 card's and its argument bytes on a 1 × 1 mesh at most the
                 measured peak memory.
 15. ``dryrun``: ``python -m repro_torch.launch.dryrun --all --mesh both``
-                into a temporary directory, every cell ``ok``, the report's
-                two tables printed; every cell's collectives counted (one
-                participant's sharded program on meta) but exactly those
-                the sharded layers refuse (mamba2-130m's and the
-                encoder-decoder's, on both meshes), each naming its
-                refusal; ``dominant`` tallied over compute, memory and
+                (started in the background after the build, in 2
+                processes beside the card's phases; this phase waits for
+                it) into a temporary directory, every cell ``ok``, the
+                report's
+                two tables printed; every one of the 64 cells' collectives
+                counted (one participant's sharded program on meta), none
+                refused; ``dominant`` tallied over compute, memory and
                 collective; a few cells' collective bytes by kind.
 16. ``examples``: the six ``repro_torch.examples`` on the GPU with their
                 smallest documented arguments, each ending with ``OK``, its
@@ -1664,12 +1698,32 @@ def ssd_inputs(gen, B, S, H, G, N, dtype, device, P=64):
             bc[..., G * N:].view(B, S, G, N))
 
 
-def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False) -> dict:
+def owned_channels(x, channels):
+    """``x [B, S, H, P]`` with zeros outside the ``n`` channels from ``off``
+    of its ``H * P`` (``channels = (off, n)``: a participant's block laid
+    into whole-head slots, ``models/ssd.py``); the mask of those kept."""
+    B, S, H, P = x.shape
+    off, n = channels
+    keep = torch.zeros(H * P, dtype=torch.bool, device=x.device)
+    keep[off:off + n] = True
+    keep = keep.reshape(H, P)
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device)), keep
+
+
+def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False,
+             channels=None) -> dict:
     """The kernel against its plain version (where the chunk is whole
     16-step tiles: a shorter one-chunk S reaches the kernel padded, through
     ``ssd_chunked_cuda`` only), and ``ssd_chunked_cuda`` (kernel +
-    recurrence) against the reference's plain chunked form."""
+    recurrence) against the reference's plain chunked form.  ``channels``
+    (``(off, n)``): x zero outside those channels, whose ``y`` and state
+    must then be exactly zero too."""
     inputs = ssd_inputs(gen, B, S, H, G, N, dtype, device)
+    keep = None
+    if channels:
+        x, keep = owned_channels(inputs[0], channels)
+        inputs = (x, *inputs[1:])
     # The float32 kernel is held to the plain version in float64: seg
     # reaches a few hundred, and a float32 plain version's own rounding of
     # the decays' seg differences (~1e-4) would exceed the 2e-5 tolerance.
@@ -1677,7 +1731,8 @@ def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False) -> dict:
               else inputs)
     Q = min(chunk, S)
     tol = ATTN_TOL[dtype]
-    label = f"B{B} S{S} H{H} G{G} N{N} Q{Q}" + (" h0" if h0 else "")
+    label = f"B{B} S{S} H{H} G{G} N{N} Q{Q}" + (" h0" if h0 else "") + (
+        f" channels {channels[0]}+{channels[1]}" if channels else "")
     res = {"kernel": "ssd_scan", "case": label,
            "dtype": str(dtype).removeprefix("torch.")}
     if dtype == torch.bfloat16 and Q % ssd_scan.CHUNK_MULTIPLE == 0:
@@ -1700,6 +1755,13 @@ def ssd_case(gen, B, S, H, G, N, chunk, dtype, device, h0=False) -> dict:
     res["chunked_y"] = compare(y, y_ref, tol, f"ssd_chunked_cuda {label} y")
     res["chunked_state"] = compare(h, h_ref, tol,
                                    f"ssd_chunked_cuda {label} state")
+    if keep is not None:
+        res["foreign_channels_zero"] = bool(
+            not y.masked_select(~keep).any()
+            and not h.masked_select(~keep[..., None]).any())
+        check(res["foreign_channels_zero"],
+              f"ssd_chunked_cuda {label}: a zero channel's y or state is "
+              "not zero")
     res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
                              if isinstance(v, dict))
     return res
@@ -3604,16 +3666,49 @@ def phase_dist(args, card: str, device, ep_ref: dict,
 #: 512 3.2 s, mamba2's 24 layers 2.5 s; with the float32 checks (glm4's
 #: gathers of its 2.5 GB embedding and head ~15 s) the phase read 80-89 s.
 #: granite and mamba2 run 4 and 8 layers, glm4 4 x 512.
+#: seamless-m4t-medium (the encoder-decoder) on (1, 4):
+#: 4 of 16 heads over 4 of 16 kv heads, 64 064 of its 256 256 vocabulary
+#: columns a participant, 4 + 4 of its 12 + 12 layers, 4 x 512 tokens and
+#: 128 frames, its float32 check at 2 + 2.  It has no partial leaf on
+#: (1, 4) (its kv heads shard; every leaf read inside a region is
+#: sharded), so its float32 control (``f32_control``) is the encoder's
+#: output entering the decoder's cross-attention outside the model region:
+#: its gradient, and every encoder leaf's, not summed over ``"model"``.
+#: ``UNEVEN_KEY``: mamba2-130m on (1, 16), the production cut of its 24 SSD
+#: heads (96 channels, 1.5 heads a participant), in a pool of its own of
+#: ``UNEVEN_RANKS`` rank processes on the one card (``uneven_path``),
+#: 4 of 24 layers in bf16 and in float32, 2 x 512, 2 steps; its float32
+#: control is the partial leaves', its serving case's ``unoffset``.  Cut
+#: for the phase's time: at 8 layers a step read 4.5-6.1 s a rank, the
+#: float32 check with an ``unoffset`` gradient run 30 s, and the whole
+#: script 1036 s (NVIDIA H100 80GB HBM3, 700.00 W).  ``ranks``: the pool a
+#: case runs in.
+#: ``bf16_loss_against: "float32"``: step 1's bf16 loss is held to the
+#: unsharded float32 loss at the case's depth and batch instead of the
+#: unsharded bf16 one.  For seamless the unsharded bf16 loss is itself
+#: 1.4e-5-1.9e-5 from the float32 one at 4 + 4 layers, 4 x 512 (seeds 0
+#: and 1, NVIDIA H100 80GB HBM3, 700.00 W), and the sharded step, whose
+#: region ends sum float32 partials, 4.0e-6 (seed 0): its distance to the
+#: unsharded bf16 loss (1.54e-5) read the reference's own rounding.
 SHARD_RANKS = 4
 SHARD_STEPS = 3
 SHARD_TIMEOUT_S = 900.0
+UNEVEN_RANKS = 16
+UNEVEN_KEY = f"{SSM_ARCH}/uneven"
 SHARD_CASES = {
-    MOE_ARCH: {"mesh": (1, 4), "layers": 4, "batch": (8, 512),
-               "zero_opt": False, "f32_layers": 4},
-    SERVE_ARCH: {"mesh": (1, 4), "layers": 2, "batch": (4, 512),
-                 "zero_opt": False, "f32_layers": 2},
-    SSM_ARCH: {"mesh": (2, 2), "layers": 8, "batch": (8, 1024),
-               "zero_opt": True, "f32_layers": 4},
+    MOE_ARCH: {"arch": MOE_ARCH, "mesh": (1, 4), "layers": 4,
+               "batch": (8, 512), "zero_opt": False, "f32_layers": 4},
+    SERVE_ARCH: {"arch": SERVE_ARCH, "mesh": (1, 4), "layers": 2,
+                 "batch": (4, 512), "zero_opt": False, "f32_layers": 2},
+    SSM_ARCH: {"arch": SSM_ARCH, "mesh": (2, 2), "layers": 8,
+               "batch": (8, 1024), "zero_opt": True, "f32_layers": 4},
+    ENCDEC_ARCH: {"arch": ENCDEC_ARCH, "mesh": (1, 4), "layers": 4,
+                  "batch": (4, 512), "zero_opt": False, "f32_layers": 2,
+                  "f32_control": "unentered_encoder_output",
+                  "bf16_loss_against": "float32"},
+    UNEVEN_KEY: {"arch": SSM_ARCH, "mesh": (1, 16), "layers": 4,
+                 "batch": (2, 512), "zero_opt": False, "f32_layers": 4,
+                 "steps": 2, "ranks": UNEVEN_RANKS},
 }
 #: bf16: step 1's loss and global gradient norm against the unsharded bf16
 #: step on the same parameters and batch (routing replayed), relative, at
@@ -3628,7 +3723,7 @@ SHARD_CASES = {
 SHARD_BF16_LIMITS = {
     arch: (TRAIN_BF16_LOSS_RTOL[src], TRAIN_BF16_GNORM_RTOL[src])
     for arch, src in ((MOE_ARCH, MOE_ARCH), (SERVE_ARCH, MOE_ARCH),
-                      (SSM_ARCH, SSM_ARCH))}
+                      (SSM_ARCH, SSM_ARCH), (ENCDEC_ARCH, ENCDEC_ARCH))}
 SHARD_OPT = AdamWConfig()
 #: ``shard_path``'s compressed case: ``make_train_step(..., compress=True,
 #: shards=)`` on the three-axis mesh ``COMPRESS_AXES`` (pod 2, data 1,
@@ -3673,6 +3768,16 @@ COMPRESS_OUTLIER_SHARE = 0.01
 SHARD_SERVE_NEW = 16
 SHARD_SERVE_LEN = PROMPT_LEN + SHARD_SERVE_NEW + 8
 FS_PROMPT_LEN = 512
+#: ``shard_serve_path``'s encoder-decoder case: seamless-m4t-medium on
+#: (1, 4) at 4 + 4 layers (float32 too), 8 x 1024 prompts and
+#: ``ENC_FRAMES`` frames, the head-sharded self and cross caches, its
+#: control every participant's cross K/V projected from participant 0's kv
+#: heads; and ``uneven_path``'s serving case: mamba2-130m on (1, 16) at 4
+#: layers (float32 too), 2 x 512 prompts, 8 steps into a cache of 528,
+#: its SSD state whole on every rank, its control ``unoffset``.  ``new`` and
+#: ``max_len`` default to ``SHARD_SERVE_NEW`` and ``SHARD_SERVE_LEN``.
+UNEVEN_SERVE_NEW = 8
+UNEVEN_SERVE_LEN = 512 + UNEVEN_SERVE_NEW + 8
 SHARD_SERVE_CASES = {
     MOE_ARCH: {"arch": MOE_ARCH, "mesh": (1, 4), "layers": 4,
                "f32_layers": 4, "layout": "head", "batch": SERVE_BATCH,
@@ -3695,6 +3800,15 @@ SHARD_SERVE_CASES = {
         "arch": SSM_ARCH, "mesh": (2, 2), "layers": 24, "f32_layers": 4,
         "layout": None, "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": False},
+    ENCDEC_ARCH: {"arch": ENCDEC_ARCH, "mesh": (1, 4), "layers": 4,
+                  "f32_layers": 4, "layout": "head", "batch": SERVE_BATCH,
+                  "prompt": PROMPT_LEN, "frames": ENC_FRAMES,
+                  "full_cache": True, "control": "cross_from_participant_0"},
+    UNEVEN_KEY: {"arch": SSM_ARCH, "mesh": (1, 16), "layers": 4,
+                 "f32_layers": 4, "layout": None, "batch": 2, "prompt": 512,
+                 "new": UNEVEN_SERVE_NEW, "max_len": UNEVEN_SERVE_LEN,
+                 "full_cache": False, "control": "unoffset",
+                 "ranks": UNEVEN_RANKS},
 }
 #: The float32 check's control per layout: one step of the sharded decode
 #: broken (``serve_control``), which must leave the limit.
@@ -3712,11 +3826,39 @@ LONG_CACHE_LEN = 2 * LONG_CACHE // LONG_BLOCKS + 54_321
 
 
 def shard_config(arch: str, layers: int | None, **kw):
-    """``arch`` at full width, cut to ``layers`` (None: its depth)."""
+    """``arch`` at full width, cut to ``layers`` (None: its depth; an
+    encoder-decoder's encoder too)."""
     cfg = get_config(arch)
     if layers:
-        cfg = replace(cfg, n_layers=layers).validate()
+        cfg = replace(cfg, n_layers=layers, **(
+            {"enc_layers": layers} if cfg.enc_layers else {})).validate()
     return replace(cfg, **kw)
+
+
+def pool_cases(table: dict, ranks: int) -> dict:
+    """The entries of ``SHARD_CASES`` or ``SHARD_SERVE_CASES`` that run in
+    the pool of ``ranks`` rank processes."""
+    return {k: c for k, c in table.items()
+            if c.get("ranks", SHARD_RANKS) == ranks}
+
+
+def shard_control(name: str, part=None):
+    """A named control of the sharded runs, as a context: ``unoffset``
+    (each block of the SSD's channels mapped to heads as if it began at a
+    head boundary: a straddled head reads the wrong ``dt``, ``A`` and
+    ``D``), ``unentered_encoder_output`` (the encoder's output read by the
+    cross-attention outside the model region: its gradient not summed over
+    ``"model"``); any other name is ``serve_control``'s."""
+    from unittest import mock
+
+    from repro_torch.models import encdec, ssd
+
+    if name == "unoffset":
+        return mock.patch.object(ssd, "slot_offset", lambda c0, P: 0)
+    if name == "unentered_encoder_output":
+        return mock.patch.object(encdec, "enter_model_region",
+                                 lambda x, part: x)
+    return serve_control(name)
 
 
 def local_heads(cfg, m: int) -> tuple[int, int]:
@@ -3796,6 +3938,32 @@ def shard_kernel_shapes(gen, device) -> dict:
     dp, m = SHARD_SERVE_CASES[f"{SSM_ARCH}/fully_seq"]["mesh"]
     out["fs_ssd_scan"] = (1, FS_PROMPT_LEN, cfg.ssm_heads // m,
                           cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk)
+    # the encoder-decoder on (1, 4) (participant 0's 4 heads over 4 kv
+    # heads, head_dim 64): K2 at the encoder (non-causal over the frames),
+    # the decoder's causal self-attention and its cross-attention (1024
+    # queries over 256 frames), K3 over the self cache at the last step and
+    # over the cross cache; ``(B, Sq, Sk, H, KV, D, causal)`` and ``(B, S,
+    # H, KV, D, cache_len)``
+    cfg = get_config(ENCDEC_ARCH)
+    H, KV = local_heads(cfg, SHARD_SERVE_CASES[ENCDEC_ARCH]["mesh"][1])
+    D, B = cfg.head_dim, SHARD_SERVE_CASES[ENCDEC_ARCH]["batch"]
+    out["encdec_flash_encoder"] = (B, ENC_FRAMES, ENC_FRAMES, H, KV, D,
+                                   False)
+    out["encdec_flash_self"] = (B, PROMPT_LEN, PROMPT_LEN, H, KV, D, True)
+    out["encdec_flash_cross"] = (B, PROMPT_LEN, ENC_FRAMES, H, KV, D, False)
+    out["encdec_decode_self"] = (B, SHARD_SERVE_LEN, H, KV, D,
+                                 PROMPT_LEN + SHARD_SERVE_NEW - 1)
+    out["encdec_decode_cross"] = (B, ENC_FRAMES, H, KV, D, ENC_FRAMES - 1)
+    # mamba2 on (1, 16): participant 1's 96 channels from channel 96, laid
+    # into the two head slots they touch at offset 32 (the other channels
+    # zero); ``(B, S, H, G, N, Q, (off, n))``
+    cfg, case = get_config(SSM_ARCH), SHARD_CASES[UNEVEN_KEY]
+    P, m = cfg.ssm_head_dim, case["mesh"][1]
+    n = cfg.d_inner // m
+    off = n % P
+    out["uneven_ssd_scan"] = (*case["batch"], -(-(off + n) // P),
+                              cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk,
+                              (off, n))
     return out
 
 
@@ -3845,6 +4013,20 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
         B, S, H, G, N, Q = shapes["fs_ssd_scan"]
         out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device),
                     "sharded": "fs_ssd_scan"})
+        for key in ("encdec_flash_encoder", "encdec_flash_self",
+                    "encdec_flash_cross"):
+            B, Sq, Sk, H, KV, D, causal = shapes[key]
+            out.append({**flash_case(gen, B, Sq, H, KV, D, dtype, causal,
+                                     device, Sk=Sk), "sharded": key})
+        for key in ("encdec_decode_self", "encdec_decode_cross"):
+            B, S, H, KV, D, last = shapes[key]
+            for n in sorted({last, *decode_corners(B, S, H, KV, device)}):
+                out.append({**decode_case(gen, B, S, H, KV, D, dtype, n,
+                                          device), "sharded": key})
+        B, S, H, G, N, Q, channels = shapes["uneven_ssd_scan"]
+        out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device,
+                               channels=channels),
+                    "sharded": "uneven_ssd_scan"})
         for key in ("prefill", "decode"):
             sizes, d, f = shapes[f"fs_moe_gmm_{key}"]
             for label, K, N in (("gate/up", d, f), ("down", f, d)):
@@ -3932,33 +4114,78 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
     bf16, beside their plain versions and library calls, with their
     bounds; K2, K3 and K5 (gate/up) at ``shard_serve_path``'s beside their
     library calls only (every function timed costs a quarter-second
-    warm-up a round, and the phase's time is held)."""
+    warm-up a round, and the phase's time is held); K2, K3 and K4 at the
+    encoder-decoder's and ``uneven_path``'s beside their plain versions
+    and (K2, K3) SDPA."""
     F = torch.nn.functional
     gen = torch.Generator(device=device).manual_seed(seed + 12)
     shapes = shard_kernel_shapes(gen, device)
     bf = torch.bfloat16
     out = {}
+    flash = []
     for key in ("flash_attention_granite", "flash_attention_glm4",
                 "serve_flash_attention_granite",
                 "serve_flash_attention_glm4"):
         B, S, H, KV, D = shapes[key]
-        q = _randn(gen, (B, S, H, D), bf, device)
-        k = _randn(gen, (B, S, KV, D), bf, device)
-        v = _randn(gen, (B, S, KV, D), bf, device)
+        flash.append((key, B, S, S, H, KV, D, True))
+    flash += [(key, *shapes[key]) for key in (
+        "encdec_flash_encoder", "encdec_flash_self", "encdec_flash_cross")]
+    for key, B, Sq, Sk, H, KV, D, causal in flash:
+        q = _randn(gen, (B, Sq, H, D), bf, device)
+        k = _randn(gen, (B, Sk, KV, D), bf, device)
+        v = _randn(gen, (B, Sk, KV, D), bf, device)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fns = {"ms": lambda: flash_attention.flash_attention(q, k, v,
-                                                             causal=True),
+                                                             causal=causal),
                "library_ms": lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+                   qt, kt, vt, is_causal=causal, enable_gqa=True)}
         if not key.startswith("serve_"):
             fns["plain_ms"] = lambda: flash_attention.flash_attention_torch(
-                q, k, v, causal=True)
+                q, k, v, causal=causal)
         t = measure_fns(fns, flush, rounds=2)
-        t.update(shape=[B, S, H, D], kv_heads=KV, causal=True,
+        t.update(shape=[B, Sq, H, D], keys=Sk, kv_heads=KV, causal=causal,
                  dtype="bfloat16", **roofline.work_bound(
-                     roofline.flash_work(B, S, S, H, KV, D, bf, True)))
+                     roofline.flash_work(B, Sq, Sk, H, KV, D, bf, causal)))
         out[key] = t
         del q, k, v, qt, kt, vt
+    for key in ("encdec_decode_self", "encdec_decode_cross"):
+        B, S, H, KV, D, last = shapes[key]
+        q = _randn(gen, (B, H, D), bf, device)
+        kc = _randn(gen, (B, S, KV, D), bf, device)
+        vc = _randn(gen, (B, S, KV, D), bf, device)
+        n = torch.tensor(last, dtype=torch.int32, device=device)
+        valid = (torch.arange(S, device=device) <= n)[None, None, None, :]
+        q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        t = measure_fns({
+            "ms": lambda: decode_attention.decode_attention(q, kc, vc, n),
+            "plain_ms": lambda: decode_attention.decode_attention_torch(
+                q, kc, vc, n),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=valid, enable_gqa=True)},
+            flush, rounds=2)
+        t.update(cache=[B, S, KV, D], heads=H, cache_len=last,
+                 dtype="bfloat16",
+                 splits=decode_attention.split_plan(B, KV, H // KV, S,
+                                                    sm_count(device)),
+                 **roofline.work_bound(roofline.decode_work(
+                     B, H, KV, D, last + 1, bf)))
+        out[key] = t
+        del q, kc, vc, q4, kt, vt
+    B, S, H, G, N, Q, channels = shapes["uneven_ssd_scan"]
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
+    x, _ = owned_channels(x, channels)
+    t = measure_fns({
+        "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
+        "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
+            x, dt, A, Bm, Cm, Q)}, flush, rounds=2)
+    t.update(shape=[B, S, H, 64], groups=G, state=N, chunk=Q,
+             owned_channels=list(channels), dtype="bfloat16",
+             library_ms=None,
+             heads_per_block=ssd_scan.head_group_plan(
+                 B, S, H, G, N, Q, sms=sm_count(device)),
+             **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q, bf)))
+    out["uneven_ssd_scan"] = t
+    del x, dt, A, Bm, Cm
     B, S, H, G, N, Q = shapes["ssd_scan"]
     x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
     t = measure_fns({
@@ -4052,13 +4279,13 @@ def zero_moments(shardings, abstract, device):
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def shard_reference(args, device, arch: str) -> dict:
-    """The unsharded bf16 step of ``arch``'s case (its depth, its first
+def shard_reference(args, device, key: str) -> dict:
+    """The unsharded bf16 step of case ``key`` (its depth, its first
     batch, seeded parameters): loss, global gradient norm, and the
     routing it recorded (forward and recompute, on the host), which step
     1 of the sharded run replays."""
-    case = SHARD_CASES[arch]
-    cfg = shard_config(arch, case["layers"])
+    case = SHARD_CASES[key]
+    cfg = shard_config(case["arch"], case["layers"])
     model = Model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(
         args.seed))
@@ -4069,26 +4296,37 @@ def shard_reference(args, device, arch: str) -> dict:
         _, metrics = train_step_mod.make_train_step(model, SHARD_OPT)(
             {"params": params, "opt": train_step_mod.adamw_init(params)},
             batch)
-    return {"loss": float(metrics["loss"]),
-            "grad_norm": float(metrics["grad_norm"]),
-            "recompute_routing_equal": routing.recompute_equal,
-            "routing": [t.cpu() for t in routing.recorded]}
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "recompute_routing_equal": routing.recompute_equal,
+           "routing": [t.cpu() for t in routing.recorded]}
+    if case.get("bf16_loss_against") == "float32":
+        del params
+        cfg32 = shard_config(case["arch"], case["layers"], dtype="float32")
+        model32 = Model(cfg32)
+        params = model32.init(torch.Generator(device=device).manual_seed(
+            args.seed))
+        with torch.no_grad():
+            out["f32_loss"] = float(model32.loss(params, train_batch(
+                cfg32, B, S, args.seed, 0, device))[0])
+    return out
 
 
-def shard_f32_check(seed: int, device, arch: str, part) -> dict:
-    """``arch`` in float32 at its check's depth: rank 0 takes the
+def shard_f32_check(seed: int, device, key: str, part) -> dict:
+    """Case ``key`` in float32 at its check's depth: rank 0 takes the
     unsharded loss and gradients (routing recorded), every rank the
     sharded ones on its block with that routing replayed; each gathered
     leaf, with and without the sum over ``"model"`` of the partial ones,
-    is held to rank 0's.  Errors are rank 0's (None elsewhere)."""
+    and (where the case names one, ``f32_control``) under its control, is
+    held to rank 0's.  Errors are rank 0's (None elsewhere)."""
     from repro_torch.parallel.sharding import (
         gather_tree,
         param_shardings,
         shard_tree,
     )
 
-    case = SHARD_CASES[arch]
-    cfg = shard_config(arch, case["f32_layers"], dtype="float32")
+    case = SHARD_CASES[key]
+    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
     model = Model(cfg)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
     sh = param_shardings(full, cfg, part.mesh)
@@ -4113,23 +4351,36 @@ def shard_f32_check(seed: int, device, arch: str, part) -> dict:
         metrics, grads = train_step_mod.sharded_grads(model, local, batch,
                                                       part)
     launches = kernel_counts()
+    named = None
+    if case.get("f32_control"):
+        with shard_control(case["f32_control"]):
+            _, named = train_step_mod.sharded_grads(model, local, batch,
+                                                    part)
     marks.append(time.time())
     partial = train_step_mod.partial_grad_leaves(sh)
     whole = train_step_mod.psum_partial(grads, partial, part)
+    if named is not None:
+        named = tree.leaves(train_step_mod.psum_partial(named, partial,
+                                                        part))
     like = model.abstract_params()
-    leaf_rel, control_rel = [], []
+    leaf_rel, control_rel, named_rel = [], [], []
+
+    def rel(t, i):
+        w = ref_grads[i].float()
+        return float((t.float() - w).norm() / w.norm().clamp_min(1e-30))
     for i, (g, c, s, m) in enumerate(zip(
             tree.leaves(whole), tree.leaves(grads), tree.leaves(sh),
             tree.leaves(like), strict=True)):
         gw = gather_tree(g, s, part.shards, m)
         cw = gather_tree(c, s, part.shards, m) if partial[i] else gw
+        nw = None if named is None else gather_tree(named[i], s, part.shards,
+                                                    m)
         if lead:
-            w = ref_grads[i].float()
-            leaf_rel.append(float((gw.float() - w).norm()
-                                  / w.norm().clamp_min(1e-30)))
-            control_rel.append(float((cw.float() - w).norm()
-                                     / w.norm().clamp_min(1e-30)))
-        del gw, cw
+            leaf_rel.append(rel(gw, i))
+            control_rel.append(rel(cw, i))
+            if nw is not None:
+                named_rel.append(rel(nw, i))
+        del gw, cw, nw
     marks.append(time.time())
     loss = float(metrics["loss"])
     return {"layers": cfg.n_layers, "launches": launches,
@@ -4146,15 +4397,19 @@ def shard_f32_check(seed: int, device, arch: str, part) -> dict:
                 all(e > TRAIN_F32_GRAD_REL_RMS
                     for e, p in zip(control_rel, partial) if p)
                 if lead else None),
+            "named_control": case.get("f32_control"),
+            "named_control_max_leaf_rel_rms": (
+                max(named_rel) if lead and named_rel else None),
             "routing_flips": flips,
             "recompute_routing_equal": (routing.recompute_equal if lead
                                         else None)}
 
 
-def shard_steps(seed: int, device, arch: str, part, routing_rec: list
+def shard_steps(seed: int, device, key: str, part, routing_rec: list
                 ) -> dict:
-    """``SHARD_STEPS`` sharded bf16 steps of ``arch``'s case on this
-    participant's block of the seeded state (ZeRO-1 where the case says),
+    """The sharded bf16 steps of case ``key`` (``SHARD_STEPS``, or its
+    ``steps``) on this participant's block of the seeded state (ZeRO-1
+    where the case says),
     the batches of ``launch.train``'s pipeline, step 1 replaying the
     unsharded step's routing: per step its time (CUDA events), launches,
     collectives, peak memory, loss, gradient norm and every leaf's
@@ -4162,8 +4417,8 @@ def shard_steps(seed: int, device, arch: str, part, routing_rec: list
     state: its moments' slices and parameters against ZeRO-1's."""
     from repro_torch.parallel.sharding import shard_slices, shard_tree
 
-    case = SHARD_CASES[arch]
-    cfg = shard_config(arch, case["layers"])
+    case = SHARD_CASES[key]
+    cfg = shard_config(case["arch"], case["layers"])
     model = Model(cfg)
     abstract = train_step_mod.abstract_state(model, SHARD_OPT)
     sh = train_step_mod.state_shardings(abstract, cfg, part.mesh,
@@ -4180,7 +4435,7 @@ def shard_steps(seed: int, device, arch: str, part, routing_rec: list
     B, S = case["batch"]
     on_card = device.type == "cuda"
     runs, zero = [], None
-    for i in range(SHARD_STEPS):
+    for i in range(case.get("steps", SHARD_STEPS)):
         batch = train_batch(cfg, B, S, seed, i, device)
         if i == 0 and case["zero_opt"]:
             plain_sh = train_step_mod.state_shardings(abstract, cfg,
@@ -4539,15 +4794,15 @@ def phase_compress(ranks: list, card: str) -> dict:
     return out
 
 
-def meta_train_record(arch: str, coord: dict) -> list:
-    """``shard_steps``' step of ``arch``'s case run on ``meta`` over
+def meta_train_record(key: str, coord: dict) -> list:
+    """``shard_steps``' step of case ``key`` run on ``meta`` over
     ``MetaShards`` at ``coord``: each ``(kind, operand bytes)``."""
     from repro_torch.parallel.collectives import MetaShards
     from repro_torch.parallel.sharding import shard_tree
     from repro_torch.parallel.tensor import Participant
 
-    case = SHARD_CASES[arch]
-    cfg = shard_config(arch, case["layers"])
+    case = SHARD_CASES[key]
+    cfg = shard_config(case["arch"], case["layers"])
     model = Model(cfg)
     mesh = make_mesh(case["mesh"], ("data", "model"))
     abstract = train_step_mod.abstract_state(model, SHARD_OPT)
@@ -4559,6 +4814,9 @@ def meta_train_record(arch: str, coord: dict) -> list:
     B, S = case["batch"]
     batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
+    if cfg.enc_layers:                   # train_batch's frames: S // 4
+        batch["enc_embeds"] = torch.empty((B, S // 4, cfg.d_model),
+                                          dtype=torch.float32, device="meta")
     record: list = []
     with collectives.observe(lambda kind, n: record.append((kind, n))):
         step(shard_tree(abstract, sh, coord), batch)
@@ -4568,7 +4826,8 @@ def meta_train_record(arch: str, coord: dict) -> list:
 def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
     """``shard_serve_bf16``'s prefill and first decode step of case
     ``key`` run on ``meta`` over ``MetaShards`` at ``coord``: each call's
-    ``(kind, operand bytes)``."""
+    ``(kind, operand bytes)`` (the cache, an input of the calls, built
+    outside the count, as on the card)."""
     from repro_torch.parallel.collectives import MetaShards
     from repro_torch.parallel.sharding import param_shardings, shard_tree
     from repro_torch.parallel.tensor import Participant
@@ -4582,7 +4841,13 @@ def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
     part = Participant(MetaShards(mesh, coord))
     batch = {"tokens": torch.empty((case["batch"], case["prompt"]),
                                    dtype=torch.int32, device="meta")}
-    cache = model.init_cache(params, batch, SHARD_SERVE_LEN, shards=part)
+    if cfg.enc_layers:
+        batch["enc_embeds"] = torch.empty(
+            (case["batch"], case["frames"], cfg.d_model),
+            dtype=torch.float32, device="meta")
+    cache = model.init_cache(params, batch, case.get("max_len",
+                                                     SHARD_SERVE_LEN),
+                             shards=part)
     prefill, decode = [], []
     with collectives.observe(lambda kind, n: prefill.append((kind, n))):
         _, cache = model.prefill(params, batch, cache, shards=part)
@@ -4591,58 +4856,78 @@ def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
     return prefill, decode
 
 
-def phase_collective_count(ranks: list) -> dict:
+def phase_collective_count(ranks: list, pool: int = SHARD_RANKS,
+                           name: str = "collective_count") -> dict:
     """Every rank's record of one train step of each ``SHARD_CASES``
-    entry and of the prefill and first decode step of each
-    ``SHARD_SERVE_CASES`` entry, against the same call run on ``meta``
-    over ``MetaShards`` at the rank's coordinate (the dry run's count):
-    equal call for call, kind, order and bytes."""
+    entry of the pool of ``pool`` ranks and of the prefill and first
+    decode step of each of its ``SHARD_SERVE_CASES`` entries, against the
+    same call run on ``meta`` over ``MetaShards`` at the rank's coordinate
+    (the dry run's count; ``meta_records``, run in each rank's process so
+    that the ranks take them in parallel): equal call for call, kind,
+    order and bytes."""
     out, failed = {}, []
-    for arch in SHARD_CASES:
-        calls = []
+    for key in pool_cases(SHARD_CASES, pool):
+        out[f"train/{key}"] = [(r["cases"][key]["runs"][0]["record"],
+                                r["meta"][f"train/{key}"]) for r in ranks]
+    for key in pool_cases(SHARD_SERVE_CASES, pool):
         for r in ranks:
-            case = r["cases"][arch]
-            calls.append((case["runs"][0]["record"],
-                          meta_train_record(arch, case["coord"])))
-        out[f"train/{arch}"] = calls
-    for key in SHARD_SERVE_CASES:
-        for r in ranks:
-            case = r["serve"][key]
-            meta = meta_serve_records(key, case["coord"])
-            for name, i in (("prefill", 0), ("decode", 1)):
-                out.setdefault(f"{name}/{key}", []).append(
-                    (case["bf16"]["records"][i]["record"], meta[i]))
+            records = r["serve"][key]["bf16"]["records"]
+            for call, i in (("prefill", 0), ("decode", 1)):
+                out.setdefault(f"{call}/{key}", []).append(
+                    (records[i]["record"], r["meta"][f"{call}/{key}"]))
     summary = {}
-    for name, calls in out.items():
+    for call, calls in out.items():
         equal = [card == meta for card, meta in calls]
         card0 = calls[0][0]
-        summary[name] = {"calls": len(card0),
+        summary[call] = {"calls": len(card0),
                          "bytes": sum(n for _, n in card0),
                          "by_kind": collective_counts(card0),
                          "equal_on_ranks": equal}
         if not all(equal):
-            failed.append(name)
-    emit({"phase": "collective_count", "ok": not failed,
-          "records_rank0": {name: calls[0][0]
-                            for name, calls in out.items()}})
-    check(not failed, f"collective count: the meta count differs from the "
+            failed.append(call)
+    emit({"phase": name, "ok": not failed,
+          "records_rank0": {call: calls[0][0]
+                            for call, calls in out.items()}})
+    check(not failed, f"{name}: the meta count differs from the "
           f"card's record in {failed}")
     return summary
 
 
+def meta_records(out: dict, pool: int) -> dict:
+    """The meta counts of this rank's calls (``out``: its readings, whose
+    cases carry its coordinate): ``meta_train_record`` of each train case
+    of the pool and ``meta_serve_records`` of each serving case, keyed as
+    ``phase_collective_count`` reads them."""
+    meta = {}
+    for key in pool_cases(SHARD_CASES, pool):
+        meta[f"train/{key}"] = meta_train_record(key,
+                                                 out["cases"][key]["coord"])
+    for key in pool_cases(SHARD_SERVE_CASES, pool):
+        prefill, decode = meta_serve_records(key, out["serve"][key]["coord"])
+        meta[f"prefill/{key}"], meta[f"decode/{key}"] = prefill, decode
+    return meta
+
+
 def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
-               device_type: str, routings: dict) -> dict:
+               device_type: str, routings: dict,
+               pool: int = SHARD_RANKS) -> dict:
     """One participant of ``shard_path`` (a process of its own): joins the
-    4-rank group, then for each case its float32 check and its bf16
-    steps."""
+    group of ``pool`` ranks, then for each of the pool's cases its float32
+    check and its bf16 steps, the compressed case (in the 4-rank pool) and
+    the pool's serving cases."""
     from repro_torch.parallel.tensor import Participant
 
     started_s = time.time() - t_spawn
     device = torch.device(device_type)
-    dm = init_ranks(make_mesh((2, 2), ("data", "model")), rank, store)
-    meshes = {(2, 2): dm, **{shape: make_mesh(shape, ("data", "model"))
-                             .device_mesh() for shape in ((1, 4), (4, 1))}}
-    three_axis = make_mesh(SHARD_COMPRESS["mesh"], COMPRESS_AXES).device_mesh()
+    if pool == SHARD_RANKS:
+        dm = init_ranks(make_mesh((2, 2), ("data", "model")), rank, store)
+        meshes = {(2, 2): dm, **{
+            shape: make_mesh(shape, ("data", "model")).device_mesh()
+            for shape in ((1, 4), (4, 1))}}
+    else:
+        mesh = (1, pool)
+        meshes = {mesh: init_ranks(make_mesh(mesh, ("data", "model")),
+                                   rank, store)}
     # what every process pays once before its first step: the device's
     # context and its first product, and the import of torch._dynamo
     # that torch.utils.checkpoint makes on its first call
@@ -4651,29 +4936,159 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
     ready_s = time.time() - t_spawn
     out = {"rank": rank, "started_s": started_s, "ready_s": ready_s,
            "cases": {}}
-    for arch, case in SHARD_CASES.items():
+    for key, case in pool_cases(SHARD_CASES, pool).items():
         part = Participant(meshes[case["mesh"]])
         t0 = time.time()
-        f32 = shard_f32_check(seed, device, arch, part)
+        f32 = shard_f32_check(seed, device, key, part)
         if device.type == "cuda":
             torch.cuda.empty_cache()
         t1 = time.time()
-        steps = shard_steps(seed, device, arch, part, routings[arch])
-        out["cases"][arch] = {"coord": part.coord, "f32": f32, **steps,
-                              "f32_check_s": t1 - t0,
-                              "steps_s": time.time() - t1}
+        steps = shard_steps(seed, device, key, part, routings[key])
+        out["cases"][key] = {"coord": part.coord, "f32": f32, **steps,
+                             "f32_check_s": t1 - t0,
+                             "steps_s": time.time() - t1}
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    t0 = time.time()
-    out["compress"] = compress_rank(seed, device, Participant(three_axis))
-    out["compress_seconds"] = time.time() - t0
+    if pool == SHARD_RANKS:
+        three_axis = make_mesh(SHARD_COMPRESS["mesh"],
+                               COMPRESS_AXES).device_mesh()
+        t0 = time.time()
+        out["compress"] = compress_rank(seed, device, Participant(three_axis))
+        out["compress_seconds"] = time.time() - t0
     t0 = time.time()
     out["serve"] = {key: shard_serve_rank(seed, device, Participant(
         meshes[case["mesh"]]), key) for key, case in
-        SHARD_SERVE_CASES.items()}
+        pool_cases(SHARD_SERVE_CASES, pool).items()}
     out["serve_seconds"] = time.time() - t0
+    t0 = time.time()
+    out["meta"] = meta_records(out, pool)
+    out["meta_seconds"] = time.time() - t0
     out["seconds"] = time.time() - t_spawn
     return out
+
+
+def shard_pool(args, device, pool: int) -> tuple[list, dict, dict]:
+    """The unsharded bf16 references of the pool's train cases in this
+    process, then ``pool`` spawned participants (``shard_rank``) on
+    ``cuda:0``: their readings, the references, and the times."""
+    refs = {}
+    t_ref = time.time()
+    for key in pool_cases(SHARD_CASES, pool):
+        refs[key] = shard_reference(args, device, key)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(shard_rank, pool, os.path.join(tmp, "store"),
+                          args.seed, t0, device.type,
+                          {k: r["routing"] for k, r in refs.items()}, pool,
+                          timeout_s=SHARD_TIMEOUT_S)
+    return ranks, refs, {"references_s": t0 - t_ref,
+                         "seconds": time.time() - t0}
+
+
+def train_case_checks(key: str, ranks: list, ref: dict,
+                      card: str) -> dict:
+    """Case ``key``'s readings and checks over every rank's run (module
+    doc, phase 13)."""
+    case = SHARD_CASES[key]
+    arch = case["arch"]
+    per = [r["cases"][key] for r in ranks]
+    lead = per[0]
+    f32 = lead["f32"]
+    loss_lim, gnorm_lim = SHARD_BF16_LIMITS[arch]
+    step1 = lead["runs"][0]
+    steps = case.get("steps", SHARD_STEPS)
+    against = ref.get("f32_loss", ref["loss"])
+    bf16 = {"loss": step1["loss"], "unsharded_loss": ref["loss"],
+            "unsharded_f32_loss": ref.get("f32_loss"),
+            "loss_against": case.get("bf16_loss_against", "bfloat16"),
+            "loss_rel": abs(step1["loss"] - against) / abs(against),
+            "loss_rel_to_unsharded_bf16": abs(step1["loss"] - ref["loss"])
+            / abs(ref["loss"]),
+            "unsharded_bf16_loss_rel": abs(ref["loss"] - against)
+            / abs(against),
+            "grad_norm": step1["grad_norm"],
+            "unsharded_grad_norm": ref["grad_norm"],
+            "grad_norm_rel": abs(step1["grad_norm"] - ref["grad_norm"])
+            / ref["grad_norm"],
+            "limits": {"loss_rtol": loss_lim, "gnorm_rtol": gnorm_lim}}
+    # every participant holding a block holds its bits, after each step
+    held: dict = {}
+    for p in per:
+        for n, run in enumerate(p["runs"]):
+            for i, (s, fp) in enumerate(zip(p["specs"],
+                                            run["fingerprints"])):
+                axes = sorted({a for e in s if e is not None
+                               for a in (e if isinstance(e, tuple)
+                                         else (e,))})
+                held.setdefault((n, i, tuple(p["coord"][a] for a in axes)),
+                                set()).add(fp)
+    partial_ok = (f32["control_max_leaf_rel_rms"] > TRAIN_F32_GRAD_REL_RMS
+                  and f32["control_past_limit_in_every_partial_leaf"])
+    checks = {
+        "launches": all(r_["launches"] == p["launches_expected"]
+                        for p in per for r_ in p["runs"]),
+        "f32_launches": all(p["f32"]["launches"]
+                            == p["f32"]["launches_expected"] for p in per),
+        "f32_loss": f32["loss_rel"] <= TRAIN_F32_LOSS_RTOL,
+        "f32_leaves": f32["max_leaf_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS,
+        # the sum over "model" of the partial leaves, where there are any
+        # (seamless on (1, 4) has none), and the case's named control
+        "f32_control_past_limit": (partial_ok or not f32["partial_leaves"])
+        and (f32["named_control"] is None
+             or f32["named_control_max_leaf_rel_rms"]
+             > TRAIN_F32_GRAD_REL_RMS)
+        and bool(f32["partial_leaves"] or f32["named_control"]),
+        "f32_losses_equal_on_every_rank": len(
+            {p["f32"]["loss"] for p in per}) == 1,
+        "bf16_loss": bf16["loss_rel"] <= loss_lim,
+        "bf16_grad_norm": bf16["grad_norm_rel"] <= gnorm_lim,
+        "metrics_equal_on_every_rank": all(
+            len({(p["runs"][n]["loss"], p["runs"][n]["grad_norm"])
+                 for p in per}) == 1 for n in range(steps)),
+        "losses_finite": all(np.isfinite(r_["loss"]) for r_ in
+                             lead["runs"]),
+        "block_bits_equal_across_ranks": all(
+            len(v) == 1 for v in held.values()),
+        "routing": (flip_share(f32["routing_flips"], "float32")
+                    <= ROUTING_FLIP_SHARE["float32"]
+                    and routing_ok([step1["routing_flips"]])
+                    and f32["recompute_routing_equal"]
+                    and ref["recompute_routing_equal"])
+        if ref["routing"] else True,
+    }
+    if case["zero_opt"]:
+        checks["zero1_moment_slices_equal"] = all(
+            p["zero"]["moment_slices_equal"]
+            and p["zero"]["zero_sharded_leaves"] > 0 for p in per)
+        checks["zero1_params"] = all(
+            p["zero"]["params_max_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS
+            for p in per)
+    steady = [r_["step_ms"] for p in per for r_ in p["runs"][1:]]
+    cfg = get_config(arch)
+    return {
+        "arch": cfg.name, "mesh": {
+            "data": case["mesh"][0], "model": case["mesh"][1]},
+        "layers": lead["layers"], "batch": case["batch"][0],
+        "seq": case["batch"][1], "zero_opt": case["zero_opt"],
+        "steps": steps, "gpu": card,
+        "f32_check_s": lead["f32_check_s"], "steps_s": lead["steps_s"],
+        "step_ms_per_rank": [[r_["step_ms"] for r_ in p["runs"]]
+                             for p in per],
+        "step_ms_median_steps_2_on": statistics.median(steady),
+        "step_note": f"{len(per)} processes share one card and gloo copies "
+                     "through the host: not a multi-card time",
+        "peak_memory_gb_per_rank": [max(r_["peak_memory_gb"] or 0
+                                        for r_ in p["runs"]) for p in per],
+        "losses": [r_["loss"] for r_ in lead["runs"]],
+        "launches_per_rank_step": lead["runs"][0]["launches"],
+        "launches_expected": lead["launches_expected"],
+        "collectives_per_rank_step": lead["runs"][1]["collectives"]
+        if steps > 1 else lead["runs"][0]["collectives"],
+        "f32": f32, "bf16": bf16,
+        "routing_flips_step1": step1["routing_flips"],
+        "zero": lead["zero"], "checks": checks}
 
 
 def phase_shard(args, card: str, device) -> dict:
@@ -4681,117 +5096,18 @@ def phase_shard(args, card: str, device) -> dict:
     in this process, then ``SHARD_RANKS`` spawned participants
     (``shard_rank``) on ``cuda:0``; every case's checks (module doc, phase
     13) on every rank."""
-    refs = {}
-    t_ref = time.time()
-    for arch in SHARD_CASES:
-        refs[arch] = shard_reference(args, device, arch)
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-    t0 = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = run_ranks(shard_rank, SHARD_RANKS,
-                          os.path.join(tmp, "store"), args.seed, t0,
-                          device.type,
-                          {a: r["routing"] for a, r in refs.items()},
-                          timeout_s=SHARD_TIMEOUT_S)
-    seconds = time.time() - t0
+    ranks, refs, times = shard_pool(args, device, SHARD_RANKS)
     out, failed = {}, []
-    for arch, case in SHARD_CASES.items():
-        per = [r["cases"][arch] for r in ranks]
-        lead = per[0]
-        f32 = lead["f32"]
-        ref = refs[arch]
-        loss_lim, gnorm_lim = SHARD_BF16_LIMITS[arch]
-        step1 = lead["runs"][0]
-        bf16 = {"loss": step1["loss"], "unsharded_loss": ref["loss"],
-                "loss_rel": abs(step1["loss"] - ref["loss"])
-                / abs(ref["loss"]),
-                "grad_norm": step1["grad_norm"],
-                "unsharded_grad_norm": ref["grad_norm"],
-                "grad_norm_rel": abs(step1["grad_norm"] - ref["grad_norm"])
-                / ref["grad_norm"],
-                "limits": {"loss_rtol": loss_lim, "gnorm_rtol": gnorm_lim}}
-        # every participant holding a block holds its bits, after each step
-        held: dict = {}
-        for p in per:
-            for n, run in enumerate(p["runs"]):
-                for i, (s, fp) in enumerate(zip(p["specs"],
-                                                run["fingerprints"])):
-                    axes = sorted({a for e in s if e is not None
-                                   for a in (e if isinstance(e, tuple)
-                                             else (e,))})
-                    held.setdefault((n, i, tuple(p["coord"][a]
-                                                 for a in axes)),
-                                    set()).add(fp)
-        checks = {
-            "launches": all(
-                r_["launches"] == p["launches_expected"]
-                for p in per for r_ in p["runs"]),
-            "f32_launches": all(p["f32"]["launches"]
-                                == p["f32"]["launches_expected"]
-                                for p in per),
-            "f32_loss": f32["loss_rel"] <= TRAIN_F32_LOSS_RTOL,
-            "f32_leaves": f32["max_leaf_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS,
-            "f32_control_past_limit": (
-                f32["control_max_leaf_rel_rms"] > TRAIN_F32_GRAD_REL_RMS
-                and f32["control_past_limit_in_every_partial_leaf"]),
-            "f32_losses_equal_on_every_rank": len(
-                {p["f32"]["loss"] for p in per}) == 1,
-            "bf16_loss": bf16["loss_rel"] <= loss_lim,
-            "bf16_grad_norm": bf16["grad_norm_rel"] <= gnorm_lim,
-            "metrics_equal_on_every_rank": all(
-                len({(p["runs"][n]["loss"], p["runs"][n]["grad_norm"])
-                     for p in per}) == 1 for n in range(SHARD_STEPS)),
-            "losses_finite": all(np.isfinite(r_["loss"]) for r_ in
-                                 lead["runs"]),
-            "block_bits_equal_across_ranks": all(
-                len(v) == 1 for v in held.values()),
-            "routing": (flip_share(f32["routing_flips"], "float32")
-                        <= ROUTING_FLIP_SHARE["float32"]
-                        and routing_ok([step1["routing_flips"]])
-                        and f32["recompute_routing_equal"]
-                        and ref["recompute_routing_equal"])
-            if ref["routing"] else True,
-        }
-        if case["zero_opt"]:
-            checks["zero1_moment_slices_equal"] = all(
-                p["zero"]["moment_slices_equal"]
-                and p["zero"]["zero_sharded_leaves"] > 0 for p in per)
-            checks["zero1_params"] = all(
-                p["zero"]["params_max_rel_rms"] <= TRAIN_F32_GRAD_REL_RMS
-                for p in per)
-        steady = [r_["step_ms"] for p in per for r_ in p["runs"][1:]]
-        out[arch] = {
-            "arch": get_config(arch).name, "mesh": {
-                "data": case["mesh"][0], "model": case["mesh"][1]},
-            "layers": lead["layers"], "batch": case["batch"][0],
-            "seq": case["batch"][1], "zero_opt": case["zero_opt"],
-            "steps": SHARD_STEPS, "gpu": card,
-            "f32_check_s": lead["f32_check_s"], "steps_s": lead["steps_s"],
-            "step_ms_per_rank": [[r_["step_ms"] for r_ in p["runs"]]
-                                 for p in per],
-            "step_ms_median_steps_2_on": statistics.median(steady),
-            "step_note": "four processes share one card and gloo copies "
-                         "through the host: not a multi-card time",
-            "peak_memory_gb_per_rank": [max(r_["peak_memory_gb"] or 0
-                                            for r_ in p["runs"])
-                                        for p in per],
-            "losses": [r_["loss"] for r_ in lead["runs"]],
-            "launches_per_rank_step": lead["runs"][0]["launches"],
-            "launches_expected": lead["launches_expected"],
-            "collectives_per_rank_step": lead["runs"][1]["collectives"]
-            if SHARD_STEPS > 1 else lead["runs"][0]["collectives"],
-            "f32": f32, "bf16": bf16,
-            "routing_flips_step1": step1["routing_flips"],
-            "zero": lead["zero"], "checks": checks}
-        failed += [f"{arch}: {k}" for k, ok in checks.items() if not ok]
+    for key in pool_cases(SHARD_CASES, SHARD_RANKS):
+        out[key] = train_case_checks(key, ranks, refs[key], card)
+        failed += [f"{key}: {k}" for k, ok in out[key]["checks"].items()
+                   if not ok]
     compressed = phase_compress(ranks, card)
     failed += [f"compress: {k}" for k, ok in compressed["checks"].items()
                if not ok]
     run = {"ranks": SHARD_RANKS, "device": f"{device.type}:0 in every rank",
            "backend": "gloo, CUDA tensors staged through pinned host "
-                      "buffers", "references_s": t0 - t_ref,
-           "seconds": seconds,
+                      "buffers", **times,
            "started_s": [r["started_s"] for r in ranks],
            "spawn_to_ready_s": [r["ready_s"] for r in ranks],
            "rank_seconds": [r["seconds"] for r in ranks],
@@ -4806,6 +5122,52 @@ def phase_shard(args, card: str, device) -> dict:
     check(not failed, "shard: " + ", ".join(failed))
     run["collective_count"] = phase_collective_count(ranks)
     return run, phase_shard_serve(ranks, card)
+
+
+def uneven_summary(shard: dict, shard_serve: dict, uneven: dict) -> str:
+    """One line: the encoder-decoder's and ``uneven_path``'s sharded
+    readings (step, prefill and decode ms a rank, spawn seconds, peak GB)."""
+    enc, enc_serve = shard["cases"][ENCDEC_ARCH], shard_serve["cases"][
+        ENCDEC_ARCH]
+    train, serve = uneven["train"], uneven["serve"]
+    return (
+        f"sharded: seamless-m4t-medium (1, 4) step "
+        f"{enc['step_ms_median_steps_2_on']:.1f} ms, prefill "
+        f"{max(enc_serve['prefill_ms_per_rank']):.1f} ms, decode "
+        f"{max(enc_serve['decode_ms_per_step_median_per_rank']):.1f} ms a "
+        f"rank; mamba2-130m ({train['mesh']['data']}, "
+        f"{train['mesh']['model']}) in {uneven['ranks']} ranks (ready in "
+        f"{uneven['spawn_to_ready_s_max']:.1f} s) step "
+        f"{train['step_ms_median_steps_2_on']:.1f} ms, prefill "
+        f"{max(serve['prefill_ms_per_rank']):.1f} ms, decode "
+        f"{max(serve['decode_ms_per_step_median_per_rank']):.1f} ms, peak "
+        f"{max(g or 0 for g in serve['peak_memory_gb_per_rank']):.2f} GB a "
+        f"rank")
+
+
+def phase_uneven(args, card: str, device) -> dict:
+    """``uneven_path``: mamba2-130m at the production cut of its SSD heads,
+    (1, 16), in ``UNEVEN_RANKS`` rank processes on the one card (after the
+    4-rank pool has exited): its train case and its serving case held as
+    ``shard_path``'s and ``shard_serve_path``'s are, and its collective
+    count (module doc, phase 13)."""
+    ranks, refs, times = shard_pool(args, device, UNEVEN_RANKS)
+    out = train_case_checks(UNEVEN_KEY, ranks, refs[UNEVEN_KEY], card)
+    serve = phase_shard_serve(ranks, card, UNEVEN_RANKS)
+    run = {"ranks": UNEVEN_RANKS, "device": f"{device.type}:0 in every rank",
+           "backend": "gloo, CUDA tensors staged through pinned host "
+                      "buffers", **times,
+           "spawn_to_ready_s": [r["ready_s"] for r in ranks],
+           "spawn_to_ready_s_max": max(r["ready_s"] for r in ranks),
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "train": out, "serve": serve["cases"][UNEVEN_KEY]}
+    failed = [k for k, ok in out["checks"].items() if not ok]
+    if failed:
+        emit({"phase": "uneven_path", "ok": False, **run})
+    check(not failed, "uneven: " + ", ".join(failed))
+    run["collective_count"] = phase_collective_count(
+        ranks, UNEVEN_RANKS, "uneven_collective_count")
+    return run
 
 
 # -- sharded prefill and decode ------------------------------------------------
@@ -4865,7 +5227,8 @@ class RowRouting(Routing):
 def expected_shard_serve_launches(cfg, layout, local_rows: list,
                                   calls: int) -> list[dict]:
     """Kernel launches of each call on one participant (the prefill, then
-    the steps): K2 once per attention layer of the prefill, K3 once per
+    the steps; an encoder-decoder's as ``expected_model_launches``): K2
+    once per attention layer of the prefill, K3 once per
     attention layer of a step in the head-sharded and the fully-seq
     whole-head layouts (its statistics form there, on every participant's
     block, an empty one too) and never in the ``head_dim`` ones, K4 once
@@ -4873,7 +5236,11 @@ def expected_shard_serve_launches(cfg, layout, local_rows: list,
     per MoE layer of every call whose local slots (``local_rows``, one
     entry a router call) are not none: the grouped-matmul wrapper does
     not launch on zero rows."""
-    prefill, step = expected_launches(cfg)
+    if cfg.enc_layers:
+        model = expected_model_launches(cfg)
+        prefill, step = model["prefill"], model["decode"]
+    else:
+        prefill, step = expected_launches(cfg)
     n_moe = prefill["moe_gmm"] // 3
     out = []
     for c in range(calls):
@@ -4895,22 +5262,53 @@ def serve_prompts(cfg, seed: int, device, batch: int = SERVE_BATCH,
         cfg, seed)])[:batch, :length]).to(device)
 
 
-def greedy_unsharded(model, params, prompts, device) -> dict:
-    """The unsharded prefill and ``SHARD_SERVE_NEW`` greedy steps: each
-    call's logits, the tokens fed (the prompt, then each step's input),
-    and the cache after the prefill (a copy) and after the last step."""
-    batch = {"tokens": prompts}
-    cache = model.init_cache(params, batch, SHARD_SERVE_LEN)
+def serve_frames(cfg, seed: int, device, case: dict) -> dict:
+    """What a case's batch holds beside its prompts: an encoder-decoder's
+    first ``batch`` frame embeddings of ``model_requests`` (``ENC_FRAMES``
+    of them), nothing for a decoder-only model."""
+    if not cfg.enc_layers:
+        return {}
+    frames = model_requests(cfg, seed, device)["enc_embeds"]
+    return {"enc_embeds": frames[:case["batch"], :case["frames"]]}
+
+
+def cache_state(cache: dict) -> dict:
+    """The tensors of a cache that the checks compare: a decoder-only
+    cache's slots, an encoder-decoder's self and cross caches."""
+    if "slots" in cache:
+        return cache["slots"]
+    return {"self": cache["self"], "cross": cache["cross"]}
+
+
+def copy_cache(cache: dict) -> dict:
+    """A cache whose tensors are copies (the steps write in place)."""
+    out = {k: v.clone() if isinstance(v, torch.Tensor) else v
+           for k, v in cache.items()}
+    for k in ("slots", "self", "cross"):
+        if k in cache:
+            out[k] = tree.map(torch.clone, cache[k])
+    return out
+
+
+def greedy_unsharded(model, params, prompts, device, extra=None,
+                     new: int = SHARD_SERVE_NEW,
+                     max_len: int = SHARD_SERVE_LEN) -> dict:
+    """The unsharded prefill (``extra``: the batch's frames) and ``new``
+    greedy steps into a cache of ``max_len``: each call's logits, the
+    tokens fed (the prompt, then each step's input), and the cache after
+    the prefill (a copy) and after the last step."""
+    batch = {"tokens": prompts, **(extra or {})}
+    cache = model.init_cache(params, batch, max_len)
     logits, cache = model.prefill(params, batch, cache)
     out, tokens = [logits], [prompts]
-    after_prefill = tree.map(torch.clone, cache["slots"])
-    for _ in range(SHARD_SERVE_NEW):
+    after_prefill = tree.map(torch.clone, cache_state(cache))
+    for _ in range(new):
         tokens.append(out[-1][:, -1, :model.cfg.vocab].argmax(-1)[:, None]
                       .to(torch.int32))
         logits, cache = model.decode(params, tokens[-1], cache)
         out.append(logits)
     return {"logits": out, "tokens": tokens,
-            "caches": [after_prefill, cache["slots"]],
+            "caches": [after_prefill, cache_state(cache)],
             "len": int(cache["len"])}
 
 
@@ -4954,31 +5352,74 @@ def rel_rms(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
+#: The serving controls of the cache rather than of a decode step: the
+#: control run builds and prefills its cache under them, then steps once,
+#: and its worst call is read.
+CACHE_CONTROLS = ("cross_from_participant_0", "unoffset")
+
+
+def serve_layout(cfg, part, batch: int):
+    """The attention cache's layout of a batch of ``batch`` on ``part``'s
+    mesh, as the model's serving calls take it."""
+    from repro_torch.models import encdec
+
+    return (encdec if cfg.enc_layers else lm).serve_layout(cfg, part, batch)
+
+
+def cross_from_participant_0(local, cfg, full, part):
+    """The encoder-decoder's serving control: this participant's block of
+    the parameters with every decoder layer's cross ``wk`` / ``wv``
+    replaced by participant 0's block of them (its cross K/V projected
+    from participant 0's kv heads)."""
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+
+    first = shard_tree(full, param_shardings(full, cfg, part.mesh),
+                       {a: 0 for a in part.mesh.axis_names})
+    cross = dict(local["dec_blocks"]["cross_attn"])
+    for name in ("wk", "wv"):
+        cross[name] = first["dec_blocks"]["cross_attn"][name]
+    return {**local, "dec_blocks": {**local["dec_blocks"],
+                                    "cross_attn": cross}}
+
+
 def shard_serve_f32(seed: int, device, key: str, part) -> dict:
     """Case ``key``'s float32 check: rank 0 runs the unsharded model greedily
     (routing recorded) on the seeded parameters, every rank the sharded
     cells on its block, fed rank 0's tokens with its routing replayed;
     rank 0 holds every call's gathered logits, the greedy tokens and the
     gathered cache after the prefill and after the last step to the
-    unsharded run's, and the first step again, from the prefill's cache,
-    under the case's control.  Readings are rank 0's (None elsewhere)."""
+    unsharded run's, and the first step again under the case's control:
+    from the prefill's cache (a control of the decode step), or, for a
+    control of the cache (``CACHE_CONTROLS``), after a cache built and
+    prefilled under it too (the worst of the two calls and of the
+    gathered cache after the prefill is read: the limit holds both).
+    Readings are rank 0's (None elsewhere)."""
     from repro_torch.convert import gather_cache
     from repro_torch.parallel.sharding import param_shardings, shard_tree
 
     case = SHARD_SERVE_CASES[key]
     B = case["batch"]
+    new, max_len = (case.get("new", SHARD_SERVE_NEW),
+                    case.get("max_len", SHARD_SERVE_LEN))
     cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
     model = Model(cfg)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
+    extra = serve_frames(cfg, seed, device, case)
     lead = dist.get_rank() == 0
     routing = Routing()
     ref = None
     if lead:
         with routing.record():
             ref = greedy_unsharded(model, full, serve_prompts(
-                cfg, seed, device, B, case["prompt"]), device)
+                cfg, seed, device, B, case["prompt"]), device, extra, new,
+                max_len)
     local = shard_tree(full, param_shardings(full, cfg, part.mesh),
                        part.coord)
+    layout = serve_layout(cfg, part, B)
+    control_name = case.get("control") or SHARD_SERVE_CONTROLS[layout]
+    control_params = (cross_from_participant_0(local, cfg, full, part)
+                      if control_name == "cross_from_participant_0"
+                      else None)
     del full
     shared = [{"tokens": [t.cpu() for t in ref["tokens"]],
                "routing": [r.cpu() for r in routing.recorded]}
@@ -4990,30 +5431,51 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
     n_moe = expected_launches(cfg)[0]["moe_gmm"] // 3
     step_routing = Routing()             # the control replays step 1's
     step_routing.recorded = rows.recorded[n_moe:2 * n_moe]
-    batch = {"tokens": tokens[0]}
-    cache = model.init_cache(local, batch, SHARD_SERVE_LEN, shards=part)
+    batch = {"tokens": tokens[0], **extra}
+    zero_counts()
+    cache = model.init_cache(local, batch, max_len, shards=part)
+    init_launches = kernel_counts()
     with rows.replay() as flips:
         lg, cache, rec = sharded_call(model.prefill, device, local, batch,
                                       cache, part=part)
         gathered = [gather_cache(cache, cfg, part, B)]
-        start = {**cache, "len": cache["len"].clone(),
-                 "slots": tree.map(torch.clone, cache["slots"])}
+        start = copy_cache(cache)
         logits, records, cache = sharded_steps(model, local, part, cache,
                                                tokens[1:], device)
     logits, records = [lg, *logits], [rec, *records]
     gathered.append(gather_cache(cache, cfg, part, B))
-    layout = lm.serve_layout(cfg, part, B)
-    with step_routing.replay(), serve_control(SHARD_SERVE_CONTROLS[layout]):
-        control, _, _ = sharded_steps(model, local, part, start,
-                                      tokens[1:2], device)
+    if control_name in CACHE_CONTROLS:
+        # a control of the cache: built, prefilled and stepped under it
+        c_routing = Routing()
+        c_routing.recorded = rows.recorded[:2 * n_moe]
+        with c_routing.replay(), (
+                contextlib.nullcontext() if control_params is not None
+                else shard_control(control_name)):
+            c_params = control_params or local
+            c_cache = model.init_cache(c_params, batch, max_len,
+                                       shards=part)
+            c_logits, start = model.prefill(c_params, batch, c_cache,
+                                            shards=part)
+            c_gathered = gather_cache(start, cfg, part, B)
+            control, _, _ = sharded_steps(model, c_params, part, start,
+                                          tokens[1:2], device)
+        control, first = [c_logits, *control], 0
+    else:
+        with step_routing.replay(), shard_control(control_name):
+            control, _, _ = sharded_steps(model, local, part, start,
+                                          tokens[1:2], device)
+        first, c_gathered = 1, None
     whole, control = (whole_rows(logits, part, B),
                       whole_rows(control, part, B))
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
+           "init_launches": init_launches,
+           "init_launches_expected": expected_model_launches(cfg)[
+               "init_cache"],
            "fingerprints": [fingerprint(t) for t in logits],
            "len": int(cache["len"]), "routing_flips": flips,
-           "control": SHARD_SERVE_CONTROLS[layout]}
+           "control": control_name}
     if lead:
         V = cfg.vocab
         out.update(
@@ -5023,12 +5485,29 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
                                          w[:, -1, :V].argmax(-1))
                              for g, w in zip(whole, ref["logits"])),
             cache_rel_rms=[max(rel_rms(g, w) for g, w in zip(
-                tree.leaves(got["slots"]), tree.leaves(want), strict=True))
+                tree.leaves(cache_state(got)), tree.leaves(want),
+                strict=True))
                 for got, want in zip(gathered, ref["caches"])],
             len_equal=int(gathered[-1]["len"]) == ref["len"],
-            control_rel_rms=rel_rms(control[0][..., :V],
-                                    ref["logits"][1][..., :V]))
+            control_rel_rms=max(
+                rel_rms(c[..., :V], w[..., :V]) for c, w in zip(
+                    control, ref["logits"][first:first + len(control)])))
+        if c_gathered is not None:
+            out["control_cache_rel_rms"] = max(rel_rms(g, w) for g, w in zip(
+                tree.leaves(cache_state(c_gathered)),
+                tree.leaves(ref["caches"][0]), strict=True))
+            out["control_rel_rms"] = max(out["control_rel_rms"],
+                                         out["control_cache_rel_rms"])
     return out
+
+
+def state_fingerprints(cache: dict) -> dict:
+    """Checksums of a cache's SSM state: every slot's ``conv_bc`` (whole
+    on every model participant) and ``ssm`` (a head block where the heads
+    divide the model axis, else whole)."""
+    slots = [s for s in cache.get("slots", {}).values() if "conv_bc" in s]
+    return {name: [fingerprint(s[name]) for s in slots]
+            for name in ("conv_bc", "ssm")}
 
 
 def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
@@ -5036,19 +5515,23 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     with the same kernels (routing recorded) on the seeded parameters cast
     to bf16; every rank then runs the sharded cells on its block, fed
     those tokens with that routing replayed, each call timed (CUDA events)
-    with its launches and collectives; then, in a ``full_cache`` case,
+    with its launches and collectives, the SSM state's checksums after
+    the prefill and after the last step; then, in a ``full_cache`` case,
     decodes until its cache is full (from a cache prefilled again to
-    ``SHARD_SERVE_LEN - 8`` positions where the steps ended short of it)
-    and once more, which must raise ``IndexError``."""
+    eight positions short of it where the steps ended short of that) and
+    once more, which must raise ``IndexError``."""
     from repro_torch.parallel.sharding import param_shardings, shard_tree
 
     case = SHARD_SERVE_CASES[key]
     B = case["batch"]
+    new, max_len = (case.get("new", SHARD_SERVE_NEW),
+                    case.get("max_len", SHARD_SERVE_LEN))
     cfg = shard_config(case["arch"], case["layers"])
     model = Model(cfg)
     lead = dist.get_rank() == 0
     routing = Routing()
     ref = None
+    extra = serve_frames(cfg, seed, device, case)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
     local = cast_params(shard_tree(full, param_shardings(full, cfg,
                                                          part.mesh),
@@ -5057,7 +5540,8 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
         served = cast_params(full, cfg, device, in_place=True)
         with routing.record():
             ref = greedy_unsharded(model, served, serve_prompts(
-                cfg, seed, device, B, case["prompt"]), device)
+                cfg, seed, device, B, case["prompt"]), device, extra, new,
+                max_len)
         del served, ref["caches"]
     del full
     on_card = device.type == "cuda"
@@ -5073,46 +5557,51 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    batch = {"tokens": tokens[0]}
-    cache = model.init_cache(local, batch, SHARD_SERVE_LEN, shards=part)
-    conv_bc = []
+    batch = {"tokens": tokens[0], **extra}
+    zero_counts()
+    cache = model.init_cache(local, batch, max_len, shards=part)
+    init_launches = kernel_counts()
+    states = []
     with rows.replay() as flips:
         lg, cache, rec = sharded_call(model.prefill, device, local, batch,
                                       cache, part=part)
-        conv_bc.append([fingerprint(s["conv_bc"]) for s in
-                        cache["slots"].values() if "conv_bc" in s])
+        states.append(state_fingerprints(cache))
         logits, records, cache = sharded_steps(model, local, part, cache,
                                                tokens[1:], device)
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     logits, records = [lg, *logits], [rec, *records]
-    conv_bc.append([fingerprint(s["conv_bc"]) for s in
-                    cache["slots"].values() if "conv_bc" in s])
+    states.append(state_fingerprints(cache))
     fingerprints = [fingerprint(t) for t in logits]
     length = int(cache["len"])
     whole = whole_rows(logits, part, B)
     full_error = None
     if case["full_cache"]:
         tok = torch.zeros_like(tokens[1])
-        start = SHARD_SERVE_LEN - 8
+        start = max_len - 8
         if cache["pos"] != start:
             long = torch.cat([tokens[0]] * -(-start // tokens[0].shape[1]),
                              dim=1)[:, :start]
-            cache = model.init_cache(local, {"tokens": long},
-                                     SHARD_SERVE_LEN, shards=part)
+            cache = model.init_cache(local, {"tokens": long, **extra},
+                                     max_len, shards=part)
             _, cache = model.prefill(local, {"tokens": long}, cache,
                                      shards=part)
-        while cache["pos"] < SHARD_SERVE_LEN:
+        while cache["pos"] < max_len:
             _, cache = model.decode(local, tok, cache, shards=part)
         try:
             model.decode(local, tok, cache, shards=part)
         except IndexError as e:
             full_error = f"IndexError: {e}"
-    layout = lm.serve_layout(cfg, part, B)
+    layout = serve_layout(cfg, part, B)
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
+           "init_launches": init_launches,
+           "init_launches_expected": expected_model_launches(cfg)[
+               "init_cache"],
            "local_rows_per_router_call": rows.local_rows,
-           "fingerprints": fingerprints, "conv_bc_fingerprints": conv_bc,
+           "fingerprints": fingerprints,
+           "conv_bc_fingerprints": [st["conv_bc"] for st in states],
+           "ssm_fingerprints": [st["ssm"] for st in states],
            "len": length, "routing_flips": flips, "peak_memory_gb": peak,
            "full_cache": full_error}
     if lead:
@@ -5138,12 +5627,14 @@ def shard_serve_rank(seed: int, device, part, key: str) -> dict:
             "f32_s": t1 - t0, "bf16_s": time.time() - t1}
 
 
-def phase_shard_serve(ranks: list, card: str) -> dict:
-    """``shard_serve_path``'s checks over every rank's readings (module
-    doc, phase 13)."""
+def phase_shard_serve(ranks: list, card: str,
+                      pool: int = SHARD_RANKS) -> dict:
+    """``shard_serve_path``'s checks over every rank's readings of the
+    pool's cases (module doc, phase 13)."""
     out, failed = {}, []
-    for key, case in SHARD_SERVE_CASES.items():
+    for key, case in pool_cases(SHARD_SERVE_CASES, pool).items():
         arch = case["arch"]
+        cfg = get_config(arch)
         per = [r["serve"][key] for r in ranks]
         f32, bf16 = per[0]["f32"], per[0]["bf16"]
         limit = SERVE_BF16_KERNEL_VS_PLAIN[arch]
@@ -5182,10 +5673,18 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
                 and same_bits("f32", "fingerprints"),
             "conv_bc_bits_equal_across_model_ranks":
                 same_bits("bf16", "conv_bc_fingerprints"),
+            "init_cache_launches": all(
+                p[kind]["init_launches"] == p[kind]["init_launches_expected"]
+                for p in per for kind in ("f32", "bf16")),
             "full_cache_raises_on_every_rank": all(
                 (p["bf16"]["full_cache"] or "").startswith("IndexError")
                 for p in per) if case["full_cache"] else True,
         }
+        if cfg.ssm_state and cfg.ssm_heads % case["mesh"][1]:
+            # the state is whole on every model participant: all-gathered
+            # from their channels after the prefill and every step
+            checks["ssm_bits_equal_across_model_ranks"] = same_bits(
+                "bf16", "ssm_fingerprints")
         if bf16["layout"] in ("hd", "seq_hd"):
             checks["no_decode_kernel_in_hd_layout"] = all(
                 rec["launches"]["decode_attention"] == 0 for p in per
@@ -5202,17 +5701,20 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
             "rows": "whole on every rank" if rows_whole
             else "a data block a rank",
             "layers": bf16["layers"], "batch": case["batch"],
-            "prompt_len": case["prompt"], "new_tokens": SHARD_SERVE_NEW,
-            "max_len": SHARD_SERVE_LEN, "gpu": card,
+            "prompt_len": case["prompt"],
+            "frames": case.get("frames"),
+            "new_tokens": case.get("new", SHARD_SERVE_NEW),
+            "max_len": case.get("max_len", SHARD_SERVE_LEN), "gpu": card,
             "prefill_ms_per_rank": [p["bf16"]["records"][0]["ms"]
                                     for p in per],
             "decode_ms_per_step_median_per_rank": [
                 statistics.median(m) for m in step_ms],
             "decode_ms_per_step_rank0": step_ms[0],
-            "time_note": "four processes share one card and gloo copies "
-                         "through the host: not a multi-card time",
+            "time_note": f"{len(per)} processes share one card and gloo "
+                         "copies through the host: not a multi-card time",
             "peak_memory_gb_per_rank": [p["bf16"]["peak_memory_gb"]
                                         for p in per],
+            "launches_init_cache_rank0": bf16["init_launches"],
             "launches_prefill_rank0": bf16["records"][0]["launches"],
             "launches_step_rank0": bf16["records"][1]["launches"],
             "k5_launches_per_rank": [sum(rec["launches"]["moe_gmm"]
@@ -5223,6 +5725,7 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
             "f32": {k: f32[k] for k in (
                 "layers", "logits_rel_rms", "tokens_equal", "cache_rel_rms",
                 "len_equal", "control", "control_rel_rms", "routing_flips")},
+            "f32_control_cache_rel_rms": f32.get("control_cache_rel_rms"),
             "f32_limit_rel_rms": SERVE_F32_REL_RMS,
             "bf16": {"max_rel_rms": max(bf16["logits_rel_rms"]),
                      "rel_rms_per_call": bf16["logits_rel_rms"],
@@ -5233,7 +5736,7 @@ def phase_shard_serve(ranks: list, card: str) -> dict:
                               "bf16": per[0]["bf16_s"]},
             "checks": checks}
         failed += [f"{key}: {k}" for k, ok in checks.items() if not ok]
-    run = {"ranks": SHARD_RANKS, "cases": out}
+    run = {"ranks": pool, "cases": out}
     if failed:
         emit({"phase": "shard_serve_path", "ok": False, **run})
     check(not failed, "shard_serve: " + ", ".join(failed))
@@ -5541,42 +6044,84 @@ def phase_roofline(served: dict, train: dict) -> list[dict]:
 
 # -- the dry run -----------------------------------------------------------------
 
-def phase_dryrun() -> dict:
+#: The dry run runs on the host beside the card's phases, from the start
+#: of ``run`` (after the build) to the ``dryrun`` phase, which waits for it,
+#: in ``DRYRUN_JOBS`` processes: it needs no card, and alone it held the
+#: card idle for 54.5-65.6 s of a 1036-1143 s run (NVIDIA H100 80GB HBM3,
+#: 700.00 W).
+DRYRUN_JOBS = 2
+DRYRUN_TIMEOUT_S = 900.0
+
+
+class DryRun:
     """``python -m repro_torch.launch.dryrun --all --mesh both`` (every
-    cell on both production meshes, on meta, one process per core) into a
-    temporary directory; every cell must be ``ok``.  Prints the report's
-    two tables."""
-    jobs = max(1, min(8, os.cpu_count() or 1))
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+    cell on both production meshes, on meta) started in the background
+    into a temporary directory, in a process group of its own (its pool's
+    workers with it), which ``close`` ends."""
+
+    def __init__(self, jobs: int) -> None:
+        self.jobs = jobs
+        self.dir = tempfile.TemporaryDirectory()
+        self.err = open(os.path.join(self.dir.name, "stderr.txt"), "w+")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--mesh", "both", "--jobs", str(jobs), "--results-dir", d],
+             "--mesh", "both", "--jobs", str(jobs), "--results-dir",
+             os.path.join(self.dir.name, "cells")],
             env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
-            capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        rows = report.load(results_dir=d)
+            stdout=subprocess.DEVNULL, stderr=self.err,
+            start_new_session=True)
+
+    def wait(self) -> tuple[int, float, float, list, str]:
+        """``(rc, seconds from its start to its last cell's result,
+        seconds waited here, rows, the tail of stderr)``."""
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        waited = time.perf_counter() - t0
+        self.err.seek(0)
+        cells_dir = os.path.join(self.dir.name, "cells")
+        rows = report.load(results_dir=cells_dir)
+        ends = [os.path.getmtime(os.path.join(cells_dir, f))
+                for f in os.listdir(cells_dir)] if os.path.isdir(
+                    cells_dir) else []
+        seconds = max(ends, default=time.time()) - self.t0
+        return rc, seconds, waited, rows, self.err.read()[-2000:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+        self.err.close()
+        self.dir.cleanup()
+
+
+def phase_dryrun(dry: DryRun | None = None) -> dict:
+    """The dry run's results (``dry``, started earlier; else started here
+    with a process per core and waited for): every cell must be ``ok``
+    and count one participant's collectives, none refused.  Prints the
+    report's two tables."""
+    if dry is None:
+        dry = DryRun(max(1, min(8, os.cpu_count() or 1)))
+    try:
+        rc, seconds, waited, rows, err = dry.wait()
+    finally:
+        dry.close()
     failed = [f"{r['mesh']} {r['arch']} {r['shape']}: {r.get('error')}"
               for r in rows if r["status"] != "ok"]
-    check(proc.returncode == 0 and not failed and len(rows) == 64,
-          f"dry run: rc {proc.returncode}, {len(rows)} cells, failed "
-          f"{failed}: {proc.stderr[-2000:]}")
+    check(rc == 0 and not failed and len(rows) == 64,
+          f"dry run: rc {rc}, {len(rows)} cells, failed {failed}: {err}")
     print(report.dryrun_table(rows), flush=True)
     print(report.roofline_table(rows, mesh="single"), flush=True)
     refused = {(r["arch"], r["shape"], r["mesh"]) for r in rows
-               if r["roofline"]["collective_bytes_per_device"] is None}
-    want = {(a, s.name, m) for a, s in cells()
-            if sharded_refusal(a) for m in ("single", "multi")}
-    unnamed = [r["arch"] for r in rows
-               if (r["arch"], r["shape"], r["mesh"]) in refused
-               and not r["collectives"]["skipped"]]
-    check(refused == want and not unnamed,
-          f"dry run: collectives uncounted in {sorted(refused)}, expected "
-          f"{sorted(want)}; no reason in {unnamed}")
+               if r["roofline"]["collective_bytes_per_device"] is None
+               or r["collectives"]["skipped"] is not None}
+    check(not refused and len(rows) == 2 * len(cells()),
+          f"dry run: collectives uncounted in {sorted(refused)}")
     shown = {f"{r['mesh']} {r['arch']} {r['shape']}":
              r["collectives"]["bytes_by_kind"] for r in rows
              if (r["arch"], r["shape"]) in DRYRUN_SHOWN}
-    return {"cells": len(rows), "seconds": seconds, "jobs": jobs,
+    return {"cells": len(rows), "seconds": seconds, "waited_s": waited,
+            "jobs": dry.jobs,
             "dominant": {d: sum(r["roofline"]["dominant"] == d for r in rows)
                          for d in ("compute", "memory", "collective")},
             "collectives_uncounted": sorted(
@@ -5587,21 +6132,9 @@ def phase_dryrun() -> dict:
 #: Cells whose collective bytes by kind ``dryrun`` prints, on both meshes.
 DRYRUN_SHOWN = (("glm4_9b", "train_4k"), ("glm4_9b", "decode_32k"),
                 ("granite_moe_1b_a400m", "train_4k"),
-                ("jamba_v0_1_52b", "long_500k"))
-
-
-def sharded_refusal(arch: str) -> bool:
-    """Whether the sharded layers refuse ``arch`` on the production
-    meshes' model axis of 16: an encoder-decoder, or a dimension they
-    split by whole units that 16 does not divide."""
-    cfg = get_config(arch)
-    if cfg.enc_layers:
-        return True
-    try:
-        lm.check_shardable(cfg, 16)
-    except NotImplementedError:
-        return True
-    return False
+                ("jamba_v0_1_52b", "long_500k"),
+                ("mamba2_130m", "decode_32k"),
+                ("seamless_m4t_medium", "prefill_32k"))
 
 
 # -- the examples ----------------------------------------------------------------
@@ -5702,6 +6235,16 @@ def run(args) -> None:
     card = phase_env()
     device = torch.device("cuda")
     phase_build()
+    dry = DryRun(DRYRUN_JOBS)
+    try:
+        run_phases(args, card, device, dry)
+    finally:
+        dry.close()
+
+
+def run_phases(args, card: str, device, dry: DryRun) -> None:
+    """Every phase after the build (module doc), the dry run ``dry``
+    running beside them until its phase."""
     peer_mean = BigRootsThresholds().peer_mean
     F = len(JAX_FEATURES)
     rng = np.random.default_rng(args.seed)
@@ -5822,9 +6365,12 @@ def run(args) -> None:
     shard, shard_serve = phase_shard(args, card, device)
     emit({"phase": "shard_path", "ok": True, **shard})
     emit({"phase": "shard_serve_path", "ok": True, **shard_serve})
+    uneven = phase_uneven(args, card, device)
+    emit({"phase": "uneven_path", "ok": True, **uneven})
+    print(uneven_summary(shard, shard_serve, uneven), flush=True)
     for res in phase_roofline(served, train):
         emit({"phase": "roofline", "ok": True, "gpu": card, **res})
-    emit({"phase": "dryrun", "ok": True, **phase_dryrun()})
+    emit({"phase": "dryrun", "ok": True, **phase_dryrun(dry)})
     examples = phase_examples(device)
     emit({"phase": "examples", "ok": True, "gpu": card, **examples})
 
@@ -5870,6 +6416,29 @@ def run(args) -> None:
         if timed:
             out.update(shard_timing[timed])
         return out
+
+    def sharded_new(name: str, prefix: str) -> dict:
+        """A kernel in the encoder-decoder's sharded cases (``encdec_*``
+        shapes) or ``uneven_path``'s (``uneven_*``): its launches a rank
+        (rank 0's) in a train step, ``init_cache``, the prefill and a
+        step, and its checks' largest error at those shapes."""
+        if prefix == "encdec":
+            train_case = shard["cases"][ENCDEC_ARCH]
+            serve_case = shard_serve["cases"][ENCDEC_ARCH]
+        else:
+            train_case, serve_case = uneven["train"], uneven["serve"]
+        return {"path": train_case["arch"], "mesh": train_case["mesh"],
+                "launches_per_rank_train_step":
+                    train_case["launches_per_rank_step"][name],
+                "launches_per_rank_init_cache":
+                    serve_case["launches_init_cache_rank0"][name],
+                "launches_per_rank_prefill":
+                    serve_case["launches_prefill_rank0"][name],
+                "launches_per_rank_step":
+                    serve_case["launches_step_rank0"][name],
+                "max_abs_err": max(c["max_abs_err"] for c in shard_checks
+                                   if c["kernel"] == name
+                                   and c["sharded"].startswith(prefix))}
 
     def entry(name: str, replaces: str, per: str, arch: str, t: dict,
               checked: list) -> dict:
@@ -5964,7 +6533,11 @@ def run(args) -> None:
                 "fs_flash_attention_granite"),
             "glm4": sharded_serve(
                 "flash_attention", f"{SERVE_ARCH}/fully_seq",
-                "fs_flash_attention_glm4")}},
+                "fs_flash_attention_glm4")},
+        "sharded_encdec": {
+            **sharded_new("flash_attention", "encdec"),
+            **{part: shard_timing[f"encdec_flash_{part}"]
+               for part in ("encoder", "self", "cross")}}},
         {**entry("decode_attention",
                  "src/repro/kernels/decode_attention.py:27",
                  "one per layer of every decode step", SERVE_ARCH,
@@ -5996,7 +6569,11 @@ def run(args) -> None:
                                    f"{SERVE_ARCH}/fully_seq"),
              "long_500k": {"block": long_k3["timing"],
                            "max_abs_err": long_k3["max_abs_err"],
-                           "combine": long_k3["combine"]}}},
+                           "combine": long_k3["combine"]}},
+         "sharded_encdec": {
+             **sharded_new("decode_attention", "encdec"),
+             **{part: shard_timing[f"encdec_decode_{part}"]
+                for part in ("self", "cross")}}},
         {**entry("ssd_scan", "src/repro/kernels/ssd_scan.py:29",
                  "one per SSM layer of the prefill", SSM_ARCH,
                  moe_ssd_timing["ssd_scan"], moe_ssd_checks),
@@ -6007,7 +6584,9 @@ def run(args) -> None:
                            "shape_note": "the prefill's block is the "
                                          "sharded step's: timed there"},
          "sharded_serve_fully_seq": sharded_serve(
-             "ssd_scan", f"{SSM_ARCH}/fully_seq", "fs_ssd_scan")},
+             "ssd_scan", f"{SSM_ARCH}/fully_seq", "fs_ssd_scan"),
+         "sharded_uneven": {**sharded_new("ssd_scan", "uneven"),
+                            **shard_timing["uneven_ssd_scan"]}},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
                  "three per MoE layer of the prefill and of every decode "
                  "step", MOE_ARCH, moe_ssd_timing["moe_gmm_prefill"],
@@ -6071,9 +6650,10 @@ def main() -> None:
                          "bf16 runs are always at full depth)")
     ap.add_argument("--shard", action="store_true",
                     help="only build the kernels, hold them at the sharded "
-                         "shapes and run shard_path and shard_serve_path "
-                         "(bringing up the sharded step and serving; the "
-                         "kernels line and the ok line are not printed)")
+                         "shapes and run shard_path, shard_serve_path and "
+                         "uneven_path (the 16-rank mamba2 pool; bringing up "
+                         "the sharded step and serving; the kernels line and "
+                         "the ok line are not printed)")
     ap.add_argument("--serve", nargs="+", metavar="ARCH",
                     help="only build the kernels and serve these archs, "
                          "each held to the serving checks (bringing up an "
@@ -6089,8 +6669,8 @@ def main() -> None:
 
 
 def shard_only(args) -> None:
-    """``--shard``: the kernels at the sharded shapes, then ``shard_path``
-    and ``shard_serve_path`` alone."""
+    """``--shard``: the kernels at the sharded shapes, then ``shard_path``,
+    ``shard_serve_path`` and ``uneven_path`` alone."""
     card = phase_env()
     device = torch.device("cuda")
     phase_build()
@@ -6105,6 +6685,9 @@ def shard_only(args) -> None:
     shard, shard_serve = phase_shard(args, card, device)
     emit({"phase": "shard_path", "ok": True, **shard})
     emit({"phase": "shard_serve_path", "ok": True, **shard_serve})
+    uneven = phase_uneven(args, card, device)
+    emit({"phase": "uneven_path", "ok": True, **uneven})
+    print(uneven_summary(shard, shard_serve, uneven), flush=True)
 
 
 def serve_only(args) -> None:

@@ -127,14 +127,27 @@ def lm_shard_from_numpy(params, cfg, mesh, coord: dict,
 
 
 def gather_cache(cache: dict, cfg, shards, batch_size: int) -> dict:
-    """A participant's decode cache (``lm.init_cache(..., part=)``) whole:
-    every slot gathered (``gather_tree`` over ``cache_shardings``) from the
-    blocks the participants of ``shards`` (a ``Participant``, or what it
-    is made from) hold (sequence blocks too, in the fully-seq layout);
-    ``"len"`` and ``"pos"`` as this one holds them.
-    Every participant receives the same tree, of new tensors (a later step
+    """A participant's decode cache (``lm.init_cache(..., part=)``, or the
+    encoder-decoder's ``encdec.init_cache(..., part=)``) whole: every slot
+    (the encoder-decoder's ``"self"`` and ``"cross"``) gathered
+    (``gather_tree`` over ``cache_shardings``) from the blocks the
+    participants of ``shards`` (a ``Participant``, or what it is made
+    from) hold (sequence blocks too, in the fully-seq layout); ``"len"``,
+    ``"pos"`` and ``"cross_len"`` as this one holds them.  Every
+    participant receives the same tree, of new tensors (a later step
     writes the cache in place)."""
     sh = as_shards(getattr(shards, "shards", shards))
+    if "slots" not in cache:                       # the encoder-decoder's
+        blocks = {n: cache[n] for n in ("self", "cross")}
+        like = {n: {k: torch.empty((t.shape[0], batch_size, t.shape[2],
+                                    cfg.n_kv_heads, cfg.head_dim),
+                                   dtype=t.dtype, device="meta")
+                    for k, t in blocks[n].items()} for n in blocks}
+        whole = gather_tree(blocks, cache_shardings(
+            cfg, sh.mesh, like, batch_size), sh, like)
+        return {"len": cache["len"].clone(), "pos": cache["pos"],
+                "cross_len": cache["cross_len"].clone(),
+                **tree.map(torch.clone, whole)}
     like = lm.init_cache(cfg, batch_size, lm.cache_size(cache) or 1,
                          "meta")["slots"]
     slots = gather_tree(cache["slots"], cache_shardings(

@@ -38,10 +38,17 @@ the port's explicit collectives and the hand-written kernels' work.
   of the slots (``moe.local_rows``), which no collective's size depends
   on.  An ``--moe-impl ep`` cell counts the ep MoE's explicit dispatch,
   combine, output gather and aux reductions in its unsharded step, as
-  before.  A cell the sharded layers refuse (mamba2-130m's 24 SSD heads
-  on a model axis of 16, the encoder-decoder) keeps ``collective_bytes``
-  null and names the refusal (``collectives.skipped``): ``dominant`` is
-  then taken over compute and memory.  The collective term is the bytes
+  before.  A serving cell's program takes its cache as an input, as the
+  reference's jitted ``prefill_step`` / ``decode_step`` do: the
+  participant's block of it is built outside the count (the
+  encoder-decoder's by the sharded encoder, over the cell's frame
+  embeddings ``[B, seq_len / 4, d]``).  Every cell of the two production
+  meshes is counted: mamba2-130m's 24 SSD heads run as 1.5 heads a
+  participant (``models/ssd.py``), the encoder-decoder as
+  ``models/encdec.py`` shards it.  A cell the sharded layers refuse keeps
+  ``collective_bytes`` null and names the refusal
+  (``collectives.skipped``): ``dominant`` is then taken over compute and
+  memory.  The collective term is the bytes
   over ``LINK_BW``, one NVLink 4 GPU's rate, though a production mesh of
   256 or 512 GPUs is far larger than one NVLink domain: the term is a
   floor.
@@ -69,7 +76,7 @@ import torch
 from .. import tree
 from ..configs import ARCH_IDS, SHAPES, ShapeSpec, cells, get_config, shapes_for
 from ..models.api import Model
-from ..parallel.collectives import MetaShards, observe
+from ..parallel.collectives import MetaShards, observe, unobserved
 from ..parallel.sharding import (
     NamedSharding,
     batch_specs,
@@ -92,7 +99,7 @@ from .roofline import CollectiveStats, Roofline, StepCounter, model_flops_for
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "dryrun_results_torch")
 
-RESULT_VERSION = 3  # bump to invalidate cached cell JSONs
+RESULT_VERSION = 4  # bump to invalidate cached cell JSONs
 
 
 def make_cell_cfg(arch: str, *, moe_impl: str | None = None,
@@ -190,20 +197,22 @@ def sharded_step(cfg, shape: ShapeSpec, mesh, args, shardings, *,
         return lambda: step(state, args["batch"])
     params = shard_tree(args["params"], shardings["params"], coord)
     size = shape.seq_len        # the cache build_cell gives run_cell
-    if shape.kind == "prefill":
-        batch = args["batch"]
+    batch = args["batch"] if shape.kind == "prefill" else {
+        "tokens": args["tokens"]}
+    cache_batch = batch
+    if cfg.enc_layers:
+        frames = args["cache"]["cross"]["k"].shape[2]
+        cache_batch = {**batch, "enc_embeds": torch.empty(
+            (shape.global_batch, frames, cfg.d_model), dtype=torch.float32,
+            device="meta")}
 
-        def prefill():
-            cache = model.init_cache(params, batch, size, shards=part)
+    def serve():
+        with unobserved():          # the cache is the program's input
+            cache = model.init_cache(params, cache_batch, size, shards=part)
+        if shape.kind == "prefill":
             return model.prefill(params, batch, cache, shards=part)
-        return prefill
-    tokens = args["tokens"]
-
-    def decode():
-        cache = model.init_cache(params, {"tokens": tokens}, size,
-                                 shards=part)
-        return model.decode(params, tokens, cache, shards=part)
-    return decode
+        return model.decode(params, batch["tokens"], cache, shards=part)
+    return serve
 
 
 def count_collectives(step) -> dict:

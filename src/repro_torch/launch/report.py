@@ -8,10 +8,10 @@ The roofline is the H100's (:mod:`repro_torch.launch.roofline`).  The
 collective column is one participant's sharded program, counted on meta
 (:mod:`repro_torch.launch.dryrun`): an MoE cell's through the sharded
 ``"gmm"`` MoE, whose routed row count on meta is each participant's even
-share of the slots; an ``ep`` cell's from its unsharded step.  A cell the
-sharded layers refuse (uneven SSD heads, the encoder-decoder) prints the
-refusal's short form where its bytes would be, and its collective term as
-"n/a".  The collective term is over one NVLink 4 GPU's rate
+share of the slots; an ``ep`` cell's from its unsharded step.  Every
+cell of the production meshes is counted; a cell the sharded layers
+refuse prints the refusal's short form where its bytes would be, and its
+collective term as "n/a".  The collective term is over one NVLink 4 GPU's rate
 (``LINK_BW``), on meshes far larger than one NVLink domain.
 """
 from __future__ import annotations
@@ -57,10 +57,6 @@ def fmt_s(v: float | None) -> str:
 def skipped_note(r: dict) -> str:
     """A short form of why a cell's collectives were not counted."""
     why = r.get("collectives", {}).get("skipped") or ""
-    if "encoder-decoder" in why:
-        return "n/a: encoder-decoder not sharded"
-    if "does not divide" in why:
-        return "n/a: uneven model blocks"
     return f"n/a: {why[:40]}" if why else "n/a"
 
 

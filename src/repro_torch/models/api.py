@@ -23,8 +23,12 @@ cells are, keeps its block of the cache in the layout the batch takes
 (``parallel/sharding.py``'s ``cache_layout``; a batch that does not divide
 over the data axes takes the fully-seq one, every row on every
 participant) (:func:`repro_torch.convert.gather_cache` gathers it whole)
-and returns its rows' logits over the whole vocabulary.  Decoder-only
-configs only; without it every call is the unsharded one.
+and returns its rows' logits over the whole vocabulary.  The
+encoder-decoder runs so too (:mod:`.encdec`: the encoder on the
+participant's rows of ``enc_embeds`` and its heads, the cross cache's
+block projected on its kv heads), except in the fully-seq layout, which
+raises ``NotImplementedError``.  Without ``shards`` every call is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -70,57 +74,54 @@ class Model:
         """``(loss, metrics)``; with ``shards``, the participant's part of
         the loss (its mean over the data axes is the whole batch's) and
         the whole batch's metrics (:func:`repro_torch.models.lm.loss_fn`)."""
-        part = self._part(shards)
+        part = participant(shards)
         if self.is_encdec:
-            return encdec.loss_fn(params, self.cfg, batch)
+            return encdec.loss_fn(params, self.cfg, batch, part=part)
         return lm.loss_fn(params, self.cfg, batch, part=part)
 
     def forward(self, params: Params, batch: dict, shards=None):
         """``(logits, aux)``; with ``shards``, the participant's rows of
         the logits, every column (gathered over ``"model"``)."""
-        part = self._part(shards)
+        part = participant(shards)
         if self.is_encdec:
-            return encdec.forward(params, self.cfg, batch["tokens"],
-                                  batch["enc_embeds"])
-        logits, aux = lm.forward(params, self.cfg, batch["tokens"],
-                                 embeds=batch.get("embeds"), part=part)
+            logits, aux = encdec.forward(params, self.cfg, batch["tokens"],
+                                         batch["enc_embeds"], part=part)
+        else:
+            logits, aux = lm.forward(params, self.cfg, batch["tokens"],
+                                     embeds=batch.get("embeds"), part=part)
         if part is not None:
             logits = gather_vocab(logits, part, self.cfg.vocab_padded)
         return logits, aux
-
-    def _part(self, shards):
-        if shards is not None and self.is_encdec:
-            raise NotImplementedError("the encoder-decoder does not run "
-                                      "sharded")
-        return participant(shards)
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, params: Params, batch: dict, max_len: int,
                    shards=None) -> dict:
         """A zero cache for ``batch``; with ``shards``, the participant's
         block of it (``cache_shardings``)."""
-        part = self._part(shards)
+        part = participant(shards)
         if self.is_encdec:
             return encdec.init_cache(params, self.cfg, batch["enc_embeds"],
-                                     max_len)
+                                     max_len, part=part)
         bsz = batch["tokens"].shape[0]
         return lm.init_cache(self.cfg, bsz, max_len, params["embed"].device,
                              part=part)
 
     def prefill(self, params: Params, batch: dict, cache: dict,
                 shards=None):
-        part = self._part(shards)
+        part = participant(shards)
         if self.is_encdec:
             # the encoder output is already in the cache (init_cache
             # encodes); prefill runs the decoder prompt into the self cache
-            return encdec.prefill(params, self.cfg, batch["tokens"], cache)
+            return encdec.prefill(params, self.cfg, batch["tokens"], cache,
+                                  part=part)
         return lm.prefill(params, self.cfg, batch["tokens"], cache,
                           embeds=batch.get("embeds"), part=part)
 
     def decode(self, params: Params, tokens, cache: dict, shards=None):
-        part = self._part(shards)
+        part = participant(shards)
         if self.is_encdec:
-            return encdec.decode_step(params, self.cfg, tokens, cache)
+            return encdec.decode_step(params, self.cfg, tokens, cache,
+                                      part=part)
         return lm.decode_step(params, self.cfg, tokens, cache, part=part)
 
     # -- bookkeeping ----------------------------------------------------------

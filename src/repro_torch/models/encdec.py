@@ -28,6 +28,32 @@ same number on the host, which bounds the writes without reading the
 device), ``"self"`` and ``"cross"`` (``k`` / ``v`` stacked over the
 decoder's layers, ``[L, B, S, KV, hd]``) and ``"cross_len"`` (``T_enc −
 1``, the cross cache's last index, as a 0-d int32 on the device).
+
+Every entry point also runs as one participant of a data × model mesh
+(``part``, a :class:`~repro_torch.parallel.tensor.Participant`), as
+:mod:`.lm` does: its block of every parameter (``parallel/sharding.py``'s
+rules, which cut this tree's leaves by name), its rows of the batch
+(``batch_specs(..., encdec=True)`` splits ``enc_embeds`` over the data
+axes as it does the tokens).  The encoder's self-attention (non-causal,
+rope), the decoder's self-attention and every MLP run on the
+participant's heads and ``d_ff`` columns in model regions; its
+cross-attention takes the participant's query heads and projects k / v
+from the encoder's output (replicated over ``"model"``, its gradient
+summed over it) on the kv heads they read; the embedding, the head and
+the loss are vocabulary-parallel (``lm.embed_inputs``,
+``lm.head_logits``, ``vocab_parallel_cross_entropy``).  Serving:
+``init_cache`` encodes the participant's rows and keeps its block of the
+cache as ``cache_shardings`` cuts it (``k`` / ``v`` of ``"self"`` and of
+``"cross"`` alike take the attention layout ``cache_layout`` names:
+its kv heads in ``"head"``, a ``head_dim`` block of every kv head in
+``"hd"``); ``prefill`` and ``decode_step`` take the whole batch and return
+its rows' logits over the whole vocabulary.  In ``"hd"`` the prefill's
+cross-attention gathers the cross cache's blocks of its layer over
+``"model"`` (K2 takes whole heads) and a step's runs the reference's
+decode products cut along ``head_dim`` (``layers._attend_hd_block``).  A
+batch that no data axis divides (the fully-seq layout, which would also
+split the cross cache's encoder positions over the data axes) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,19 +62,28 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels import ops
+from ..parallel.sharding import cache_layout, cache_shardings, shard_slices
+from ..parallel.tensor import (
+    enter_model_region,
+    leave_model_region_product,
+    vocab_parallel_cross_entropy,
+)
 from .config import ModelConfig
 from .layers import (
+    _attend_hd_block,
+    _attention_sharded,
     _project_qkv,
-    _repeat_kv,
     attend,
+    attend_cross,
     attention_apply,
     attention_decode,
+    attention_decode_sharded,
     attention_init,
     attention_shapes,
     check_cache_index,
-    dense_attention,
     dtype_of,
+    kv_cache_blocks,
+    local_kv,
     mlp_apply,
     mlp_init,
     mlp_shapes,
@@ -57,6 +92,9 @@ from .layers import (
 )
 from .lm import (
     _positions,
+    _step_logits,
+    batch_block,
+    check_shardable,
     cross_entropy,
     embed_inputs,
     head_logits,
@@ -114,103 +152,156 @@ def _layer(blocks: Params, i: int) -> Params:
             for k, slot in blocks.items()}
 
 
-def _enc_block(params: Params, cfg: ModelConfig, i: int, x, positions):
+def _enc_block(params: Params, cfg: ModelConfig, i: int, x, positions,
+               part=None):
     bp = _layer(params["enc_blocks"], i)
     h = rmsnorm(x, bp["attn"]["norm_scale"], cfg.norm_eps)
     x = x + attention_apply(bp["attn"], h, cfg, positions=positions,
-                            causal=False)
+                            causal=False, part=part)
     h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
-    return x + mlp_apply(bp["mlp"], h)
+    return x + mlp_apply(bp["mlp"], h, part)
 
 
-def encode(params: Params, cfg: ModelConfig,
-           enc_embeds: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           part=None) -> torch.Tensor:
     """The encoder over the frame embeddings ``[B, T_enc, d]``; with
     ``cfg.remat`` and gradients enabled, each layer under
-    ``torch.utils.checkpoint`` (as :func:`repro_torch.models.lm.forward`)."""
+    ``torch.utils.checkpoint`` (as :func:`repro_torch.models.lm.forward`).
+    With ``part`` (module doc), on its block of the weights; the output
+    is replicated over ``"model"``."""
     x = enc_embeds.to(dtype_of(cfg.dtype))
     positions = _positions(x.shape[0], x.shape[1], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.enc_layers):
         if remat:
-            x = checkpoint(_enc_block, params, cfg, i, x, positions,
+            x = checkpoint(_enc_block, params, cfg, i, x, positions, part,
                            use_reentrant=False)
         else:
-            x = _enc_block(params, cfg, i, x, positions)
+            x = _enc_block(params, cfg, i, x, positions, part)
     return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _dec_block(params: Params, cfg: ModelConfig, i: int, x, enc_out,
-               positions):
+               positions, part=None):
     bp = _layer(params["dec_blocks"], i)
     h = rmsnorm(x, bp["self_attn"]["norm_scale"], cfg.norm_eps)
-    x = x + attention_apply(bp["self_attn"], h, cfg, positions=positions)
+    x = x + attention_apply(bp["self_attn"], h, cfg, positions=positions,
+                            part=part)
     h = rmsnorm(x, bp["cross_attn"]["norm_scale"], cfg.norm_eps)
     x = x + attention_apply(bp["cross_attn"], h, cfg, positions=positions,
-                            causal=False, x_kv=enc_out, use_rope=False)
+                            causal=False, x_kv=enc_out, use_rope=False,
+                            part=part)
     h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
-    return x + mlp_apply(bp["mlp"], h)
+    return x + mlp_apply(bp["mlp"], h, part)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            enc_embeds: torch.Tensor):
+            enc_embeds: torch.Tensor, part=None):
     """Decoder logits ``[B, S_dec, V]`` over ``tokens [B, S_dec]`` given
-    the frame embeddings, and zero MoE aux terms (as the reference)."""
-    enc_out = encode(params, cfg, enc_embeds)
-    x = embed_inputs(params, cfg, tokens)
+    the frame embeddings, and zero MoE aux terms (as the reference).  With
+    ``part`` (module doc), its rows' logits, its block of the vocabulary."""
+    if part is not None:
+        check_shardable(cfg, part.m)
+    enc_out = encode(params, cfg, enc_embeds, part)
+    if part is not None:        # read by every layer's cross-attention
+        enc_out = enter_model_region(enc_out, part)
+    x = embed_inputs(params, cfg, tokens, part=part)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         if remat:
             x = checkpoint(_dec_block, params, cfg, i, x, enc_out, positions,
-                           use_reentrant=False)
+                           part, use_reentrant=False)
         else:
-            x = _dec_block(params, cfg, i, x, enc_out, positions)
+            x = _dec_block(params, cfg, i, x, enc_out, positions, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return head_logits(params, cfg, x), MoeAux(
+    return head_logits(params, cfg, x, part), MoeAux(
         zero, zero, torch.zeros(1, device=x.device))
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: dict):
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, part=None):
     """Next-token cross-entropy over the decoder tokens; labels < 0 are
-    ignored.  Returns ``(loss, {"loss", "ce"})``."""
-    logits, _ = forward(params, cfg, batch["tokens"], batch["enc_embeds"])
+    ignored.  Returns ``(loss, {"loss", "ce"})``.  With ``part`` (module
+    doc), as :func:`repro_torch.models.lm.loss_fn` takes it: the
+    participant's part of the loss (the vocabulary-parallel
+    cross-entropy, the denominator the whole batch's valid labels) and
+    the whole batch's metrics."""
+    logits, _ = forward(params, cfg, batch["tokens"], batch["enc_embeds"],
+                        part)
     labels = batch["labels"]
     valid = labels >= 0
-    nll = cross_entropy(logits, labels.clamp_min(0))
-    ce = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
-    return ce, {"loss": ce, "ce": ce}
+    if part is None:
+        nll = cross_entropy(logits, labels.clamp_min(0))
+        ce = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
+        return ce, {"loss": ce, "ce": ce}
+    nll = vocab_parallel_cross_entropy(logits, labels.clamp_min(0), part,
+                                       cfg.vocab_padded)
+    denom = part.psum_dp(valid.sum()).clamp_min(1)
+    ce = torch.where(valid, nll, 0.0).sum() * part.dp / denom
+    whole = part.pmean_dp(ce.detach()[None])[0]
+    return ce, {"loss": whole, "ce": whole}
 
 
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 def _project_kv(p: Params, x_kv, cfg):
-    """The K and V projections of :func:`~.layers._project_qkv`."""
+    """The K and V projections of :func:`~.layers._project_qkv` (on a
+    participant's block of ``wk`` / ``wv``: its columns' kv heads)."""
     cdt = dtype_of(cfg.dtype)
     k, v = x_kv @ p["wk"].to(cdt), x_kv @ p["wv"].to(cdt)
     if "bk" in p:
         k, v = k + p["bk"].to(cdt), v + p["bv"].to(cdt)
     B, S = x_kv.shape[:2]
-    return (k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    return (k.reshape(B, S, -1, cfg.head_dim),
+            v.reshape(B, S, -1, cfg.head_dim))
+
+
+def serve_layout(cfg: ModelConfig, part, batch_size: int) -> str:
+    """The cache's layout for a batch of ``batch_size`` on ``part``'s mesh
+    (``cache_layout``): ``"head"`` or ``"hd"``.  Raises
+    ``NotImplementedError`` for the fully-seq layout."""
+    layout = cache_layout(cfg, part.mesh, batch_size)
+    if layout in ("seq", "seq_hd"):
+        raise NotImplementedError(
+            f"the encoder-decoder in the fully-seq layout (a batch of "
+            f"{batch_size} on {part.dp} data participants) does not run "
+            f"sharded")
+    return layout
 
 
 def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
-               max_len: int) -> dict:
+               max_len: int, part=None) -> dict:
     """Encode, project every decoder layer's cross K/V once, and allocate
-    the decoder's self-attention cache."""
-    enc_out = encode(params, cfg, enc_embeds)
+    the decoder's self-attention cache.  With ``part`` (module doc), given
+    every row of ``enc_embeds``: its rows encoded, its block of the cross
+    and self caches."""
+    n = enc_embeds.shape[0]
+    if part is not None:
+        check_shardable(cfg, part.m)
+        layout = serve_layout(cfg, part, n)
+        enc_embeds = batch_block(enc_embeds, part)
+    enc_out = encode(params, cfg, enc_embeds, part)
     B, T = enc_out.shape[:2]
     cdt, dev = dtype_of(cfg.dtype), enc_out.device
-    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    cross = {n: torch.empty((L, B, T, kv, hd), dtype=cdt, device=dev)
-             for n in ("k", "v")}
+    L = cfg.n_layers
+    ks, vs = [], []
     for i in range(L):
         p = {n: t[i] for n, t in params["dec_blocks"]["cross_attn"].items()}
-        cross["k"][i], cross["v"][i] = _project_kv(p, enc_out, cfg)
-    self_shape = (L, B, max_len, kv, hd)
+        k, v = _project_kv(p, enc_out, cfg)
+        if part is not None:
+            k, v = kv_cache_blocks(k, v, cfg, part, layout)
+        ks.append(k.to(cdt))
+        vs.append(v.to(cdt))
+    cross = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    self_shape = (L, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if part is not None:
+        whole = torch.empty((L, n, max_len, cfg.n_kv_heads, cfg.head_dim),
+                            dtype=cdt, device="meta")
+        sh = cache_shardings(cfg, part.mesh, {"k": whole}, n)
+        self_shape = tuple(sl.stop - sl.start for sl in shard_slices(
+            whole.shape, sh["k"], part.coord))
     return {
         "len": torch.zeros((), dtype=torch.int32, device=dev), "pos": 0,
         "self": {n: torch.zeros(self_shape, dtype=cdt, device=dev)
@@ -220,31 +311,51 @@ def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
     }
 
 
-def _cross_attend(p: Params, h, cfg: ModelConfig, k, v, cross_len=None):
+def _cross_attend(p: Params, h, cfg: ModelConfig, k, v, cross_len=None,
+                  part=None, layout: str | None = None):
     """Cross-attention of ``h [B, S, d]`` over a layer's cross cache
-    ``[B, T_enc, KV, hd]``.  ``"cuda"``: the flash kernel, or with
-    ``cross_len`` (a decode step) the decode kernel over all ``T_enc``
-    positions; otherwise the reference's dense form."""
+    ``[B, T_enc, KV, hd]`` (:func:`~.layers.attend_cross`: the flash
+    kernel, or with ``cross_len`` (a decode step) the decode kernel over
+    all ``T_enc`` positions, under ``"cuda"``; otherwise the reference's
+    dense form).  With ``part``, its query heads over its block of the
+    cross cache in ``layout`` (module doc), ``wo``'s rows summed over
+    ``"model"``."""
     cdt = h.dtype
     B, S = h.shape[:2]
-    q = (h @ p["wq"].to(cdt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    if cfg.attention_impl != "cuda":
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        out = dense_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                              causal=False)
-    elif cross_len is None:
-        out = ops.mha_flash(q, k, v, causal=False)
+    if part is None:
+        q = (h @ p["wq"].to(cdt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        out = attend_cross(q, k, v, cfg, cross_len)
+        return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(
+            cdt)
+    h_lo, h_hi = part.block(cfg.n_heads)
+    h = enter_model_region(h, part)
+    q = (h @ p["wq"].to(cdt)).reshape(B, S, h_hi - h_lo, cfg.head_dim)
+    if layout == "head":
+        out = attend_cross(q, k, v, cfg, cross_len)
+    elif cross_len is None:            # K2 takes whole heads: gather them
+        kv = part.all_gather_model(torch.stack([k, v]))
+        k, v = torch.cat(list(kv.unbind(0)), dim=-1).unbind(0)
+        out = attend_cross(q, *local_kv(k, v, cfg, part), cfg)
     else:
-        out = ops.mha_decode(q, k, v, cross_len)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cdt)
+        out = _attend_hd_block(q, k, v, cross_len, cfg, part)
+    out = out.reshape(B, S, (h_hi - h_lo) * cfg.head_dim)
+    return leave_model_region_product(torch.matmul, part, out,
+                                      p["wo"].to(cdt))
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict):
+            cache: dict, part=None):
     """The decoder prompt against the cross cache, filling the self cache
     in place (K/V at ``[:S]``, zeros after).  Returns the last position's
-    logits and the cache."""
-    x = embed_inputs(params, cfg, tokens)
+    logits and the cache.  With ``part`` (module doc), its rows of the
+    whole batch ``tokens`` into its cache block, and its rows' logits
+    over the whole vocabulary."""
+    layout = None
+    if part is not None:
+        check_shardable(cfg, part.m)
+        layout = serve_layout(cfg, part, tokens.shape[0])
+        tokens = batch_block(tokens, part)
+    x = embed_inputs(params, cfg, tokens, part=part)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     if S > cache["self"]["k"].shape[2]:
@@ -253,51 +364,70 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
         h = rmsnorm(x, bp["self_attn"]["norm_scale"], cfg.norm_eps)
-        q, k, v = _project_qkv(bp["self_attn"], h, h, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        out = attend(q, k, v, cfg, causal=True)
-        out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-        x = x + out @ bp["self_attn"]["wo"].to(out.dtype)
+        if part is None:
+            q, k, v = _project_qkv(bp["self_attn"], h, h, cfg)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            out = attend(q, k, v, cfg, causal=True)
+            out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+            x = x + out @ bp["self_attn"]["wo"].to(out.dtype)
+        else:
+            out, k, v = _attention_sharded(bp["self_attn"], h, cfg,
+                                           positions, True, part,
+                                           kv_out=True)
+            x = x + out
+            k, v = kv_cache_blocks(k, v, cfg, part, layout)
         for name, t in (("k", k), ("v", v)):
             cache["self"][name][i, :, :S] = t
             cache["self"][name][i, :, S:] = 0
         h = rmsnorm(x, bp["cross_attn"]["norm_scale"], cfg.norm_eps)
         x = x + _cross_attend(bp["cross_attn"], h, cfg,
-                              cache["cross"]["k"][i], cache["cross"]["v"][i])
+                              cache["cross"]["k"][i], cache["cross"]["v"][i],
+                              part=part, layout=layout)
         h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
-        x = x + mlp_apply(bp["mlp"], h)
+        x = x + mlp_apply(bp["mlp"], h, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(params, cfg, x[:, -1:, :])
+    logits = _step_logits(params, cfg, x[:, -1:, :], part)
     cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
     cache["pos"] = S
     return logits, cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict):
+                cache: dict, part=None):
     """One decoder step: ``tokens [B, 1]`` → logits ``[B, 1, V]``, the new
     K/V written into the self cache at ``len`` and ``len`` advanced.
     Raises ``IndexError`` when the self cache is full (the reference
-    clamps the write index)."""
+    clamps the write index; a participant checks its host mirror, the
+    same on every one).  With ``part`` (module doc), its rows of
+    ``tokens`` and its rows' logits over the whole vocabulary."""
     check_cache_index(cache["pos"], cache["self"]["k"].shape[2])
-    x = embed_inputs(params, cfg, tokens)
+    layout = None
+    if part is not None:
+        check_shardable(cfg, part.m)
+        layout = serve_layout(cfg, part, tokens.shape[0])
+        tokens = batch_block(tokens, part)
+    x = embed_inputs(params, cfg, tokens, part=part)
     cache_len = cache["len"]
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
         h = rmsnorm(x, bp["self_attn"]["norm_scale"], cfg.norm_eps)
-        out, _, _ = attention_decode(bp["self_attn"], h, cfg,
-                                     cache["self"]["k"][i],
-                                     cache["self"]["v"][i], cache_len)
+        k_i, v_i = cache["self"]["k"][i], cache["self"]["v"][i]
+        if part is None:
+            out, _, _ = attention_decode(bp["self_attn"], h, cfg, k_i, v_i,
+                                         cache_len)
+        else:
+            out = attention_decode_sharded(bp["self_attn"], h, cfg, k_i,
+                                           v_i, cache_len, part, layout)
         x = x + out
         h = rmsnorm(x, bp["cross_attn"]["norm_scale"], cfg.norm_eps)
         x = x + _cross_attend(bp["cross_attn"], h, cfg,
                               cache["cross"]["k"][i], cache["cross"]["v"][i],
-                              cache["cross_len"])
+                              cache["cross_len"], part, layout)
         h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
-        x = x + mlp_apply(bp["mlp"], h)
+        x = x + mlp_apply(bp["mlp"], h, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(params, cfg, x)
+    logits = _step_logits(params, cfg, x, part)
     cache["len"] = cache_len + 1
     cache["pos"] += 1
     return logits, cache

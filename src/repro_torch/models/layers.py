@@ -15,7 +15,9 @@ column, ``wo`` by row), its kv heads (``wk`` / ``wv`` by column where the
 kv heads divide the model axis, else the columns of the kv heads its
 query heads read, from the replicated weights), its ``d_ff`` columns, in
 a region of :func:`~repro_torch.parallel.tensor.enter_model_region` and
-:func:`~repro_torch.parallel.tensor.leave_model_region`.  With a cache,
+:func:`~repro_torch.parallel.tensor.leave_model_region`; the
+encoder-decoder's cross-attention so too, its k / v projected from the
+encoder's output on the kv heads its query heads read.  With a cache,
 the participant keeps its block of it in the layout
 ``parallel/sharding.py``'s ``cache_layout`` names: its kv heads (``"head"``:
 a decode step runs the decode kernel over them), a ``head_dim`` block of
@@ -184,12 +186,15 @@ def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
                     x_kv=None, kv_positions=None, use_rope: bool = True,
                     part=None):
     """Full-sequence attention (prefill without cache, forward); with a
-    participant ``part``, self-attention on its block (module doc)."""
+    participant ``part``, on its block (module doc): self-attention with
+    rope, or cross-attention without it (``x_kv``, the encoder's output)."""
     if part is not None:
-        if x_kv is not None or not use_rope:
-            raise NotImplementedError("sharded attention is decoder "
-                                      "self-attention with rope only")
-        return _attention_sharded(p, x, cfg, positions, causal, part)
+        if (x_kv is None) != use_rope or kv_positions is not None:
+            raise NotImplementedError("sharded attention is self-attention "
+                                      "with rope or cross-attention without "
+                                      "it")
+        return _attention_sharded(p, x, cfg, positions, causal, part,
+                                  x_kv=x_kv)
     x_kv = x if x_kv is None else x_kv
     q, k, v = _project_qkv(p, x, x_kv, cfg)
     if use_rope:
@@ -202,13 +207,52 @@ def attention_apply(p: Params, x, cfg, *, positions, causal: bool = True,
     return out @ p["wo"].to(out.dtype)
 
 
+def _kv_heads_read(cfg, part) -> tuple[int, int, tuple | None]:
+    """``(kv_lo, kv_hi, pick)``: the kv heads ``part``'s query heads
+    ``part.block(H)`` read, and where the block straddles kv groups
+    unevenly ``pick = (first, n_rep)``: each query head's own kv head is
+    taken from them repeated ``n_rep`` times, from ``first`` on (else
+    None)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    h_lo, h_hi = part.block(H)
+    n_rep = H // KV
+    kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
+    even = kv_hi - kv_lo == 1 or (
+        h_lo % n_rep == 0 and (h_hi - h_lo) % n_rep == 0)
+    return kv_lo, kv_hi, None if even else (h_lo - kv_lo * n_rep, n_rep)
+
+
+def _picked(t, pick, n_q: int):
+    """The kv heads ``t [B, S, KV', hd]`` that ``n_q`` query heads read
+    one each (``pick`` of :func:`_kv_heads_read`; ``t`` where None)."""
+    if pick is None:
+        return t
+    first, n_rep = pick
+    return _repeat_kv(t, n_rep)[:, :, first:first + n_q]
+
+
+def local_kv(k, v, cfg, part):
+    """From every kv head ``k`` / ``v [B, S, KV, hd]`` (the kv heads do not
+    divide the model axis), those ``part``'s query heads read, as
+    :func:`attend` takes them against its ``q [B, S, H/m, hd]``."""
+    h_lo, h_hi = part.block(cfg.n_heads)
+    kv_lo, kv_hi, pick = _kv_heads_read(cfg, part)
+    return tuple(_picked(t[:, :, kv_lo:kv_hi].contiguous(), pick,
+                         h_hi - h_lo) for t in (k, v))
+
+
 def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
-                       kv_out: bool = False):
+                       kv_out: bool = False, x_kv=None):
     """Self-attention over ``part``'s query heads ``part.block(H)``.  With
     ``wk`` / ``wv`` replicated, the kv heads those query heads read are
     projected from their columns: one kv head for all of them (glm4-9b at
     a model axis of 4: 8 heads over one, so n_rep 8), or, where the block
     straddles kv groups unevenly, each query head's own (n_rep 1).
+
+    ``x_kv``: cross-attention over it instead (the encoder's output,
+    replicated over ``"model"``; the caller has passed it through
+    :func:`~repro_torch.parallel.tensor.enter_model_region`, once for
+    every layer that reads it): no rope, and :func:`attend_cross`.
 
     ``kv_out``: also return k (after rope) and v, ``(out, k, v)``: this
     participant's kv heads where they shard, else every kv head at the
@@ -216,45 +260,41 @@ def _attention_sharded(p: Params, x, cfg, positions, causal: bool, part,
     rope pairs column ``i`` with ``i + hd/2``, which another
     participant's ``head_dim`` block holds, so the cache block is cut
     after it, by :func:`kv_cache_blocks`)."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, hd = cfg.n_heads, cfg.head_dim
     cdt = dtype_of(cfg.dtype)
     h_lo, h_hi = part.block(H)
     x = enter_model_region(x, part)
+    src = x if x_kv is None else x_kv
     B, S = x.shape[:2]
-    heads = None
-    if kv_shardable(cfg, part.m):
-        cols, pick = slice(None), None
-    else:
-        n_rep = H // KV
-        kv_lo, kv_hi = h_lo // n_rep, (h_hi - 1) // n_rep + 1
-        if kv_out:                            # every kv head, then q's
-            cols, heads = slice(None), slice(kv_lo, kv_hi)
-        else:
-            cols = slice(kv_lo * hd, kv_hi * hd)
-        even = kv_hi - kv_lo == 1 or (
-            h_lo % n_rep == 0 and (h_hi - h_lo) % n_rep == 0)
-        pick = None if even else (h_lo - kv_lo * n_rep, n_rep)
+    Skv = src.shape[1]
+    shardable = kv_shardable(cfg, part.m)
+    cols = slice(None)              # its kv heads, or (kv_out) every one
+    if not (shardable or kv_out):   # the kv heads q reads
+        kv_lo, kv_hi, pick = _kv_heads_read(cfg, part)
+        cols = slice(kv_lo * hd, kv_hi * hd)
     q = x @ p["wq"].to(cdt)
-    k = x @ p["wk"][:, cols].to(cdt)
-    v = x @ p["wv"][:, cols].to(cdt)
+    k = src @ p["wk"][:, cols].to(cdt)
+    v = src @ p["wv"][:, cols].to(cdt)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"][cols].to(cdt)
         v = v + p["bv"][cols].to(cdt)
     q = q.reshape(B, S, h_hi - h_lo, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    k_att, v_att = k, v
-    if heads is not None:                     # the kv heads q reads
-        k_att = k[:, :, heads].contiguous()
-        v_att = v[:, :, heads].contiguous()
-    if pick is not None:
-        first, n_rep = pick
-        k_att = _repeat_kv(k_att, n_rep)[:, :, first:first + h_hi - h_lo]
-        v_att = _repeat_kv(v_att, n_rep)[:, :, first:first + h_hi - h_lo]
-    out = attend(q, k_att, v_att, cfg, causal)
+    k = k.reshape(B, Skv, -1, hd)
+    v = v.reshape(B, Skv, -1, hd)
+    if x_kv is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if shardable:
+        k_att, v_att = k, v
+    elif kv_out:
+        k_att, v_att = local_kv(k, v, cfg, part)
+    else:
+        k_att, v_att = (_picked(t, pick, h_hi - h_lo) for t in (k, v))
+    if x_kv is None:
+        out = attend(q, k_att, v_att, cfg, causal)
+    else:
+        out = attend_cross(q, k_att, v_att, cfg)
     out = out.reshape(B, S, (h_hi - h_lo) * hd)
     out = leave_model_region_product(torch.matmul, part, out,
                                      p["wo"].to(out.dtype))
@@ -288,6 +328,22 @@ def attend(q, k, v, cfg, causal: bool):
     if cfg.attention_impl == "dense":
         return dense_attention(q, k, v, causal)
     return blocked_attention(q, k, v, causal)
+
+
+def attend_cross(q, k, v, cfg, cross_len=None):
+    """Cross-attention of q ``[B, S, H, D]`` over the encoder's k / v
+    ``[B, T, KV, D]`` (not repeated), every position valid: under
+    ``"cuda"`` the flash kernel (non-causal, ``Sq = S``, ``Sk = T``) or,
+    with ``cross_len`` (a decode step; ``T - 1`` on the device), the decode
+    kernel over all ``T`` positions (its mask is inclusive); otherwise the
+    reference's dense form, which its cross-attention always takes."""
+    if cfg.attention_impl != "cuda":
+        n_rep = q.shape[2] // k.shape[2]
+        return dense_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                               causal=False)
+    if cross_len is None:
+        return ops.mha_flash(q, k, v, causal=False)
+    return ops.mha_decode(q, k, v, cross_len)
 
 
 def check_cache_index(cache_len, s_max: int) -> None:

@@ -215,15 +215,17 @@ def _block_forward(params: Params, cfg: ModelConfig, i: int, x, aux,
 
 def check_shardable(cfg: ModelConfig, m: int) -> None:
     """Raise where a model axis of ``m`` does not divide a dimension the
-    sharded layers split by whole units: attention and SSD heads, ``d_ff``
-    columns, experts, the padded vocabulary (``shard_tree`` cuts any leaf;
-    the layers run only whole blocks)."""
+    sharded layers split by whole units: attention heads, the SSD's
+    ``d_inner`` channels, ``d_ff`` columns, experts, the padded vocabulary
+    (``shard_tree`` cuts any leaf; the layers run only whole blocks).  The
+    SSD heads need not divide it: a participant runs its block of
+    channels (:mod:`.ssd`)."""
     pattern = cfg.pattern()
     dims = {"vocab_padded": cfg.vocab_padded}
     if any(s.mixer == "attn" for s in pattern):
         dims["n_heads"] = cfg.n_heads
     if any(s.mixer == "ssm" for s in pattern):
-        dims["ssm_heads"] = cfg.ssm_heads
+        dims["d_inner"] = cfg.d_inner
     if any(s.ffn == "mlp" for s in pattern):
         dims["d_ff"] = cfg.d_ff
     if any(s.ffn == "moe" for s in pattern):

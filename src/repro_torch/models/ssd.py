@@ -16,17 +16,30 @@ Shapes: x [B,S,H,P] (H = d_inner/P SSD heads), dt [B,S,H], A [H] (negative),
 B/C [B,S,G,N] with G groups broadcast over heads.
 
 Given a :class:`~repro_torch.parallel.tensor.Participant` (``part``), the
-full-sequence mixer runs its ``H / m`` heads: ``wz``, ``wx``,
-``conv_x_*`` and ``inner_norm`` are its block of ``d_inner``,
-``out_proj`` its rows; ``wbc``, ``wdt``, ``conv_bc_*``, ``A_log``, ``D``
-and ``dt_bias`` are replicated, and it reads their columns of its heads
-(and of the B/C groups they use).  ``inner_norm`` normalises over all of
-``d_inner``: the mean of squares is summed over ``"model"`` before the
-``rsqrt`` (:func:`sharded_rmsnorm`); a norm over one block alone would be
-another function.  Its state is its block of the cache's
-(``parallel/sharding.py``'s ``cache_shardings``): ``conv_x`` over its
-``d_inner`` columns, ``ssm`` over its heads, ``conv_bc`` whole (replicated
-over ``"model"``, the same bits on every participant).
+mixer runs on its block ``[c0, c1)`` of ``d_inner``, cut as ``shard_tree``
+cuts ``wx`` (ceil-divided over ``"model"``): ``wz``, ``wx``, ``conv_x_*``
+and ``inner_norm`` are that block, ``out_proj`` its rows; ``wbc``,
+``wdt``, ``conv_bc_*``, ``A_log``, ``D`` and ``dt_bias`` are replicated,
+and it reads their columns of the heads ``[c0 // P, ceil(c1 / P))`` that
+its channels touch (and of the B/C groups they use).  Where the heads do
+not divide the model axis (mamba2-130m's 24 on 16: 96 channels, 1.5 heads
+a participant) the block is laid into whole-head slots, zeros in the
+channels it does not own, and its channels of ``y`` are taken back: the
+SSD never mixes the channels of a head (``y[..., h, p]`` reads
+``x[..., h, p]``, the head's ``dt``, ``A`` and ``D`` and the shared B/C),
+so a straddled head is computed on both of its participants, each for its
+own channels, and zero channels give zero ``y`` and a zero state.  Where
+the heads divide, the block is whole heads and nothing is padded.
+``inner_norm`` normalises over all of ``d_inner``: the mean of squares is
+summed over ``"model"`` before the ``rsqrt`` (:func:`sharded_rmsnorm`); a
+norm over one block alone would be another function.  Its state is its
+block of the cache's (``parallel/sharding.py``'s ``cache_shardings``):
+``conv_x`` over its ``d_inner`` columns, ``conv_bc`` whole (replicated
+over ``"model"``, the same bits on every participant), and ``ssm`` its
+heads where they divide the model axis, else whole on every participant:
+after the prefill and after each decode step every participant's
+channels of the new state are all-gathered over ``"model"`` into it (one
+all-gather a layer), the same bits on every participant.
 """
 from __future__ import annotations
 
@@ -221,28 +234,75 @@ def sharded_rmsnorm(x, scale, n: int, part, eps: float = 1e-5):
     return (x * scale.float()).to(dtype)
 
 
-def _local_groups(cfg, part) -> tuple[int, int, int, int]:
-    """``(h0, h1, g0, g1)``: ``part``'s SSD heads and the B/C groups they
-    read.  Raises where its heads take part of a group and another
-    participant's the rest unevenly."""
-    H, G = cfg.ssm_heads, cfg.ssm_groups
-    h0, h1 = part.block(H)
-    rep = H // G
+def channel_block(cfg, part) -> tuple[int, int, int, int]:
+    """``(c0, c1, h0, h1)``: ``part``'s block ``[c0, c1)`` of ``d_inner``
+    (``part.block``, as ``shard_tree`` cuts ``wx``) and the SSD heads
+    ``[h0, h1)`` its channels touch."""
+    P = cfg.ssm_head_dim
+    c0, c1 = part.block(cfg.d_inner)
+    if c0 == c1:
+        raise NotImplementedError(f"an empty block of d_inner "
+                                  f"{cfg.d_inner} on a model axis of "
+                                  f"{part.m}")
+    return c0, c1, c0 // P, -(-c1 // P)
+
+
+def slot_offset(c0: int, P: int) -> int:
+    """Where a block of channels starting at ``c0`` begins in its first
+    head slot of ``P`` channels."""
+    return c0 % P
+
+
+def _to_slots(t, off: int, width: int):
+    """A block of channels ``t [..., n]`` at ``off`` in ``width`` channels,
+    zeros around it (``t`` itself where it fills them)."""
+    n = t.shape[-1]
+    if off == 0 and n == width:
+        return t
+    return F.pad(t, (off, width - off - n))
+
+
+def _from_slots(t, off: int, n: int):
+    """The ``n`` channels at ``off`` of ``t [..., width]`` (``t`` itself
+    where they are all of it)."""
+    if off == 0 and n == t.shape[-1]:
+        return t
+    return t[..., off:off + n]
+
+
+def _gather_state(h, off: int, n: int, part):
+    """The whole SSD state ``[B, H, P, N]`` from every model participant's
+    ``n`` channels at ``off`` of its slot state ``h [B, nh, P, N]``: one
+    all-gather over ``"model"``, the blocks in model order."""
+    B, nh, P, N = h.shape
+    mine = h.reshape(B, nh * P, N)[:, off:off + n]
+    blocks = part.all_gather_model(mine.contiguous())
+    whole = torch.cat(list(blocks.unbind(0)), dim=1)
+    return whole.reshape(B, -1, P, N)
+
+
+def _local_groups(cfg, h0: int, h1: int) -> tuple[int, int]:
+    """``(g0, g1)``: the B/C groups the heads ``[h0, h1)`` read.  Raises
+    where those heads take part of a group and another participant's the
+    rest unevenly."""
+    rep = cfg.ssm_heads // cfg.ssm_groups
     g0, g1 = h0 // rep, (h1 - 1) // rep + 1
     if not (g1 - g0 == 1 or (h0 % rep == 0 and (h1 - h0) % rep == 0)):
         raise NotImplementedError(
             f"heads {h0}..{h1} split a group of {rep} heads sharing B/C")
-    return h0, h1, g0, g1
+    return g0, g1
 
 
 def _ssm_sharded(p: Params, x, cfg, part, return_state: bool = False):
-    """The full-sequence mixer over ``part``'s heads (module doc); with
-    ``return_state``, also the state after the last step over them, as
-    :func:`ssm_apply` returns it unsharded."""
+    """The full-sequence mixer over ``part``'s block of channels (module
+    doc); with ``return_state``, also the state after the last step as the
+    cache keeps it (its ``ssm`` gathered whole where the heads do not
+    divide the model axis)."""
     B, S, _ = x.shape
-    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
-        cfg.ssm_state
-    h0, h1, g0, g1 = _local_groups(cfg, part)
+    P, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    c0, c1, h0, h1 = channel_block(cfg, part)
+    g0, g1 = _local_groups(cfg, h0, h1)
+    nh, n, off = h1 - h0, c1 - c0, slot_offset(c0, P)
     x = enter_model_region(x, part)
     cdt = x.dtype
     z = x @ p["wz"].to(cdt)
@@ -256,7 +316,7 @@ def _ssm_sharded(p: Params, x, cfg, part, return_state: bool = False):
     bcc = F.silu(causal_conv1d(bc, p["conv_bc_w"][:, bc_cols],
                                p["conv_bc_b"][bc_cols]))
     gl = (g1 - g0) * N
-    xs = xc.reshape(B, S, h1 - h0, P)
+    xs = _to_slots(xc, off, nh * P).reshape(B, S, nh, P)
     Bm = bcc[..., :gl].reshape(B, S, g1 - g0, N)
     Cm = bcc[..., gl:].reshape(B, S, g1 - g0, N)
     dt = F.softplus(dt.float() + p["dt_bias"][h0:h1].float())
@@ -264,13 +324,15 @@ def _ssm_sharded(p: Params, x, cfg, part, return_state: bool = False):
     chunked = ops.ssd_chunked_cuda if cfg.ssm_impl == "cuda" else ssd_chunked
     y, h_final = chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["D"][h0:h1].to(cdt)[None, None, :, None] * xs
-    y = y.reshape(B, S, (h1 - h0) * P)
+    y = _from_slots(y.reshape(B, S, nh * P), off, n)
     y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
                         cfg.norm_eps)
     out = leave_model_region_product(torch.matmul, part, y,
                                      p["out_proj"].to(cdt))
     if not return_state:
         return out
+    if cfg.ssm_heads % part.m:
+        h_final = _gather_state(h_final, off, n, part)
     K = cfg.ssm_conv
     # conv_bc's state is every B/C column: bc is that where this
     # participant reads every group, else the last K-1 steps' projection
@@ -357,14 +419,22 @@ def ssm_decode(p: Params, x, cfg, state: SsmState, part=None):
 
 
 def _ssm_decode_sharded(p: Params, x, cfg, state: SsmState, part):
-    """:func:`ssm_decode` over ``part``'s heads (module doc): its
-    ``conv_x`` columns and its heads' ``dt``, ``A``, ``D`` and ``dt_bias``;
-    the B/C window whole (its state is replicated) and the groups its
-    heads read; ``inner_norm`` through :func:`sharded_rmsnorm`; then
-    ``out_proj``'s rows, summed over ``"model"``."""
+    """:func:`ssm_decode` over ``part``'s block of channels (module doc):
+    its ``conv_x`` columns laid into its heads' slots and those heads'
+    ``dt``, ``A``, ``D`` and ``dt_bias``; the B/C window whole (its state
+    is replicated) and the groups its heads read; the state of its heads
+    (its block of it, or those heads of the whole state, whose foreign
+    channels it updates but never reads back), its channels of the new
+    state all-gathered over ``"model"`` into the whole one where the heads
+    do not divide the model axis; ``inner_norm`` through
+    :func:`sharded_rmsnorm`; then ``out_proj``'s rows, summed over
+    ``"model"``."""
     B = x.shape[0]
     P, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
-    h0, h1, g0, g1 = _local_groups(cfg, part)
+    c0, c1, h0, h1 = channel_block(cfg, part)
+    g0, g1 = _local_groups(cfg, h0, h1)
+    nh, n, off = h1 - h0, c1 - c0, slot_offset(c0, P)
+    whole = cfg.ssm_heads % part.m != 0
     x = enter_model_region(x, part)
     cdt = x.dtype
     z = x @ p["wz"].to(cdt)
@@ -378,23 +448,25 @@ def _ssm_decode_sharded(p: Params, x, cfg, state: SsmState, part):
     bcc = F.silu(torch.einsum("bkc,kc->bc", win_bc, p["conv_bc_w"].to(cdt))
                  + p["conv_bc_b"].to(cdt))
     gn = G * N
-    xs = xc.reshape(B, h1 - h0, P)
+    xs = _to_slots(xc, off, nh * P).reshape(B, nh, P)
     Bm = bcc[..., g0 * N:g1 * N].reshape(B, g1 - g0, N)
     Cm = bcc[..., gn + g0 * N:gn + g1 * N].reshape(B, g1 - g0, N)
-    rep = (h1 - h0) // (g1 - g0)
+    rep = nh // (g1 - g0)
     Bh = Bm.repeat_interleave(rep, dim=1).float()
     Ch = Cm.repeat_interleave(rep, dim=1).float()
     dt = F.softplus(dt[:, 0, :].float() + p["dt_bias"][h0:h1].float())
     A = -torch.exp(p["A_log"][h0:h1].float())
-    h = state.ssm.float()
+    h = (state.ssm[:, h0:h1] if whole else state.ssm).float()
     h = h * torch.exp(dt * A[None, :])[:, :, None, None] + (
         dt[:, :, None, None] * xs.float()[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhn,bhpn->bhp", Ch, h).to(cdt)
     y = y + p["D"][h0:h1].to(cdt)[None, :, None] * xs
-    y = y.reshape(B, 1, (h1 - h0) * P)
+    y = _from_slots(y.reshape(B, nh * P), off, n).reshape(B, 1, n)
     y = sharded_rmsnorm(y * F.silu(z), p["inner_norm"], cfg.d_inner, part,
                         cfg.norm_eps)
     out = leave_model_region_product(torch.matmul, part, y,
                                      p["out_proj"].to(cdt))
+    if whole:
+        h = _gather_state(h, off, n, part)
     return out, SsmState(conv_x=win_x[:, 1:, :], conv_bc=win_bc[:, 1:, :],
                          ssm=h)

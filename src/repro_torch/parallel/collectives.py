@@ -66,6 +66,19 @@ def observe(fn: Callable[[str, int], None]):
         _observers.remove(fn)
 
 
+@contextlib.contextmanager
+def unobserved():
+    """Inside the block no collective reports, whoever observes around it
+    (the setup of a counted call: the encoder-decoder's cache, which the
+    call takes as an input)."""
+    saved = _observers[:]
+    _observers.clear()
+    try:
+        yield
+    finally:
+        _observers[:] = saved
+
+
 def _report(kind: str, operand) -> None:
     if _observers:
         parts = [operand] if isinstance(operand, torch.Tensor) else operand

@@ -205,9 +205,11 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 #: Leaves replicated over ``"model"`` that the forward reads before a model
 #: region begins (``rmsnorm(x, norm_scale)`` ahead of each slot,
-#: ``final_norm`` ahead of the head): their gradient arrives whole through
+#: ``final_norm`` ahead of the head, the encoder-decoder's
+#: ``enc_final_norm`` ahead of every cross-attention, which takes the
+#: encoder's output into its region): their gradient arrives whole through
 #: ``enter_model_region``.
-AHEAD_OF_REGION = ("norm_scale", "final_norm")
+AHEAD_OF_REGION = ("norm_scale", "final_norm", "enc_final_norm")
 
 
 def _model_sharded(sh: NamedSharding) -> bool:
@@ -225,8 +227,10 @@ def partial_grad_leaves(param_sh) -> list[bool]:
     (:data:`AHEAD_OF_REGION`).  In the decoder-only model that is the
     router, the SSD's ``wbc``, ``wdt``, ``conv_bc_*``, ``A_log``, ``D`` and
     ``dt_bias``, and ``wk`` / ``wv`` / ``bk`` / ``bv`` where the kv heads
-    do not divide the model axis.  A model-sharded leaf's gradient is
-    its block's whole."""
+    do not divide the model axis; in the encoder-decoder's
+    ``enc_blocks`` / ``dec_blocks`` the same names by the same rule (its
+    cross-attention's ``wk`` / ``wv`` included).  A model-sharded leaf's
+    gradient is its block's whole."""
     return [not _model_sharded(sh) and str(path[-1]) not in AHEAD_OF_REGION
             for path, sh in tree.leaves_with_path(param_sh)]
 

@@ -15,10 +15,12 @@
   full size: ``status == "ok"``, the reference's result keys, and
   ``report.py`` renders them; the dense and MoE cells count one
   participant's sharded collectives on both meshes (the MoE's through
-  ``"gmm"``), the SSM cell names why it is not counted;
-- the cells the sharded layers refuse are exactly mamba2-130m's (24 SSD
-  heads on a model axis of 16) and the encoder-decoder's, read off the
-  configs, and each names its refusal.
+  ``"gmm"``), the SSM cell too (24 SSD heads on a model axis of 16: 1.5
+  heads a participant, its state all-gathered);
+- no cell is refused: every sharded program of the 32 cells of
+  mamba2-130m and seamless-m4t-medium (the encoder-decoder) runs on both
+  meshes and counts its collectives, and a refusal of the sharded layers
+  still names itself (``count_collectives``).
 """
 from __future__ import annotations
 
@@ -137,9 +139,12 @@ def test_shard_shape_ceil_divides():
 
 
 #: (arch, shape): the cells whose collectives the sharded layers refuse
-#: to run, on both production meshes
-REFUSED = {("mamba2_130m", s) for s in ("train_4k", "prefill_32k",
-                                        "decode_32k", "long_500k")} | {
+#: to run, on both production meshes: none
+REFUSED: set = set()
+#: The cells that were refused until the SSD ran on blocks of channels and
+#: the encoder-decoder sharded.
+ONCE_REFUSED = {("mamba2_130m", s) for s in ("train_4k", "prefill_32k",
+                                             "decode_32k", "long_500k")} | {
     ("seamless_m4t_medium", s) for s in ("train_4k", "prefill_32k",
                                          "decode_32k")}
 
@@ -190,7 +195,7 @@ def test_run_cell_on_meta_at_full_size(arch, shape, tmp_path, capsys):
     rows = report.load(results_dir=str(tmp_path))
     table = report.dryrun_table(rows)
     assert table.count("| ok |") == 2
-    assert ("n/a: uneven model blocks" in table) == refused
+    assert ("n/a:" in table) == refused
     assert ("all-reduce=" in table) != refused
     roof = report.roofline_table(rows, mesh="multi")
     assert f"| {arch} | {shape} |" in roof
@@ -240,23 +245,23 @@ def test_port_results_never_land_in_the_reference_directory():
 
 
 def test_the_refused_cells_are_read_off_the_configs():
-    """A cell's collectives are refused where the sharded layers do not run
-    its model on a model axis of 16: an encoder-decoder, or a dimension
-    they split by whole units that 16 does not divide.  Each refused
-    cell's sharded program raises the refusal, on both meshes."""
+    """No cell's collectives are refused: the sharded layers run every
+    config on a model axis of 16 (mamba2-130m's 24 SSD heads as blocks of
+    channels), and the encoder-decoder.  The cells refused before are
+    counted on both meshes: each once-refused cell's sharded program
+    reports its collectives, an all-gather among them (mamba2's whole SSD
+    state gathered from the participants' channels, seamless's
+    vocabulary), and a refusal of the sharded layers still names itself."""
     from repro_torch.models import lm
 
     def refuses(arch: str) -> bool:
-        cfg = get_config(arch)
-        if cfg.enc_layers:
-            return True
         try:
-            lm.check_shardable(cfg, 16)
+            lm.check_shardable(get_config(arch), 16)
         except NotImplementedError:
             return True
         return False
     assert {(a, s.name) for a, s in cells() if refuses(a)} == REFUSED
-    for arch, shape in sorted(REFUSED):
+    for arch, shape in sorted(ONCE_REFUSED):
         for mesh_kind in ("single", "multi"):
             mesh = dryrun.make_production_mesh(multi_pod=mesh_kind == "multi")
             cfg = dryrun.make_cell_cfg(arch)
@@ -264,9 +269,16 @@ def test_the_refused_cells_are_read_off_the_configs():
             got = dryrun.count_collectives(dryrun.sharded_step(
                 dryrun.collective_cfg(cfg), SHAPES[shape], mesh, args,
                 shardings))
-            assert got["skipped"].startswith("NotImplementedError"), got
-            assert ("encoder-decoder" if "seamless" in arch
-                    else "ssm_heads") in got["skipped"]
+            assert got["skipped"] is None, got
+            assert got["bytes_by_kind"]["all-gather"] > 0, got
+            assert got["count_by_kind"]["all-reduce"] > 0, got
+
+    def refused():
+        raise NotImplementedError("a layer the sharded program refuses")
+    got = dryrun.count_collectives(refused)
+    assert got["skipped"] == ("NotImplementedError: a layer the sharded "
+                              "program refuses")
+    assert "bytes_by_kind" not in got
 
 
 def test_the_collective_count_follows_zero1_and_the_mesh(tmp_path):

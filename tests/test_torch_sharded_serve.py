@@ -49,7 +49,9 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   fully-seq layout), call for call, equal those of the same calls run on
   ``meta`` over ``MetaShards`` at the rank's coordinate (the dry run's
   count);
-- the encoder-decoder and ``moe_impl="ep"`` raise.
+- each serving call of the encoder-decoder on a (1, 1) mesh is the
+  unsharded one byte for byte (its multi-rank cases are
+  ``tests/test_torch_sharded_encdec.py``); ``moe_impl="ep"`` raises.
 """
 from __future__ import annotations
 
@@ -391,13 +393,40 @@ def test_a_model_axis_of_one_keeps_every_parameter_whole():
 
 
 @pytest.mark.parametrize("call", ["init_cache", "prefill", "decode"])
-def test_the_encoder_decoder_does_not_serve_sharded(call):
-    model = Model(smoke_variant(get_config("seamless_m4t_medium")))
-    args = {"init_cache": ({}, {}, MAX_LEN), "prefill": ({}, {}, {}),
-            "decode": ({}, None, {})}[call]
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        getattr(model, call)(*args,
-                             shards=make_mesh((1, 1), ("data", "model")))
+def test_the_encoder_decoder_serves_sharded_on_one_shard(call):
+    """Each serving call of the encoder-decoder runs with ``shards=`` (it
+    raised before ``models/encdec.py`` took a participant): on a (1, 1)
+    mesh, the call's cache and logits are the unsharded ones byte for
+    byte (the multi-rank cases are
+    ``tests/test_torch_sharded_encdec.py``)."""
+    cfg = replace(smoke_variant(get_config("seamless_m4t_medium")),
+                  **KERNEL_PATHS)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    enc = torch.randn((BATCH, 8, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": torch.from_numpy(prompts()), "enc_embeds": enc}
+    runs = []
+    for shards in (None, make_mesh((1, 1), ("data", "model"))):
+        kw = {"shards": shards if call == "init_cache" else None}
+        cache = model.init_cache(params, batch, MAX_LEN, **kw)
+        out = []
+        if call != "init_cache":
+            kw = {"shards": shards if call == "prefill" else None}
+            logits, cache = model.prefill(params, batch, cache, **kw)
+            out.append(logits)
+        if call == "decode":
+            logits, cache = model.decode(params, batch["tokens"][:, :1],
+                                         cache, shards=shards)
+            out.append(logits)
+        runs.append((out, cache))
+    (want, want_cache), (got, got_cache) = runs
+    assert all(sha(g) == sha(w) for g, w in zip(got, want, strict=True))
+    for name in ("self", "cross"):
+        for k in ("k", "v"):
+            assert sha(got_cache[name][k]) == sha(want_cache[name][k])
+    assert got_cache["pos"] == want_cache["pos"]
+    assert int(got_cache["cross_len"]) == int(want_cache["cross_len"])
 
 
 @pytest.mark.parametrize("call", ["prefill", "decode"])

@@ -14,7 +14,8 @@ versions at smoke size:
   (2, 2, 1), and a tree of uneven leaves; no leaf of the ten configs at
   their published size is uneven at a model axis of 4;
 - a (1, 1) mesh gives the unsharded step's state and metrics byte for
-  byte;
+  byte, and the encoder-decoder's loss and gradients (its multi-rank
+  cases are ``tests/test_torch_sharded_encdec.py``);
 - one spawn of 4 gloo ranks (a ``FileStore`` under the test's temporary
   directory) runs granite-moe (kv heads sharded), glm4 (smoke kv 1,
   replicated), mamba2 and jamba on every mesh above (the batch over pod
@@ -256,12 +257,21 @@ def test_no_leaf_of_the_published_configs_is_uneven_at_model_4(arch):
 
 
 def test_layers_refuse_a_model_axis_that_splits_heads():
+    """Attention heads and experts must divide the model axis; the SSD's
+    heads need not (a participant runs its block of ``d_inner``:
+    mamba2-130m's 24 heads on 16 are 1.5 a participant), its channels
+    must."""
     lm.check_shardable(smoke_variant(get_config("glm4_9b")), 4)
     with pytest.raises(NotImplementedError, match="n_heads"):
         lm.check_shardable(smoke_variant(get_config("glm4_9b")), 8)
     with pytest.raises(NotImplementedError, match="moe_experts"):
         lm.check_shardable(smoke_variant(
             get_config("granite_moe_1b_a400m")), 8)
+    cfg = get_config("mamba2_130m")
+    assert cfg.ssm_heads % 16 and cfg.d_inner % 16 == 0
+    lm.check_shardable(cfg, 16)
+    with pytest.raises(NotImplementedError, match="d_inner"):
+        lm.check_shardable(replace(smoke_variant(cfg), d_model=20), 16)
 
 
 # -- one shard: the unsharded bits --------------------------------------------
@@ -702,10 +712,30 @@ def test_sharded_forward_gathers_the_unsharded_logits(ranks, reference,
         torch.testing.assert_close(got["load"], aux.expert_load)
 
 
-def test_the_encoder_decoder_does_not_run_sharded():
-    model = Model(smoke_variant(get_config("seamless_m4t_medium")))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        model.loss({}, {}, shards=make_mesh((1, 1), ("data", "model")))
+def test_the_encoder_decoder_runs_sharded_on_one_shard():
+    """``Model.loss`` with ``shards=`` runs the encoder-decoder sharded (it
+    raised before ``models/encdec.py`` took a participant): on a (1, 1)
+    mesh its loss, metrics and gradients are the unsharded ones byte for
+    byte (the multi-rank cases are ``tests/test_torch_sharded_encdec.py``)."""
+    cfg = replace(smoke_variant(get_config("seamless_m4t_medium")),
+                  **KERNEL_PATHS)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {**torch_batch(np_batch(cfg.vocab, 0)),
+             "enc_embeds": torch.randn((BATCH, 4, cfg.d_model),
+                                       generator=gen)}
+    runs = []
+    for shards in (None, make_mesh((1, 1), ("data", "model"))):
+        leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        loss, metrics = model.loss(tree.unflatten(params, leaves), batch,
+                                   shards=shards)
+        runs.append((loss, metrics, torch.autograd.grad(loss, leaves)))
+    (want, want_m, want_g), (got, got_m, got_g) = runs
+    assert same(got.detach(), want.detach())
+    assert got_m.keys() == want_m.keys()
+    assert all(same(got_m[k].detach(), want_m[k].detach()) for k in want_m)
+    assert all(same(g, w) for g, w in zip(got_g, want_g, strict=True))
 
 
 def test_a_recorded_routing_replays_in_the_sharded_run(ranks, reference):
