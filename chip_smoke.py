@@ -266,7 +266,20 @@ process exits non-zero):
                 ms per rank, spawn-to-ready seconds, peak GB per rank,
                 collectives per rank and step.  The kernels are held
                 against their plain versions at these shapes (and timed)
-                in ``kernels``.  Then ``compress=True`` on the three-axis
+                in ``kernels``.  Then expert parallelism inside the
+                sharded step (``EP_KEY``): granite-moe-1b-a400m with
+                ``moe_impl="ep"`` on (2, 2) at 4 layers, 8 x 512, 3 bf16
+                steps, each participant routing its sequence block of its
+                rows and running K5 three times a layer over the 10 240
+                rows it receives for its 16 experts; float32 at 2 layers
+                against rank 0's unsharded ep step over the same mesh
+                (the list form; each participant replays its shard's
+                router calls), with three controls past the leaf limit
+                (the partial leaves unsummed, the entry's backward
+                keeping the participant's own block of ``dx``, the aux
+                terms' gradient whole on every model participant); bf16
+                step 1 against the unsharded bf16 ep step at granite's
+                ``grad_bf16`` limits.  Then ``compress=True`` on the three-axis
                 mesh ``("pod", "data", "model")`` (2, 1, 2):
                 olmoe-1b-7b at 1 layer (K2 over 8 of 16 heads, K5 over 32
                 of 64 experts), 4 x 512, 3 bf16 steps; in every step on
@@ -295,7 +308,7 @@ process exits non-zero):
                 steps, a 1048-position cache: granite-moe-1b-a400m on
                 (1, 4) at 4 layers (head-sharded cache: K2, K3, K5),
                 glm4-9b on (1, 4) at 2 layers (hd-sharded: K2; K3 never
-                launches), mamba2-130m on (2, 2) at 24 layers (K4),
+                launches), mamba2-130m on (2, 2) at 8 layers (K4),
                 seamless-m4t-medium on (1, 4) at 4 + 4 layers with 256
                 frames (``init_cache`` encodes its rows: K2 once per
                 encoder layer; K2 twice per decoder layer of a prefill, K3
@@ -316,17 +329,26 @@ process exits non-zero):
                 bf16 run within ``serve_path``'s limit, routing ``moved``
                 within 3 %; the same logits and ``conv_bc`` bits on every
                 model participant of a data group; a full cache raises
-                ``IndexError`` on every rank.  Then the fully-seq cache
+                ``IndexError`` on every rank.  The ep prefill
+                (``EP_KEY``, prefill only): granite-moe with
+                ``moe_impl="ep"`` on (2, 2) at 4 layers (float32 at 2),
+                8 x 1024, 20 480 received rows a participant's K5 launch;
+                logits (and in float32 the gathered cache) against rank
+                0's unsharded ep prefill, its control every block of the
+                layer's output the participant's own; its decode step
+                raises ``ValueError`` on every rank before any
+                collective, as the reference's ``shard_map`` asserts.
+                Then the fully-seq cache
                 layout (a batch that does not divide over the data axes:
                 every rank takes every row, its cache block is a block of
                 the positions), batch 1 x 512 prompt, 16 steps into the
                 same cache (on dp 4 blocks of 262: the steps cross into
                 rank 2's block at 524, rank 3's holds no valid position):
-                granite-moe on (4, 1) at 24 layers (whole heads: K2, K3's
+                granite-moe on (4, 1) at 8 layers (whole heads: K2, K3's
                 statistics form on every rank's block, the blocks'
                 softmax combined across dp, K5 over all 32 experts),
                 glm4-9b on (2, 2) at 2 layers (``head_dim`` blocks of the
-                positions: K2; K3 never), mamba2 on (2, 2) at 24 layers
+                positions: K2; K3 never), mamba2 on (2, 2) at 8 layers
                 (its batch whole, K4); float32 at 4 / 2 / 4 layers with
                 the controls: the block's ``cache_len`` not offset by its
                 start (granite), the blocks averaged with equal weights
@@ -2601,21 +2623,25 @@ class TrainRouting(Routing):
     router runs in the forward (block 0 first) and again in each block's
     recompute (last block first).  Each recompute call replays its forward
     call, and recording checks that it chose the same experts from bitwise
-    equal probabilities (``recompute_equal``)."""
+    equal probabilities (``recompute_equal``).  ``shards``: the router
+    calls of one layer (the unsharded ep layer's shards, each routing its
+    own tokens, in shard order)."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, shards: int = 1) -> None:
         super().__init__()
         self.per_block = sum(s.ffn == "moe" for s in cfg.pattern())
         self.blocks = cfg.n_blocks
+        self.shards = shards
         self.probs: list = []
         self.recompute_equal = True
 
     def _source(self, call: int) -> int:
-        r = call - self.per_block * self.blocks
+        group, shard = divmod(call, self.shards)
+        r = group - self.per_block * self.blocks
         if r < 0:
             return call
-        return (self.blocks - 1 - r // self.per_block) * self.per_block \
-            + r % self.per_block
+        return ((self.blocks - 1 - r // self.per_block) * self.per_block
+                + r % self.per_block) * self.shards + shard
 
     def _keep(self, probs, experts) -> None:
         f = self._source(len(self.recorded))
@@ -3695,6 +3721,22 @@ SHARD_STEPS = 3
 SHARD_TIMEOUT_S = 900.0
 UNEVEN_RANKS = 16
 UNEVEN_KEY = f"{SSM_ARCH}/uneven"
+#: The ep cases (``shard_path`` and ``shard_serve_path``): granite-moe
+#: with ``moe_impl="ep"`` inside the sharded step and prefill on (2, 2),
+#: so that both the aux terms' psum over the data axes and the all_to_all
+#: over ``"model"`` run; 4 of its 24 layers (float32 at 2) for the phase's
+#: time.  A participant routes 4 rows x 256 positions at top-8 (8192
+#: slots), sends ``cap`` = 5120 a destination and receives 10 240 rows
+#: over its 16 of 32 experts (20 480 in the 8 x 1024 prefill).  Held to
+#: the unsharded ep step over the same mesh (the list form in one
+#: process), its routing replayed on each participant's calls; the
+#: float32 controls: the entry's backward keeping the participant's own
+#: block of ``dx``, the aux terms' gradient whole on every model
+#: participant, the router unsummed over ``"model"`` (the partial leaves'
+#: control), and in serving every block of the output the participant's
+#: own.  The prefill's decode step must raise ``ValueError`` on every rank.
+EP_KEY = f"{MOE_ARCH}/ep"
+EP_CONTROLS = ("own_block_entry", "aux_on_every_model_participant")
 SHARD_CASES = {
     MOE_ARCH: {"arch": MOE_ARCH, "mesh": (1, 4), "layers": 4,
                "batch": (8, 512), "zero_opt": False, "f32_layers": 4},
@@ -3709,6 +3751,9 @@ SHARD_CASES = {
     UNEVEN_KEY: {"arch": SSM_ARCH, "mesh": (1, 16), "layers": 4,
                  "batch": (2, 512), "zero_opt": False, "f32_layers": 4,
                  "steps": 2, "ranks": UNEVEN_RANKS},
+    EP_KEY: {"arch": MOE_ARCH, "mesh": (2, 2), "layers": 4,
+             "batch": (8, 512), "zero_opt": False, "f32_layers": 2,
+             "moe_impl": "ep", "f32_control": EP_CONTROLS},
 }
 #: bf16: step 1's loss and global gradient norm against the unsharded bf16
 #: step on the same parameters and batch (routing replayed), relative, at
@@ -3754,7 +3799,9 @@ COMPRESS_OUTLIER_SHARE = 0.01
 #: positions: granite-moe head-sharded (K2, K3, K5), glm4-9b hd-sharded
 #: (K2; K3 never), mamba2 with the batch over dp and its SSD heads over
 #: model (K4), at ``layers`` (cut for the phase's time: at 8 / 4 layers
-#: the whole run read 703.7 s on an H100), the float32 check at
+#: the whole run read 703.7 s on an H100; mamba2's cases and granite's
+#: fully-seq one, at 24 layers until the ep cases came, at 8 for theirs),
+#: the float32 check at
 #: ``f32_layers``; ``layout`` is the attention cache's layout the case
 #: must take (``lm.serve_layout``; None: no attention).  The fully-seq
 #: cases (keys ``arch/fully_seq``) take a batch of 1 that no data axis of
@@ -3785,11 +3832,11 @@ SHARD_SERVE_CASES = {
     SERVE_ARCH: {"arch": SERVE_ARCH, "mesh": (1, 4), "layers": 2,
                  "f32_layers": 2, "layout": "hd", "batch": SERVE_BATCH,
                  "prompt": PROMPT_LEN, "full_cache": True},
-    SSM_ARCH: {"arch": SSM_ARCH, "mesh": (2, 2), "layers": 24,
+    SSM_ARCH: {"arch": SSM_ARCH, "mesh": (2, 2), "layers": 8,
                "f32_layers": 4, "layout": None, "batch": SERVE_BATCH,
                "prompt": PROMPT_LEN, "full_cache": False},
     f"{MOE_ARCH}/fully_seq": {
-        "arch": MOE_ARCH, "mesh": (4, 1), "layers": 24, "f32_layers": 4,
+        "arch": MOE_ARCH, "mesh": (4, 1), "layers": 8, "f32_layers": 4,
         "layout": "seq", "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": True},
     f"{SERVE_ARCH}/fully_seq": {
@@ -3797,7 +3844,7 @@ SHARD_SERVE_CASES = {
         "layout": "seq_hd", "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": False},
     f"{SSM_ARCH}/fully_seq": {
-        "arch": SSM_ARCH, "mesh": (2, 2), "layers": 24, "f32_layers": 4,
+        "arch": SSM_ARCH, "mesh": (2, 2), "layers": 8, "f32_layers": 4,
         "layout": None, "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": False},
     ENCDEC_ARCH: {"arch": ENCDEC_ARCH, "mesh": (1, 4), "layers": 4,
@@ -3809,6 +3856,10 @@ SHARD_SERVE_CASES = {
                  "new": UNEVEN_SERVE_NEW, "max_len": UNEVEN_SERVE_LEN,
                  "full_cache": False, "control": "unoffset",
                  "ranks": UNEVEN_RANKS},
+    EP_KEY: {"arch": MOE_ARCH, "mesh": (2, 2), "layers": 4,
+             "f32_layers": 2, "layout": "head", "batch": SERVE_BATCH,
+             "prompt": PROMPT_LEN, "full_cache": False, "moe_impl": "ep",
+             "prefill_only": True, "control": "own_block_exit"},
 }
 #: The float32 check's control per layout: one step of the sharded decode
 #: broken (``serve_control``), which must leave the limit.
@@ -3835,6 +3886,54 @@ def shard_config(arch: str, layers: int | None, **kw):
     return replace(cfg, **kw)
 
 
+def case_config(case: dict, layers: int | None, **kw):
+    """A ``SHARD_CASES`` / ``SHARD_SERVE_CASES`` entry's config: its arch
+    at ``layers`` (``shard_config``), with the case's ``moe_impl`` where it
+    names one."""
+    if "moe_impl" in case:
+        kw = {"moe_impl": case["moe_impl"], **kw}
+    return shard_config(case["arch"], layers, **kw)
+
+
+@contextlib.contextmanager
+def unsharded_mesh(case: dict):
+    """Around the unsharded run that a case's sharded run is held to:
+    under ``moe_impl="ep"`` the case's mesh published for it
+    (``ep_moe.set_mesh``: every shard in this process, the list form).
+    Yields the router calls a routing makes (the shards: one each)."""
+    if case.get("moe_impl") != "ep":
+        yield 1
+        return
+    mesh = make_mesh(case["mesh"], ("data", "model"))
+    ep_moe.set_mesh(mesh)
+    try:
+        yield mesh.size
+    finally:
+        ep_moe.set_mesh(None)
+
+
+def own_calls(recorded: list, case: dict, part) -> list:
+    """The unsharded run's router calls that ``part`` replays: all of
+    them, or under ``moe_impl="ep"`` (every shard's call in shard order,
+    call after call) its own shard's."""
+    if case.get("moe_impl") != "ep":
+        return recorded
+    return recorded[part.di * part.m + part.mi::part.mesh.size]
+
+
+class WholeMean(torch.autograd.Function):
+    """``tensor.mean_over_mesh`` with its gradient whole on every model
+    participant (the ep aux control)."""
+
+    @staticmethod
+    def forward(ctx, x, part):
+        return part.pmean_mesh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def pool_cases(table: dict, ranks: int) -> dict:
     """The entries of ``SHARD_CASES`` or ``SHARD_SERVE_CASES`` that run in
     the pool of ``ranks`` rank processes."""
@@ -3848,7 +3947,12 @@ def shard_control(name: str, part=None):
     head boundary: a straddled head reads the wrong ``dt``, ``A`` and
     ``D``), ``unentered_encoder_output`` (the encoder's output read by the
     cross-attention outside the model region: its gradient not summed over
-    ``"model"``); any other name is ``serve_control``'s."""
+    ``"model"``), the ep layer's ``own_block_entry`` (its entry's gradient
+    only the participant's own block of ``dx``: plain slicing),
+    ``aux_on_every_model_participant`` (the aux means' gradient whole on
+    every model participant: ``m`` times the reference's) and
+    ``own_block_exit`` (every block of its output the participant's own);
+    any other name is ``serve_control``'s."""
     from unittest import mock
 
     from repro_torch.models import encdec, ssd
@@ -3858,6 +3962,17 @@ def shard_control(name: str, part=None):
     if name == "unentered_encoder_output":
         return mock.patch.object(encdec, "enter_model_region",
                                  lambda x, part: x)
+    if name == "own_block_entry":
+        def own(x, part):
+            n = x.shape[1] // part.m
+            return x[:, part.mi * n:(part.mi + 1) * n]
+        return mock.patch.object(ep_moe, "enter_sequence_block", own)
+    if name == "aux_on_every_model_participant":
+        return mock.patch.object(ep_moe, "mean_over_mesh",
+                                 lambda x, part: WholeMean.apply(x, part))
+    if name == "own_block_exit":
+        return mock.patch.object(ep_moe, "leave_sequence_block",
+                                 lambda x, part: x.repeat(1, part.m, 1))
     return serve_control(name)
 
 
@@ -3964,7 +4079,34 @@ def shard_kernel_shapes(gen, device) -> dict:
     out["uneven_ssd_scan"] = (*case["batch"], -(-(off + n) // P),
                               cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk,
                               (off, n))
+    # the ep cases' (2, 2): participant 0's received rows in a train step
+    # (8 x 512) and in the prefill (8 x 1024)
+    cfg, case = get_config(MOE_ARCH), SHARD_CASES[EP_KEY]
+    (dp, m), (B, S) = case["mesh"], case["batch"]
+    for key, t_loc in (("ep_moe_gmm", B // dp * S // m),
+                       ("ep_serve_moe_gmm", SERVE_BATCH // dp * PROMPT_LEN
+                        // m)):
+        out[key] = (ep_received_sizes(gen, t_loc, cfg, m, device),
+                    cfg.d_model, cfg.expert_d_ff)
     return out
+
+
+def ep_received_sizes(gen, t_loc: int, cfg, m: int, device) -> torch.Tensor:
+    """K5's group sizes on participant 0 of the sharded ep layer: the
+    ``m · cap`` rows it receives over its ``E / m`` experts.  From each of
+    the ``m`` sources the slots a random router sends its experts
+    (``routed_sizes`` over ``t_loc · k`` slots), cut at ``cap`` a
+    destination; the rest of the buffer zero rows in the last group, as
+    ``ep_moe._expert_ffn`` lays them out."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    cap = ep_moe.capacity(t_loc, k, m, 1.25)
+    valid = torch.zeros(E // m, dtype=torch.int64, device=device)
+    for _ in range(m):
+        sizes = routed_sizes(gen, t_loc * k, E, device)[:E // m]
+        kept = torch.cumsum(sizes, 0).clamp(max=cap)
+        valid += torch.diff(kept, prepend=kept.new_zeros(1))
+    valid[-1] += m * cap - valid.sum()
+    return valid
 
 
 def shard_kernel_checks(device, seed: int) -> list[dict]:
@@ -4033,6 +4175,12 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
                 out.append({**gmm_case(gen, sizes, K, N, dtype, device,
                                        f"fully-seq {key} {label}"),
                             "sharded": f"fs_moe_gmm_{key}"})
+        for key in ("ep_moe_gmm", "ep_serve_moe_gmm"):
+            sizes, d, f = shapes[key]
+            for label, K, N in (("gate/up", d, f), ("down", f, d)):
+                out.append({**gmm_case(gen, sizes, K, N, dtype, device,
+                                       f"ep received rows {label}"),
+                            "sharded": key})
     return out
 
 
@@ -4222,6 +4370,9 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
                                                      "moe_gmm", 1)]
     gmm_keys += [(f"serve_moe_gmm_{key}_gate_up", f"serve_moe_gmm_{key}", 0)
                  for key in ("prefill", "decode")]
+    gmm_keys += [("ep_moe_gmm_gate_up", "ep_moe_gmm", 0),
+                 ("ep_moe_gmm_down", "ep_moe_gmm", 1),
+                 ("ep_serve_moe_gmm_gate_up", "ep_serve_moe_gmm", 0)]
     for key, shape_key, down in gmm_keys:
         sizes, d, f = shapes[shape_key]
         K, N_ = (f, d) if down else (d, f)
@@ -4285,24 +4436,25 @@ def shard_reference(args, device, key: str) -> dict:
     routing it recorded (forward and recompute, on the host), which step
     1 of the sharded run replays."""
     case = SHARD_CASES[key]
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(
         args.seed))
     B, S = case["batch"]
     batch = train_batch(cfg, B, S, args.seed, 0, device)
-    routing = TrainRouting(cfg)
-    with routing.record():
-        _, metrics = train_step_mod.make_train_step(model, SHARD_OPT)(
-            {"params": params, "opt": train_step_mod.adamw_init(params)},
-            batch)
+    with unsharded_mesh(case) as shards:
+        routing = TrainRouting(cfg, shards)
+        with routing.record():
+            _, metrics = train_step_mod.make_train_step(model, SHARD_OPT)(
+                {"params": params, "opt": train_step_mod.adamw_init(params)},
+                batch)
     out = {"loss": float(metrics["loss"]),
            "grad_norm": float(metrics["grad_norm"]),
            "recompute_routing_equal": routing.recompute_equal,
            "routing": [t.cpu() for t in routing.recorded]}
     if case.get("bf16_loss_against") == "float32":
         del params
-        cfg32 = shard_config(case["arch"], case["layers"], dtype="float32")
+        cfg32 = case_config(case, case["layers"], dtype="float32")
         model32 = Model(cfg32)
         params = model32.init(torch.Generator(device=device).manual_seed(
             args.seed))
@@ -4315,10 +4467,13 @@ def shard_reference(args, device, key: str) -> dict:
 def shard_f32_check(seed: int, device, key: str, part) -> dict:
     """Case ``key`` in float32 at its check's depth: rank 0 takes the
     unsharded loss and gradients (routing recorded), every rank the
-    sharded ones on its block with that routing replayed; each gathered
-    leaf, with and without the sum over ``"model"`` of the partial ones,
-    and (where the case names one, ``f32_control``) under its control, is
-    held to rank 0's.  Errors are rank 0's (None elsewhere)."""
+    sharded ones on its block with that routing replayed (under
+    ``moe_impl="ep"`` the unsharded ep step over the case's mesh, each
+    participant replaying its shard's calls); each gathered leaf, with and
+    without the sum over ``"model"`` of the partial ones, and (where the
+    case names them, ``f32_control``: a name or several) under each
+    control, is held to rank 0's.  Errors are rank 0's (None
+    elsewhere)."""
     from repro_torch.parallel.sharding import (
         gather_tree,
         param_shardings,
@@ -4326,7 +4481,7 @@ def shard_f32_check(seed: int, device, key: str, part) -> dict:
     )
 
     case = SHARD_CASES[key]
-    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
+    cfg = case_config(case, case["f32_layers"], dtype="float32")
     model = Model(cfg)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
     sh = param_shardings(full, cfg, part.mesh)
@@ -4334,36 +4489,44 @@ def shard_f32_check(seed: int, device, key: str, part) -> dict:
     B, S = case["batch"]
     batch = train_batch(cfg, B, S, seed, 0, device)
     lead = dist.get_rank() == 0
-    routing = TrainRouting(cfg)
+    ref_routing = None
     ref_loss = ref_grads = None
     marks = [time.time()]
     if lead:
-        with routing.record():
-            ref_loss, ref_grads = loss_and_grads(cfg, full, batch)
+        with unsharded_mesh(case) as shards:
+            ref_routing = TrainRouting(cfg, shards)
+            with ref_routing.record():
+                ref_loss, ref_grads = loss_and_grads(cfg, full, batch)
     del full
-    recorded = [[t.cpu() for t in routing.recorded] if lead else None]
+    recorded = [[t.cpu() for t in ref_routing.recorded] if lead else None]
     dist.broadcast_object_list(recorded, src=0)
-    routing.recorded = [t.to(device) for t in recorded[0]]
+    routing = TrainRouting(cfg)
+    routing.recorded = [t.to(device)
+                        for t in own_calls(recorded[0], case, part)]
+
+    def replayed():
+        return (routing.replay() if routing.recorded
+                else contextlib.nullcontext(None))
     marks.append(time.time())
     zero_counts()
-    with (routing.replay() if routing.recorded
-          else contextlib.nullcontext(None)) as flips:
+    with replayed() as flips:
         metrics, grads = train_step_mod.sharded_grads(model, local, batch,
                                                       part)
     launches = kernel_counts()
-    named = None
-    if case.get("f32_control"):
-        with shard_control(case["f32_control"]):
-            _, named = train_step_mod.sharded_grads(model, local, batch,
-                                                    part)
-    marks.append(time.time())
+    controls = case.get("f32_control") or ()
+    controls = (controls,) if isinstance(controls, str) else controls
     partial = train_step_mod.partial_grad_leaves(sh)
+    named = {}
+    for name in controls:
+        with replayed(), shard_control(name):
+            _, g = train_step_mod.sharded_grads(model, local, batch, part)
+        named[name] = tree.leaves(train_step_mod.psum_partial(g, partial,
+                                                              part))
+    marks.append(time.time())
     whole = train_step_mod.psum_partial(grads, partial, part)
-    if named is not None:
-        named = tree.leaves(train_step_mod.psum_partial(named, partial,
-                                                        part))
     like = model.abstract_params()
-    leaf_rel, control_rel, named_rel = [], [], []
+    leaf_rel, control_rel = [], []
+    named_rel: dict = {name: [] for name in named}
 
     def rel(t, i):
         w = ref_grads[i].float()
@@ -4373,14 +4536,14 @@ def shard_f32_check(seed: int, device, key: str, part) -> dict:
             tree.leaves(like), strict=True)):
         gw = gather_tree(g, s, part.shards, m)
         cw = gather_tree(c, s, part.shards, m) if partial[i] else gw
-        nw = None if named is None else gather_tree(named[i], s, part.shards,
-                                                    m)
+        nws = {name: gather_tree(leaves[i], s, part.shards, m)
+               for name, leaves in named.items()}
         if lead:
             leaf_rel.append(rel(gw, i))
             control_rel.append(rel(cw, i))
-            if nw is not None:
-                named_rel.append(rel(nw, i))
-        del gw, cw, nw
+            for name, nw in nws.items():
+                named_rel[name].append(rel(nw, i))
+        del gw, cw, nws
     marks.append(time.time())
     loss = float(metrics["loss"])
     return {"layers": cfg.n_layers, "launches": launches,
@@ -4397,11 +4560,12 @@ def shard_f32_check(seed: int, device, key: str, part) -> dict:
                 all(e > TRAIN_F32_GRAD_REL_RMS
                     for e, p in zip(control_rel, partial) if p)
                 if lead else None),
-            "named_control": case.get("f32_control"),
+            "named_control": list(controls) or None,
             "named_control_max_leaf_rel_rms": (
-                max(named_rel) if lead and named_rel else None),
+                {name: max(v) for name, v in named_rel.items()}
+                if lead and named_rel else None),
             "routing_flips": flips,
-            "recompute_routing_equal": (routing.recompute_equal if lead
+            "recompute_routing_equal": (ref_routing.recompute_equal if lead
                                         else None)}
 
 
@@ -4418,7 +4582,7 @@ def shard_steps(seed: int, device, key: str, part, routing_rec: list
     from repro_torch.parallel.sharding import shard_slices, shard_tree
 
     case = SHARD_CASES[key]
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     abstract = train_step_mod.abstract_state(model, SHARD_OPT)
     sh = train_step_mod.state_shardings(abstract, cfg, part.mesh,
@@ -4431,7 +4595,8 @@ def shard_steps(seed: int, device, key: str, part, routing_rec: list
     step = train_step_mod.make_train_step(model, SHARD_OPT, shards=part,
                                           shardings=sh)
     routing = TrainRouting(cfg)
-    routing.recorded = [t.to(device) for t in routing_rec]
+    routing.recorded = [t.to(device)
+                        for t in own_calls(routing_rec, case, part)]
     B, S = case["batch"]
     on_card = device.type == "cuda"
     runs, zero = [], None
@@ -4583,7 +4748,7 @@ def compress_f32(seed: int, device, part) -> dict:
     from repro_torch.parallel.sharding import gather_tree, shard_tree
 
     case = SHARD_COMPRESS
-    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
+    cfg = case_config(case, case["f32_layers"], dtype="float32")
     model = Model(cfg)
     B, S = case["batch"]
     batches = [train_batch(cfg, B, S, seed, i, device)
@@ -4673,7 +4838,7 @@ def compress_steps(seed: int, device, part) -> dict:
     from repro_torch.parallel.sharding import shard_tree
 
     case = SHARD_COMPRESS
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     abstract = train_step_mod.abstract_state(model, SHARD_OPT, compress=True)
     sh = train_step_mod.state_shardings(abstract, cfg, part.mesh)
@@ -4802,7 +4967,7 @@ def meta_train_record(key: str, coord: dict) -> list:
     from repro_torch.parallel.tensor import Participant
 
     case = SHARD_CASES[key]
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     mesh = make_mesh(case["mesh"], ("data", "model"))
     abstract = train_step_mod.abstract_state(model, SHARD_OPT)
@@ -4827,13 +4992,14 @@ def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
     """``shard_serve_bf16``'s prefill and first decode step of case
     ``key`` run on ``meta`` over ``MetaShards`` at ``coord``: each call's
     ``(kind, operand bytes)`` (the cache, an input of the calls, built
-    outside the count, as on the card)."""
+    outside the count, as on the card); a prefill-only case's decode
+    record is None."""
     from repro_torch.parallel.collectives import MetaShards
     from repro_torch.parallel.sharding import param_shardings, shard_tree
     from repro_torch.parallel.tensor import Participant
 
     case = SHARD_SERVE_CASES[key]
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     mesh = make_mesh(case["mesh"], ("data", "model"))
     whole = cast_params(model.abstract_params(), cfg, torch.device("meta"))
@@ -4851,6 +5017,8 @@ def meta_serve_records(key: str, coord: dict) -> tuple[list, list]:
     prefill, decode = [], []
     with collectives.observe(lambda kind, n: prefill.append((kind, n))):
         _, cache = model.prefill(params, batch, cache, shards=part)
+    if case.get("prefill_only"):                 # its decode step raises
+        return prefill, None
     with collectives.observe(lambda kind, n: decode.append((kind, n))):
         model.decode(params, batch["tokens"][:, :1], cache, shards=part)
     return prefill, decode
@@ -4869,10 +5037,12 @@ def phase_collective_count(ranks: list, pool: int = SHARD_RANKS,
     for key in pool_cases(SHARD_CASES, pool):
         out[f"train/{key}"] = [(r["cases"][key]["runs"][0]["record"],
                                 r["meta"][f"train/{key}"]) for r in ranks]
-    for key in pool_cases(SHARD_SERVE_CASES, pool):
+    for key, case in pool_cases(SHARD_SERVE_CASES, pool).items():
+        calls = (("prefill", 0),) if case.get("prefill_only") else (
+            ("prefill", 0), ("decode", 1))
         for r in ranks:
             records = r["serve"][key]["bf16"]["records"]
-            for call, i in (("prefill", 0), ("decode", 1)):
+            for call, i in calls:
                 out.setdefault(f"{call}/{key}", []).append(
                     (records[i]["record"], r["meta"][f"{call}/{key}"]))
     summary = {}
@@ -5037,8 +5207,8 @@ def train_case_checks(key: str, ranks: list, ref: dict,
         # (seamless on (1, 4) has none), and the case's named control
         "f32_control_past_limit": (partial_ok or not f32["partial_leaves"])
         and (f32["named_control"] is None
-             or f32["named_control_max_leaf_rel_rms"]
-             > TRAIN_F32_GRAD_REL_RMS)
+             or all(e > TRAIN_F32_GRAD_REL_RMS for e in
+                    f32["named_control_max_leaf_rel_rms"].values()))
         and bool(f32["partial_leaves"] or f32["named_control"]),
         "f32_losses_equal_on_every_rank": len(
             {p["f32"]["loss"] for p in per}) == 1,
@@ -5068,7 +5238,7 @@ def train_case_checks(key: str, ranks: list, ref: dict,
     steady = [r_["step_ms"] for p in per for r_ in p["runs"][1:]]
     cfg = get_config(arch)
     return {
-        "arch": cfg.name, "mesh": {
+        "arch": cfg.name, "moe_impl": case.get("moe_impl"), "mesh": {
             "data": case["mesh"][0], "model": case["mesh"][1]},
         "layers": lead["layers"], "batch": case["batch"][0],
         "seq": case["batch"][1], "zero_opt": case["zero_opt"],
@@ -5401,7 +5571,7 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
     B = case["batch"]
     new, max_len = (case.get("new", SHARD_SERVE_NEW),
                     case.get("max_len", SHARD_SERVE_LEN))
-    cfg = shard_config(case["arch"], case["f32_layers"], dtype="float32")
+    cfg = case_config(case, case["f32_layers"], dtype="float32")
     model = Model(cfg)
     full = model.init(torch.Generator(device=device).manual_seed(seed))
     extra = serve_frames(cfg, seed, device, case)
@@ -5526,7 +5696,7 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     B = case["batch"]
     new, max_len = (case.get("new", SHARD_SERVE_NEW),
                     case.get("max_len", SHARD_SERVE_LEN))
-    cfg = shard_config(case["arch"], case["layers"])
+    cfg = case_config(case, case["layers"])
     model = Model(cfg)
     lead = dist.get_rank() == 0
     routing = Routing()
@@ -5612,9 +5782,119 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     return out
 
 
+def shard_serve_prefill(seed: int, device, key: str, part) -> dict:
+    """A prefill-only case (``moe_impl="ep"``): in float32 (at
+    ``f32_layers``) and in bf16, rank 0 prefills the unsharded model (the
+    unsharded ep layer over the case's mesh, routing recorded; bf16 on the
+    parameters cast) and every rank the sharded one on its block, its
+    shard's calls of that routing replayed, with its launches, time and
+    collectives; rank 0 holds the gathered logits (and in float32 the
+    gathered cache, and the prefill under the case's control) to its
+    unsharded run's.  Then a decode step, which must raise ``ValueError``
+    before any collective."""
+    from repro_torch.convert import gather_cache
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+
+    case = SHARD_SERVE_CASES[key]
+    B, max_len = case["batch"], case.get("max_len", SHARD_SERVE_LEN)
+    lead = dist.get_rank() == 0
+    on_card = device.type == "cuda"
+    out = {}
+    for kind, layers, kw in (("f32", case["f32_layers"],
+                              {"dtype": "float32"}),
+                             ("bf16", case["layers"], {})):
+        cfg = case_config(case, layers, **kw)
+        model = Model(cfg)
+        full = model.init(torch.Generator(device=device).manual_seed(seed))
+        local = cast_params(shard_tree(full, param_shardings(
+            full, cfg, part.mesh), part.coord), cfg, device, in_place=True)
+        batch = {"tokens": serve_prompts(cfg, seed, device, B,
+                                         case["prompt"])}
+        routing, ref = Routing(), None
+        if lead:
+            served = cast_params(full, cfg, device, in_place=True)
+            with unsharded_mesh(case), routing.record(), torch.no_grad():
+                cache = model.init_cache(served, batch, max_len)
+                logits, cache = model.prefill(served, batch, cache)
+            ref = {"logits": logits, "cache": cache_state(cache)}
+            del served, cache
+        del full
+        if on_card:
+            torch.cuda.empty_cache()
+        shared = [[r.cpu() for r in routing.recorded] if lead else None]
+        dist.broadcast_object_list(shared, src=0)
+        rows = Routing()
+        rows.recorded = [r.to(device)
+                         for r in own_calls(shared[0], case, part)]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            zero_counts()
+            cache = model.init_cache(local, batch, max_len, shards=part)
+            init_launches = kernel_counts()
+            with rows.replay() as flips:
+                lg, cache, rec = sharded_call(model.prefill, device, local,
+                                              batch, cache, part=part)
+            peak = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                    else None)
+            whole = whole_rows([lg], part, B)[0]
+            res = {"layers": cfg.n_layers, "records": [rec],
+                   "launches_expected": [expected_launches(cfg)[0]],
+                   "init_launches": init_launches,
+                   "init_launches_expected": expected_model_launches(cfg)[
+                       "init_cache"],
+                   "fingerprints": [fingerprint(lg)],
+                   "routing_flips": flips, "peak_memory_gb": peak,
+                   "layout": serve_layout(cfg, part, B)}
+            if kind == "f32":
+                gathered = gather_cache(cache, cfg, part, B)
+                c_rows = Routing()
+                c_rows.recorded = rows.recorded
+                with c_rows.replay(), shard_control(case["control"]):
+                    c_cache = model.init_cache(local, batch, max_len,
+                                               shards=part)
+                    c_lg = model.prefill(local, batch, c_cache,
+                                         shards=part)[0]
+                    del c_cache
+                c_whole = whole_rows([c_lg], part, B)[0]
+            seen: list = []
+            try:
+                with collectives.observe(
+                        lambda kind_, n: seen.append(kind_)):
+                    model.decode(local, batch["tokens"][:, :1], cache,
+                                 shards=part)
+                res["decode"] = None
+            except ValueError as e:
+                res["decode"] = f"ValueError: {e}"
+            res["decode_collectives"] = seen
+        if lead:
+            V = cfg.vocab
+            res["logits_rel_rms"] = [rel_rms(whole[..., :V].float(),
+                                             ref["logits"][..., :V].float())]
+            if kind == "f32":
+                res["cache_rel_rms"] = [max(
+                    rel_rms(g, w) for g, w in zip(
+                        tree.leaves(gathered["slots"]),
+                        tree.leaves(ref["cache"]), strict=True))]
+                res["control"] = case["control"]
+                res["control_rel_rms"] = rel_rms(
+                    c_whole[..., :V], ref["logits"][..., :V])
+        out[kind] = res
+        del local, cache, ref
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
 def shard_serve_rank(seed: int, device, part, key: str) -> dict:
     """One participant's ``shard_serve_path`` case: its float32 check and
-    its bf16 run."""
+    its bf16 run (a prefill-only case's: ``shard_serve_prefill``)."""
+    if SHARD_SERVE_CASES[key].get("prefill_only"):
+        t0 = time.time()
+        run = shard_serve_prefill(seed, device, key, part)
+        return {"coord": part.coord, "di": part.di, **run,
+                "seconds": time.time() - t0}
     t0 = time.time()
     f32 = shard_serve_f32(seed, device, key, part)
     if device.type == "cuda":
@@ -5627,12 +5907,75 @@ def shard_serve_rank(seed: int, device, part, key: str) -> dict:
             "f32_s": t1 - t0, "bf16_s": time.time() - t1}
 
 
+def prefill_case_checks(key: str, ranks: list, card: str) -> dict:
+    """A prefill-only ``shard_serve_path`` case's readings and checks over
+    every rank's (``shard_serve_prefill``)."""
+    case = SHARD_SERVE_CASES[key]
+    per = [r["serve"][key] for r in ranks]
+    f32, bf16 = per[0]["f32"], per[0]["bf16"]
+    limit = SERVE_BF16_KERNEL_VS_PLAIN[case["arch"]]
+    groups: dict = {}
+    for p in per:
+        for kind in ("f32", "bf16"):
+            groups.setdefault((kind, p["di"]), set()).add(
+                tuple(p[kind]["fingerprints"]))
+    checks = {
+        "layout": f32["layout"] == bf16["layout"] == case["layout"],
+        "launches": all(p[kind]["records"][0]["launches"]
+                        == p[kind]["launches_expected"][0]
+                        for p in per for kind in ("f32", "bf16")),
+        "init_cache_launches": all(
+            p[kind]["init_launches"] == p[kind]["init_launches_expected"]
+            for p in per for kind in ("f32", "bf16")),
+        "f32_logits": max(f32["logits_rel_rms"]) <= SERVE_F32_REL_RMS,
+        "f32_cache": max(f32["cache_rel_rms"]) <= SERVE_F32_REL_RMS,
+        "f32_control_past_limit": f32["control_rel_rms"]
+        > SERVE_F32_REL_RMS,
+        "f32_routing": flip_share(f32["routing_flips"], "float32")
+        <= ROUTING_FLIP_SHARE["float32"],
+        "bf16_logits": max(bf16["logits_rel_rms"]) <= limit,
+        "bf16_routing": routing_ok([bf16["routing_flips"]]),
+        "logits_bits_equal_across_model_ranks": all(
+            len(v) == 1 for v in groups.values()),
+        "decode_raises_on_every_rank_before_any_collective": all(
+            (p[kind]["decode"] or "").startswith("ValueError")
+            and not p[kind]["decode_collectives"]
+            for p in per for kind in ("f32", "bf16")),
+    }
+    return {
+        "arch": get_config(case["arch"]).name, "moe_impl": case["moe_impl"],
+        "mesh": {"data": case["mesh"][0], "model": case["mesh"][1]},
+        "layers": bf16["layers"], "f32_layers": f32["layers"],
+        "batch": case["batch"], "prompt_len": case["prompt"], "gpu": card,
+        "prefill_ms_per_rank": [p["bf16"]["records"][0]["ms"] for p in per],
+        "time_note": f"{len(per)} processes share one card and gloo copies "
+                     "through the host: not a multi-card time",
+        "peak_memory_gb_per_rank": [p["bf16"]["peak_memory_gb"]
+                                    for p in per],
+        "launches_prefill_rank0": bf16["records"][0]["launches"],
+        "collectives_prefill_rank0": bf16["records"][0]["collectives"],
+        "decode_rank0": bf16["decode"],
+        "f32": {k: f32.get(k) for k in (
+            "logits_rel_rms", "cache_rel_rms", "control", "control_rel_rms",
+            "routing_flips")},
+        "f32_limit_rel_rms": SERVE_F32_REL_RMS,
+        "bf16": {"max_rel_rms": max(bf16["logits_rel_rms"]),
+                 "limit": limit, "routing_flips": bf16["routing_flips"],
+                 "routing_limit": ROUTING_FLIP_SHARE["bfloat16"]},
+        "seconds_rank0": per[0]["seconds"], "checks": checks}
+
+
 def phase_shard_serve(ranks: list, card: str,
                       pool: int = SHARD_RANKS) -> dict:
     """``shard_serve_path``'s checks over every rank's readings of the
     pool's cases (module doc, phase 13)."""
     out, failed = {}, []
     for key, case in pool_cases(SHARD_SERVE_CASES, pool).items():
+        if case.get("prefill_only"):
+            out[key] = prefill_case_checks(key, ranks, card)
+            failed += [f"{key}: {k}" for k, ok in out[key]["checks"].items()
+                       if not ok]
+            continue
         arch = case["arch"]
         cfg = get_config(arch)
         per = [r["serve"][key] for r in ranks]
@@ -6626,7 +6969,19 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                  f"{MOE_ARCH}/fully_seq"]["k5_launches_per_rank"],
              "prefill_max_abs_err": max(
                  c["max_abs_err"] for c in shard_checks
-                 if c["sharded"] == "fs_moe_gmm_prefill")}}],
+                 if c["sharded"] == "fs_moe_gmm_prefill")},
+         "sharded_ep": {
+             "path": f"{shard['cases'][EP_KEY]['arch']} moe_impl=ep",
+             "mesh": shard["cases"][EP_KEY]["mesh"],
+             "launches_per_rank_step": shard["cases"][EP_KEY][
+                 "launches_per_rank_step"]["moe_gmm"],
+             "launches_per_rank_prefill": shard_serve["cases"][EP_KEY][
+                 "launches_prefill_rank0"]["moe_gmm"],
+             "max_abs_err": max(c["max_abs_err"] for c in shard_checks
+                                if c["sharded"].startswith("ep_")),
+             "gate_up": shard_timing["ep_moe_gmm_gate_up"],
+             "down": shard_timing["ep_moe_gmm_down"],
+             "prefill_gate_up": shard_timing["ep_serve_moe_gmm_gate_up"]}}],
         "replaced_bodies": replaced.src_dir if replaced else None})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,14 +32,21 @@ the port's explicit collectives and the hand-written kernels' work.
   collectives counted once with its operand bytes, as an HLO collective
   over every group at once.  The count depends on the mesh and is taken
   for each.  An MoE cell's FLOPs and bytes are the dense formulation's
-  (the reference's rule), its collectives those of the port's only
-  sharded MoE, ``"gmm"`` (``collectives.source``); on meta a participant
-  cannot read its routed row count, so its experts take their even share
-  of the slots (``moe.local_rows``), which no collective's size depends
-  on.  An ``--moe-impl ep`` cell counts the ep MoE's explicit dispatch,
-  combine, output gather and aux reductions in its unsharded step, as
-  before.  A serving cell's program takes its cache as an input, as the
-  reference's jitted ``prefill_step`` / ``decode_step`` do: the
+  (the reference's rule), its collectives those of the port's sharded
+  MoE ``"gmm"`` (``collectives.source``); on meta a participant cannot
+  read its routed row count, so its experts take their even share of the
+  slots (``moe.local_rows``), which no collective's size depends on.  An
+  ``--moe-impl ep`` cell's FLOPs and bytes are its unsharded step's over
+  the mesh, and its collectives those of the sharded program with the ep
+  MoE inside it (``"sharded program, MoE 'ep'"``: the sequence block's
+  gathers, the dispatch and return all_to_alls, the aux reductions; the
+  received rows are ``M · cap`` whatever the routing).  Where the
+  reference's ep ``shard_map`` asserts (a decode step's one position, the
+  ``long_500k`` batch of 1 that no data axis divides), the cell raises
+  ``ValueError`` and is ``status: "error"``, as the reference records a
+  cell that fails to compile.  A serving cell's program takes its cache
+  as an input, as the reference's jitted ``prefill_step`` /
+  ``decode_step`` do: the
   participant's block of it is built outside the count (the
   encoder-decoder's by the sharded encoder, over the cell's frame
   embeddings ``[B, seq_len / 4, d]``).  Every cell of the two production
@@ -99,7 +106,7 @@ from .roofline import CollectiveStats, Roofline, StepCounter, model_flops_for
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "dryrun_results_torch")
 
-RESULT_VERSION = 4  # bump to invalidate cached cell JSONs
+RESULT_VERSION = 5  # bump to invalidate cached cell JSONs
 
 
 def make_cell_cfg(arch: str, *, moe_impl: str | None = None,
@@ -174,8 +181,8 @@ def build_cell(cfg, shape: ShapeSpec, mesh, *, accum: int = 1,
 
 def collective_cfg(cfg):
     """The config whose sharded program the collectives are counted on: an
-    MoE cell's through the port's sharded MoE, ``"gmm"`` (its ``"ep"``
-    cells count their unsharded step's explicit collectives instead)."""
+    MoE cell's through the port's sharded MoE ``"gmm"``, or its own
+    ``"ep"``."""
     if cfg.moe_experts and cfg.moe_impl not in ("gmm", "ep"):
         return replace(cfg, moe_impl="gmm")
     return cfg
@@ -295,20 +302,15 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str, *,
         if key not in counts:
             counts[key] = count_step(step)
         counted = counts[key]
-        if cfg.moe_impl == "ep":
-            coll = {"bytes_by_kind": counted["coll_bytes_by_kind"],
-                    "count_by_kind": counted["coll_count_by_kind"],
-                    "skipped": None, "source": "ep (unsharded step)"}
-        else:
-            ccfg = collective_cfg(cfg)
-            ckey = ("collectives", ccfg, shape.name, accum, zero_opt,
-                    tuple(mesh.shape.items()))
-            if ckey not in counts:
-                counts[ckey] = count_collectives(sharded_step(
-                    ccfg, shape, mesh, args, shardings, accum=accum))
-            coll = {k: v for k, v in counts[ckey].items() if k != "seconds"}
-            coll["source"] = ("sharded program, MoE 'gmm'"
-                              if ccfg is not cfg else "sharded program")
+        ccfg = collective_cfg(cfg)
+        ckey = ("collectives", ccfg, shape.name, accum, zero_opt,
+                tuple(mesh.shape.items()))
+        if ckey not in counts:
+            counts[ckey] = count_collectives(sharded_step(
+                ccfg, shape, mesh, args, shardings, accum=accum))
+        coll = {k: v for k, v in counts[ckey].items() if k != "seconds"}
+        coll["source"] = ("sharded program" if not ccfg.moe_experts
+                          else f"sharded program, MoE {ccfg.moe_impl!r}")
         counted_coll = coll["skipped"] is None
         cost = {
             "flops": counted["flops"] / chips,

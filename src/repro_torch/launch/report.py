@@ -8,7 +8,7 @@ The roofline is the H100's (:mod:`repro_torch.launch.roofline`).  The
 collective column is one participant's sharded program, counted on meta
 (:mod:`repro_torch.launch.dryrun`): an MoE cell's through the sharded
 ``"gmm"`` MoE, whose routed row count on meta is each participant's even
-share of the slots; an ``ep`` cell's from its unsharded step.  Every
+share of the slots; an ``ep`` cell's through the sharded ep MoE.  Every
 cell of the production meshes is counted; a cell the sharded layers
 refuse prints the refusal's short form where its bytes would be, and its
 collective term as "n/a".  The collective term is over one NVLink 4 GPU's rate

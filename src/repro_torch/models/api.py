@@ -27,8 +27,11 @@ and returns its rows' logits over the whole vocabulary.  The
 encoder-decoder runs so too (:mod:`.encdec`: the encoder on the
 participant's rows of ``enc_embeds`` and its heads, the cross cache's
 block projected on its kv heads), except in the fully-seq layout, which
-raises ``NotImplementedError``.  Without ``shards`` every call is the
-unsharded one.
+raises ``NotImplementedError``.  ``moe_impl="ep"`` runs each
+participant's ep layer
+(:func:`repro_torch.parallel.ep_moe.ep_moe_apply_sharded`); its decode
+step at a model axis above one raises ``ValueError``, as the reference
+asserts.  Without ``shards`` every call is the unsharded one.
 """
 from __future__ import annotations
 

@@ -81,7 +81,7 @@ from .layers import (
     rmsnorm,
     rope,
 )
-from .moe import MoeAux, moe_apply, moe_init, moe_shapes
+from .moe import MoeAux, check_part, moe_apply, moe_init, moe_shapes
 from .ssd import SsmState, ssm_apply, ssm_decode, ssm_init, ssm_shapes
 
 Params = dict[str, Any]
@@ -248,6 +248,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     reference's ``jax.checkpoint`` per block.  It changes memory, not
     values; the recompute launches the block's kernels a second time."""
     if part is not None:
+        check_part(cfg, part, tokens.shape[1] + (
+            0 if embeds is None else embeds.shape[1]))
         check_shardable(cfg, part.m)
     x = embed_inputs(params, cfg, tokens, embeds, part)
     B, S = x.shape[:2]
@@ -436,6 +438,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     its cache block."""
     layout, size = None, cache_size(cache)
     if part is not None:
+        check_part(cfg, rows_part(part, tokens.shape[0]), tokens.shape[1]
+                   + (0 if embeds is None else embeds.shape[1]))
         check_shardable(cfg, part.m)
         layout = serve_layout(cfg, part, tokens.shape[0])
         part = rows_part(part, tokens.shape[0])
@@ -519,6 +523,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         check_cache_index(cache["pos"], size)
     layout, lo, write = None, 0, True
     if part is not None:
+        check_part(cfg, rows_part(part, tokens.shape[0]), tokens.shape[1])
         check_shardable(cfg, part.m)
         layout = serve_layout(cfg, part, tokens.shape[0])
         part = rows_part(part, tokens.shape[0])

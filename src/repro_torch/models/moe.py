@@ -14,8 +14,11 @@ execution path.  ``cfg.moe_impl`` picks it:
   weight (E/k the FLOPs).
 - ``gathered``: each token gathers its k experts' weights (tiny batches).
 - ``ep``: expert parallelism over the mesh's ``model`` axis
-  (:func:`repro_torch.parallel.ep_moe.ep_moe_apply`): capacity-packed
-  dispatch, each shard's experts through the grouped-matmul kernel.
+  (:mod:`repro_torch.parallel.ep_moe`): capacity-packed dispatch, each
+  shard's experts through the grouped-matmul kernel.  Without ``part``
+  over the mesh published with ``ep_moe.set_mesh`` (every shard in this
+  process, or one a rank given the whole batch); with ``part``, one
+  participant of the sharded model (below).
 
 Each returns ``(output, MoeAux)``: the load-balancing and router-z losses
 and the expert load vector, as the reference computes them.
@@ -31,6 +34,12 @@ terms come from the replicated router, equal on every model participant:
 their load is the mean over the data axes (the reference's global batch)
 and their gradient is taken on model participant 0 alone, so that the
 sum of the router's partial gradients over ``"model"`` counts it once.
+``ep`` runs the reference's ``shard_map`` body on the participant's
+sequence block of its rows and its block of the experts
+(:func:`~repro_torch.parallel.ep_moe.ep_moe_apply_sharded`): each model
+participant routes other tokens, so its aux terms are means over the
+whole mesh whose gradient it takes a ``1 / m`` share of, on every
+participant (:func:`~repro_torch.parallel.tensor.mean_over_mesh`).
 
 :func:`routing_hook` lets a caller see every routing decision and replace
 it, to hold two runs to one routing (top-k is discontinuous: two runs that
@@ -274,12 +283,27 @@ _BY_IMPL = {"gmm": moe_apply_gmm, "ragged": moe_apply_ragged,
             "dense": moe_apply_dense, "gathered": moe_apply_gathered}
 
 
+def check_part(cfg, part, seq_len: int) -> None:
+    """Raise ``ValueError`` where ``part`` cannot run ``cfg``'s ``ep`` MoE
+    layers on rows of ``seq_len`` positions
+    (:func:`~repro_torch.parallel.ep_moe.check_sharded`); nothing for the
+    other forms.  The model calls it before its first collective."""
+    if cfg.moe_experts and cfg.moe_impl == "ep":
+        from ..parallel.ep_moe import check_sharded
+
+        check_sharded(cfg, part, seq_len)
+
+
 def moe_apply(p: Params, x, cfg, part=None):
     if part is not None:
+        if cfg.moe_impl == "ep":
+            from ..parallel.ep_moe import ep_moe_apply_sharded
+
+            return ep_moe_apply_sharded(p, x, cfg, part)
         if cfg.moe_impl not in ("gmm", "ragged"):
             raise NotImplementedError(
                 f"moe_impl={cfg.moe_impl!r} does not run on a participant's "
-                "experts: the sharded layers take 'gmm' or 'ragged'")
+                "experts: the sharded layers take 'gmm', 'ragged' or 'ep'")
         ffn = _gmm_ffn if cfg.moe_impl == "gmm" else _ragged_ffn
         return _sorted_apply(p, x, cfg, ffn, part)
     if cfg.moe_impl == "ep":

@@ -23,6 +23,18 @@ sharded region begins or ends:
   vocabulary-sharded logits whole, and the loss over them without
   gathering them (max, sum of exponents and the label's logit, each
   reduced over ``"model"``; the max carries no gradient).
+- :func:`enter_sequence_block` / :func:`leave_sequence_block`,
+  :func:`all_to_all_model` and :func:`mean_over_mesh`: expert
+  parallelism's region (``parallel/ep_moe.py``), which the reference
+  enters through ``shard_map(in_specs=P(dp, "model", None))``.  A
+  participant takes its block of the sequence (backward: the blocks'
+  gradients all-gathered over ``"model"``, so each holds the whole
+  gradient of the replicated activation), exchanges rows with the other
+  model participants (backward: the same exchange of the gradients), and
+  leaves with the blocks all-gathered over ``"model"`` (backward: its
+  own block of the whole gradient).  Its aux statistics are means over
+  the whole mesh, whose gradient each model participant takes a ``1 /
+  m`` share of (:func:`mean_over_mesh`).
 
 Every reduction is the parallel layers' own: a gather reduced in shard
 order (:meth:`Shards.psum`), never ``dist.all_reduce``, so the replicated
@@ -126,6 +138,26 @@ class Participant:
     def pmean_dp(self, x: torch.Tensor) -> torch.Tensor:
         return self._dp("pmean", x)
 
+    def all_to_all_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [m, ...]``: block ``j`` sent to model participant ``j``;
+        returns ``[m, ...]``, block ``i`` from participant ``i``."""
+        if self.m == 1:
+            return x
+        return torch.stack(self.shards.all_to_all([x], "model")[0])
+
+    def _mesh(self, op: str, x: torch.Tensor) -> torch.Tensor:
+        if self.m * self.dp == 1:
+            return x
+        return getattr(self.shards, op)([x], (*self.dp_axes, "model"))[0]
+
+    def psum_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the data axes and ``"model"``."""
+        return self._mesh("psum", x)
+
+    def pmean_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data axes and ``"model"``."""
+        return self._mesh("pmean", x)
+
     def all_gather_dp(self, x: torch.Tensor) -> torch.Tensor:
         """``[dp, ...]``: every data participant's ``x``, in row-major
         order over the data axes."""
@@ -187,6 +219,105 @@ class _GatherVocab(torch.autograd.Function):
         c, lo = ctx.block, ctx.part.mi * ctx.block
         g = torch.nn.functional.pad(g, (0, ctx.part.m * c - g.shape[-1]))
         return g[..., lo:lo + ctx.width], None, None
+
+
+def _join_blocks(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """Every model participant's block ``x [b, s, ...]`` of the sequence,
+    joined in model order: ``[b, m · s, ...]``."""
+    parts = part.all_gather_model(x.contiguous())        # [m, b, s, ...]
+    return parts.movedim(0, 1).reshape(x.shape[0], -1, *x.shape[2:])
+
+
+def _own_block(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    n = x.shape[1] // part.m
+    return x[:, part.mi * n:(part.mi + 1) * n]
+
+
+class _EnterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.part = part
+        return _own_block(x, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _join_blocks(g, ctx.part), None
+
+
+class _LeaveSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.part = part
+        return _join_blocks(x, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.part), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.part = part
+        return part.all_to_all_model(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.part.all_to_all_model(g), None
+
+
+class _MeanOverMesh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part):
+        ctx.m = part.m
+        return part.pmean_mesh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.m, None
+
+
+def enter_sequence_block(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """A replicated ``x [b, S, ...]``'s block ``mi`` of ``m`` along the
+    sequence (``S % m == 0``); its gradient every model participant's
+    block's, all-gathered and joined: the whole gradient of ``x``, as
+    every participant holds a replicated activation's.  With ``part.m ==
+    1``, ``x`` as it is."""
+    if part.m == 1:
+        return x
+    return _EnterSeq.apply(x, part)
+
+
+def leave_sequence_block(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """Every model participant's sequence block ``x [b, s, ...]`` joined:
+    ``[b, m · s, ...]``, replicated over ``"model"``; the gradient this
+    participant's block of the whole one."""
+    if part.m == 1:
+        return x
+    return _LeaveSeq.apply(x, part)
+
+
+def all_to_all_model(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """:meth:`Participant.all_to_all_model` with its gradient: the same
+    exchange of the gradients, backward (the tiled all_to_all is its own
+    transpose)."""
+    if part.m == 1:
+        return x
+    return _AllToAll.apply(x, part)
+
+
+def mean_over_mesh(x: torch.Tensor, part: Participant) -> torch.Tensor:
+    """The mean of ``x`` over the data axes and ``"model"``, each
+    participant's ``x`` a statistic of its own block of the tokens.  The
+    gradient is ``1 / m`` of what arrives: every participant's loss holds
+    the replicated mean, the step sums a replicated leaf's partial
+    gradients over ``"model"`` (``m`` shares of the data participant's
+    whole) and means them over the data axes (the data axes' ``1 /
+    dp``), so the mean's gradient reaches each block once, as the
+    reference's ``pmean`` transposes."""
+    if part.m * part.dp == 1:
+        return x
+    return _MeanOverMesh.apply(x, part)
 
 
 def enter_model_region(x: torch.Tensor, part: Participant) -> torch.Tensor:

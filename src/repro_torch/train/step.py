@@ -24,6 +24,8 @@ import torch
 
 from .. import tree
 from ..models.api import Model
+from ..models.lm import rows_part
+from ..models.moe import check_part
 from ..parallel.compress import ef_compress, ef_compress_sharded, ef_init
 from ..parallel.sharding import (
     NamedSharding,
@@ -230,7 +232,20 @@ def partial_grad_leaves(param_sh) -> list[bool]:
     do not divide the model axis; in the encoder-decoder's
     ``enc_blocks`` / ``dec_blocks`` the same names by the same rule (its
     cross-attention's ``wk`` / ``wv`` included).  A model-sharded leaf's
-    gradient is its block's whole."""
+    gradient is its block's whole.
+
+    Under ``moe_impl="ep"`` the router is partial by another route: each
+    model participant routes its own sequence block of the tokens, so its
+    gradient through the routing weights is its block's, and the aux
+    terms are means over the whole mesh (the reference's ``pmean`` over
+    ``("model", *dp)``) held by every participant, not only model
+    participant 0.  Their backward hands each participant ``1 / m`` of
+    the gradient that arrives (``parallel/tensor.py`` ``mean_over_mesh``):
+    every participant's loss holds the same aux terms, so the sum over
+    ``"model"`` adds ``m`` shares of the data participant's whole, and the
+    mean over the data axes takes the rest of the pmean's ``1 / (m ·
+    dp)``.  The router's gradient is then the whole batch's, counted once,
+    as the reference's ``shard_map`` transposes."""
     return [not _model_sharded(sh) and str(path[-1]) not in AHEAD_OF_REGION
             for path, sh in tree.leaves_with_path(param_sh)]
 
@@ -265,6 +280,12 @@ def sharded_grads(model: Model, params, batch: dict, part: Participant,
     ``"model"``: this participant's gradients of its parameter block
     (``params``), for its rows of each microbatch of ``batch``, pmeaned
     over the data axes; the whole batch's metrics."""
+    rows, seq = batch["tokens"].shape[0] // accum, batch["tokens"].shape[1]
+    # expert parallelism's refusal of a micro-batch whose rows do not
+    # split over the data axes, before the step's first collective
+    check_part(model.cfg, rows_part(part, rows),
+               seq + (batch["embeds"].shape[1] if "embeds" in batch else 0))
+
     def grad_fn(mb):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss, metrics = model.loss(tree.unflatten(params, leaves),

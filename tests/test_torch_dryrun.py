@@ -17,6 +17,10 @@
   participant's sharded collectives on both meshes (the MoE's through
   ``"gmm"``), the SSM cell too (24 SSD heads on a model axis of 16: 1.5
   heads a participant, its state all-gathered);
+- an ``--moe-impl ep`` cell counts the sharded program with the ep MoE
+  inside it (``"sharded program, MoE 'ep'"``: all_to_alls among its
+  collectives), and its decode cell is an error cell naming the
+  refusal, as the reference records a cell that fails to compile;
 - no cell is refused: every sharded program of the 32 cells of
   mamba2-130m and seamless-m4t-medium (the encoder-decoder) runs on both
   meshes and counts its collectives, and a refusal of the sharded layers
@@ -303,3 +307,33 @@ def test_the_collective_count_follows_zero1_and_the_mesh(tmp_path):
             plain["bytes_by_kind"]["all-gather"]
     assert got[False, "multi"]["bytes_by_kind"]["all-reduce"] < \
         got[False, "single"]["bytes_by_kind"]["all-reduce"]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_an_ep_cell_counts_its_sharded_program(shape, tmp_path,
+                                               monkeypatch):
+    """The collectives of granite-moe's ``--moe-impl ep`` cells come from
+    the participant's sharded program, ep inside it.  (The cell's FLOPs
+    are its unsharded step's over the 256-shard list form, minutes of meta
+    work a cell: stubbed here, the count under test is the program's.)"""
+    def unsharded_count(step):
+        return {"flops": 1.0, "bytes": 1.0, "bytes_upper": 1.0,
+                "coll_bytes_by_kind": {}, "coll_count_by_kind": {},
+                "kernels": {}, "seconds": 0.0}
+    monkeypatch.setattr(dryrun, "count_step", unsharded_count)
+    r = dryrun.run_cell("granite_moe_1b_a400m", SHAPES[shape], "single",
+                        force=True, moe_impl="ep", tag="ep",
+                        results_dir=str(tmp_path))
+    if shape.startswith("decode"):
+        assert r["status"] == "error"
+        assert r["error"].startswith("ValueError: expert parallelism")
+        return
+    assert r["status"] == "ok", r.get("traceback")
+    coll = r["collectives"]
+    assert coll["source"] == "sharded program, MoE 'ep'"
+    assert coll["skipped"] is None
+    cfg = get_config("granite_moe_1b_a400m")
+    # the dispatch (rows, ids, flags) and return a layer, forward and
+    # recompute, and the two of the backward
+    assert coll["count_by_kind"]["all-to-all"] == 10 * cfg.n_layers
+    assert r["overrides"]["moe_impl"] == "ep"

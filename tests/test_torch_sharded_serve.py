@@ -51,7 +51,9 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   count);
 - each serving call of the encoder-decoder on a (1, 1) mesh is the
   unsharded one byte for byte (its multi-rank cases are
-  ``tests/test_torch_sharded_encdec.py``); ``moe_impl="ep"`` raises.
+  ``tests/test_torch_sharded_encdec.py``), and so is ``moe_impl="ep"``'s,
+  whose decode step at a model axis above one raises ``ValueError``
+  (its multi-rank cases are ``tests/test_torch_sharded_ep.py``).
 """
 from __future__ import annotations
 
@@ -431,18 +433,51 @@ def test_the_encoder_decoder_serves_sharded_on_one_shard(call):
 
 @pytest.mark.parametrize("call", ["prefill", "decode"])
 def test_ep_moe_does_not_serve_sharded(call):
+    """``moe_impl="ep"`` serves sharded (its multi-rank cases are
+    ``tests/test_torch_sharded_ep.py``): on a (1, 1) mesh the unsharded ep
+    calls' bits; a decode step at a model axis above one (one position
+    per row) is refused with ``ValueError`` before any collective, as the
+    reference's ``shard_map`` asserts."""
+    from repro_torch.parallel import ep_moe
+
     cfg = replace(smoke_variant(get_config("granite_moe_1b_a400m")),
                   moe_impl="ep")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     mesh = make_mesh((1, 1), ("data", "model"))
     batch = {"tokens": torch.from_numpy(prompts())}
+    ep_moe.set_mesh(mesh)
+    try:
+        want_cache = model.init_cache(params, batch, MAX_LEN)
+        want, want_cache = model.prefill(params, batch, want_cache)
+        if call == "decode":
+            want, want_cache = model.decode(params, batch["tokens"][:, :1],
+                                            want_cache)
+    finally:
+        ep_moe.set_mesh(None)
     cache = model.init_cache(params, batch, MAX_LEN, shards=mesh)
-    with pytest.raises(NotImplementedError, match="ep"):
-        if call == "prefill":
-            model.prefill(params, batch, cache, shards=mesh)
-        else:
-            model.decode(params, batch["tokens"][:, :1], cache, shards=mesh)
+    got, cache = model.prefill(params, batch, cache, shards=mesh)
+    if call == "decode":
+        got, cache = model.decode(params, batch["tokens"][:, :1], cache,
+                                  shards=mesh)
+    assert sha(got) == sha(want)
+    for a, b in zip(tree.leaves(cache["slots"]),
+                    tree.leaves(want_cache["slots"]), strict=True):
+        assert sha(a) == sha(b)
+    if call == "decode":
+        two = make_mesh((1, 2), ("data", "model"))
+        part = Participant(MetaShards(two, {"data": 0, "model": 0}))
+        meta = {"tokens": torch.empty((BATCH, PROMPT), dtype=torch.int32,
+                                      device="meta")}
+        local = shard_tree(model.abstract_params(), param_shardings(
+            model.abstract_params(), cfg, two), {"data": 0, "model": 0})
+        meta_cache = model.init_cache(local, meta, MAX_LEN, shards=part)
+        seen = []
+        with observe(lambda kind, n: seen.append(kind)), \
+                pytest.raises(ValueError, match="expert parallelism"):
+            model.decode(local, meta["tokens"][:, :1], meta_cache,
+                         shards=part)
+        assert seen == []
 
 
 # -- four ranks ---------------------------------------------------------------
