@@ -89,8 +89,21 @@ process exits non-zero):
                 caches) and ``uneven_path``'s (K4 ``[2,512,2,64]``, a
                 participant's 96 channels at offset 32 of its two head
                 slots, the others zero: their ``y`` and state exactly
-                zero), each timed beside its plain version and SDPA.  K3's
-                statistics
+                zero), each timed beside its plain version and SDPA; the
+                same for the fully-seq encoder-decoder (seamless on (4,
+                1), batch 1: K2 at the encoder ``[1,256,16,64]``, the
+                decoder's self ``[1,512,16,64]`` and cross
+                ``[1,512→256,16,64]``, K3's statistics form over a self
+                block ``[1,262,16,64]`` and a cross block
+                ``[1,64,16,64]``) and for jamba's fully-seq cases (K2
+                ``[1,512,32,128]`` over 8 kv heads and, on (2, 2),
+                ``[1,512,16,128]`` over 4; K3's statistics form over rank
+                0's block of the (2, 1) cache ``[1,262144,8,128]``, 32
+                heads, at the last step's position and its corners; K4
+                over 128 and 64 SSD heads, N 16; K5 over 16 and 8 of its
+                experts at a prefill's 1024 and a step's 2 slots), each
+                timed beside its plain version and SDPA or
+                ``torch._grouped_mm``.  K3's statistics
                 form at the JAX package's ``long_500k`` decode (jamba's
                 attention width, q ``[1, 32, 128]`` over a 524 288 x 8 x
                 128 bf16 cache drawn N(0, 1), cut into 4 blocks of
@@ -344,20 +357,42 @@ process exits non-zero):
                 the positions), batch 1 x 512 prompt, 16 steps into the
                 same cache (on dp 4 blocks of 262: the steps cross into
                 rank 2's block at 524, rank 3's holds no valid position):
-                granite-moe on (4, 1) at 8 layers (whole heads: K2, K3's
+                granite-moe on (4, 1) at 4 layers (whole heads: K2, K3's
                 statistics form on every rank's block, the blocks'
                 softmax combined across dp, K5 over all 32 experts),
                 glm4-9b on (2, 2) at 2 layers (``head_dim`` blocks of the
-                positions: K2; K3 never), mamba2 on (2, 2) at 8 layers
+                positions: K2; K3 never), mamba2 on (2, 2) at 4 layers
                 (its batch whole, K4); float32 at 4 / 2 / 4 layers with
                 the controls: the block's ``cache_len`` not offset by its
                 start (granite), the blocks averaged with equal weights
                 (glm4), ``inner_norm`` per block (mamba2); bf16 within
                 ``serve_path``'s limits; the same bits on all four ranks;
                 a full cache (granite, prefilled to 1040 positions)
-                raises ``IndexError`` on every rank.  Printed, not
-                limited: prefill and step ms per rank, collectives, peak
-                GB.  Then ``uneven_path`` (its own line, after the 4
+                raises ``IndexError`` on every rank.  The fully-seq
+                encoder-decoder: seamless at 4 + 4 layers, batch 1 x 512
+                and 256 frames, on (4, 1) (``"seq"``: the self cache's
+                positions and the cross cache's encoder positions split
+                over dp, K3's statistics form over both blocks) and on
+                (2, 2) (``"seq_hd"``: K3 never), float32 with two
+                controls each (the layout's, and the cross cache cut at
+                encoder position 0 on every rank, a control of the
+                cache).  jamba-v0.1-52b at 8 layers, every width whole,
+                batch 1 x 512 into the ``long_500k`` cell's 524 288
+                positions, bf16 only, on (2, 2) (``"seq_hd"``, the
+                production layout of that cell: K3 never, K5 over 8
+                experts, K4 over 64 of 128 SSD heads) here and on (2, 1)
+                (``"seq"``, K3's statistics form on rank 0's block of
+                262 144 positions and on rank 1's empty one, K5 over all
+                16 experts) in ``long_path`` below; each rank builds its
+                block leaf by leaf from the seeded generator, in turns
+                (``seeded_block``, ``build_in_turns``: one whole float32
+                leaf on the card at a time), after rank 0's unsharded
+                bf16 run has been freed; their control, the block's
+                ``CONTROL_WEIGHTS`` rounded to 5 bits, must leave the
+                limit, and the SSD state's checksums must be equal on
+                every data participant.  Printed, not limited: prefill and
+                step ms per rank, collectives, peak GB a rank (running,
+                and while building its block), the card's memory in use.  Then ``uneven_path`` (its own line, after the 4
                 ranks have exited): mamba2-130m on (1, 16), the production
                 cut of its 24 SSD heads (96 channels, 1.5 heads a
                 participant), in 16 rank processes on the one card: the
@@ -371,7 +406,11 @@ process exits non-zero):
                 all-gathered from the participants' channels); K4 once per
                 SSM layer of a prefill and twice a train step; its
                 collective count (``uneven_collective_count``); one
-                summary line of the two new cases' times.
+                summary line of the two new cases' times.  Then
+                ``long_path`` (its own line, after the 16 ranks have
+                exited): jamba's (2, 1) case above in 2 rank processes,
+                each holding the whole bf16 model (26.5 GB), and its
+                collective count (``long_collective_count``).
 14. ``roofline``: for each timed path (the prefill and a decode step of
                 every served arch at its served depth, a train step of
                 granite-moe-1b-a400m, mamba2-130m and seamless-m4t-medium,
@@ -485,13 +524,14 @@ from repro_torch.parallel import (  # noqa: E402
 )
 from repro_torch.parallel.dist import RankShards  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.parallel.sharding import param_block  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Diagnosis,
     FleetAggregator,
     Request,
     ServeEngine,
 )
-from repro_torch.serve.engine import cast_params  # noqa: E402
+from repro_torch.serve.engine import cast_params, served_dtype  # noqa: E402
 from repro_torch.train import global_norm  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig, AdamWState  # noqa: E402
 from repro_torch.train import step as train_step_mod  # noqa: E402
@@ -2211,6 +2251,40 @@ CONTROL_WEIGHTS = {"attn": ("wq", "wk", "wv"),
                    "moe": ("w_gate", "w_up", "w_down"), "ssm": ("wx", "wbc")}
 
 
+def rounded(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """``t`` rounded to ``bits`` significant bits (float32 temporaries)."""
+    m, e = torch.frexp(t.float())
+    return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e)
+
+
+def coarsen_in_place(params, bits: int) -> None:
+    """``coarse_params`` written into ``params`` itself, 16 M elements at a
+    time: a participant's block of jamba's experts leaves no room for a
+    rounded copy beside it."""
+    for key in ("blocks", "enc_blocks", "dec_blocks"):
+        for slot_key, slot in params.get(key, {}).items():
+            for name in CONTROL_WEIGHTS.get(slot_key.rsplit("_", 1)[-1], ()):
+                for chunk in slot[name].view(-1).split(1 << 24):
+                    chunk.copy_(rounded(chunk, bits))
+
+
+def seeded_block(cfg, seed: int, device, part=None) -> dict:
+    """``Model(cfg).init`` from a generator seeded ``seed`` on ``device``,
+    as served (``cast_params``: ``cfg.dtype``, the norms kept), drawn leaf
+    by leaf (``Model.init``'s ``leaf``): ``part``'s block of every leaf
+    (``param_block``), or with no ``part`` the whole tree.  The card holds
+    the tree built so far and one float32 leaf at a time, never the
+    float32 master (jamba's 8 layers: 53 GB)."""
+    def dtype(path, t):
+        return served_dtype(cfg, path[-1], t.dtype)
+    if part is None:
+        leaf = lambda path, t: t.to(dtype(path, t))  # noqa: E731
+    else:
+        leaf = param_block(cfg, part.mesh, part.coord, dtype)
+    return Model(cfg).init(torch.Generator(device=device).manual_seed(seed),
+                           leaf=leaf)
+
+
 def coarse_params(params, bits: int):
     """``params`` with the ``CONTROL_WEIGHTS`` rounded to ``bits``
     significant bits (the rest shared, not copied).  A slot's kind is the
@@ -2221,8 +2295,7 @@ def coarse_params(params, bits: int):
     def coarse(t):
         out = torch.empty_like(t)
         for i, blk in enumerate(t):
-            m, e = torch.frexp(blk.float())
-            out[i] = torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e)
+            out[i] = rounded(blk, bits)
         return out
 
     def blocks(tree_):
@@ -3792,6 +3865,13 @@ COMPRESS_AXES = ("pod", "data", "model")
 #: 1e-5 relative; step 1's loss also within ``TRAIN_F32_LOSS_RTOL``.
 COMPRESS_STEP_TOL = 1e-5
 COMPRESS_OUTLIER_SHARE = 0.01
+#: K3's statistics form at the JAX package's ``long_500k`` decode:
+#: jamba-v0.1-52b's attention width (32 heads over 8 kv heads of 128)
+#: against a cache of ``LONG_CACHE`` positions cut into ``LONG_BLOCKS``
+#: blocks (its sequence over a data axis of 4), the token in block 2.
+LONG_CACHE = 524_288
+LONG_BLOCKS = 4
+LONG_CACHE_LEN = 2 * LONG_CACHE // LONG_BLOCKS + 54_321
 #: ``shard_serve_path``: sharded prefill and decode (``Model.init_cache`` /
 #: ``prefill`` / ``decode`` with ``shards=``) in ``shard_path``'s rank
 #: processes, bf16, ``SERVE_BATCH`` x ``PROMPT_LEN`` prompts and
@@ -3800,7 +3880,10 @@ COMPRESS_OUTLIER_SHARE = 0.01
 #: (K2; K3 never), mamba2 with the batch over dp and its SSD heads over
 #: model (K4), at ``layers`` (cut for the phase's time: at 8 / 4 layers
 #: the whole run read 703.7 s on an H100; mamba2's cases and granite's
-#: fully-seq one, at 24 layers until the ep cases came, at 8 for theirs),
+#: fully-seq one, at 24 layers until the ep cases came, at 8 for theirs;
+#: the two fully-seq ones at 4 since the encoder-decoder's and jamba's
+#: fully-seq cases came: with them the whole script read 1143.3 s on an
+#: NVIDIA H100 80GB HBM3, 700.00 W, against its limit of 1200),
 #: the float32 check at
 #: ``f32_layers``; ``layout`` is the attention cache's layout the case
 #: must take (``lm.serve_layout``; None: no attention).  The fully-seq
@@ -3825,6 +3908,30 @@ FS_PROMPT_LEN = 512
 #: ``max_len`` default to ``SHARD_SERVE_NEW`` and ``SHARD_SERVE_LEN``.
 UNEVEN_SERVE_NEW = 8
 UNEVEN_SERVE_LEN = 512 + UNEVEN_SERVE_NEW + 8
+#: The fully-seq encoder-decoder (keys ``seamless_m4t_medium/fully_seq``
+#: and ``/fully_seq_hd``): seamless at batch 1, 4 + 4 layers (float32
+#: too), ``FS_PROMPT_LEN`` prompts and ``ENC_FRAMES`` frames, on (4, 1)
+#: (``"seq"``: 16 kv heads whole, self blocks of 262 positions, cross
+#: blocks of 64 encoder positions, K3's statistics form over both) and on
+#: (2, 2) (``"seq_hd"``: ``head_dim`` 32 a participant, K3 never); the
+#: float32 check runs each of its ``controls``: the layout's, and the
+#: cross cache cut at encoder position 0 on every participant.
+#: jamba-v0.1-52b fully-seq (keys ``jamba_v0_1_52b/fully_seq`` and
+#: ``/fully_seq_hd``), the JAX package's ``long_500k`` decode: batch 1
+#: into a cache of ``LONG_CACHE`` positions (the cell's cache; its prompt
+#: cut to ``FS_PROMPT_LEN``), bf16 at 8 layers (one period of its
+#: pattern), every width whole: on (2, 1) (``"seq"``: blocks of 262 144
+#: positions, K3's statistics form at jamba's width on rank 0's block and
+#: on rank 1's empty one, K5 over all 16 experts a rank; its own pool of
+#: ``LONG_RANKS`` rank processes, ``long_path``) and on (2, 2) (``"seq_hd"``,
+#: the production meshes' layout of that cell: K3 never, K5 over 8
+#: experts, K4 over 64 of 128 SSD heads).  No float32 check
+#: (``f32_layers`` None): a float32 master of 8 layers is 53 GB, and the
+#: data participants would each hold one.  The bf16 run builds each rank's
+#: block leaf by leaf (``seeded_block``) and adds a control: the block's
+#: ``CONTROL_WEIGHTS`` rounded to ``CONTROL_BITS`` bits, whose prefill and
+#: first step must leave ``serve_path``'s limit.
+LONG_RANKS = 2
 SHARD_SERVE_CASES = {
     MOE_ARCH: {"arch": MOE_ARCH, "mesh": (1, 4), "layers": 4,
                "f32_layers": 4, "layout": "head", "batch": SERVE_BATCH,
@@ -3836,7 +3943,7 @@ SHARD_SERVE_CASES = {
                "f32_layers": 4, "layout": None, "batch": SERVE_BATCH,
                "prompt": PROMPT_LEN, "full_cache": False},
     f"{MOE_ARCH}/fully_seq": {
-        "arch": MOE_ARCH, "mesh": (4, 1), "layers": 8, "f32_layers": 4,
+        "arch": MOE_ARCH, "mesh": (4, 1), "layers": 4, "f32_layers": 4,
         "layout": "seq", "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": True},
     f"{SERVE_ARCH}/fully_seq": {
@@ -3844,7 +3951,7 @@ SHARD_SERVE_CASES = {
         "layout": "seq_hd", "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": False},
     f"{SSM_ARCH}/fully_seq": {
-        "arch": SSM_ARCH, "mesh": (2, 2), "layers": 8, "f32_layers": 4,
+        "arch": SSM_ARCH, "mesh": (2, 2), "layers": 4, "f32_layers": 4,
         "layout": None, "batch": 1, "prompt": FS_PROMPT_LEN,
         "full_cache": False},
     ENCDEC_ARCH: {"arch": ENCDEC_ARCH, "mesh": (1, 4), "layers": 4,
@@ -3860,6 +3967,24 @@ SHARD_SERVE_CASES = {
              "f32_layers": 2, "layout": "head", "batch": SERVE_BATCH,
              "prompt": PROMPT_LEN, "full_cache": False, "moe_impl": "ep",
              "prefill_only": True, "control": "own_block_exit"},
+    f"{ENCDEC_ARCH}/fully_seq": {
+        "arch": ENCDEC_ARCH, "mesh": (4, 1), "layers": 4, "f32_layers": 4,
+        "layout": "seq", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "frames": ENC_FRAMES, "full_cache": False,
+        "controls": ("unoffset_cache_len", "cross_cut_at_0")},
+    f"{ENCDEC_ARCH}/fully_seq_hd": {
+        "arch": ENCDEC_ARCH, "mesh": (2, 2), "layers": 4, "f32_layers": 4,
+        "layout": "seq_hd", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "frames": ENC_FRAMES, "full_cache": False,
+        "controls": ("equal_block_weights", "cross_cut_at_0")},
+    f"{HYBRID_ARCH}/fully_seq_hd": {
+        "arch": HYBRID_ARCH, "mesh": (2, 2), "layers": 8, "f32_layers": None,
+        "layout": "seq_hd", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "max_len": LONG_CACHE, "full_cache": False},
+    f"{HYBRID_ARCH}/fully_seq": {
+        "arch": HYBRID_ARCH, "mesh": (2, 1), "layers": 8, "f32_layers": None,
+        "layout": "seq", "batch": 1, "prompt": FS_PROMPT_LEN,
+        "max_len": LONG_CACHE, "full_cache": False, "ranks": LONG_RANKS},
 }
 #: The float32 check's control per layout: one step of the sharded decode
 #: broken (``serve_control``), which must leave the limit.
@@ -3867,13 +3992,6 @@ SHARD_SERVE_CONTROLS = {"head": "exclusive_mask", "hd": "unsummed_scores",
                         "seq": "unoffset_cache_len",
                         "seq_hd": "equal_block_weights",
                         None: "per_block_norm"}
-#: K3's statistics form at the JAX package's ``long_500k`` decode:
-#: jamba-v0.1-52b's attention width (32 heads over 8 kv heads of 128)
-#: against a cache of ``LONG_CACHE`` positions cut into ``LONG_BLOCKS``
-#: blocks (its sequence over a data axis of 4), the token in block 2.
-LONG_CACHE = 524_288
-LONG_BLOCKS = 4
-LONG_CACHE_LEN = 2 * LONG_CACHE // LONG_BLOCKS + 54_321
 
 
 def shard_config(arch: str, layers: int | None, **kw):
@@ -4043,8 +4161,8 @@ def shard_kernel_shapes(gen, device) -> dict:
     cfg = get_config(MOE_ARCH)
     dp, m = SHARD_SERVE_CASES[f"{MOE_ARCH}/fully_seq"]["mesh"]
     H, KV = local_heads(cfg, m)
-    out["fs_decode_stats_granite"] = (1, -(-SHARD_SERVE_LEN // dp), H, KV,
-                                      cfg.head_dim)
+    n = -(-SHARD_SERVE_LEN // dp)
+    out["fs_decode_stats_granite"] = (1, n, H, KV, cfg.head_dim, n - 1)
     for key, tokens in (("prefill", FS_PROMPT_LEN), ("decode", 1)):
         sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
         out[f"fs_moe_gmm_{key}"] = (sizes[:E // m], cfg.d_model,
@@ -4079,6 +4197,53 @@ def shard_kernel_shapes(gen, device) -> dict:
     out["uneven_ssd_scan"] = (*case["batch"], -(-(off + n) // P),
                               cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk,
                               (off, n))
+    # the fully-seq encoder-decoder (seamless on (4, 1), batch 1, every
+    # head whole): K2 at the encoder, the decoder's self-attention and its
+    # cross-attention (512 queries over 256 frames), K3's statistics form
+    # over a full self block (262 of the 1048 positions) and a cross block
+    # (64 of the 256 frames); ``(B, Sq, Sk, H, KV, D, causal)`` and ``(B,
+    # S, H, KV, D, cache_len)``
+    cfg = get_config(ENCDEC_ARCH)
+    dp, m = SHARD_SERVE_CASES[f"{ENCDEC_ARCH}/fully_seq"]["mesh"]
+    H, KV = local_heads(cfg, m)
+    D = cfg.head_dim
+    out["fs_encdec_flash_encoder"] = (1, ENC_FRAMES, ENC_FRAMES, H, KV, D,
+                                      False)
+    out["fs_encdec_flash_self"] = (1, FS_PROMPT_LEN, FS_PROMPT_LEN, H, KV,
+                                   D, True)
+    out["fs_encdec_flash_cross"] = (1, FS_PROMPT_LEN, ENC_FRAMES, H, KV, D,
+                                    False)
+    for key, n in (("self", -(-SHARD_SERVE_LEN // dp)),
+                   ("cross", -(-ENC_FRAMES // dp))):
+        out[f"fs_encdec_stats_{key}"] = (1, n, H, KV, D, n - 1)
+    # jamba's fully-seq cases, (2, 1) and (2, 2) (``_hd``): K2 over the
+    # prefill's local heads, K4 over its local SSD heads, K5 over its
+    # local experts' share of a prefill's (1024) and a step's (2) slots;
+    # K3's statistics form over rank 0's block of the (2, 1) cache at the
+    # last step
+    cfg = get_config(HYBRID_ARCH)
+    E = cfg.moe_experts
+    for key, suffix in ((f"{HYBRID_ARCH}/fully_seq", "jamba"),
+                        (f"{HYBRID_ARCH}/fully_seq_hd", "jamba_hd")):
+        dp, m = SHARD_SERVE_CASES[key]["mesh"]
+        H, KV = local_heads(cfg, m)
+        out[f"fs_flash_attention_{suffix}"] = (1, FS_PROMPT_LEN, H, KV,
+                                               cfg.head_dim)
+        out[f"fs_ssd_scan_{suffix}"] = (1, FS_PROMPT_LEN, cfg.ssm_heads // m,
+                                        cfg.ssm_groups, cfg.ssm_state,
+                                        cfg.ssm_chunk)
+        for call, tokens in (("prefill", FS_PROMPT_LEN), ("decode", 1)):
+            sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
+            while not int(sizes[:E // m].sum()):
+                # a step routing none of its 2 slots to the local experts
+                # launches no K5 there: the shape is a step's that does
+                sizes = routed_sizes(gen, tokens * cfg.moe_top_k, E, device)
+            out[f"fs_moe_gmm_{suffix}_{call}"] = (sizes[:E // m], cfg.d_model,
+                                                  cfg.expert_d_ff)
+    dp = SHARD_SERVE_CASES[f"{HYBRID_ARCH}/fully_seq"]["mesh"][0]
+    out["fs_decode_stats_jamba"] = (1, LONG_CACHE // dp, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim,
+                                    FS_PROMPT_LEN + SHARD_SERVE_NEW - 1)
     # the ep cases' (2, 2): participant 0's received rows in a train step
     # (8 x 512) and in the prefill (8 x 1024)
     cfg, case = get_config(MOE_ARCH), SHARD_CASES[EP_KEY]
@@ -4107,6 +4272,23 @@ def ep_received_sizes(gen, t_loc: int, cfg, m: int, device) -> torch.Tensor:
         valid += torch.diff(kept, prepend=kept.new_zeros(1))
     valid[-1] += m * cap - valid.sum()
     return valid
+
+
+#: The fully-seq cases' kernel shapes (``shard_kernel_shapes``), checked
+#: and timed: K2 over a prefill's local heads (``(B, S, H, KV, D)``) and
+#: the encoder-decoder's (``(B, Sq, Sk, H, KV, D, causal)``), K3's
+#: statistics form over a block (``(B, S, H, KV, D, cache_len)``), K4, K5.
+FS_FLASH = ("fs_flash_attention_granite", "fs_flash_attention_glm4",
+            "fs_flash_attention_jamba", "fs_flash_attention_jamba_hd")
+ENCDEC_FLASH = ("encdec_flash_encoder", "encdec_flash_self",
+                "encdec_flash_cross", "fs_encdec_flash_encoder",
+                "fs_encdec_flash_self", "fs_encdec_flash_cross")
+FS_STATS = ("fs_decode_stats_granite", "fs_encdec_stats_self",
+            "fs_encdec_stats_cross", "fs_decode_stats_jamba")
+FS_SSD = ("fs_ssd_scan", "fs_ssd_scan_jamba", "fs_ssd_scan_jamba_hd")
+FS_GMM = ("fs_moe_gmm_prefill", "fs_moe_gmm_decode",
+          "fs_moe_gmm_jamba_prefill", "fs_moe_gmm_jamba_decode",
+          "fs_moe_gmm_jamba_hd_prefill", "fs_moe_gmm_jamba_hd_decode")
 
 
 def shard_kernel_checks(device, seed: int) -> list[dict]:
@@ -4143,20 +4325,21 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
                 out.append({**gmm_case(gen, sizes, K, N, dtype, device,
                                        f"sharded {key} {label}"),
                             "sharded": f"serve_moe_gmm_{key}"})
-        for key in ("fs_flash_attention_granite", "fs_flash_attention_glm4"):
+        for key in FS_FLASH:
             B, S, H, KV, D = shapes[key]
             out.append({**flash_case(gen, B, S, H, KV, D, dtype, True,
                                      device), "sharded": key})
-        B, S, H, KV, D = shapes["fs_decode_stats_granite"]
-        for n in (-1, 0, S // 2, S - 1):
-            out.append({**decode_stats_case(gen, B, S, H, KV, D, dtype, n,
-                                            device)[0],
-                        "sharded": "fs_decode_stats_granite"})
-        B, S, H, G, N, Q = shapes["fs_ssd_scan"]
-        out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device),
-                    "sharded": "fs_ssd_scan"})
-        for key in ("encdec_flash_encoder", "encdec_flash_self",
-                    "encdec_flash_cross"):
+        for key in FS_STATS:
+            B, S, H, KV, D, last = shapes[key]
+            for n in sorted({-1, 0, S // 2, last, S - 1}):
+                out.append({**decode_stats_case(gen, B, S, H, KV, D, dtype,
+                                                n, device)[0],
+                            "sharded": key})
+        for key in FS_SSD:
+            B, S, H, G, N, Q = shapes[key]
+            out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device),
+                        "sharded": key})
+        for key in ENCDEC_FLASH:
             B, Sq, Sk, H, KV, D, causal = shapes[key]
             out.append({**flash_case(gen, B, Sq, H, KV, D, dtype, causal,
                                      device, Sk=Sk), "sharded": key})
@@ -4169,12 +4352,11 @@ def shard_kernel_checks(device, seed: int) -> list[dict]:
         out.append({**ssd_case(gen, B, S, H, G, N, Q, dtype, device,
                                channels=channels),
                     "sharded": "uneven_ssd_scan"})
-        for key in ("prefill", "decode"):
-            sizes, d, f = shapes[f"fs_moe_gmm_{key}"]
+        for key in FS_GMM:
+            sizes, d, f = shapes[key]
             for label, K, N in (("gate/up", d, f), ("down", f, d)):
                 out.append({**gmm_case(gen, sizes, K, N, dtype, device,
-                                       f"fully-seq {key} {label}"),
-                            "sharded": f"fs_moe_gmm_{key}"})
+                                       f"{key} {label}"), "sharded": key})
         for key in ("ep_moe_gmm", "ep_serve_moe_gmm"):
             sizes, d, f = shapes[key]
             for label, K, N in (("gate/up", d, f), ("down", f, d)):
@@ -4257,6 +4439,13 @@ def long_stats(device, seed: int, flush) -> dict:
             "o_rel_rms": max(c.get("o_rel_rms", 0.0) for c in checks)}
 
 
+def fs_rounds(key: str) -> int:
+    """Rounds of ``measure_fns`` for a sharded shape: one for the fully-seq
+    cases' (``fs_*``: fifteen shapes, whose second round cost the whole
+    script ~13 s of its time limit), two for the others."""
+    return 1 if key.startswith("fs_") else 2
+
+
 def shard_kernel_timings(device, seed: int, flush) -> dict:
     """K2, K4 and K5 (gate/up and down) at ``shard_path``'s sharded shapes,
     bf16, beside their plain versions and library calls, with their
@@ -4264,7 +4453,11 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
     library calls only (every function timed costs a quarter-second
     warm-up a round, and the phase's time is held); K2, K3 and K4 at the
     encoder-decoder's and ``uneven_path``'s beside their plain versions
-    and (K2, K3) SDPA."""
+    and (K2, K3) SDPA; the same at the fully-seq encoder-decoder's and
+    jamba's (K3's statistics form at seamless's full self and cross
+    blocks and at jamba's (2, 1) block at the last step, its bound over
+    the positions that step holds; K5's gate/up and down of jamba's
+    prefill and gate/up of a step beside ``torch._grouped_mm``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=device).manual_seed(seed + 12)
     shapes = shard_kernel_shapes(gen, device)
@@ -4273,11 +4466,11 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
     flash = []
     for key in ("flash_attention_granite", "flash_attention_glm4",
                 "serve_flash_attention_granite",
-                "serve_flash_attention_glm4"):
+                "serve_flash_attention_glm4", "fs_flash_attention_jamba",
+                "fs_flash_attention_jamba_hd"):
         B, S, H, KV, D = shapes[key]
         flash.append((key, B, S, S, H, KV, D, True))
-    flash += [(key, *shapes[key]) for key in (
-        "encdec_flash_encoder", "encdec_flash_self", "encdec_flash_cross")]
+    flash += [(key, *shapes[key]) for key in ENCDEC_FLASH]
     for key, B, Sq, Sk, H, KV, D, causal in flash:
         q = _randn(gen, (B, Sq, H, D), bf, device)
         k = _randn(gen, (B, Sk, KV, D), bf, device)
@@ -4290,13 +4483,17 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
         if not key.startswith("serve_"):
             fns["plain_ms"] = lambda: flash_attention.flash_attention_torch(
                 q, k, v, causal=causal)
-        t = measure_fns(fns, flush, rounds=2)
+        t = measure_fns(fns, flush, rounds=fs_rounds(key))
         t.update(shape=[B, Sq, H, D], keys=Sk, kv_heads=KV, causal=causal,
                  dtype="bfloat16", **roofline.work_bound(
                      roofline.flash_work(B, Sq, Sk, H, KV, D, bf, causal)))
         out[key] = t
         del q, k, v, qt, kt, vt
-    for key in ("encdec_decode_self", "encdec_decode_cross"):
+    for key, stats in (("encdec_decode_self", False),
+                       ("encdec_decode_cross", False),
+                       ("fs_encdec_stats_self", True),
+                       ("fs_encdec_stats_cross", True),
+                       ("fs_decode_stats_jamba", True)):
         B, S, H, KV, D, last = shapes[key]
         q = _randn(gen, (B, H, D), bf, device)
         kc = _randn(gen, (B, S, KV, D), bf, device)
@@ -4304,21 +4501,23 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
         n = torch.tensor(last, dtype=torch.int32, device=device)
         valid = (torch.arange(S, device=device) <= n)[None, None, None, :]
         q4, kt, vt = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+        plain = (decode_attention.decode_attention_stats_torch if stats
+                 else decode_attention.decode_attention_torch)
         t = measure_fns({
-            "ms": lambda: decode_attention.decode_attention(q, kc, vc, n),
-            "plain_ms": lambda: decode_attention.decode_attention_torch(
-                q, kc, vc, n),
+            "ms": lambda: decode_attention.decode_attention(q, kc, vc, n,
+                                                            stats=stats),
+            "plain_ms": lambda: plain(q, kc, vc, n),
             "library_ms": lambda: F.scaled_dot_product_attention(
                 q4, kt, vt, attn_mask=valid, enable_gqa=True)},
-            flush, rounds=2)
+            flush, rounds=fs_rounds(key))
         t.update(cache=[B, S, KV, D], heads=H, cache_len=last,
-                 dtype="bfloat16",
+                 dtype="bfloat16", form="statistics" if stats else "default",
                  splits=decode_attention.split_plan(B, KV, H // KV, S,
                                                     sm_count(device)),
                  **roofline.work_bound(roofline.decode_work(
-                     B, H, KV, D, last + 1, bf)))
+                     B, H, KV, D, last + 1, bf, stats=stats)))
         out[key] = t
-        del q, kc, vc, q4, kt, vt
+        del q, kc, vc, q4, kt, vt, valid
     B, S, H, G, N, Q, channels = shapes["uneven_ssd_scan"]
     x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
     x, _ = owned_channels(x, channels)
@@ -4334,19 +4533,21 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
              **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q, bf)))
     out["uneven_ssd_scan"] = t
     del x, dt, A, Bm, Cm
-    B, S, H, G, N, Q = shapes["ssd_scan"]
-    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
-    t = measure_fns({
-        "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
-        "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
-            x, dt, A, Bm, Cm, Q)}, flush, rounds=2)
-    t.update(shape=[B, S, H, 64], groups=G, state=N, chunk=Q,
-             dtype="bfloat16", library_ms=None,
-             heads_per_block=ssd_scan.head_group_plan(
-                 B, S, H, G, N, Q, sms=sm_count(device)),
-             **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q, bf)))
-    out["ssd_scan"] = t
-    del x, dt, A, Bm, Cm
+    for key in ("ssd_scan", "fs_ssd_scan_jamba", "fs_ssd_scan_jamba_hd"):
+        B, S, H, G, N, Q = shapes[key]
+        x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, G, N, bf, device)
+        t = measure_fns({
+            "ms": lambda: ssd_scan.ssd_intra_chunk(x, dt, A, Bm, Cm, Q),
+            "plain_ms": lambda: ssd_scan.ssd_intra_chunk_torch(
+                x, dt, A, Bm, Cm, Q)}, flush, rounds=fs_rounds(key))
+        t.update(shape=[B, S, H, 64], groups=G, state=N, chunk=Q,
+                 dtype="bfloat16", library_ms=None,
+                 heads_per_block=ssd_scan.head_group_plan(
+                     B, S, H, G, N, Q, sms=sm_count(device)),
+                 **roofline.work_bound(roofline.ssd_work(B, S, H, G, N, Q,
+                                                         bf)))
+        out[key] = t
+        del x, dt, A, Bm, Cm
     B, S, H, KV, D, last = shapes["serve_decode_attention_granite"]
     q = _randn(gen, (B, H, D), bf, device)
     kc = _randn(gen, (B, S, KV, D), bf, device)
@@ -4373,6 +4574,9 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
     gmm_keys += [("ep_moe_gmm_gate_up", "ep_moe_gmm", 0),
                  ("ep_moe_gmm_down", "ep_moe_gmm", 1),
                  ("ep_serve_moe_gmm_gate_up", "ep_serve_moe_gmm", 0)]
+    gmm_keys += [(f"{key}_gate_up", key, 0) for key in FS_GMM[2:]]
+    gmm_keys.append(("fs_moe_gmm_jamba_prefill_down",
+                     "fs_moe_gmm_jamba_prefill", 1))
     for key, shape_key, down in gmm_keys:
         sizes, d, f = shapes[shape_key]
         K, N_ = (f, d) if down else (d, f)
@@ -4386,7 +4590,7 @@ def shard_kernel_timings(device, seed: int, flush) -> dict:
         if not key.startswith("serve_"):
             fns["plain_ms"] = lambda: moe_gmm.grouped_matmul_torch(xs, w,
                                                                    sizes)
-        t = measure_fns(fns, flush, rounds=2)
+        t = measure_fns(fns, flush, rounds=fs_rounds(key))
         M = int(sizes.sum())
         t.update(rows=M, experts=E, K=K, N=N_, library=lib_name,
                  active_experts=int((sizes > 0).sum()),
@@ -5094,8 +5298,9 @@ def shard_rank(rank: int, store: str, seed: int, t_spawn: float,
         meshes = {(2, 2): dm, **{
             shape: make_mesh(shape, ("data", "model")).device_mesh()
             for shape in ((1, 4), (4, 1))}}
-    else:
-        mesh = (1, pool)
+    else:                   # a pool of its own: its cases' one mesh
+        (mesh,) = {c["mesh"] for table in (SHARD_CASES, SHARD_SERVE_CASES)
+                   for c in pool_cases(table, pool).values()}
         meshes = {mesh: init_ranks(make_mesh(mesh, ("data", "model")),
                                    rank, store)}
     # what every process pays once before its first step: the device's
@@ -5315,6 +5520,21 @@ def uneven_summary(shard: dict, shard_serve: dict, uneven: dict) -> str:
         f"rank")
 
 
+def phase_long(args, card: str, device) -> dict:
+    """``long_path``: jamba-v0.1-52b's fully-seq case on (2, 1) in a pool of
+    its own of ``LONG_RANKS`` rank processes on the one card (after the
+    other pools have exited: each rank holds the whole bf16 model), held
+    as ``shard_serve_path``'s cases are, and its collective count."""
+    ranks, _, times = shard_pool(args, device, LONG_RANKS)
+    serve = phase_shard_serve(ranks, card, LONG_RANKS)
+    run = {"ranks": LONG_RANKS, "device": f"{device.type}:0 in every rank",
+           **times, "spawn_to_ready_s": [r["ready_s"] for r in ranks],
+           "rank_seconds": [r["seconds"] for r in ranks], **serve}
+    run["collective_count"] = phase_collective_count(
+        ranks, LONG_RANKS, "long_collective_count")
+    return run
+
+
 def phase_uneven(args, card: str, device) -> dict:
     """``uneven_path``: mamba2-130m at the production cut of its SSD heads,
     (1, 16), in ``UNEVEN_RANKS`` rank processes on the one card (after the
@@ -5351,11 +5571,14 @@ def serve_control(name: str):
     (``unoffset_cache_len``: the off-by-a-block that layout invites), the
     fully-seq blocks averaged with equal weights (``equal_block_weights``:
     ``l · exp(m − M)`` dropped), ``inner_norm`` per block in the recurrent
-    step (``per_block_norm``)."""
+    step (``per_block_norm``), the encoder-decoder's fully-seq cross cache
+    cut at encoder position 0 on every participant (``cross_cut_at_0``, a
+    control of the cache: each block's offset dropped; a step's cross
+    offset alone changes nothing, every encoder position being valid)."""
     from unittest import mock
 
     from repro_torch.kernels import ops
-    from repro_torch.models import layers, ssd
+    from repro_torch.models import encdec, layers, ssd
 
     if name == "unsummed_scores":
         return mock.patch.object(layers, "sum_partial_scores",
@@ -5372,6 +5595,13 @@ def serve_control(name: str):
     if name == "equal_block_weights":
         return mock.patch.object(layers, "combine_blocks",
                                  lambda o, m, l: o.mean(dim=0))
+    if name == "cross_cut_at_0":
+        block = encdec.cross_block
+
+        def at_0(part, frames):
+            lo, hi = block(part, frames)
+            return 0, hi - lo
+        return mock.patch.object(encdec, "cross_block", at_0)
     return mock.patch.object(
         ssd, "sharded_rmsnorm", lambda x, scale, n, part, eps=1e-5:
         layers.rmsnorm(x, scale, eps))
@@ -5525,15 +5755,7 @@ def rel_rms(got, want) -> float:
 #: The serving controls of the cache rather than of a decode step: the
 #: control run builds and prefills its cache under them, then steps once,
 #: and its worst call is read.
-CACHE_CONTROLS = ("cross_from_participant_0", "unoffset")
-
-
-def serve_layout(cfg, part, batch: int):
-    """The attention cache's layout of a batch of ``batch`` on ``part``'s
-    mesh, as the model's serving calls take it."""
-    from repro_torch.models import encdec
-
-    return (encdec if cfg.enc_layers else lm).serve_layout(cfg, part, batch)
+CACHE_CONTROLS = ("cross_from_participant_0", "unoffset", "cross_cut_at_0")
 
 
 def cross_from_participant_0(local, cfg, full, part):
@@ -5558,12 +5780,13 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
     cells on its block, fed rank 0's tokens with its routing replayed;
     rank 0 holds every call's gathered logits, the greedy tokens and the
     gathered cache after the prefill and after the last step to the
-    unsharded run's, and the first step again under the case's control:
-    from the prefill's cache (a control of the decode step), or, for a
-    control of the cache (``CACHE_CONTROLS``), after a cache built and
-    prefilled under it too (the worst of the two calls and of the
-    gathered cache after the prefill is read: the limit holds both).
-    Readings are rank 0's (None elsewhere)."""
+    unsharded run's, and the first step again under each of the case's
+    controls (``controls``, else its ``control`` or its layout's): from
+    the prefill's cache (a control of the decode step), or, for a control
+    of the cache (``CACHE_CONTROLS``), after a cache built and prefilled
+    under it too (the worst of the two calls and of the gathered cache
+    after the prefill is read: the limit holds both).  Readings are rank
+    0's (None elsewhere); ``control_rel_rms`` is the least control's."""
     from repro_torch.convert import gather_cache
     from repro_torch.parallel.sharding import param_shardings, shard_tree
 
@@ -5585,11 +5808,11 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
                 max_len)
     local = shard_tree(full, param_shardings(full, cfg, part.mesh),
                        part.coord)
-    layout = serve_layout(cfg, part, B)
-    control_name = case.get("control") or SHARD_SERVE_CONTROLS[layout]
+    layout = lm.serve_layout(cfg, part, B)
+    names = case.get("controls") or (case.get("control")
+                                     or SHARD_SERVE_CONTROLS[layout],)
     control_params = (cross_from_participant_0(local, cfg, full, part)
-                      if control_name == "cross_from_participant_0"
-                      else None)
+                      if "cross_from_participant_0" in names else None)
     del full
     shared = [{"tokens": [t.cpu() for t in ref["tokens"]],
                "routing": [r.cpu() for r in routing.recorded]}
@@ -5614,29 +5837,32 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
                                                tokens[1:], device)
     logits, records = [lg, *logits], [rec, *records]
     gathered.append(gather_cache(cache, cfg, part, B))
-    if control_name in CACHE_CONTROLS:
-        # a control of the cache: built, prefilled and stepped under it
-        c_routing = Routing()
-        c_routing.recorded = rows.recorded[:2 * n_moe]
-        with c_routing.replay(), (
-                contextlib.nullcontext() if control_params is not None
-                else shard_control(control_name)):
-            c_params = control_params or local
-            c_cache = model.init_cache(c_params, batch, max_len,
-                                       shards=part)
-            c_logits, start = model.prefill(c_params, batch, c_cache,
-                                            shards=part)
-            c_gathered = gather_cache(start, cfg, part, B)
-            control, _, _ = sharded_steps(model, c_params, part, start,
-                                          tokens[1:2], device)
-        control, first = [c_logits, *control], 0
-    else:
-        with step_routing.replay(), shard_control(control_name):
-            control, _, _ = sharded_steps(model, local, part, start,
-                                          tokens[1:2], device)
-        first, c_gathered = 1, None
-    whole, control = (whole_rows(logits, part, B),
-                      whole_rows(control, part, B))
+    controls = {}
+    for name in names:
+        if name in CACHE_CONTROLS:
+            # a control of the cache: built, prefilled and stepped under it
+            c_routing = Routing()
+            c_routing.recorded = rows.recorded[:2 * n_moe]
+            own = name == "cross_from_participant_0"
+            with c_routing.replay(), (
+                    contextlib.nullcontext() if own
+                    else shard_control(name)):
+                c_params = control_params if own else local
+                c_cache = model.init_cache(c_params, batch, max_len,
+                                           shards=part)
+                c_logits, c_cache = model.prefill(c_params, batch, c_cache,
+                                                  shards=part)
+                c_gathered = gather_cache(c_cache, cfg, part, B)
+                control, _, _ = sharded_steps(model, c_params, part,
+                                              c_cache, tokens[1:2], device)
+            controls[name] = ([c_logits, *control], 0, c_gathered)
+        else:
+            with step_routing.replay(), shard_control(name):
+                control, _, _ = sharded_steps(model, local, part,
+                                              copy_cache(start), tokens[1:2],
+                                              device)
+            controls[name] = (control, 1, None)
+    whole = whole_rows(logits, part, B)
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
@@ -5645,7 +5871,7 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
                "init_cache"],
            "fingerprints": [fingerprint(t) for t in logits],
            "len": int(cache["len"]), "routing_flips": flips,
-           "control": control_name}
+           "control": ", ".join(names)}
     if lead:
         V = cfg.vocab
         out.update(
@@ -5658,16 +5884,24 @@ def shard_serve_f32(seed: int, device, key: str, part) -> dict:
                 tree.leaves(cache_state(got)), tree.leaves(want),
                 strict=True))
                 for got, want in zip(gathered, ref["caches"])],
-            len_equal=int(gathered[-1]["len"]) == ref["len"],
-            control_rel_rms=max(
-                rel_rms(c[..., :V], w[..., :V]) for c, w in zip(
-                    control, ref["logits"][first:first + len(control)])))
-        if c_gathered is not None:
-            out["control_cache_rel_rms"] = max(rel_rms(g, w) for g, w in zip(
-                tree.leaves(cache_state(c_gathered)),
-                tree.leaves(ref["caches"][0]), strict=True))
-            out["control_rel_rms"] = max(out["control_rel_rms"],
-                                         out["control_cache_rel_rms"])
+            len_equal=int(gathered[-1]["len"]) == ref["len"])
+        out["controls_rel_rms"], cache_rel = {}, {}
+        for name, (control, first, c_gathered) in controls.items():
+            control = whole_rows(control, part, B)
+            worst = max(rel_rms(c[..., :V], w[..., :V]) for c, w in zip(
+                control, ref["logits"][first:first + len(control)]))
+            if c_gathered is not None:
+                cache_rel[name] = max(rel_rms(g, w) for g, w in zip(
+                    tree.leaves(cache_state(c_gathered)),
+                    tree.leaves(ref["caches"][0]), strict=True))
+                worst = max(worst, cache_rel[name])
+            out["controls_rel_rms"][name] = worst
+        out["control_rel_rms"] = min(out["controls_rel_rms"].values())
+        if cache_rel:
+            out["control_cache_rel_rms"] = cache_rel
+    else:
+        for control, _, _ in controls.values():
+            whole_rows(control, part, B)        # the gather is collective
     return out
 
 
@@ -5680,18 +5914,42 @@ def state_fingerprints(cache: dict) -> dict:
             for name in ("conv_bc", "ssm")}
 
 
+def build_in_turns(cfg, seed: int, device, part) -> tuple[dict, float]:
+    """Every rank's block of the seeded parameters as served
+    (``seeded_block``), the ranks building one after another, so that the
+    card holds one whole float32 leaf at a time (jamba's stacked experts:
+    15 GB); each rank's peak GB while it builds (None off the card)."""
+    on_card = device.type == "cuda"
+    local, peak = None, None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            local = seeded_block(cfg, seed, device, part)
+            if on_card:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return local, peak
+
+
 def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     """Case ``key``'s bf16 run: rank 0 runs the unsharded model greedily
-    with the same kernels (routing recorded) on the seeded parameters cast
-    to bf16; every rank then runs the sharded cells on its block, fed
+    with the same kernels (routing recorded) on the seeded parameters as
+    served, built leaf by leaf, and frees them; the ranks then build their
+    blocks in turns (``build_in_turns``) and run the sharded cells, fed
     those tokens with that routing replayed, each call timed (CUDA events)
     with its launches and collectives, the SSM state's checksums after
-    the prefill and after the last step; then, in a ``full_cache`` case,
-    decodes until its cache is full (from a cache prefilled again to
-    eight positions short of it where the steps ended short of that) and
-    once more, which must raise ``IndexError``."""
-    from repro_torch.parallel.sharding import param_shardings, shard_tree
-
+    the prefill and after the last step, each rank's peak GB and the
+    card's memory in use once every rank holds its block and cache; then,
+    in a ``full_cache`` case, decodes until its cache is full (from a
+    cache prefilled again to eight positions short of it where the steps
+    ended short of that) and once more, which must raise ``IndexError``;
+    in a case with no float32 check (``f32_layers`` None), the control:
+    the block's ``CONTROL_WEIGHTS`` rounded in place to ``CONTROL_BITS``
+    bits, a prefill and the first step (routing replayed) read against
+    the unsharded run."""
     case = SHARD_SERVE_CASES[key]
     B = case["batch"]
     new, max_len = (case.get("new", SHARD_SERVE_NEW),
@@ -5699,28 +5957,24 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
     cfg = case_config(case, case["layers"])
     model = Model(cfg)
     lead = dist.get_rank() == 0
+    on_card = device.type == "cuda"
     routing = Routing()
     ref = None
     extra = serve_frames(cfg, seed, device, case)
-    full = model.init(torch.Generator(device=device).manual_seed(seed))
-    local = cast_params(shard_tree(full, param_shardings(full, cfg,
-                                                         part.mesh),
-                                   part.coord), cfg, device, in_place=True)
     if lead:
-        served = cast_params(full, cfg, device, in_place=True)
+        served = seeded_block(cfg, seed, device)
         with routing.record():
             ref = greedy_unsharded(model, served, serve_prompts(
                 cfg, seed, device, B, case["prompt"]), device, extra, new,
                 max_len)
         del served, ref["caches"]
-    del full
-    on_card = device.type == "cuda"
-    if on_card:
-        torch.cuda.empty_cache()
+        if on_card:
+            torch.cuda.empty_cache()
     shared = [{"tokens": [t.cpu() for t in ref["tokens"]],
                "routing": [r.cpu() for r in routing.recorded]}
               if lead else None]
     dist.broadcast_object_list(shared, src=0)
+    local, build_peak = build_in_turns(cfg, seed, device, part)
     tokens = [t.to(device) for t in shared[0]["tokens"]]
     rows = RowRouting([r.to(device) for r in shared[0]["routing"]], part,
                       cfg, B)
@@ -5739,6 +5993,10 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
         logits, records, cache = sharded_steps(model, local, part, cache,
                                                tokens[1:], device)
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    card_used = None
+    if on_card:
+        free, total = torch.cuda.mem_get_info()
+        card_used = (total - free) / 1e9
     logits, records = [lg, *logits], [rec, *records]
     states.append(state_fingerprints(cache))
     fingerprints = [fingerprint(t) for t in logits]
@@ -5761,7 +6019,22 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
             model.decode(local, tok, cache, shards=part)
         except IndexError as e:
             full_error = f"IndexError: {e}"
-    layout = serve_layout(cfg, part, B)
+    control, control_flips = None, None
+    if case["f32_layers"] is None:
+        del cache
+        coarsen_in_place(local, CONTROL_BITS)
+        n_moe = expected_launches(cfg)[0]["moe_gmm"] // 3
+        c_routing = Routing()
+        c_routing.recorded = rows.recorded[:2 * n_moe]
+        with c_routing.replay() as control_flips:
+            c_cache = model.init_cache(local, batch, max_len, shards=part)
+            c_logits, c_cache = model.prefill(local, batch, c_cache,
+                                              shards=part)
+            control, _, _ = sharded_steps(model, local, part, c_cache,
+                                          tokens[1:2], device)
+        control = whole_rows([c_logits, *control], part, B)
+        del c_cache
+    layout = lm.serve_layout(cfg, part, B)
     out = {"layers": cfg.n_layers, "records": records, "layout": layout,
            "launches_expected": expected_shard_serve_launches(
                cfg, layout, rows.local_rows, len(tokens)),
@@ -5773,12 +6046,19 @@ def shard_serve_bf16(seed: int, device, key: str, part) -> dict:
            "conv_bc_fingerprints": [st["conv_bc"] for st in states],
            "ssm_fingerprints": [st["ssm"] for st in states],
            "len": length, "routing_flips": flips, "peak_memory_gb": peak,
-           "full_cache": full_error}
+           "build_peak_memory_gb": build_peak,
+           "card_memory_in_use_gb": card_used, "full_cache": full_error,
+           "control_routing_flips": control_flips}
     if lead:
         V = cfg.vocab
         out["logits_rel_rms"] = [rel_rms(g[..., :V].float(),
                                          w[..., :V].float())
                                  for g, w in zip(whole, ref["logits"])]
+        if control is not None:
+            out["control_rel_rms"] = max(
+                rel_rms(c[..., :V].float(), w[..., :V].float())
+                for c, w in zip(control, ref["logits"]))
+    del local
     return out
 
 
@@ -5846,7 +6126,7 @@ def shard_serve_prefill(seed: int, device, key: str, part) -> dict:
                        "init_cache"],
                    "fingerprints": [fingerprint(lg)],
                    "routing_flips": flips, "peak_memory_gb": peak,
-                   "layout": serve_layout(cfg, part, B)}
+                   "layout": lm.serve_layout(cfg, part, B)}
             if kind == "f32":
                 gathered = gather_cache(cache, cfg, part, B)
                 c_rows = Routing()
@@ -5888,15 +6168,19 @@ def shard_serve_prefill(seed: int, device, key: str, part) -> dict:
 
 
 def shard_serve_rank(seed: int, device, part, key: str) -> dict:
-    """One participant's ``shard_serve_path`` case: its float32 check and
-    its bf16 run (a prefill-only case's: ``shard_serve_prefill``)."""
-    if SHARD_SERVE_CASES[key].get("prefill_only"):
+    """One participant's ``shard_serve_path`` case: its float32 check
+    (None where the case has none) and its bf16 run (a prefill-only
+    case's: ``shard_serve_prefill``)."""
+    case = SHARD_SERVE_CASES[key]
+    if case.get("prefill_only"):
         t0 = time.time()
         run = shard_serve_prefill(seed, device, key, part)
         return {"coord": part.coord, "di": part.di, **run,
                 "seconds": time.time() - t0}
     t0 = time.time()
-    f32 = shard_serve_f32(seed, device, key, part)
+    f32 = None
+    if case["f32_layers"] is not None:
+        f32 = shard_serve_f32(seed, device, key, part)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t1 = time.time()
@@ -5997,41 +6281,55 @@ def phase_shard_serve(ranks: list, card: str,
                 groups.setdefault(0 if rows_whole else p["di"], set()).add(
                     json.dumps([p[kind][reading], p[kind]["len"]]))
             return all(len(v) == 1 for v in groups.values())
+        kinds = ("bf16",) if f32 is None else ("f32", "bf16")
         checks = {
-            "layout": f32["layout"] == bf16["layout"] == case["layout"],
+            "layout": all(per[0][k]["layout"] == case["layout"]
+                          for k in kinds),
             "launches": launches_exact("bf16"),
-            "f32_launches": launches_exact("f32"),
-            "f32_logits": max(f32["logits_rel_rms"]) <= SERVE_F32_REL_RMS,
-            "f32_tokens_equal": f32["tokens_equal"],
-            "f32_cache": max(f32["cache_rel_rms"]) <= SERVE_F32_REL_RMS
-            and f32["len_equal"],
-            "f32_control_past_limit": f32["control_rel_rms"]
-            > SERVE_F32_REL_RMS,
-            "f32_routing": flip_share(f32["routing_flips"], "float32")
-            <= ROUTING_FLIP_SHARE["float32"],
             "bf16_logits": max(bf16["logits_rel_rms"]) <= limit,
             "bf16_routing": routing_ok([bf16["routing_flips"]]),
-            "logits_bits_equal_across_model_ranks":
-                same_bits("bf16", "fingerprints")
-                and same_bits("f32", "fingerprints"),
+            "logits_bits_equal_across_model_ranks": all(
+                same_bits(k, "fingerprints") for k in kinds),
             "conv_bc_bits_equal_across_model_ranks":
                 same_bits("bf16", "conv_bc_fingerprints"),
             "init_cache_launches": all(
                 p[kind]["init_launches"] == p[kind]["init_launches_expected"]
-                for p in per for kind in ("f32", "bf16")),
+                for p in per for kind in kinds),
             "full_cache_raises_on_every_rank": all(
                 (p["bf16"]["full_cache"] or "").startswith("IndexError")
                 for p in per) if case["full_cache"] else True,
         }
+        if f32 is None:
+            checks["bf16_control_past_limit"] = bf16["control_rel_rms"] > limit
+        else:
+            checks.update({
+                "f32_launches": launches_exact("f32"),
+                "f32_logits": max(f32["logits_rel_rms"]) <= SERVE_F32_REL_RMS,
+                "f32_tokens_equal": f32["tokens_equal"],
+                "f32_cache": max(f32["cache_rel_rms"]) <= SERVE_F32_REL_RMS
+                and f32["len_equal"],
+                "f32_control_past_limit": f32["control_rel_rms"]
+                > SERVE_F32_REL_RMS,
+                "f32_routing": flip_share(f32["routing_flips"], "float32")
+                <= ROUTING_FLIP_SHARE["float32"]})
         if cfg.ssm_state and cfg.ssm_heads % case["mesh"][1]:
             # the state is whole on every model participant: all-gathered
             # from their channels after the prefill and every step
             checks["ssm_bits_equal_across_model_ranks"] = same_bits(
                 "bf16", "ssm_fingerprints")
+        if cfg.ssm_state and rows_whole:
+            # every data participant runs the same rows' recurrence: its
+            # block of the state (by model coordinate) is the same bits
+            held: dict = {}
+            for p in per:
+                held.setdefault(p["coord"].get("model", 0), set()).add(
+                    json.dumps(p["bf16"]["ssm_fingerprints"]))
+            checks["ssm_bits_equal_across_data_participants"] = all(
+                len(v) == 1 for v in held.values())
         if bf16["layout"] in ("hd", "seq_hd"):
             checks["no_decode_kernel_in_hd_layout"] = all(
                 rec["launches"]["decode_attention"] == 0 for p in per
-                for kind in ("f32", "bf16") for rec in p[kind]["records"])
+                for kind in kinds for rec in p[kind]["records"])
         step_ms = [[rec["ms"] for rec in p["bf16"]["records"][1:]]
                    for p in per]
         out[key] = {
@@ -6065,15 +6363,25 @@ def phase_shard_serve(ranks: list, card: str,
                                      for p in per],
             "collectives_prefill_rank0": bf16["records"][0]["collectives"],
             "collectives_step_rank0": bf16["records"][1]["collectives"],
-            "f32": {k: f32[k] for k in (
+            "build_peak_memory_gb_per_rank": [
+                p["bf16"]["build_peak_memory_gb"] for p in per],
+            "card_memory_in_use_gb": max(
+                p["bf16"]["card_memory_in_use_gb"] or 0 for p in per),
+            "f32": None if f32 is None else {k: f32[k] for k in (
                 "layers", "logits_rel_rms", "tokens_equal", "cache_rel_rms",
                 "len_equal", "control", "control_rel_rms", "routing_flips")},
-            "f32_control_cache_rel_rms": f32.get("control_cache_rel_rms"),
+            "f32_controls_rel_rms": None if f32 is None
+            else f32.get("controls_rel_rms"),
+            "f32_control_cache_rel_rms": None if f32 is None
+            else f32.get("control_cache_rel_rms"),
             "f32_limit_rel_rms": SERVE_F32_REL_RMS,
             "bf16": {"max_rel_rms": max(bf16["logits_rel_rms"]),
                      "rel_rms_per_call": bf16["logits_rel_rms"],
                      "limit": limit, "routing_flips": bf16["routing_flips"],
-                     "routing_limit": ROUTING_FLIP_SHARE["bfloat16"]},
+                     "routing_limit": ROUTING_FLIP_SHARE["bfloat16"],
+                     "control_bits": CONTROL_BITS if f32 is None else None,
+                     "control_rel_rms": bf16.get("control_rel_rms"),
+                     "control_routing_flips": bf16["control_routing_flips"]},
             "full_cache_rank0": bf16["full_cache"],
             "seconds_rank0": {"f32": per[0]["f32_s"],
                               "bf16": per[0]["bf16_s"]},
@@ -6711,6 +7019,9 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
     uneven = phase_uneven(args, card, device)
     emit({"phase": "uneven_path", "ok": True, **uneven})
     print(uneven_summary(shard, shard_serve, uneven), flush=True)
+    long_run = phase_long(args, card, device)
+    emit({"phase": "long_path", "ok": True, **long_run})
+    serve_cases = {**shard_serve["cases"], **long_run["cases"]}
     for res in phase_roofline(served, train):
         emit({"phase": "roofline", "ok": True, "gpu": card, **res})
     emit({"phase": "dryrun", "ok": True, **phase_dryrun(dry)})
@@ -6745,17 +7056,19 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                       timed: str | None = None) -> dict:
         """A kernel in a ``shard_serve_path`` case: its launches per rank
         in the prefill and in a step (rank 0's), its checks' largest
-        error at that case's sharded shapes and its timing there."""
-        case = shard_serve["cases"][case_key]
+        error at that case's sharded shapes (``key``: their name, or a
+        tuple of names) and its timing there."""
+        case = serve_cases[case_key]
         out = {"path": case["arch"], "mesh": case["mesh"],
                "layout": case["layout"], "batch": case["batch"],
                "launches_per_rank_prefill":
                    case["launches_prefill_rank0"][name],
                "launches_per_rank_step": case["launches_step_rank0"][name]}
         if key:
+            names = (key,) if isinstance(key, str) else key
             out["max_abs_err"] = max(c["max_abs_err"] for c in shard_checks
                                      if c["kernel"] == name
-                                     and c["sharded"] == key)
+                                     and c["sharded"] in names)
         if timed:
             out.update(shard_timing[timed])
         return out
@@ -6876,7 +7189,24 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                 "fs_flash_attention_granite"),
             "glm4": sharded_serve(
                 "flash_attention", f"{SERVE_ARCH}/fully_seq",
-                "fs_flash_attention_glm4")},
+                "fs_flash_attention_glm4"),
+            "seamless": {
+                **sharded_serve("flash_attention", f"{ENCDEC_ARCH}/fully_seq",
+                                ENCDEC_FLASH[3:]),
+                "launches_per_rank_init_cache": serve_cases[
+                    f"{ENCDEC_ARCH}/fully_seq"]["launches_init_cache_rank0"][
+                    "flash_attention"],
+                **{part: shard_timing[f"fs_encdec_flash_{part}"]
+                   for part in ("encoder", "self", "cross")}},
+            "seamless_hd": sharded_serve("flash_attention",
+                                         f"{ENCDEC_ARCH}/fully_seq_hd"),
+            "jamba": sharded_serve(
+                "flash_attention", f"{HYBRID_ARCH}/fully_seq",
+                "fs_flash_attention_jamba", "fs_flash_attention_jamba"),
+            "jamba_hd": sharded_serve(
+                "flash_attention", f"{HYBRID_ARCH}/fully_seq_hd",
+                "fs_flash_attention_jamba_hd",
+                "fs_flash_attention_jamba_hd")},
         "sharded_encdec": {
             **sharded_new("flash_attention", "encdec"),
             **{part: shard_timing[f"encdec_flash_{part}"]
@@ -6910,6 +7240,19 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                  "fs_decode_stats_granite"),
              "glm4": sharded_serve("decode_attention",
                                    f"{SERVE_ARCH}/fully_seq"),
+             "seamless": {
+                 **sharded_serve("decode_attention",
+                                 f"{ENCDEC_ARCH}/fully_seq",
+                                 FS_STATS[1:3]),
+                 "self_block": shard_timing["fs_encdec_stats_self"],
+                 "cross_block": shard_timing["fs_encdec_stats_cross"]},
+             "seamless_hd": sharded_serve("decode_attention",
+                                          f"{ENCDEC_ARCH}/fully_seq_hd"),
+             "jamba": sharded_serve(
+                 "decode_attention", f"{HYBRID_ARCH}/fully_seq",
+                 "fs_decode_stats_jamba", "fs_decode_stats_jamba"),
+             "jamba_hd": sharded_serve("decode_attention",
+                                       f"{HYBRID_ARCH}/fully_seq_hd"),
              "long_500k": {"block": long_k3["timing"],
                            "max_abs_err": long_k3["max_abs_err"],
                            "combine": long_k3["combine"]}},
@@ -6928,6 +7271,12 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                                          "sharded step's: timed there"},
          "sharded_serve_fully_seq": sharded_serve(
              "ssd_scan", f"{SSM_ARCH}/fully_seq", "fs_ssd_scan"),
+         "sharded_serve_fully_seq_jamba": {
+             suffix: sharded_serve("ssd_scan", f"{HYBRID_ARCH}/{case}",
+                                   f"fs_ssd_scan_{suffix}",
+                                   f"fs_ssd_scan_{suffix}")
+             for suffix, case in (("jamba", "fully_seq"),
+                                  ("jamba_hd", "fully_seq_hd"))},
          "sharded_uneven": {**sharded_new("ssd_scan", "uneven"),
                             **shard_timing["uneven_ssd_scan"]}},
         {**entry("moe_gmm", "src/repro/kernels/moe_gmm.py:23",
@@ -6970,6 +7319,20 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
              "prefill_max_abs_err": max(
                  c["max_abs_err"] for c in shard_checks
                  if c["sharded"] == "fs_moe_gmm_prefill")},
+         "sharded_serve_fully_seq_jamba": {
+             suffix: {
+                 **sharded_serve("moe_gmm", f"{HYBRID_ARCH}/{case}",
+                                 (f"fs_moe_gmm_{suffix}_prefill",
+                                  f"fs_moe_gmm_{suffix}_decode")),
+                 "launches_per_rank_run": serve_cases[
+                     f"{HYBRID_ARCH}/{case}"]["k5_launches_per_rank"],
+                 **{k: shard_timing[f"fs_moe_gmm_{suffix}_{k}"]
+                    for k in ("prefill_gate_up", "decode_gate_up")},
+                 **({"prefill_down": shard_timing[
+                     "fs_moe_gmm_jamba_prefill_down"]}
+                    if suffix == "jamba" else {})}
+             for suffix, case in (("jamba", "fully_seq"),
+                                  ("jamba_hd", "fully_seq_hd"))},
          "sharded_ep": {
              "path": f"{shard['cases'][EP_KEY]['arch']} moe_impl=ep",
              "mesh": shard["cases"][EP_KEY]["mesh"],
@@ -7043,6 +7406,8 @@ def shard_only(args) -> None:
     uneven = phase_uneven(args, card, device)
     emit({"phase": "uneven_path", "ok": True, **uneven})
     print(uneven_summary(shard, shard_serve, uneven), flush=True)
+    emit({"phase": "long_path", "ok": True,
+          **phase_long(args, card, device)})
 
 
 def serve_only(args) -> None:

@@ -132,14 +132,18 @@ def gather_cache(cache: dict, cfg, shards, batch_size: int) -> dict:
     (the encoder-decoder's ``"self"`` and ``"cross"``) gathered
     (``gather_tree`` over ``cache_shardings``) from the blocks the
     participants of ``shards`` (a ``Participant``, or what it is made
-    from) hold (sequence blocks too, in the fully-seq layout); ``"len"``,
-    ``"pos"`` and ``"cross_len"`` as this one holds them.  Every
+    from) hold (sequence blocks too, in the fully-seq layout: the
+    encoder-decoder's self blocks joined into its ``"max_len"`` positions
+    and its cross blocks into its ``"frames"``); ``"len"``, ``"pos"`` and
+    ``"cross_len"`` as this one holds them.  Every
     participant receives the same tree, of new tensors (a later step
     writes the cache in place)."""
     sh = as_shards(getattr(shards, "shards", shards))
     if "slots" not in cache:                       # the encoder-decoder's
         blocks = {n: cache[n] for n in ("self", "cross")}
-        like = {n: {k: torch.empty((t.shape[0], batch_size, t.shape[2],
+        sizes = {"self": cache.get("max_len"), "cross": cache.get("frames")}
+        like = {n: {k: torch.empty((t.shape[0], batch_size,
+                                    sizes[n] or t.shape[2],
                                     cfg.n_kv_heads, cfg.head_dim),
                                    dtype=t.dtype, device="meta")
                     for k, t in blocks[n].items()} for n in blocks}

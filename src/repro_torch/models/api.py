@@ -54,17 +54,19 @@ class Model:
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None, *,
-             device=None) -> Params:
+             device=None, leaf=None) -> Params:
         """Parameters on ``device`` (default: the generator's device, else
         the GPU; :func:`repro_torch.device.resolve_device`), drawn from
-        ``generator`` (default: a new one seeded 0 on that device)."""
+        ``generator`` (default: a new one seeded 0 on that device);
+        ``leaf(path, tensor)`` applied to each as it is drawn
+        (:func:`repro_torch.models.lm.init_params`)."""
         if device is None and generator is not None:
             device = generator.device
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         mod = encdec if self.is_encdec else lm
-        return mod.init_params(self.cfg, generator, device)
+        return mod.init_params(self.cfg, generator, device, leaf)
 
     def abstract_params(self) -> Params:
         """The parameters as ``meta`` tensors: shapes and dtypes, no

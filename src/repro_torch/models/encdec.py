@@ -50,10 +50,27 @@ its kv heads in ``"head"``, a ``head_dim`` block of every kv head in
 its rows' logits over the whole vocabulary.  In ``"hd"`` the prefill's
 cross-attention gathers the cross cache's blocks of its layer over
 ``"model"`` (K2 takes whole heads) and a step's runs the reference's
-decode products cut along ``head_dim`` (``layers._attend_hd_block``).  A
-batch that no data axis divides (the fully-seq layout, which would also
-split the cross cache's encoder positions over the data axes) raises
-``NotImplementedError``.
+decode products cut along ``head_dim`` (``layers._attend_hd_block``).
+
+A batch that no data axis divides takes the fully-seq layout (``"seq"``
+at a model axis of one, ``"seq_hd"`` above it), as :mod:`.lm` does: every
+participant takes every row (``lm.rows_part``), and both caches split
+their positions over the data axes: the self cache its ``max_len``
+positions, the cross cache its *encoder* positions (the reference's spec
+``P(None, None, dp, None, "model" | None)`` for every ``k`` / ``v``).  A
+sharded cache also holds ``"max_len"`` and ``"frames"``, the two whole
+lengths.  ``init_cache`` projects every decoder layer's cross k / v over
+all frames and keeps its block (:func:`cross_block`); the prefill writes
+the prompt positions that fall in its self block and, since K2 takes
+whole heads and every position, gathers each layer's cross blocks over
+the data axes (and over ``"model"`` in ``"seq_hd"``); a step writes its
+token where the host mirror says its self block holds the position and
+runs both attentions over its blocks, the cross one from the block's
+start, by the decode kernel's statistics form (``"seq"``) or the
+``head_dim`` products (``"seq_hd"``), the blocks' softmax combined
+across the data axes (``layers.combine_over_dp``).  A length that would
+leave a block of either cache empty raises ``ValueError`` before any
+collective.
 """
 from __future__ import annotations
 
@@ -71,6 +88,7 @@ from ..parallel.tensor import (
 from .config import ModelConfig
 from .layers import (
     _attend_hd_block,
+    _attend_seq_block,
     _attention_sharded,
     _project_qkv,
     attend,
@@ -91,14 +109,17 @@ from .layers import (
     rope,
 )
 from .lm import (
+    FULLY_SEQ,
     _positions,
     _step_logits,
     batch_block,
+    check_seq_blocks,
     check_shardable,
     cross_entropy,
     embed_inputs,
     head_logits,
     meta_tree,
+    rows_part,
 )
 from .moe import MoeAux
 
@@ -124,26 +145,38 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device) -> Params:
+                device: torch.device, leaf=None) -> Params:
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
-    ``generator`` (the reference's scales; not its numbers)."""
+    ``generator`` (the reference's scales; not its numbers); ``leaf`` as
+    :func:`repro_torch.models.lm.init_params` takes it."""
     pdt = dtype_of(cfg.param_dtype)
     d, V = cfg.d_model, cfg.vocab_padded
+    put = leaf or (lambda path, t: t)
 
     def normal(shape):
         return torch.randn(shape, generator=generator,
                            device=device).mul_(0.02).to(pdt)
+
+    def slot(blocks, key, init, n):
+        return init(generator, cfg, n, device,
+                    leaf=lambda name, t: put((blocks, key, name), t))
     enc, dec = cfg.enc_layers, cfg.n_layers
     return {
-        "embed": normal((V, d)), "head": normal((d, V)),
-        "enc_final_norm": torch.ones(d, dtype=pdt, device=device),
-        "final_norm": torch.ones(d, dtype=pdt, device=device),
-        "enc_blocks": {"attn": attention_init(generator, cfg, enc, device),
-                       "mlp": mlp_init(generator, cfg, enc, device)},
+        "embed": put(("embed",), normal((V, d))),
+        "head": put(("head",), normal((d, V))),
+        "enc_final_norm": put(("enc_final_norm",), torch.ones(
+            d, dtype=pdt, device=device)),
+        "final_norm": put(("final_norm",), torch.ones(
+            d, dtype=pdt, device=device)),
+        "enc_blocks": {"attn": slot("enc_blocks", "attn", attention_init,
+                                    enc),
+                       "mlp": slot("enc_blocks", "mlp", mlp_init, enc)},
         "dec_blocks": {
-            "self_attn": attention_init(generator, cfg, dec, device),
-            "cross_attn": attention_init(generator, cfg, dec, device),
-            "mlp": mlp_init(generator, cfg, dec, device)},
+            "self_attn": slot("dec_blocks", "self_attn", attention_init,
+                              dec),
+            "cross_attn": slot("dec_blocks", "cross_attn", attention_init,
+                               dec),
+            "mlp": slot("dec_blocks", "mlp", mlp_init, dec)},
     }
 
 
@@ -258,17 +291,17 @@ def _project_kv(p: Params, x_kv, cfg):
             v.reshape(B, S, -1, cfg.head_dim))
 
 
-def serve_layout(cfg: ModelConfig, part, batch_size: int) -> str:
-    """The cache's layout for a batch of ``batch_size`` on ``part``'s mesh
-    (``cache_layout``): ``"head"`` or ``"hd"``.  Raises
-    ``NotImplementedError`` for the fully-seq layout."""
-    layout = cache_layout(cfg, part.mesh, batch_size)
-    if layout in ("seq", "seq_hd"):
-        raise NotImplementedError(
-            f"the encoder-decoder in the fully-seq layout (a batch of "
-            f"{batch_size} on {part.dp} data participants) does not run "
-            f"sharded")
-    return layout
+def cross_block(part, frames: int) -> tuple[int, int]:
+    """``[lo, hi)``: the encoder positions of the cross cache that ``part``
+    holds in the fully-seq layout (its data block, as ``cache_shardings``
+    cuts the whole cross cache)."""
+    return part.dp_block(frames)
+
+
+def cache_size(cache: dict) -> int:
+    """The whole length of the self cache (a participant's block may hold
+    fewer positions)."""
+    return cache.get("max_len", cache["self"]["k"].shape[2])
 
 
 def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
@@ -277,14 +310,20 @@ def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
     the decoder's self-attention cache.  With ``part`` (module doc), given
     every row of ``enc_embeds``: its rows encoded, its block of the cross
     and self caches."""
-    n = enc_embeds.shape[0]
+    n, frames = enc_embeds.shape[:2]
+    layout = None
     if part is not None:
         check_shardable(cfg, part.m)
-        layout = serve_layout(cfg, part, n)
+        layout = cache_layout(cfg, part.mesh, n)
+        if layout in FULLY_SEQ:
+            check_seq_blocks(max_len, part, "a self cache")
+            check_seq_blocks(frames, part, "a cross cache")
+        part = rows_part(part, n)
         enc_embeds = batch_block(enc_embeds, part)
     enc_out = encode(params, cfg, enc_embeds, part)
     B, T = enc_out.shape[:2]
     cdt, dev = dtype_of(cfg.dtype), enc_out.device
+    lo, hi = cross_block(part, T) if layout in FULLY_SEQ else (0, T)
     L = cfg.n_layers
     ks, vs = [], []
     for i in range(L):
@@ -292,18 +331,20 @@ def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
         k, v = _project_kv(p, enc_out, cfg)
         if part is not None:
             k, v = kv_cache_blocks(k, v, cfg, part, layout)
-        ks.append(k.to(cdt))
-        vs.append(v.to(cdt))
+        ks.append(k[:, lo:hi].to(cdt))
+        vs.append(v[:, lo:hi].to(cdt))
     cross = {"k": torch.stack(ks), "v": torch.stack(vs)}
     self_shape = (L, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"len": torch.zeros((), dtype=torch.int32, device=dev), "pos": 0}
     if part is not None:
         whole = torch.empty((L, n, max_len, cfg.n_kv_heads, cfg.head_dim),
                             dtype=cdt, device="meta")
         sh = cache_shardings(cfg, part.mesh, {"k": whole}, n)
         self_shape = tuple(sl.stop - sl.start for sl in shard_slices(
             whole.shape, sh["k"], part.coord))
+        cache.update(max_len=max_len, frames=T)
     return {
-        "len": torch.zeros((), dtype=torch.int32, device=dev), "pos": 0,
+        **cache,
         "self": {n: torch.zeros(self_shape, dtype=cdt, device=dev)
                  for n in ("k", "v")},
         "cross": cross,
@@ -311,15 +352,33 @@ def init_cache(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
     }
 
 
+def _whole_cross(k, v, part, layout: str, frames: int):
+    """A layer's whole cross k / v ``[B, frames, KV, hd]`` from the
+    participants' blocks: joined along ``head_dim`` over ``"model"`` (in
+    ``"hd"`` and ``"seq_hd"``), then along the encoder positions over the
+    data axes (in the fully-seq layouts; each block padded to the
+    ceil-divided length first), k and v in one gather each."""
+    kv = torch.stack([k, v])
+    if layout in ("hd", "seq_hd"):
+        kv = torch.cat(list(part.all_gather_model(kv).unbind(0)), dim=-1)
+    if layout in FULLY_SEQ:
+        c = -(-frames // part.dp)
+        kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, c - kv.shape[2]))
+        kv = torch.cat(list(part.all_gather_dp(kv).unbind(0)),
+                       dim=2)[:, :, :frames]
+    return kv.unbind(0)
+
+
 def _cross_attend(p: Params, h, cfg: ModelConfig, k, v, cross_len=None,
-                  part=None, layout: str | None = None):
+                  part=None, layout: str | None = None,
+                  frames: int | None = None):
     """Cross-attention of ``h [B, S, d]`` over a layer's cross cache
     ``[B, T_enc, KV, hd]`` (:func:`~.layers.attend_cross`: the flash
     kernel, or with ``cross_len`` (a decode step) the decode kernel over
     all ``T_enc`` positions, under ``"cuda"``; otherwise the reference's
     dense form).  With ``part``, its query heads over its block of the
-    cross cache in ``layout`` (module doc), ``wo``'s rows summed over
-    ``"model"``."""
+    cross cache in ``layout`` (module doc; ``frames`` the whole cache's
+    encoder positions), ``wo``'s rows summed over ``"model"``."""
     cdt = h.dtype
     B, S = h.shape[:2]
     if part is None:
@@ -333,11 +392,14 @@ def _cross_attend(p: Params, h, cfg: ModelConfig, k, v, cross_len=None,
     if layout == "head":
         out = attend_cross(q, k, v, cfg, cross_len)
     elif cross_len is None:            # K2 takes whole heads: gather them
-        kv = part.all_gather_model(torch.stack([k, v]))
-        k, v = torch.cat(list(kv.unbind(0)), dim=-1).unbind(0)
+        k, v = _whole_cross(k, v, part, layout, frames)
         out = attend_cross(q, *local_kv(k, v, cfg, part), cfg)
     else:
-        out = _attend_hd_block(q, k, v, cross_len, cfg, part)
+        s_lo = cross_block(part, frames)[0] if layout in FULLY_SEQ else None
+        if layout == "seq":
+            out = _attend_seq_block(q, k, v, cross_len, s_lo, cfg, part)
+        else:
+            out = _attend_hd_block(q, k, v, cross_len, cfg, part, s_lo)
     out = out.reshape(B, S, (h_hi - h_lo) * cfg.head_dim)
     return leave_model_region_product(torch.matmul, part, out,
                                       p["wo"].to(cdt))
@@ -349,18 +411,22 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     in place (K/V at ``[:S]``, zeros after).  Returns the last position's
     logits and the cache.  With ``part`` (module doc), its rows of the
     whole batch ``tokens`` into its cache block, and its rows' logits
-    over the whole vocabulary."""
-    layout = None
+    over the whole vocabulary (in the fully-seq layout every row, and the
+    prompt positions that fall in its self block)."""
+    layout, size = None, cache_size(cache)
     if part is not None:
         check_shardable(cfg, part.m)
-        layout = serve_layout(cfg, part, tokens.shape[0])
+        layout = cache_layout(cfg, part.mesh, tokens.shape[0])
+        part = rows_part(part, tokens.shape[0])
         tokens = batch_block(tokens, part)
     x = embed_inputs(params, cfg, tokens, part=part)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
-    if S > cache["self"]["k"].shape[2]:
+    if S > size:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of "
-                         f"{cache['self']['k'].shape[2]}")
+                         f"{size}")
+    lo, hi = part.dp_block(size) if layout in FULLY_SEQ else (0, size)
+    n = min(max(S - lo, 0), hi - lo)
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
         h = rmsnorm(x, bp["self_attn"]["norm_scale"], cfg.norm_eps)
@@ -378,12 +444,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = x + out
             k, v = kv_cache_blocks(k, v, cfg, part, layout)
         for name, t in (("k", k), ("v", v)):
-            cache["self"][name][i, :, :S] = t
-            cache["self"][name][i, :, S:] = 0
+            cache["self"][name][i, :, :n] = t[:, lo:lo + n]
+            cache["self"][name][i, :, n:] = 0
         h = rmsnorm(x, bp["cross_attn"]["norm_scale"], cfg.norm_eps)
         x = x + _cross_attend(bp["cross_attn"], h, cfg,
                               cache["cross"]["k"][i], cache["cross"]["v"][i],
-                              part=part, layout=layout)
+                              part=part, layout=layout,
+                              frames=cache.get("frames"))
         h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
         x = x + mlp_apply(bp["mlp"], h, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -399,14 +466,21 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     K/V written into the self cache at ``len`` and ``len`` advanced.
     Raises ``IndexError`` when the self cache is full (the reference
     clamps the write index; a participant checks its host mirror, the
-    same on every one).  With ``part`` (module doc), its rows of
-    ``tokens`` and its rows' logits over the whole vocabulary."""
-    check_cache_index(cache["pos"], cache["self"]["k"].shape[2])
-    layout = None
+    same on every one, against the whole length).  With ``part`` (module
+    doc), its rows of ``tokens`` and its rows' logits over the whole
+    vocabulary; in the fully-seq layout the new k / v are written only by
+    the participants whose self block holds the position."""
+    size = cache_size(cache)
+    check_cache_index(cache["pos"], size)
+    layout, lo, write = None, 0, True
     if part is not None:
         check_shardable(cfg, part.m)
-        layout = serve_layout(cfg, part, tokens.shape[0])
+        layout = cache_layout(cfg, part.mesh, tokens.shape[0])
+        part = rows_part(part, tokens.shape[0])
         tokens = batch_block(tokens, part)
+        if layout in FULLY_SEQ:
+            lo, hi = part.dp_block(size)
+            write = lo <= cache["pos"] < hi
     x = embed_inputs(params, cfg, tokens, part=part)
     cache_len = cache["len"]
     for i in range(cfg.n_layers):
@@ -418,12 +492,14 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                          cache_len)
         else:
             out = attention_decode_sharded(bp["self_attn"], h, cfg, k_i,
-                                           v_i, cache_len, part, layout)
+                                           v_i, cache_len, part, layout, lo,
+                                           write)
         x = x + out
         h = rmsnorm(x, bp["cross_attn"]["norm_scale"], cfg.norm_eps)
         x = x + _cross_attend(bp["cross_attn"], h, cfg,
                               cache["cross"]["k"][i], cache["cross"]["v"][i],
-                              cache["cross_len"], part, layout)
+                              cache["cross_len"], part, layout,
+                              cache.get("frames"))
         h = rmsnorm(x, bp["mlp"]["norm_scale"], cfg.norm_eps)
         x = x + mlp_apply(bp["mlp"], h, part)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

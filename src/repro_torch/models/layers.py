@@ -55,6 +55,11 @@ def _normal(gen, shape, scale, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device).mul_(scale).to(dtype)
 
 
+def _kept(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The init functions' default ``leaf``: the drawn leaf itself."""
+    return t
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
@@ -94,20 +99,23 @@ def attention_shapes(cfg) -> dict[str, tuple]:
     return shapes
 
 
-def attention_init(gen, cfg, n_blocks: int, device) -> Params:
-    """Parameters of ``n_blocks`` attention layers, stacked on axis 0."""
+def attention_init(gen, cfg, n_blocks: int, device, leaf=_kept) -> Params:
+    """Parameters of ``n_blocks`` attention layers, stacked on axis 0, each
+    passed through ``leaf(name, tensor)`` as it is drawn (the layer
+    inits' common hook: :func:`repro_torch.models.lm.init_params`)."""
     pdt = dtype_of(cfg.param_dtype)
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     p: Params = {}
     for name, shape in attention_shapes(cfg).items():
         shape = (n_blocks, *shape)
         if name == "norm_scale":
-            p[name] = torch.ones(shape, dtype=pdt, device=device)
+            t = torch.ones(shape, dtype=pdt, device=device)
         elif name.startswith("b"):
-            p[name] = torch.zeros(shape, dtype=pdt, device=device)
+            t = torch.zeros(shape, dtype=pdt, device=device)
         else:
-            p[name] = _normal(gen, shape, out_scale if name == "wo" else 0.02,
-                              pdt, device)
+            t = _normal(gen, shape, out_scale if name == "wo" else 0.02, pdt,
+                        device)
+        p[name] = leaf(name, t)
     return p
 
 
@@ -565,18 +573,19 @@ def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple]:
             "w_down": (ff, d)}
 
 
-def mlp_init(gen, cfg, n_blocks: int, device, d_ff: int | None = None):
+def mlp_init(gen, cfg, n_blocks: int, device, d_ff: int | None = None,
+             leaf=_kept):
     pdt = dtype_of(cfg.param_dtype)
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     p: Params = {}
     for name, shape in mlp_shapes(cfg, d_ff).items():
         shape = (n_blocks, *shape)
         if name == "norm_scale":
-            p[name] = torch.ones(shape, dtype=pdt, device=device)
+            t = torch.ones(shape, dtype=pdt, device=device)
         else:
-            p[name] = _normal(gen, shape,
-                              out_scale if name == "w_down" else 0.02,
-                              pdt, device)
+            t = _normal(gen, shape, out_scale if name == "w_down" else 0.02,
+                        pdt, device)
+        p[name] = leaf(name, t)
     return p
 
 

@@ -116,25 +116,32 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device) -> Params:
+                device: torch.device, leaf=None) -> Params:
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
     ``generator`` (whose device must be ``device``).  The JAX package draws
-    from ``jax.random``: the two give different numbers from one seed."""
+    from ``jax.random``: the two give different numbers from one seed.
+    ``leaf(path, tensor)``: applied to each leaf (``path`` its tuple of
+    keys) as soon as it is drawn, before the next is: the tree holds what
+    it returns, the same draws whatever it does (a participant keeps its
+    block of a model whose whole tree would not fit)."""
     pdt = dtype_of(cfg.param_dtype)
+    put = leaf or (lambda path, t: t)
     params: Params = {
-        "embed": torch.randn((cfg.vocab_padded, cfg.d_model),
-                             generator=generator, device=device)
-        .mul_(0.02).to(pdt),
-        "final_norm": torch.ones(cfg.d_model, dtype=pdt, device=device),
+        "embed": put(("embed",), torch.randn(
+            (cfg.vocab_padded, cfg.d_model), generator=generator,
+            device=device).mul_(0.02).to(pdt)),
+        "final_norm": put(("final_norm",), torch.ones(
+            cfg.d_model, dtype=pdt, device=device)),
         "blocks": {},
     }
     if not cfg.tie_embeddings:
-        params["head"] = torch.randn(
+        params["head"] = put(("head",), torch.randn(
             (cfg.d_model, cfg.vocab_padded), generator=generator,
-            device=device).mul_(0.02).to(pdt)
+            device=device).mul_(0.02).to(pdt))
     for skey, kind, _role in _slot_keys(cfg):
-        params["blocks"][skey] = _INIT[kind](generator, cfg, cfg.n_blocks,
-                                             device)
+        params["blocks"][skey] = _INIT[kind](
+            generator, cfg, cfg.n_blocks, device,
+            leaf=lambda name, t, skey=skey: put(("blocks", skey, name), t))
     return params
 
 
@@ -378,13 +385,25 @@ def serve_layout(cfg: ModelConfig, part, batch_size: int) -> str | None:
     return cache_layout(cfg, part.mesh, batch_size)
 
 
+#: The fully-seq layouts (``cache_layout``): the cache's positions split
+#: over the data axes, every row on every participant.
+FULLY_SEQ = ("seq", "seq_hd")
+
+
+def check_seq_blocks(n: int, part, what: str = "a cache") -> None:
+    """Raise ``ValueError`` where ``n`` positions split over ``part``'s
+    data axes (ceil-divided, as ``shard_tree`` cuts them) leave a block
+    empty: a check on the host, before any collective."""
+    if -(-n // part.dp) * (part.dp - 1) >= n:
+        raise ValueError(f"{what} of {n} positions leaves a block of the "
+                         f"{part.dp} data participants empty")
+
+
 def _init_cache_block(cfg: ModelConfig, batch_size: int, max_len: int,
                       device, part) -> dict:
     layout = serve_layout(cfg, part, batch_size)
-    if layout in ("seq", "seq_hd") and -(-max_len // part.dp) * (
-            part.dp - 1) >= max_len:
-        raise ValueError(f"a cache of {max_len} positions leaves a block "
-                         f"of the {part.dp} data participants empty")
+    if layout in FULLY_SEQ:
+        check_seq_blocks(max_len, part)
     whole = init_cache(cfg, batch_size, max_len, "meta")
     sh = cache_shardings(cfg, part.mesh, whole["slots"], batch_size)
 
@@ -452,8 +471,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if size is not None and S > size:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of "
                          f"{size}")
-    lo, hi = (part.dp_block(size) if layout in ("seq", "seq_hd")
-              else (0, size))
+    lo, hi = part.dp_block(size) if layout in FULLY_SEQ else (0, size)
     n = min(max(S - lo, 0), hi - lo) if size is not None else 0
     for i in range(cfg.n_blocks):
         bp = _block(params, i)
@@ -528,7 +546,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         layout = serve_layout(cfg, part, tokens.shape[0])
         part = rows_part(part, tokens.shape[0])
         tokens = batch_block(tokens, part)
-        if layout in ("seq", "seq_hd"):
+        if layout in FULLY_SEQ:
             lo, hi = part.dp_block(size)
             write = lo <= cache["pos"] < hi
     x = embed_inputs(params, cfg, tokens, part=part)

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..kernels.moe_gmm import grouped_matmul_torch
 from ..parallel.tensor import enter_model_region, leave_model_region_product
-from .layers import _normal, dtype_of
+from .layers import _kept, _normal, dtype_of
 
 Params = dict[str, Any]
 
@@ -74,17 +74,19 @@ def moe_shapes(cfg) -> dict[str, tuple]:
             "w_up": (E, d, ffe), "w_down": (E, ffe, d)}
 
 
-def moe_init(gen, cfg, n_blocks: int, device) -> Params:
+def moe_init(gen, cfg, n_blocks: int, device, leaf=_kept) -> Params:
     """Parameters of ``n_blocks`` MoE layers, stacked on axis 0: N(0, 0.02)
-    weights and unit norm scales, as the reference draws them."""
+    weights and unit norm scales, as the reference draws them (each
+    through ``leaf``, as ``layers.attention_init``)."""
     pdt = dtype_of(cfg.param_dtype)
     p: Params = {}
     for name, shape in moe_shapes(cfg).items():
         shape = (n_blocks, *shape)
         if name == "norm_scale":
-            p[name] = torch.ones(shape, dtype=pdt, device=device)
+            t = torch.ones(shape, dtype=pdt, device=device)
         else:
-            p[name] = _normal(gen, shape, 0.02, pdt, device)
+            t = _normal(gen, shape, 0.02, pdt, device)
+        p[name] = leaf(name, t)
     return p
 
 

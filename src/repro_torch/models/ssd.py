@@ -55,7 +55,7 @@ from ..parallel.tensor import (
     leave_model_region_product,
     sum_over_model,
 )
-from .layers import _normal, dtype_of, rmsnorm
+from .layers import _kept, _normal, dtype_of, rmsnorm
 
 Params = dict[str, Any]
 
@@ -77,33 +77,34 @@ def ssm_shapes(cfg) -> dict[str, tuple]:
             "inner_norm": (di,), "out_proj": (di, d)}
 
 
-def ssm_init(gen, cfg, n_blocks: int, device) -> Params:
+def ssm_init(gen, cfg, n_blocks: int, device, leaf=_kept) -> Params:
     """Parameters of ``n_blocks`` Mamba2 mixers, stacked on axis 0, drawn as
     the reference draws them: N(0, 0.02) projections, N(0, 0.1) conv
     weights, ``A_log = log(1..H)`` in float32 whatever ``param_dtype`` is,
     and ``dt_bias`` the inverse softplus of a log-uniform dt in
-    [1e-3, 1e-1]."""
+    [1e-3, 1e-1] (each through ``leaf``, as ``layers.attention_init``)."""
     pdt = dtype_of(cfg.param_dtype)
     H = cfg.ssm_heads
     p: Params = {}
     for name, shape in ssm_shapes(cfg).items():
         full = (n_blocks, *shape)
         if name in ("norm_scale", "inner_norm", "D"):
-            p[name] = torch.ones(full, dtype=pdt, device=device)
+            t = torch.ones(full, dtype=pdt, device=device)
         elif name in ("conv_x_b", "conv_bc_b"):
-            p[name] = torch.zeros(full, dtype=pdt, device=device)
+            t = torch.zeros(full, dtype=pdt, device=device)
         elif name == "A_log":
-            p[name] = torch.log(torch.arange(
+            t = torch.log(torch.arange(
                 1, H + 1, dtype=torch.float32, device=device)).expand(
                     full).clone()
         elif name == "dt_bias":
             u = torch.rand(full, generator=gen, device=device)
             dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
                            + math.log(1e-3))
-            p[name] = (dt + torch.log(-torch.expm1(-dt))).to(pdt)
+            t = (dt + torch.log(-torch.expm1(-dt))).to(pdt)
         else:
             scale = 0.1 if name.startswith("conv") else 0.02
-            p[name] = _normal(gen, full, scale, pdt, device)
+            t = _normal(gen, full, scale, pdt, device)
+        p[name] = leaf(name, t)
     return p
 
 

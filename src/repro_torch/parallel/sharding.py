@@ -136,6 +136,24 @@ def shard_tree(tree_: Any, shardings: Any, coord: dict[str, int]) -> Any:
                     tree_, shardings)
 
 
+def param_block(cfg, mesh, coord: dict[str, int], dtype=None):
+    """A ``leaf`` for ``Model.init`` (``lm.init_params``): each leaf, as it
+    is drawn, cut to the block that the participant at ``coord`` holds
+    (``param_spec`` of its path, :func:`shard_slices`), in ``dtype(path,
+    leaf)`` where that is given: a copy that holds nothing of the whole
+    leaf.  The tree it gives is :func:`shard_tree`'s cut of the whole
+    tree, which never exists: a device holds this participant's block and
+    one whole leaf at a time."""
+    def leaf(path: tuple, t: torch.Tensor) -> torch.Tensor:
+        sh = NamedSharding(mesh, param_spec(list(path), t.dim(), cfg, mesh))
+        block = t[shard_slices(t.shape, sh, coord)]
+        want = t.dtype if dtype is None else dtype(path, t)
+        if want != t.dtype:
+            return block.to(want, memory_format=torch.contiguous_format)
+        return block.clone(memory_format=torch.contiguous_format)
+    return leaf
+
+
 def gather_tree(local: Any, shardings: Any, shards, like: Any) -> Any:
     """:func:`shard_tree`'s inverse: the whole leaves, from the blocks the
     participants of ``shards`` (a :class:`~.collectives.Shards`) hold.

@@ -96,6 +96,12 @@ def make_decode_step(model: Model, temperature: float = 0.0) -> Callable:
     return decode_step
 
 
+def served_dtype(cfg, name: str, own: torch.dtype) -> torch.dtype:
+    """The dtype a parameter leaf named ``name`` (of dtype ``own``) is
+    served in: ``cfg.dtype``, but those of ``_KEEP_DTYPE`` keep their own."""
+    return own if name in _KEEP_DTYPE else dtype_of(cfg.dtype)
+
+
 def cast_params(params, cfg, device: torch.device, in_place: bool = False):
     """``params`` on ``device`` with every tensor but those of
     ``_KEEP_DTYPE`` in ``cfg.dtype`` (a tensor already so placed and typed is kept, not
@@ -103,17 +109,14 @@ def cast_params(params, cfg, device: torch.device, in_place: bool = False):
     as the copy is made, so the caller's tree and the copy never coexist
     whole (jamba-v0.1-52b at 8 layers: 53 GB of float32 beside 27 GB of
     bf16 would fill an 80 GB card)."""
-    cdt = dtype_of(cfg.dtype)
-
     def walk(tree):
         out = tree if in_place else {}
         for key, val in tree.items():
             if isinstance(val, dict):
                 out[key] = walk(val)
-            elif key in _KEEP_DTYPE:
-                out[key] = val.to(device)
             else:
-                out[key] = val.to(device=device, dtype=cdt)
+                out[key] = val.to(device=device,
+                                  dtype=served_dtype(cfg, key, val.dtype))
         return out
 
     return walk(params)

@@ -114,6 +114,25 @@ def test_control_is_rounded_block_by_block():
         is params["blocks"]["L0_moe"]["router"]
 
 
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "seamless_m4t_medium"])
+def test_the_in_place_control_is_the_copy(arch):
+    """``coarsen_in_place`` (the sharded jamba cases' control, rounded into
+    a participant's block in chunks) writes ``coarse_params``' bits into
+    the tree it is given, the weights it does not round untouched."""
+    cfg = replace(smoke_variant(get_config(arch)), dtype="bfloat16")
+    params = cast_params(Model(cfg).init(device="cpu"), cfg,
+                         torch.device("cpu"))
+    want = cs.coarse_params(params, cs.CONTROL_BITS)
+    before = [t.clone() for t in tree.leaves(params)]
+    cs.coarsen_in_place(params, cs.CONTROL_BITS)
+    moved = 0
+    for g, w, b in zip(tree.leaves(params), tree.leaves(want), before,
+                       strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        moved += not torch.equal(g, b)
+    assert moved
+
+
 def test_cast_params_in_place_gives_the_copy():
     cfg = replace(smoke_variant(get_config("jamba_v0_1_52b")),
                   dtype="bfloat16")

@@ -35,8 +35,28 @@ kernels' plain versions, one spawn of 4 gloo ranks runs seamless on
   step equal those of the same calls on ``meta`` over ``MetaShards`` at
   its coordinate (the dry run's count: the cache is built outside the
   count), call for call;
-- a batch that no data axis divides (the fully-seq layout) raises
-  ``NotImplementedError`` naming it, in each serving call.
+- a batch that no data axis divides (the fully-seq layout: every rank
+  takes every row, and the self cache's positions and the cross cache's
+  encoder positions split over the data axes) serves in both forms: kv4
+  on (4, 1) (``"seq"``, whole heads, the decode kernel's statistics form
+  over each block) at batch 1 and 2, kv4 and kv2 on (2, 2) (``"seq_hd"``,
+  ``head_dim`` blocks) at batch 1, into a self cache of ``FS_MAX_LEN``
+  (blocks of 8, 8, 8 and 6 on dp 4: the prompt fills ranks 0 and 1, the
+  steps write into rank 2's block, rank 3's stays empty) over ``FRAMES``
+  encoder positions (blocks of 2 on dp 4, 4 on dp 2).  Each case is held
+  as above (logits, greedy tokens and the gathered self and cross caches
+  against the unsharded port, logits against the JAX package, the meta
+  count), every rank returns the same bits, and each control leaves the
+  limit: the self block's ``cache_len`` not offset by its start
+  (``"seq"``), the blocks averaged with equal weights, and the cross
+  cache cut at encoder position 0 on every rank (a step's cross offset
+  alone cannot show: every encoder position is valid); a length that
+  leaves a block of either cache empty raises ``ValueError`` on every
+  rank before any collective.
+
+Run: ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q
+tests/test_torch_sharded_encdec.py``; on the card, ``python3
+chip_smoke.py --shard`` runs seamless's sharded cases at full width.
 """
 from __future__ import annotations
 
@@ -58,6 +78,7 @@ from repro_torch.convert import (
     lm_params_to_numpy,
     lm_shard_from_numpy,
 )
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import init_ranks, make_mesh, run_ranks
 from repro_torch.models import Model, encdec, layers, smoke_variant
 from repro_torch.parallel.collectives import MetaShards, observe, unobserved
@@ -80,6 +101,7 @@ from repro_torch.train import step as train_step
 ARCH = "seamless_m4t_medium"
 MESHES = {"2x2": ((2, 2), ("data", "model")),
           "1x4": ((1, 4), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model")),
           "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
 #: the variants' kv heads: the smoke config's 4, and 2 (``head_dim``
 #: blocks on a model axis of 4)
@@ -88,6 +110,12 @@ VARIANTS = {"kv4": 4, "kv2": 2}
 CASES = {("kv4", "2x2"): "head", ("kv4", "1x4"): "head",
          ("kv4", "2x1x2"): "head", ("kv2", "1x4"): "hd"}
 CASE_IDS = [f"{v}-{m}" for v, m in CASES]
+#: The fully-seq cases, (variant, mesh, batch): the caches' layout, in a
+#: self cache of ``FS_MAX_LEN`` positions.
+FS_CASES = {("kv4", "4x1", 1): "seq", ("kv4", "4x1", 2): "seq",
+            ("kv4", "2x2", 1): "seq_hd", ("kv2", "2x2", 1): "seq_hd"}
+FS_IDS = [f"{v}-{m}-b{b}" for v, m, b in FS_CASES]
+FS_MAX_LEN = 30
 WORLD = 4
 JOIN_S = 300.0
 KERNEL_PATHS = dict(attention_impl="cuda", moe_impl="gmm", ssm_impl="cuda",
@@ -100,6 +128,10 @@ REL_RMS = 1e-4
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 BATCH, SEQ, FRAMES, STEPS = 4, 16, 8, 3
 MAX_LEN = SEQ + STEPS + 1
+#: each data participant's block of the fully-seq self cache: the
+#: positions it holds after the prefill and after the last step, by dp
+FS_FILLED = {4: [(8, 8), (8, 8), (0, STEPS), (0, 0)],
+             2: [(15, 15), (SEQ - 15, SEQ - 15 + STEPS)]}
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
@@ -162,34 +194,15 @@ def torch_batch(b: dict) -> dict:
 
 # -- on this process -----------------------------------------------------------
 
-@pytest.mark.parametrize("variant,mesh_name", list(CASES), ids=CASE_IDS)
-def test_the_cases_take_their_layouts(variant, mesh_name):
+LAYOUT_CASES = [(v, m, BATCH, layout) for (v, m), layout in CASES.items()]
+LAYOUT_CASES += [(v, m, b, layout) for (v, m, b), layout in FS_CASES.items()]
+
+
+@pytest.mark.parametrize("variant,mesh_name,batch,layout", LAYOUT_CASES,
+                         ids=[f"{v}-{m}-b{b}" for v, m, b, _ in LAYOUT_CASES])
+def test_the_cases_take_their_layouts(variant, mesh_name, batch, layout):
     assert cache_layout(port_cfg(variant), mesh_of(mesh_name),
-                        BATCH) == CASES[variant, mesh_name]
-
-
-@pytest.mark.parametrize("call", ["init_cache", "prefill", "decode"])
-def test_the_fully_seq_layout_raises(call):
-    """A batch of 1 on (2, 2): no data axis divides it; each serving call
-    refuses it by name (``"the encoder-decoder in the fully-seq
-    layout"``), before any collective."""
-    cfg = port_cfg("kv4")
-    model = Model(cfg)
-    mesh = mesh_of("2x2")
-    part = Participant(MetaShards(mesh, {"data": 0, "model": 0}))
-    params = lm_shard_from_numpy(np_params("kv4"), cfg, mesh, part.coord,
-                                 "cpu")
-    b = torch_batch(np_batch(1))
-    cache = {"len": torch.zeros((), dtype=torch.int32), "pos": 0,
-             "self": {"k": torch.zeros((cfg.n_layers, 1, MAX_LEN, 2, 16))}}
-    calls = {"init_cache": lambda: model.init_cache(params, b, MAX_LEN,
-                                                    shards=part),
-             "prefill": lambda: model.prefill(params, b, cache, shards=part),
-             "decode": lambda: model.decode(params, b["tokens"][:, :1],
-                                            cache, shards=part)}
-    with pytest.raises(NotImplementedError,
-                       match="the encoder-decoder in the fully-seq layout"):
-        calls[call]()
+                        batch) == layout
 
 
 # -- four ranks ---------------------------------------------------------------
@@ -300,10 +313,11 @@ def _records(part, cfg, params_np) -> dict:
     return out
 
 
-def _serve_records(model, params, batch, part, out: dict) -> None:
+def _serve_records(model, params, batch, part, out: dict,
+                   max_len: int = MAX_LEN) -> None:
     with observe(lambda kind, n: out.setdefault("init", []).append(
             (kind, n))), unobserved():
-        cache = model.init_cache(params, batch, MAX_LEN, shards=part)
+        cache = model.init_cache(params, batch, max_len, shards=part)
     with observe(lambda kind, n: out["prefill"].append((kind, n))):
         _, cache = model.prefill(params, batch, cache, shards=part)
     with observe(lambda kind, n: out["decode"].append((kind, n))):
@@ -328,20 +342,146 @@ def _case(part, variant, refs, mesh_name) -> dict:
             "records": _records(part, cfg, ref["params"])}
 
 
+def fs_controls(layout: str) -> list[str]:
+    """A fully-seq case's controls: each breaks one step of the sharded
+    serving, so its logits must leave the limit."""
+    return (["unoffset_cache_len"] if layout == "seq" else []) + [
+        "equal_block_weights", "cross_cut_at_0"]
+
+
+def fs_control(name: str):
+    """The patch that makes fully-seq control ``name``, around every
+    serving call: the self block's ``cache_len`` not offset by its start,
+    the blocks' softmax averaged with equal weights, or every
+    participant's cross cache cut at encoder position 0 (its block's
+    length, the offset dropped: a step's cross offset alone changes
+    nothing, since every encoder position is valid)."""
+    if name == "unoffset_cache_len":
+        block_len = layers.block_cache_len
+        return mock.patch.object(layers, "block_cache_len",
+                                 lambda c, s_lo, n: block_len(c, 0, n))
+    if name == "equal_block_weights":
+        return mock.patch.object(layers, "combine_blocks",
+                                 lambda o, m, l: o.mean(dim=0))
+    block = encdec.cross_block
+
+    def at_0(part, frames):
+        lo, hi = block(part, frames)
+        return 0, hi - lo
+    return mock.patch.object(encdec, "cross_block", at_0)
+
+
+def _filled(cache: dict) -> int:
+    """The positions of this participant's self block that hold a k."""
+    return int(cache["self"]["k"].ne(0).flatten(3).any(-1).any(0).any(0)
+               .sum())
+
+
+def _serve_fs(part, cfg, params_np, feed, batch: int,
+              control: str | None = None) -> dict:
+    """The prefill and teacher-forced steps of a batch of ``batch`` into a
+    cache of ``FS_MAX_LEN``, ``control`` patched around every call; the
+    decode kernel's statistics-form calls counted."""
+    model = Model(cfg)
+    local = lm_shard_from_numpy(params_np, cfg, part.mesh, part.coord, "cpu")
+    b = torch_batch(np_batch(batch))
+    whole = {"tokens": b["tokens"], "enc_embeds": b["enc_embeds"]}
+    stats = mock.patch.object(ops, "mha_decode_stats",
+                              wraps=ops.mha_decode_stats)
+    out = {"logits": [], "caches": [], "filled": []}
+    with (fs_control(control) if control else nullcontext()), \
+            stats as stats_calls:
+        cache = model.init_cache(local, whole, FS_MAX_LEN, shards=part)
+        logits, cache = model.prefill(local, whole, cache, shards=part)
+        out["logits"].append(logits)
+        out["filled"].append(_filled(cache))
+        if control is None:
+            out["caches"].append(gather_cache(cache, cfg, part, batch))
+        for tok in feed:
+            logits, cache = model.decode(local, torch.from_numpy(tok), cache,
+                                         shards=part)
+            out["logits"].append(logits)
+    out["filled"].append(_filled(cache))
+    if control is None:
+        out["caches"].append(gather_cache(cache, cfg, part, batch))
+    out.update(len=int(cache["len"]), pos=cache["pos"],
+               shas=[sha(t) for t in out["logits"]],
+               stats_calls=stats_calls.call_count)
+    return out
+
+
+def _fs_case(part, variant: str, ref: dict, batch: int, layout: str) -> dict:
+    cfg = port_cfg(variant)
+    run = _serve_fs(part, cfg, ref["params"], ref["feed"], batch)
+    run["caches"] = [{"self": c["self"], "cross": c["cross"],
+                      "cross_len": int(c["cross_len"])}
+                     for c in run["caches"]]
+    records = {"prefill": [], "decode": []}
+    b = torch_batch(np_batch(batch))
+    _serve_records(Model(cfg), lm_shard_from_numpy(
+        ref["params"], cfg, part.mesh, part.coord, "cpu"),
+        {"tokens": b["tokens"], "enc_embeds": b["enc_embeds"]}, part,
+        records, FS_MAX_LEN)
+    return {**run, "coord": part.coord, "di": part.di, "dp": part.dp,
+            "layout": cache_layout(cfg, part.mesh, batch),
+            "controls": {name: _serve_fs(part, cfg, ref["params"],
+                                         ref["feed"], batch, name)["logits"]
+                         for name in fs_controls(layout)},
+            "records": records}
+
+
+#: (which cache, frames, self cache length): a length that leaves a block
+#: of that cache empty on dp 4 and on dp 2
+EMPTY_BLOCKS = {"self": (FRAMES, {4: 5, 2: 1}),
+                "cross": ({4: 3, 2: 1}, FS_MAX_LEN)}
+
+
+def _empty_blocks(part, params_np) -> dict:
+    """Each ``init_cache`` that leaves a block empty on ``part``'s mesh: the
+    error it raised and the collectives observed before it."""
+    cfg = port_cfg("kv4")
+    model = Model(cfg)
+    local = lm_shard_from_numpy(params_np, cfg, part.mesh, part.coord, "cpu")
+    out = {}
+    for which, (frames, max_len) in EMPTY_BLOCKS.items():
+        frames = frames[part.dp] if isinstance(frames, dict) else frames
+        max_len = max_len[part.dp] if isinstance(max_len, dict) else max_len
+        b = torch_batch(np_batch(1))
+        batch = {"tokens": b["tokens"],
+                 "enc_embeds": b["enc_embeds"][:, :frames]}
+        seen: list = []
+        try:
+            with observe(lambda kind, n: seen.append(kind)):
+                model.init_cache(local, batch, max_len, shards=part)
+            out[which] = (None, seen)
+        except ValueError as e:
+            out[which] = (str(e), seen)
+    return out
+
+
 def _rank_cases(rank: int, store: str, refs: dict) -> dict:
     torch.set_num_threads(1)
     dm = init_ranks(mesh_of("2x2"), rank, store)
     meshes = {name: dm if name == "2x2" else mesh_of(name).device_mesh()
               for name in MESHES}
-    return {(v, m): _case(Participant(meshes[m]), v, refs, m)
-            for v, m in CASES}
+    out = {(v, m): _case(Participant(meshes[m]), v, refs, m)
+           for v, m in CASES}
+    for (v, m, b), layout in FS_CASES.items():
+        out[v, m, b] = _fs_case(Participant(meshes[m]), v, refs[v, b], b,
+                                layout)
+    out["empty"] = {m: _empty_blocks(Participant(meshes[m]),
+                                     refs["kv4"]["params"])
+                    for m in ("4x1", "2x2")}
+    return out
 
 
-def jax_run(variant: str, params: dict):
-    """The JAX package's forward, jitted prefill and greedy decode steps on
-    ``params``: the forward's and each call's logits, and the tokens the
-    steps fed.  (JAX is imported here: the rank processes import this
-    module and need only the port.)"""
+def jax_run(variant: str, params: dict, batch: int = BATCH,
+            max_len: int = MAX_LEN, forward: bool = True):
+    """The JAX package's forward (None without ``forward``), jitted
+    prefill and greedy decode steps on ``params``, a batch of ``batch``
+    into a cache of ``max_len``: the forward's and each call's logits,
+    and the tokens the steps fed.  (JAX is imported here: the rank
+    processes import this module and need only the port.)"""
     import jax
     import jax.numpy as jnp
 
@@ -352,9 +492,10 @@ def jax_run(variant: str, params: dict):
     model = RefModel(replace(ref_smoke(ref_config(ARCH)),
                              n_kv_heads=VARIANTS[variant]))
     params = jax.tree.map(jnp.asarray, params)
-    b = {k: jnp.asarray(v) for k, v in np_batch().items()}
-    forward = np.asarray(jax.jit(model.forward)(params, b)[0])
-    cache = model.init_cache(params, b, MAX_LEN)
+    b = {k: jnp.asarray(v) for k, v in np_batch(batch).items()}
+    if forward:
+        forward = np.asarray(jax.jit(model.forward)(params, b)[0])
+    cache = model.init_cache(params, b, max_len)
     logits, cache = jax.jit(model.prefill)(params, b, cache)
     decode = jax.jit(model.decode)
     want, feed = [np.asarray(logits)], []
@@ -377,16 +518,27 @@ def port_run(variant: str, params_np: dict, feed) -> dict:
     grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
         forward, _ = model.forward(params, b)
-    batch = {"tokens": b["tokens"], "enc_embeds": b["enc_embeds"]}
-    cache = model.init_cache(params, batch, MAX_LEN)
-    logits, cache = model.prefill(params, batch, cache)
+    return {"loss": float(loss.detach()), "grads": list(grads),
+            "forward": forward, **port_serve(variant, params_np, feed)}
+
+
+def port_serve(variant: str, params_np: dict, feed, batch: int = BATCH,
+               max_len: int = MAX_LEN) -> dict:
+    """The unsharded port's prefill and teacher-forced steps: each call's
+    logits and the cache after the prefill and after the last step."""
+    cfg = port_cfg(variant)
+    model = Model(cfg)
+    params = lm_params_from_numpy(params_np, cfg, "cpu")
+    b = torch_batch(np_batch(batch))
+    batch_ = {"tokens": b["tokens"], "enc_embeds": b["enc_embeds"]}
+    cache = model.init_cache(params, batch_, max_len)
+    logits, cache = model.prefill(params, batch_, cache)
 
     def caches(c):
         return {"self": tree.map(torch.clone, c["self"]),
                 "cross": tree.map(torch.clone, c["cross"]),
                 "cross_len": int(c["cross_len"])}
-    out = {"loss": float(loss.detach()), "grads": list(grads),
-           "forward": forward, "logits": [logits], "caches": [caches(cache)]}
+    out = {"logits": [logits], "caches": [caches(cache)]}
     for tok in feed:
         logits, cache = model.decode(params, torch.from_numpy(tok), cache)
         out["logits"].append(logits)
@@ -404,6 +556,13 @@ def reference():
         out[variant] = {"params": params, "feed": feed,
                         "jax_forward": forward, "jax": want,
                         "port": port_run(variant, params, feed)}
+    for variant, batch in sorted({(v, b) for v, _, b in FS_CASES}):
+        params = out[variant]["params"]
+        _, want, feed = jax_run(variant, params, batch, FS_MAX_LEN,
+                                forward=False)
+        out[variant, batch] = {
+            "params": params, "feed": feed, "jax": want,
+            "port": port_serve(variant, params, feed, batch, FS_MAX_LEN)}
     return out
 
 
@@ -563,3 +722,116 @@ def test_the_meta_count_is_every_rank_record(ranks, variant, mesh_name):
         assert case["records"] == want, case["coord"]
         assert "init" not in want
         assert all(want[k] for k in ("train", "prefill", "decode"))
+
+
+# -- the fully-seq layout on four ranks ---------------------------------------
+
+fs_cases = pytest.mark.parametrize("variant,mesh_name,batch", list(FS_CASES),
+                                   ids=FS_IDS)
+
+
+@fs_cases
+def test_fully_seq_logits_equal_the_port_and_jax(ranks, reference, variant,
+                                                 mesh_name, batch):
+    ref = reference[variant, batch]
+    for r in ranks:
+        case = r[variant, mesh_name, batch]
+        assert case["layout"] == FS_CASES[variant, mesh_name, batch]
+        assert len(case["logits"]) == STEPS + 1
+        for call, (g, w, j) in enumerate(zip(case["logits"],
+                                             ref["port"]["logits"],
+                                             ref["jax"], strict=True)):
+            assert g.shape == (batch, 1, 256)
+            assert rel_rms(g, w) <= REL_RMS, (case["coord"], call)
+            assert torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+            np.testing.assert_allclose(g.numpy(), j, **LOGIT_TOL)
+
+
+@fs_cases
+def test_fully_seq_gathered_caches_equal_the_unsharded_caches(
+        ranks, reference, variant, mesh_name, batch):
+    port = reference[variant, batch]["port"]
+    for r in ranks:
+        case = r[variant, mesh_name, batch]
+        assert case["len"] == port["len"] == SEQ + STEPS
+        assert case["pos"] == port["pos"]
+        for got, want in zip(case["caches"], port["caches"], strict=True):
+            assert got["cross_len"] == want["cross_len"] == FRAMES - 1
+            for name in ("self", "cross"):
+                for k in ("k", "v"):
+                    assert got[name][k].shape == want[name][k].shape
+                    assert rel_rms(got[name][k], want[name][k]) <= REL_RMS
+
+
+@fs_cases
+def test_fully_seq_each_control_leaves_the_limit(ranks, reference, variant,
+                                                 mesh_name, batch):
+    want = reference[variant, batch]["port"]["logits"]
+    names = fs_controls(FS_CASES[variant, mesh_name, batch])
+    for r in ranks:
+        case = r[variant, mesh_name, batch]
+        assert sorted(case["controls"]) == sorted(names)
+        for name, logits in case["controls"].items():
+            worst = max(rel_rms(g, w) for g, w in zip(logits, want,
+                                                      strict=True))
+            assert worst > REL_RMS, (name, case["coord"], worst)
+
+
+@fs_cases
+def test_fully_seq_every_rank_returns_the_same_bits(ranks, variant,
+                                                    mesh_name, batch):
+    got = {(tuple(r[variant, mesh_name, batch]["shas"]),
+            r[variant, mesh_name, batch]["len"]) for r in ranks}
+    assert len(got) == 1
+
+
+@fs_cases
+def test_fully_seq_blocks_hold_their_positions(ranks, variant, mesh_name,
+                                               batch):
+    """Each data participant's self block holds the prompt positions that
+    fall in it after the prefill and the steps' after the last step; the
+    statistics form runs twice per layer and step (self and cross) on
+    every rank in ``"seq"``, its empty self blocks too, and never in
+    ``"seq_hd"``."""
+    layout = FS_CASES[variant, mesh_name, batch]
+    n_layers = port_cfg(variant).n_layers
+    for r in ranks:
+        case = r[variant, mesh_name, batch]
+        assert tuple(case["filled"]) == FS_FILLED[case["dp"]][case["di"]]
+        want = 2 * n_layers * STEPS if layout == "seq" else 0
+        assert case["stats_calls"] == want, case["coord"]
+
+
+@fs_cases
+def test_fully_seq_meta_count_is_every_rank_record(ranks, variant,
+                                                   mesh_name, batch):
+    """Call for call, in the prefill and a decode step; the blocks'
+    statistics gathered over the data axes in every step."""
+    mesh = mesh_of(mesh_name)
+    for r in ranks:
+        case = r[variant, mesh_name, batch]
+        cfg = meta_cfg(variant)
+        model = Model(cfg)
+        whole = model.abstract_params()
+        coord = case["coord"]
+        params = shard_tree(whole, param_shardings(whole, cfg, mesh), coord)
+        b = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                            device="meta")
+             for k, v in np_batch(batch).items()}
+        want = {"prefill": [], "decode": []}
+        _serve_records(model, params, {"tokens": b["tokens"],
+                                       "enc_embeds": b["enc_embeds"]},
+                       Participant(MetaShards(mesh, coord)), want,
+                       FS_MAX_LEN)
+        assert case["records"] == want, coord
+        assert want["decode"]
+
+
+@pytest.mark.parametrize("which", list(EMPTY_BLOCKS))
+@pytest.mark.parametrize("mesh_name", ["4x1", "2x2"])
+def test_a_length_that_leaves_a_block_empty_raises_on_every_rank(
+        ranks, mesh_name, which):
+    for r in ranks:
+        error, seen = r["empty"][mesh_name][which]
+        assert error and f"a {which} cache" in error and "empty" in error
+        assert seen == []

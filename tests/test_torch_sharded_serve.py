@@ -35,8 +35,10 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   the positions) in both forms: whole heads at a model axis of one
   (``"seq"``: granite-moe and jamba on (4, 1), batch 1 and 2, the decode
   kernel's statistics form over the block), ``head_dim`` blocks above it
-  (``"seq_hd"``: granite-moe, whose kv heads divide the model axis, and
-  glm4 on (2, 2)), and mamba2 on (2, 2) with its batch whole.  A cache of
+  (``"seq_hd"``: granite-moe, whose kv heads divide the model axis, glm4
+  and jamba on (2, 2), jamba's the layout of the JAX package's
+  ``long_500k`` cell on both production meshes), and mamba2 on (2, 2)
+  with its batch whole.  A cache of
   30 positions is cut into blocks of 8, 8, 8 and 6 on dp 4: the prompt of
   16 fills ranks 0 and 1, the steps write into rank 2's block and rank 3's
   stays empty; glm4 on (2, 2, 1), batch 1, divides neither pod nor data.
@@ -46,14 +48,21 @@ versions at smoke size (batch 4, a prompt of 16, 4 decode steps):
   weights;
 - every rank's collectives in the prefill and one decode step of
   granite-moe, glm4 and mamba2 on every mesh (batch 4, and batch 1 in the
-  fully-seq layout), call for call, equal those of the same calls run on
+  fully-seq layout), and of the other fully-seq cases (jamba's, granite's
+  batch of 2), call for call, equal those of the same calls run on
   ``meta`` over ``MetaShards`` at the rank's coordinate (the dry run's
   count);
 - each serving call of the encoder-decoder on a (1, 1) mesh is the
-  unsharded one byte for byte (its multi-rank cases are
-  ``tests/test_torch_sharded_encdec.py``), and so is ``moe_impl="ep"``'s,
+  unsharded one byte for byte (its multi-rank cases, the fully-seq
+  layout among them, are ``tests/test_torch_sharded_encdec.py``), and so
+  is ``moe_impl="ep"``'s,
   whose decode step at a model axis above one raises ``ValueError``
   (its multi-rank cases are ``tests/test_torch_sharded_ep.py``).
+
+Run: ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q
+tests/test_torch_sharded_serve.py``; on the card, ``python3 chip_smoke.py
+--shard`` runs the sharded serving cases at full width (jamba's fully-seq
+ones over a cache of 524 288 positions).
 """
 from __future__ import annotations
 
@@ -137,11 +146,16 @@ FS_CASES = {
     ("granite_moe_1b_a400m", "2x2", 1): "seq_hd",
     ("glm4_9b", "2x2", 1): "seq_hd",
     ("jamba_v0_1_52b", "4x1", 1): "seq",
+    ("jamba_v0_1_52b", "2x2", 1): "seq_hd",
     ("mamba2_130m", "2x2", 1): None,
     ("granite_moe_1b_a400m", "4x1", 2): "seq",
     ("glm4_9b", "2x2x1", 1): "seq",
 }
 FS_IDS = [f"{a}-{m}-b{b}" for a, m, b in FS_CASES]
+#: the fully-seq cases whose collectives the meta count holds here (the
+#: others are ``RECORD_ARCHS`` at ``RECORD_BATCHES``, on every mesh)
+FS_RECORD_CASES = [c for c in FS_CASES if c[0] not in RECORD_ARCHS
+                   or c[2] not in RECORD_BATCHES]
 FS_MAX_LEN = 30
 FS_FULL_CASES = (("granite_moe_1b_a400m", "4x1", 1),)
 #: each data participant's block of the cache's positions: blocks of 8, 8,
@@ -691,6 +705,8 @@ def _rank_cases(rank: int, store: str, refs: dict) -> dict:
         case.update(coord=part.coord, di=part.di, dp=part.dp)
         if (arch, mesh_name, batch) in FS_FULL_CASES:
             case["full"] = _full_cache(run, part, **kw)
+        if (arch, mesh_name, batch) in FS_RECORD_CASES:
+            case["records"] = _record_case(part, arch, ref["params"], batch)
         case["controls"] = {
             name: _serve(part, arch, ref["params"], ref["feed"],
                          ref["routing"], name, gathered=False,
@@ -966,3 +982,18 @@ def test_the_meta_count_is_every_rank_record(ranks, mesh_name, arch, batch):
         want = meta_record(arch, mesh, r["coords"][mesh_name], batch)
         assert bool(got["decode"]) == moves
         assert got == want, (mesh_name, r["coords"][mesh_name])
+
+
+@pytest.mark.parametrize("arch,mesh_name,batch", FS_RECORD_CASES,
+                         ids=[f"{a}-{m}-b{b}" for a, m, b in FS_RECORD_CASES])
+def test_the_fully_seq_meta_count_is_every_rank_record(ranks, arch,
+                                                        mesh_name, batch):
+    """The fully-seq cases outside ``RECORD_ARCHS`` / ``RECORD_BATCHES``
+    (jamba's attention and SSM slots on both meshes, granite's batch of
+    2), call for call."""
+    mesh = mesh_of(mesh_name)
+    for r in ranks:
+        case = r[arch, mesh_name, batch]
+        want = meta_record(arch, mesh, case["coord"], batch)
+        assert case["records"] == want, (mesh_name, case["coord"])
+        assert want["decode"]
