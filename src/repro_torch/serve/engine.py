@@ -51,6 +51,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..models.api import Model
 from ..models.layers import dtype_of
@@ -156,6 +157,8 @@ class ServeEngine:
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model, temperature)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+        #: rounds served (``run`` calls); the id of the round's spans
+        self.rounds = 0
         self.live_root_causes: list = []
         # The one wiring surface: what happens to each step's telemetry
         # (see repro_torch.serve.diagnosis).  bind() validates the telemetry
@@ -183,10 +186,23 @@ class ServeEngine:
         return toks
 
     def run(self, requests: list[Request], step_offset: int = 0) -> list[Request]:
-        """Serve up to batch_size requests to completion (batch-synchronous)."""
+        """Serve up to batch_size requests to completion (batch-synchronous).
+
+        Records the spans (:mod:`repro_torch.tracing`) ``serve.round``,
+        inside it ``serve.prefill`` around the prefill call and, per
+        decode step, ``serve.decode`` around the step's enqueue and
+        ``serve.token_read`` around the wait for its tokens, each with the
+        round's id."""
         if not 0 < len(requests) <= self.batch_size:
             raise ValueError(f"{len(requests)} requests for a batch of "
                              f"{self.batch_size}")
+        self.rounds += 1
+        rnd = self.rounds
+        with tracing.span("serve.round", round=rnd):
+            return self._serve(requests, step_offset, rnd)
+
+    def _serve(self, requests: list[Request], step_offset: int,
+               rnd: int) -> list[Request]:
         live = list(requests)
         while len(live) < self.batch_size:  # pad with a dummy clone
             live.append(Request("_pad", live[0].prompt, live[0].max_new_tokens))
@@ -195,7 +211,8 @@ class ServeEngine:
 
         cache = self.model.init_cache(self.params, batch, self.max_len)
         t0 = time.time()
-        logits, cache = self._prefill(self.params, batch, cache)
+        with tracing.span("serve.prefill", round=rnd):
+            logits, cache = self._prefill(self.params, batch, cache)
         nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)[:, None]
         self._sync()
         prefill_s = time.time() - t0
@@ -206,7 +223,9 @@ class ServeEngine:
                 step_t0 = time.time()
                 with self.telemetry.step(step_offset + step) as scope:
                     with scope.phase("compute"):
-                        nxt, cache = self._decode_once(nxt, cache)
+                        with tracing.span("serve.decode", round=rnd,
+                                          step=step):
+                            nxt, cache = self._decode_once(nxt, cache)
                         self._sync()
                     scope.add("read_bytes", float(nxt.numel() * 4))
                 if self.diagnosis is not None:
@@ -214,8 +233,10 @@ class ServeEngine:
                         self.telemetry, step_time=time.time() - step_t0,
                     ))
             else:
-                nxt, cache = self._decode_once(nxt, cache)
-            out = nxt[:, 0].cpu().numpy()
+                with tracing.span("serve.decode", round=rnd, step=step):
+                    nxt, cache = self._decode_once(nxt, cache)
+            with tracing.span("serve.token_read", round=rnd, step=step):
+                out = nxt[:, 0].cpu().numpy()
             for i, r in enumerate(requests):
                 if r.done or len(r.output) >= r.max_new_tokens:
                     r.done = True

@@ -22,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from .. import tree
+from .. import tracing, tree
 from ..models.api import Model
 from ..models.lm import rows_part
 from ..models.moe import check_part
@@ -154,7 +154,10 @@ def make_train_step(
     gradients and their metrics before dividing by ``accum``.
     ``compress=True`` quantize-dequantizes the gradients (int8 + error
     feedback) before the optimizer.  The state is not modified: the step
-    returns a new one.
+    returns a new one.  It records the spans (:mod:`repro_torch.tracing`)
+    ``train.step`` and inside it ``train.forward`` and ``train.backward``
+    for each microbatch and ``train.optimizer`` around the clip and the
+    update.
 
     With ``shards`` (this process's shard of a data × model mesh: a
     :class:`~repro_torch.parallel.collectives.Shards`, a ``DeviceMesh`` or
@@ -180,24 +183,28 @@ def make_train_step(
 
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-        loss, metrics = model.loss(tree.unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with tracing.span("train.forward"):
+            loss, metrics = model.loss(tree.unflatten(params, leaves), batch)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, list(grads)
 
     def train_step(state: TrainState, batch: dict):
-        params = state["params"]
-        metrics, grads = _accumulate(lambda b: grad_fn(params, b), batch,
-                                     accum)
-        grads = tree.unflatten(params, grads)
-        new_state: TrainState = {}
-        if compress:
-            grads, new_state["ef"] = ef_compress(grads, state["ef"])
-        new_params, new_opt, opt_metrics = adamw_update(
-            grads, state["opt"], params, opt_cfg)
-        new_state["params"] = new_params
-        new_state["opt"] = new_opt
-        return new_state, {**metrics, **opt_metrics}
+        with tracing.span("train.step"):
+            params = state["params"]
+            metrics, grads = _accumulate(lambda b: grad_fn(params, b), batch,
+                                         accum)
+            grads = tree.unflatten(params, grads)
+            new_state: TrainState = {}
+            if compress:
+                grads, new_state["ef"] = ef_compress(grads, state["ef"])
+            with tracing.span("train.optimizer"):
+                new_params, new_opt, opt_metrics = adamw_update(
+                    grads, state["opt"], params, opt_cfg)
+            new_state["params"] = new_params
+            new_state["opt"] = new_opt
+            return new_state, {**metrics, **opt_metrics}
 
     return train_step
 
@@ -288,10 +295,12 @@ def sharded_grads(model: Model, params, batch: dict, part: Participant,
 
     def grad_fn(mb):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-        loss, metrics = model.loss(tree.unflatten(params, leaves),
-                                   batch_rows(mb, model.cfg, part),
-                                   shards=part)
-        grads = torch.autograd.grad(loss, leaves)
+        with tracing.span("train.forward"):
+            loss, metrics = model.loss(tree.unflatten(params, leaves),
+                                       batch_rows(mb, model.cfg, part),
+                                       shards=part)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     metrics, grads = _accumulate(grad_fn, batch, accum)
@@ -380,24 +389,27 @@ def _sharded_train_step(model: Model, opt_cfg: AdamWConfig, accum: int,
         return out
 
     def train_step(state: TrainState, batch: dict):
-        params = state["params"]
-        metrics, grads = sharded_grads(model, params, batch, part, accum)
-        grads = psum_partial(grads, partial, part)
-        new_state: TrainState = {}
-        if compress:
-            grads, new_state["ef"] = ef_compress_sharded(
-                grads, state["ef"], p_sh, like, part)
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip,
-                                           reduce_sums)
-        g_cut = [cut(g, c) for g, c in zip(tree.leaves(grads), cuts)]
-        p_cut = [cut(p, c) for p, c in zip(tree.leaves(params), cuts)]
-        new_cut, new_opt, lr = adamw_step(
-            tree.unflatten(params, g_cut), state["opt"],
-            tree.unflatten(params, p_cut), opt_cfg)
-        new_params = tree.unflatten(params,
-                                    gather_cut(tree.leaves(new_cut)))
-        new_state["params"] = new_params
-        new_state["opt"] = new_opt
-        return new_state, {**metrics, "grad_norm": gnorm, "lr": lr}
+        with tracing.span("train.step"):
+            params = state["params"]
+            metrics, grads = sharded_grads(model, params, batch, part, accum)
+            grads = psum_partial(grads, partial, part)
+            new_state: TrainState = {}
+            if compress:
+                grads, new_state["ef"] = ef_compress_sharded(
+                    grads, state["ef"], p_sh, like, part)
+            with tracing.span("train.optimizer"):
+                grads, gnorm = clip_by_global_norm(
+                    grads, opt_cfg.grad_clip, reduce_sums)
+                g_cut = [cut(g, c) for g, c in zip(tree.leaves(grads), cuts)]
+                p_cut = [cut(p, c) for p, c in zip(tree.leaves(params),
+                                                   cuts)]
+                new_cut, new_opt, lr = adamw_step(
+                    tree.unflatten(params, g_cut), state["opt"],
+                    tree.unflatten(params, p_cut), opt_cfg)
+                new_params = tree.unflatten(params,
+                                            gather_cut(tree.leaves(new_cut)))
+            new_state["params"] = new_params
+            new_state["opt"] = new_opt
+            return new_state, {**metrics, "grad_norm": gnorm, "lr": lr}
 
     return train_step
