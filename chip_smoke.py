@@ -6,6 +6,7 @@ CUDA toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py [--seed 0] [--ticks 5] [--f32-layers 4]
                           [--replaced DIR] [--serve ARCH ...] [--shard]
+                          [--gmm-backward]
 
 What it does, in phases (one JSON line each; any failure raises and the
 process exits non-zero):
@@ -63,7 +64,17 @@ process exits non-zero):
                 olmoe's and jamba's, K4 at jamba's, and K2 at granite's
                 training shapes)
                 beside their plain versions and, for K5,
-                ``torch._grouped_mm``.  With ``--replaced DIR`` (a
+                ``torch._grouped_mm``.  K5's backward kernels (``dX``,
+                ``dW``) at granite's training launches (32 768 rows over
+                32 experts, gate/up and down): uniform and skewed routing
+                (empty experts), rows off 64, one expert holding every
+                row, zero rows, each input's gradient alone; their
+                launches, no host sync inside ``torch.autograd.grad``
+                (``set_sync_debug_mode("error")``), ``GMM_BWD_TOL`` of the
+                plain forms, an empty expert's ``dW`` exactly zero; each
+                kernel timed beside its bound, the plain backward and
+                ``torch._grouped_mm``'s backward (alone:
+                ``--gmm-backward``).  With ``--replaced DIR`` (a
                 ``csrc`` holding the K1, K2, K3, K4 and K5 bodies this
                 version replaced, e.g. the parent commit's) those that
                 differ from the current ones are built too, held against
@@ -186,9 +197,12 @@ process exits non-zero):
                 made by holding the host before it), the last checkpoint restored byte for byte
                 against the parameters it was saved from, step time by CUDA
                 events with its forward / backward / optimizer parts, one
-                more step profiled for the device's idle share.  Then the
-                gradients of the kernel path (the kernels forward, their
-                plain versions' autograd backward) against the reference's
+                more step profiled for the device's idle share, and K5's
+                backward kernels counted (``BACKWARD_LAUNCHES``: dX and dW
+                for each grouped product, 144 a granite step).  Then the
+                gradients of the kernel path (the kernels forward; K5's
+                backward kernels, K2's and K4's plain versions' autograd
+                backward) against the reference's
                 plain forms on the run's first batch and initial
                 parameters, the routing replayed (``TrainRouting``, which
                 also checks that every recompute routes as its forward):
@@ -447,6 +461,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import importlib
 import io
@@ -500,6 +515,7 @@ from repro_torch.kernels import (  # noqa: E402
     ssd_chunked_cuda,
     ssd_scan,
 )
+from repro_torch.kernels.grad import PlainGradient  # noqa: E402
 from repro_torch.launch import dryrun, report, roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
@@ -564,6 +580,10 @@ MAX_LEN = PROMPT_LEN + MAX_NEW + 8
 #: attention and SSD kernels', and the grouped matmul's.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 GMM_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+#: K5's backward kernels against its gradient's plain forms (rtol = atol):
+#: bf16's step at 2^-6, the largest error the forward's bf16 checks read
+#: at the sharded shapes; one rounding apart reads 2^-8 relative.
+GMM_BWD_TOL = 2 ** -6
 #: K3's statistics-form ``o`` and the blocks' combine, held by relative RMS
 #: (over a long block ``o`` is small, about sqrt(e / positions), and the
 #: elementwise ``ATTN_TOL`` would pass ``o = 0``).  bf16 ``p`` rounded at
@@ -1947,6 +1967,162 @@ def moe_ssd_timings(device, seed: int, flush, replaced=None) -> dict:
     return out
 
 
+def gmm_backward_case(gen, sizes, K, N, device, label: str,
+                      need=(True, True)) -> dict:
+    """One K5 backward call on bf16 CUDA tensors (``xs`` N(0, 1), ``w``
+    N(0, 1 / K), the output's gradient N(0, 1)) inside
+    ``torch.autograd.grad`` under ``set_sync_debug_mode("error")`` (a host
+    sync raises): its launches (``BACKWARD_LAUNCHES``: one for each input
+    in ``need``, none on zero rows), ``dX`` and ``dW`` against the plain
+    forms within ``GMM_BWD_TOL``, and ``dW`` of every empty expert exactly
+    zero."""
+    bf = torch.bfloat16
+    sizes = torch.as_tensor(sizes, dtype=torch.int64, device=device)
+    M, E = int(sizes.sum()), sizes.numel()
+    xs = _randn(gen, (M, K), bf, device).requires_grad_(need[0])
+    w = (torch.randn((E, K, N), generator=gen, device=device)
+         / K ** 0.5).to(bf).requires_grad_(need[1])
+    g = _randn(gen, (M, N), bf, device)
+    y = moe_gmm.grouped_matmul(xs, w, sizes)
+    wrt = [t for t in (xs, w) if t.requires_grad]
+    torch.cuda.synchronize()
+    before = moe_gmm.BACKWARD_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = list(torch.autograd.grad(y, wrt, g))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = moe_gmm.BACKWARD_LAUNCHES - before
+    torch.cuda.synchronize()
+    want = sum(need) if M else 0
+    check(launched == want, f"moe_gmm backward {label}: {launched} "
+                            f"launches, expected {want}")
+    out = {"kernel": "moe_gmm_backward", "case": label, "rows": M,
+           "experts": E, "K": K, "N": N, "launches": launched,
+           "empty_experts": int((sizes == 0).sum()),
+           "sync_debug_mode": "error"}
+    if need[0]:
+        out["dx"] = compare(grads.pop(0), moe_gmm.grouped_matmul_dx_torch(
+            g, w.detach(), sizes), GMM_BWD_TOL, f"moe_gmm dX {label}")
+    if need[1]:
+        dw = grads.pop(0)
+        out["dw"] = compare(dw, moe_gmm.grouped_matmul_dw_torch(
+            xs.detach(), g, sizes), GMM_BWD_TOL, f"moe_gmm dW {label}")
+        check(not bool(dw[sizes == 0].any()),
+              f"moe_gmm dW {label}: an empty expert's gradient is not zero")
+    return out
+
+
+def gmm_backward_checks(device, seed: int) -> list[dict]:
+    """K5's backward at granite-moe-1b-a400m's training launches (8 x 512
+    tokens, top 8: 32 768 routed rows over 32 experts; gate/up 1024 → 512
+    and down 512 → 1024): uniform routing, skewed routing with five
+    experts or more empty, a row count off 64, one expert holding every
+    row; then zero rows and each input's gradient alone."""
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+    B, S = TRAIN_SHAPES[MOE_ARCH]
+    rows = B * S * cfg.moe_top_k
+
+    def drawn(n, probs):
+        ids = torch.multinomial(probs, n, replacement=True, generator=gen)
+        return torch.bincount(ids, minlength=E)
+
+    uniform = torch.full((E,), 1.0 / E, device=device)
+    skew = torch.softmax(3 * torch.randn(E, generator=gen, device=device), 0)
+    skew[torch.randperm(E, generator=gen, device=device)[:5]] = 0
+    routings = {"uniform": drawn(rows, uniform),
+                "skewed, 5 or more experts empty": drawn(rows, skew),
+                f"uniform, {rows - 37} rows": drawn(rows - 37, uniform),
+                "one expert holds every row": [0] * 7 + [rows] + [0] * 24}
+    out = []
+    for label, sizes in routings.items():
+        for proj, K, N in (("gate/up", d, f), ("down", f, d)):
+            if label.startswith("one expert") and proj == "down":
+                continue
+            out.append(gmm_backward_case(gen, sizes, K, N, device,
+                                         f"{proj}, {label}"))
+    out.append(gmm_backward_case(gen, [0] * E, d, f, device, "no rows"))
+    for need in ((True, False), (False, True)):
+        out.append(gmm_backward_case(
+            gen, routings["uniform"], d, f, device,
+            f"gate/up, {'dX' if need[0] else 'dW'} alone", need=need))
+    return out
+
+
+def grouped_mm_backward(xs, w, sizes, g):
+    """``torch._grouped_mm``'s backward through autograd, where this torch
+    has the op and differentiates it; else None."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    xl, wl = xs.detach().requires_grad_(), w.detach().requires_grad_()
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    try:
+        y = torch._grouped_mm(xl, wl, offs=offs)
+        torch.autograd.grad(y, (xl, wl), g, retain_graph=True)
+    except RuntimeError:
+        return None
+    return lambda: torch.autograd.grad(y, (xl, wl), g, retain_graph=True)
+
+
+def gmm_backward_timings(device, seed: int, flush) -> dict:
+    """K5's backward at granite-moe-1b-a400m's training launches (32 768
+    routed rows over 32 experts, ``routed_sizes``' uneven routing; gate/up
+    1024 → 512 and down 512 → 1024, bf16): the ``dX`` and ``dW`` kernels
+    alone, both through ``torch.autograd.grad`` (``ms``: one backward
+    call), the plain backward (``PlainGradient``: the plain version's
+    autograd, as before the kernels) and ``torch._grouped_mm``'s backward
+    where this torch differentiates it, by CUDA events with L2 displaced,
+    in turns, beside each kernel's bound (``dW`` writes every expert's
+    weights)."""
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    bf = torch.bfloat16
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.expert_d_ff
+    B, S = TRAIN_SHAPES[MOE_ARCH]
+    out = {}
+    for label, K, N in (("gate_up", d, f), ("down", f, d)):
+        sizes = routed_sizes(gen, B * S * cfg.moe_top_k, E, device)
+        M = int(sizes.sum())
+        xs = _randn(gen, (M, K), bf, device).requires_grad_()
+        w = (torch.randn((E, K, N), generator=gen, device=device)
+             / K ** 0.5).to(bf).requires_grad_()
+        g = _randn(gen, (M, N), bf, device)
+        s32 = sizes.to(torch.int32)
+        y = moe_gmm.grouped_matmul(xs, w, sizes)
+        y_plain = PlainGradient.apply(
+            functools.partial(moe_gmm._launch, rows_per_tile=None),
+            moe_gmm.grouped_matmul_torch, xs, w, sizes)
+        fns = {
+            "dx_ms": lambda: moe_gmm._launch_dx(g, w.detach(), s32),
+            "dw_ms": lambda: moe_gmm._launch_dw(xs.detach(), g, s32),
+            "ms": lambda: torch.autograd.grad(y, (xs, w), g,
+                                              retain_graph=True),
+            "plain_ms": lambda: torch.autograd.grad(y_plain, (xs, w), g,
+                                                    retain_graph=True),
+        }
+        lib = grouped_mm_backward(xs, w, sizes, g)
+        if lib is not None:
+            fns["library_ms"] = lib
+        t = measure_fns(fns, flush, rounds=2)
+        active = int((sizes > 0).sum())
+        dx_b = roofline.work_bound(roofline.gmm_work(M, N, K, active, bf))
+        dw_b = roofline.work_bound(roofline.gmm_work(M, K, N, E, bf))
+        t.update(rows=M, experts=E, K=K, N=N, active_experts=active,
+                 largest_group=int(sizes.max()),
+                 library="torch._grouped_mm" if lib else None,
+                 dx_bound_ms=dx_b["bound_ms"], dx_bound_by=dx_b["bound_by"],
+                 dw_bound_ms=dw_b["bound_ms"], dw_bound_by=dw_b["bound_by"],
+                 bound_ms=dx_b["bound_ms"] + dw_b["bound_ms"],
+                 dx_share=dx_b["bound_ms"] / t["dx_ms"],
+                 dw_share=dw_b["bound_ms"] / t["dw_ms"],
+                 share=(dx_b["bound_ms"] + dw_b["bound_ms"]) / t["ms"])
+        out[f"moe_gmm_backward_{label}"] = t
+        del xs, w, g, y, y_plain, fns, lib
+    return out
+
+
 def ssd_timing(gen, device, flush, arch: str, replaced) -> dict:
     """K4 at ``arch``'s prefill (8 x 1024 steps, P 64, bf16) beside its
     plain version and (``replaced``) the body it replaced."""
@@ -2609,11 +2785,14 @@ class TrainProbe:
                 if len(probe.steps) == TRAIN_STALL_STEP:
                     probe.stall_s = TRAIN_STALL_FACTOR * probe.longest_task_s
                     time.sleep(probe.stall_s)
-                probe.steps.append({"marks": {}, "counts": [kernel_counts()]})
+                probe.steps.append({"marks": {}, "counts": [kernel_counts()],
+                                    "backward": moe_gmm.BACKWARD_LAUNCHES})
                 probe._mark("start")
                 state, metrics = inner(state, batch)
                 probe._mark("end")
                 probe.steps[-1]["counts"].append(kernel_counts())
+                probe.steps[-1]["backward"] = (moe_gmm.BACKWARD_LAUNCHES
+                                               - probe.steps[-1]["backward"])
                 probe.steps[-1]["loss"] = metrics["loss"]
                 probe.state, probe.step_fn = state, inner
                 return state, metrics
@@ -2672,8 +2851,19 @@ class TrainProbe:
                 "optimizer_ms": m["optimizer_start"].ms_to(
                     m["optimizer_end"]),
                 "launches": {k: s["counts"][1][k] - s["counts"][0][k]
-                             for k in s["counts"][0]}})
+                             for k in s["counts"][0]},
+                "backward_launches": s["backward"]})
         return out
+
+
+def expected_train_backward_launches(cfg) -> int:
+    """K5's backward kernels in one train step (``BACKWARD_LAUNCHES``):
+    ``dX`` and ``dW`` for each of the three grouped products of every MoE
+    layer in bfloat16 (each product's rows and weights take a gradient;
+    the recompute adds none); float32 keeps the plain backward."""
+    if cfg.moe_impl != "gmm" or cfg.dtype != "bfloat16":
+        return 0
+    return 2 * 3 * cfg.n_blocks * sum(s.ffn == "moe" for s in cfg.pattern())
 
 
 def expected_train_launches(cfg) -> dict:
@@ -2681,8 +2871,9 @@ def expected_train_launches(cfg) -> dict:
     attention layer — an encoder-decoder's encoder layers once, its decoder
     layers twice: self and cross —, K4 once per SSM layer, K5 three times
     per MoE layer), twice with ``remat`` (the backward recomputes every
-    block); the backward itself launches none (it is the plain versions'
-    autograd)."""
+    block); the backward launches none of these (K2's and K4's is their
+    plain versions' autograd, K5's bf16 one its own kernels,
+    :func:`expected_train_backward_launches`)."""
     if cfg.enc_layers:
         forward = {"flash_attention": cfg.enc_layers + 2 * cfg.n_layers,
                    "decode_attention": 0, "ssd_scan": 0, "moe_gmm": 0}
@@ -2933,10 +3124,14 @@ def phase_train(args, card: str, device, arch: str) -> dict:
     steps = probe.step_times()
     losses = [float(s["loss"]) for s in probe.steps]
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} train steps")
+    want_bwd = expected_train_backward_launches(cfg)
     for n, s in enumerate(steps):
         check(s["launches"] == want,
               f"{arch} train step {n} launched {s['launches']}, "
               f"expected {want}")
+        check(s["backward_launches"] == want_bwd,
+              f"{arch} train step {n} launched {s['backward_launches']} "
+              f"K5 backward kernels, expected {want_bwd}")
     steady = steps[1:]
     step_ms = statistics.median(s["step_ms"] for s in steady)
     run = {
@@ -2952,6 +3147,7 @@ def phase_train(args, card: str, device, arch: str) -> dict:
         "step_ms": [s["step_ms"] for s in steps],
         "peak_memory_gb": peak / 1e9,
         "launches": launches, "launches_per_step": want,
+        "backward_launches_per_step": want_bwd,
         "k1_launches": k1, "packed_sweeps": len(gates["calls"]),
         "diagnosis_ticks": probe.ticks, "k1_in_ticks": probe.k1_in_ticks,
         "k1_per_tick": probe.k1_per_tick, "stall_step": TRAIN_STALL_STEP,
@@ -6932,6 +7128,11 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
         emit({"phase": "kernels", **c})
     moe_ssd_timing = moe_ssd_timings(device, args.seed, flush, replaced)
     emit({"phase": "kernels", "timings": moe_ssd_timing})
+    gmm_bwd_checks = gmm_backward_checks(device, args.seed)
+    for c in gmm_bwd_checks:
+        emit({"phase": "kernels", **c})
+    gmm_bwd_timing = gmm_backward_timings(device, args.seed, flush)
+    emit({"phase": "kernels", "timings": gmm_bwd_timing})
     t0 = time.perf_counter()
     shard_checks = shard_kernel_checks(device, args.seed)
     for c in shard_checks:
@@ -7291,6 +7492,16 @@ def run_phases(args, card: str, device, dry: DryRun) -> None:
                 for k in ("prefill", "prefill_down", "decode")}
             for n in ("olmoe", "jamba")},
          **trained("moe_gmm", MOE_ARCH),
+         "backward": {
+             "source": "src/repro_torch/kernels/csrc/moe_gmm.cu "
+                       "(gmm_dx_bf16, gmm_dw_bf16)",
+             "replaces": "the plain version's autograd (no TPU kernel)",
+             "train_launches_per_step": train[MOE_ARCH][
+                 "backward_launches_per_step"],
+             "max_abs_err": {part: max(c[part]["max_abs_err"]
+                                       for c in gmm_bwd_checks if part in c)
+                             for part in ("dx", "dw")},
+             **gmm_bwd_timing},
          "ep": {"path": ep["arch"] + " moe_impl=ep", "shards": EP_SHARDS,
                 "prefill_launches": ep["launches"]["moe_gmm"],
                 "shard_gate_up": ep["k5_shard"]["gate_up"],
@@ -7377,13 +7588,31 @@ def main() -> None:
                          "each held to the serving checks (bringing up an "
                          "arch; the kernels line and the ok line are not "
                          "printed)")
+    ap.add_argument("--gmm-backward", action="store_true",
+                    help="only build the kernels and hold and time K5's "
+                         "backward kernels (the kernels line and the ok "
+                         "line are not printed)")
     args = ap.parse_args()
-    if args.serve:
+    if args.gmm_backward:
+        gmm_backward_only(args)
+    elif args.serve:
         serve_only(args)
     elif args.shard:
         shard_only(args)
     else:
         run(args)
+
+
+def gmm_backward_only(args) -> None:
+    """``--gmm-backward``: K5's backward checks and timings alone."""
+    phase_env()
+    device = torch.device("cuda")
+    phase_build()
+    for c in gmm_backward_checks(device, args.seed):
+        emit({"phase": "kernels", **c})
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device=device)
+    emit({"phase": "kernels", "timings": gmm_backward_timings(
+        device, args.seed, flush)})
 
 
 def shard_only(args) -> None:

@@ -12,7 +12,8 @@ model-layout entry points are :func:`mha_flash`, :func:`mha_decode`,
 :func:`moe_gmm_ffn` and :func:`ssd_chunked_cuda`.  The forward kernels of
 the training path (flash attention, the SSD intra-chunk, the grouped
 matmul) are differentiable: their gradient is their plain version's
-(:mod:`.grad`).
+(:mod:`.grad`), but for the grouped matmul's on bfloat16 CUDA tensors, which
+is two backward kernels of its own (``moe_gmm.KernelGradient``).
 """
 from . import decode_attention, flash_attention, moe_gmm, ssd_scan
 from .bigroots_gates import eval_gates, eval_gates_torch, gates_launch

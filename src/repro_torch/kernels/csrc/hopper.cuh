@@ -7,7 +7,9 @@
 // - TMA tile loads (cp.async.bulk.tensor.{2,3,4}d) completing on an mbarrier;
 // - wgmma: fence, commit_group, wait_group<N>, the 64-bit shared-memory
 //   matrix descriptor for 128-byte-swizzled tiles, and the bf16
-//   wgmma.mma_async shapes the two kernels use;
+//   wgmma.mma_async shapes the kernels use;
+// - fence.proxy.async and a named barrier, for shared memory written by
+//   threads and then read by wgmma;
 // - setmaxnreg, for warp-specialised blocks;
 // - host side: encode_tiled(), cuTensorMapEncodeTiled reached through
 //   cudaGetDriverEntryPoint, so the library needs no -lcuda (<cuda.h> is
@@ -120,6 +122,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         : "memory");
 }
 
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA); follow it with a barrier over the readers.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over THREADS threads.
+template <int THREADS>
+__device__ __forceinline__ void named_barrier_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
+}
+
 // ---------------------------------------------------------------- setmaxnreg
 
 template <int REGS>
@@ -198,8 +212,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// The same with N = 256.
-template <int TRANS_B>
+// The same with N = 256; TRANS_A = 1 reads A M-major (rows of 64 m values,
+// one row per k, as an MN-major B), 0 K-major.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(
     float (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -214,7 +229,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, %131;\n}\n"
+        "%128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -231,7 +246,8 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B),
+          "n"(TRANS_A));
 }
 
 // d (64 x 128, f32) += A (64 x 16, bf16 registers in the accumulator's row

@@ -13,6 +13,8 @@ still runs the kernel, and a failed build or launch still raises.
 
 On CPU tensors a wrapper passes the plain version as ``launch`` too, so the
 CPU tests exercise the same save / recompute / backward path as the card.
+The grouped matmul's bfloat16 CUDA calls have a gradient of kernels of
+their own (``moe_gmm.KernelGradient``); its other calls take this one.
 """
 from __future__ import annotations
 

@@ -16,6 +16,9 @@ groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
 - :func:`grouped_matmul_torch` — the plain PyTorch version: one float32
   ``torch.matmul`` per expert (it reads the group sizes on the host).  The
   CPU tests use it, and the kernel is held against it on the GPU.
+  :func:`grouped_matmul_dx_torch` and :func:`grouped_matmul_dw_torch` are
+  the plain forms of its gradient in ``xs`` and in ``w``, which the two
+  backward kernels are held against.
 - :func:`grouped_matmul` — CUDA tensors launch the kernel
   (``csrc/moe_gmm.cu``: wgmma + TMA for bfloat16, scalar FMAs for float32)
   on the current stream or raise; the kernel reads the group sizes from
@@ -23,7 +26,10 @@ groups of ``Cap`` rows; unlike its wrapper nothing is padded or dropped.
   output tile is :func:`tile_rows` rows high, chosen from ``M`` and ``E``
   alone, and its inputs must suit a TMA tensor map (:mod:`.tma`).  CPU
   tensors take the plain version.  ``LAUNCHES`` counts kernel launches.
-  Its gradient is the plain version's, by autograd (:mod:`.grad`).
+  The gradient of a bfloat16 CUDA call is two kernels of its own
+  (:class:`KernelGradient`: ``dX`` and ``dW``, on the current stream, no
+  host read, counted in ``BACKWARD_LAUNCHES``); that of CPU, float32 CUDA
+  and ``meta`` tensors is the plain version's, by autograd (:mod:`.grad`).
   ``meta`` tensors (the dry run) take the kernel's checks, then an empty
   output, and its work (:func:`repro_torch.launch.roofline.gmm_work`) goes
   to the active step counter.
@@ -38,10 +44,14 @@ import torch
 from . import build
 from .flash_attention import DTYPES
 from .grad import PlainGradient
-from .tma import check_tma
+from .tma import TMA_ALIGN, check_tma
 
 #: Number of times :func:`grouped_matmul` launched the CUDA kernel.
 LAUNCHES = 0
+#: Number of launches of the two backward kernels (``dX`` and ``dW``) by
+#: :class:`KernelGradient`: two a backward call, one where only one input
+#: needs a gradient, none on zero rows.
+BACKWARD_LAUNCHES = 0
 
 #: Experts the CUDA kernel takes (its ``MAX_EXPERTS``: one shared int each).
 MAX_EXPERTS = 1024
@@ -62,6 +72,17 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+@functools.cache
+def _backward_fn(name: str):
+    """``moe_gmm_bwd_dx`` (with a tile height) or ``moe_gmm_bwd_dw``."""
+    fn = getattr(build.load("moe_gmm"), name)
+    ints = 5 if name == "moe_gmm_bwd_dx" else 4
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def tile_rows(M: int, E: int) -> int:
@@ -104,6 +125,32 @@ def grouped_matmul_torch(xs, w, group_sizes) -> torch.Tensor:
     return out
 
 
+def grouped_matmul_dx_torch(g, w, group_sizes) -> torch.Tensor:
+    """Plain gradient of :func:`grouped_matmul_torch` in ``xs``, for ``g``
+    ``[M, N]`` the gradient of its output: ``g[rows of e] @ w[e]ᵀ`` in
+    float32 for every expert, cast to g's dtype → ``[M, K]``."""
+    return grouped_matmul_torch(g, w.transpose(1, 2), group_sizes)
+
+
+def grouped_matmul_dw_torch(xs, g, group_sizes) -> torch.Tensor:
+    """Plain gradient of :func:`grouped_matmul_torch` in ``w``:
+    ``xs[rows of e]ᵀ @ g[rows of e]`` in float32 for every expert (zeros
+    for one with no rows), cast to xs's dtype → ``[E, K, N]``."""
+    sizes = [int(n) for n in group_sizes.tolist()]
+    if sum(sizes) != xs.shape[0] or min(sizes, default=0) < 0:
+        raise ValueError(f"group sizes {sizes} do not split {xs.shape[0]} "
+                         "rows")
+    dw = torch.zeros((len(sizes), xs.shape[1], g.shape[1]), dtype=xs.dtype,
+                     device=xs.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            dw[e] = (xs[start:start + n].float().T
+                     @ g[start:start + n].float()).to(xs.dtype)
+        start += n
+    return dw
+
+
 def _check(xs, w, group_sizes) -> None:
     if xs.dim() != 2 or w.dim() != 3 or group_sizes.dim() != 1:
         raise ValueError("xs must be [M, K], w [E, K, N], group_sizes [E]")
@@ -144,8 +191,9 @@ def grouped_matmul(xs, w, group_sizes, *,
     ``group_sizes``), the plain version for CPU tensors.
     ``rows_per_tile`` (64 or 128) overrides :func:`tile_rows` for the
     bfloat16 kernel; it changes how the work is cut, not the result.
-    Differentiable in ``xs`` and ``w``: the gradient is the plain
-    version's (:class:`~repro_torch.kernels.grad.PlainGradient`)."""
+    Differentiable in ``xs`` and ``w``: on bfloat16 CUDA tensors by the
+    backward kernels (:class:`KernelGradient`), else by the plain
+    version's autograd (:class:`~repro_torch.kernels.grad.PlainGradient`)."""
     _check(xs, w, group_sizes)
     if rows_per_tile is not None and rows_per_tile not in TILE_ROWS:
         raise ValueError(f"rows_per_tile {rows_per_tile}: the kernel takes "
@@ -159,6 +207,8 @@ def grouped_matmul(xs, w, group_sizes, *,
     if xs.device.type == "meta":
         return PlainGradient.apply(_count, grouped_matmul_torch, xs, w,
                                    group_sizes)
+    if xs.dtype == torch.bfloat16:
+        return KernelGradient.apply(xs, w, group_sizes, rows_per_tile)
     return PlainGradient.apply(
         functools.partial(_launch, rows_per_tile=rows_per_tile),
         grouped_matmul_torch, xs, w, group_sizes)
@@ -196,3 +246,67 @@ def _launch(xs, w, group_sizes, *, rows_per_tile: int | None):
                            f"{build.describe_error(rc)}")
     LAUNCHES += 1
     return out
+
+
+class KernelGradient(torch.autograd.Function):
+    """K5 on bfloat16 CUDA tensors with a gradient of kernels:
+    ``KernelGradient.apply(xs, w, group_sizes, rows_per_tile)``.  Forward,
+    :func:`_launch`; backward, for ``g`` the gradient of the output,
+    ``dX = g[rows of e] · w[e]ᵀ`` and ``dW[e] = xs[rows of e]ᵀ ·
+    g[rows of e]`` (one kernel each, launched only for an input that needs
+    its gradient) from the saved ``xs``, ``w`` and int32 group sizes: no
+    recompute, no host read, float32 sums rounded to bfloat16 once, as
+    :func:`grouped_matmul_dx_torch` and :func:`grouped_matmul_dw_torch`."""
+
+    @staticmethod
+    def forward(ctx, xs, w, group_sizes, rows_per_tile):
+        sizes = group_sizes.to(torch.int32).contiguous()
+        ctx.save_for_backward(xs, w, sizes)
+        ctx.set_materialize_grads(False)
+        return _launch(xs, w, sizes, rows_per_tile=rows_per_tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, w, sizes = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        if g is None:
+            return None, None, None, None
+        if not g.is_contiguous() or g.data_ptr() % TMA_ALIGN:
+            g = g.clone(memory_format=torch.contiguous_format)
+        return (_launch_dx(g, w, sizes) if need_x else None,
+                _launch_dw(xs, g, sizes) if need_w else None, None, None)
+
+
+def _launch_backward(name: str, inputs: tuple, out, ints: tuple):
+    """One launch of a backward kernel's C entry ``name`` on the current
+    stream: the input tensors' pointers, the output's, the ints."""
+    global BACKWARD_LAUNCHES
+    with torch.cuda.device(out.device):
+        rc = _backward_fn(name)(*(t.data_ptr() for t in inputs),
+                                out.data_ptr(), *ints,
+                                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{build.describe_error(rc)}")
+    BACKWARD_LAUNCHES += 1
+    return out
+
+
+def _launch_dx(g, w, sizes) -> torch.Tensor:
+    M, N = g.shape
+    E, K, _ = w.shape
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    if M == 0:
+        return dx
+    return _launch_backward("moe_gmm_bwd_dx", (g, w, sizes), dx,
+                            (M, K, N, E, tile_rows(M, E)))
+
+
+def _launch_dw(xs, g, sizes) -> torch.Tensor:
+    M, K = xs.shape
+    E, N = sizes.shape[0], g.shape[1]
+    if M == 0:
+        return torch.zeros((E, K, N), dtype=xs.dtype, device=xs.device)
+    dw = torch.empty((E, K, N), dtype=xs.dtype, device=xs.device)
+    return _launch_backward("moe_gmm_bwd_dw", (xs, g, sizes), dw,
+                            (M, K, N, E))

@@ -169,6 +169,131 @@ def test_tile_height_override_is_checked_on_every_device():
 
 
 # ---------------------------------------------------------------------------
+# the gradient's plain forms, which the two backward kernels are held to
+# ---------------------------------------------------------------------------
+GRAD_SIZES = {
+    "ragged": [5, 0, 7, 1, 19],
+    "empty experts": [0, 13, 0, 0, 4],
+    "one group holds every row": [0, 0, 23, 0],
+    "no rows": [0, 0, 0],
+}
+GRAD_DTYPES = [(jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)]
+
+
+def _grad_inputs(sizes, tdt, K=16, N=24):
+    rng = np.random.default_rng(len(sizes) + sum(sizes))
+    M, E = sum(sizes), len(sizes)
+    xs, g = (rng.standard_normal(shape).astype(np.float32)
+             for shape in ((M, K), (M, N)))
+    w = (rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)
+    return xs, w, g, (_t(xs, tdt), _t(w, tdt), _t(g, tdt),
+                      torch.tensor(sizes))
+
+
+@pytest.mark.parametrize("jdt,tdt", GRAD_DTYPES)
+@pytest.mark.parametrize("case", list(GRAD_SIZES))
+def test_plain_gradient_forms_are_the_plain_versions_autograd(case, jdt,
+                                                              tdt):
+    """``dX`` and ``dW`` of the plain version's autograd, bit for bit (the
+    same float32 products, rounded once); no rows: an empty ``dX`` and a
+    zero ``dW``."""
+    _, _, _, (xs, w, g, sizes) = _grad_inputs(GRAD_SIZES[case], tdt)
+    dx = moe_gmm.grouped_matmul_dx_torch(g, w, sizes)
+    dw = moe_gmm.grouped_matmul_dw_torch(xs, g, sizes)
+    assert dx.shape == xs.shape and dw.shape == w.shape
+    assert dx.dtype == dw.dtype == tdt
+    if not xs.shape[0]:
+        assert not dw.any()
+        return
+    leaves = [t.clone().requires_grad_() for t in (xs, w)]
+    out = moe_gmm.grouped_matmul_torch(*leaves, sizes)
+    want_dx, want_dw = torch.autograd.grad(out, leaves, g)
+    assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+    for e in np.flatnonzero(np.asarray(GRAD_SIZES[case]) == 0):
+        assert not dw[e].any()
+
+
+@pytest.mark.parametrize("jdt,tdt", GRAD_DTYPES)
+@pytest.mark.parametrize("case", list(GRAD_SIZES))
+def test_plain_gradient_forms_match_jax_grad_of_ragged_dot(case, jdt, tdt):
+    """Against ``jax.vjp`` of the JAX package's ragged grouped product
+    (``jax.lax.ragged_dot``, as ``repro.models.moe._ragged_ffn`` calls
+    it), at the JAX package's tolerances for this kernel."""
+    sizes = GRAD_SIZES[case]
+    x, w, g, (txs, tw, tg, tsizes) = _grad_inputs(sizes, tdt)
+    gs = jnp.asarray(sizes, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, gs),
+                     jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    want_dx, want_dw = vjp(jnp.asarray(g, jdt))
+    got_dx = moe_gmm.grouped_matmul_dx_torch(tg, tw, tsizes)
+    got_dw = moe_gmm.grouped_matmul_dw_torch(txs, tg, tsizes)
+    np.testing.assert_allclose(got_dx.float().numpy(),
+                               np.asarray(want_dx, np.float32),
+                               **KERNEL_TOL[jdt])
+    np.testing.assert_allclose(got_dw.float().numpy(),
+                               np.asarray(want_dw, np.float32),
+                               **KERNEL_TOL[jdt])
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_cpu_and_meta_tensors_keep_the_plain_gradient(device):
+    """Only bfloat16 CUDA tensors take the backward kernels: CPU and
+    ``meta`` tensors, bfloat16 included, keep ``PlainGradient`` (the CPU
+    tests' path and the dry run's count), and launch nothing."""
+    _, _, _, (xs, w, g, sizes) = _grad_inputs([3, 0, 5], torch.bfloat16)
+    xs, w, g, sizes = (t.to(device) for t in (xs, w, g, sizes))
+    leaves = [t.requires_grad_() for t in (xs, w)]
+    before = moe_gmm.BACKWARD_LAUNCHES
+    out = moe_gmm.grouped_matmul(*leaves, sizes)
+    assert out.grad_fn.name() == "PlainGradientBackward"
+    dx, dw = torch.autograd.grad(out, leaves, g)
+    assert dx.shape == xs.shape and dw.shape == w.shape
+    assert moe_gmm.BACKWARD_LAUNCHES == before and moe_gmm.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False),
+                                  (False, True)])
+@pytest.mark.parametrize("sizes", [[3, 0, 5], [0, 0, 0]])
+def test_kernel_gradient_launches_what_the_inputs_need(monkeypatch, need,
+                                                       sizes):
+    """``KernelGradient``'s wiring, its launches replaced by the plain
+    forms: the forward gets int32 group sizes, the backward launches the
+    ``dX`` kernel only for ``xs``'s gradient and the ``dW`` kernel only for
+    ``w``'s, on the saved inputs, and nothing on zero rows."""
+    calls = []
+
+    def forward(xs, w, s, *, rows_per_tile):
+        assert s.dtype == torch.int32 and rows_per_tile is None
+        return moe_gmm.grouped_matmul_torch(xs, w, s)
+
+    def backward(name, inputs, out, ints):
+        calls.append(name)
+        a, b, s = inputs
+        out.copy_(moe_gmm.grouped_matmul_dx_torch(a, b, s)
+                  if name == "moe_gmm_bwd_dx"
+                  else moe_gmm.grouped_matmul_dw_torch(a, b, s))
+        return out
+
+    monkeypatch.setattr(moe_gmm, "_launch", forward)
+    monkeypatch.setattr(moe_gmm, "_launch_backward", backward)
+    _, _, _, (xs, w, g, tsizes) = _grad_inputs(sizes, torch.bfloat16)
+    leaves = [t.requires_grad_(n) for t, n in zip((xs, w), need)]
+    out = moe_gmm.KernelGradient.apply(*leaves, tsizes, None)
+    got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                              g, allow_unused=True)
+    M = sum(sizes)
+    assert calls == ([] if not M else
+                     ["moe_gmm_bwd_dx"] * need[0] + ["moe_gmm_bwd_dw"]
+                     * need[1])
+    want = iter((moe_gmm.grouped_matmul_dx_torch(g, w, tsizes),
+                 moe_gmm.grouped_matmul_dw_torch(xs, g, tsizes)))
+    for n, want_t in zip(need, want):
+        if n:
+            assert torch.equal(got[0], want_t)
+            got = got[1:]
+
+
+# ---------------------------------------------------------------------------
 # ops.moe_gmm_ffn against the reference's ragged FFN; nothing is dropped
 # ---------------------------------------------------------------------------
 def _ffn_inputs(rng, sizes, d=16, f=8):
