@@ -60,7 +60,6 @@ def main() -> int:
                     numbers,
                     routed_numbers,
                 )
-                from portbench.reference import lm as ref_lm
 
                 run = TrainCell(cell, seed, device,
                                 fault=args.fault if what == "fault" else None)
@@ -83,10 +82,10 @@ def main() -> int:
                         "ref_losses": ref["losses"]}
                 if args.control and what == "sound":
                     run.records = None
-                    line["control"] = read(run.reference(mm=ref_lm.mm_fp8))
+                    line["control"] = read(run.reference(mm=run.ref.mm_fp8))
                 if args.witness and what == "sound":
                     line["reference_bf16"] = read(
-                        run.reference(mm=ref_lm.mm_bf16))
+                        run.reference(mm=run.ref.mm_bf16))
                     f32 = TrainCell(cell, seed, device,
                                     port_over={"dtype": "float32"})
                     f32.setup()
@@ -97,7 +96,6 @@ def main() -> int:
                 del ref
             else:
                 from portbench.harness.serve import ServeCell
-                from portbench.reference import lm as ref_lm
 
                 run = ServeCell(cell, seed, device,
                                 fault=args.fault if what == "fault" else None)
@@ -110,7 +108,7 @@ def main() -> int:
                 line = {"seed": seed, "reading": what,
                         "attempted": w["attempted"], **run.gaps()}
                 if args.control and what == "sound":
-                    line["control"] = run.gaps(control=ref_lm.mm_fp8)
+                    line["control"] = run.gaps(control=run.ref.mm_fp8)
                 run.batches.clear()
             line["seconds"] = time.perf_counter() - t
             print(json.dumps(line), flush=True)

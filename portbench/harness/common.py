@@ -1,7 +1,8 @@
 """What every cell shares: finding its files by name, the device, the
-result line and the limits it prints."""
+traced entries, the result line and the limits it prints."""
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import sys
@@ -9,6 +10,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "portbench"
+#: Folders searched in turn for ``<kind>/<name>.py`` (a configuration's
+#: reference, an entry's recorder, a metric's reader).
+SEARCH = [BENCH]
+_LOADED: dict[Path, object] = {}
 #: Top-level module names that may not be loaded in a benchmark process:
 #: JAX and the JAX package (compared whole: the port's name starts with
 #: the JAX package's).
@@ -40,6 +45,47 @@ def cell(name: str) -> dict:
                              if name in m.get("workloads", [name])]}
     return {"name": name, "entry": entry, "workload": wl, "config": cfg,
             "metrics": metrics}
+
+
+def load(kind: str, name: str):
+    """The module ``<kind>/<name>.py`` of the first folder of ``SEARCH``
+    that holds it, loaded by file once."""
+    path = next((d / kind / f"{name}.py" for d in SEARCH
+                 if (d / kind / f"{name}.py").is_file()), None)
+    if path is None:
+        raise FileNotFoundError(f"no {kind}/{name}.py in {SEARCH}")
+    if path not in _LOADED:
+        key = f"portbench_{kind}_{name}".replace(".", "_")
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+        _LOADED[path] = mod
+    return _LOADED[path]
+
+
+def reference(config: dict):
+    """The plain reference the configuration names (``"reference"``):
+    its model, loss and products, its weight tree and how each leaf is
+    made, its parameter count."""
+    return load("reference", config["reference"])
+
+
+def trace_entries(spans, entries: list[dict]) -> None:
+    """A device span around each call of every entry, named by its span,
+    and what the span's recorder keeps of the call."""
+    from repro_torch.kernels import ops
+
+    for e in entries:
+        spans.wrap(ops, e["entry"], e["span"], host=False, device=True,
+                   record=load("entries", e["span"]).record)
+
+
+def entry_context(spans, entries: list[dict]) -> dict:
+    """Each traced span's recorded calls and device milliseconds."""
+    names = [e["span"] for e in entries]
+    return {"calls": {n: spans.calls.get(n, []) for n in names},
+            "device_ms": {n: spans.device_ms(n) for n in names}}
 
 
 def port_config(model: dict, **over):

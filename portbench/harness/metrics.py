@@ -4,18 +4,11 @@ where the run holds nothing for it to read; the metric is then left out
 of the result line."""
 from __future__ import annotations
 
-import importlib.util
-
-from .common import BENCH
+from .common import load
 
 
 def reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load("metrics", name).read
 
 
 def read_all(metrics: list[dict], ctx: dict) -> dict:

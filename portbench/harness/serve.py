@@ -7,7 +7,8 @@ its prefill, whose last position's logits give its first token (the
 harness waits on the device at the end of each prefill call); the round's
 prompt length goes round the workload's cycle.  After the window, a sample of the
 finished requests drawn from the seed, the longest among them, is run
-through the plain reference once over prompt and served tokens.
+through the configuration's plain reference once over prompt and served
+tokens.
 """
 from __future__ import annotations
 
@@ -17,12 +18,16 @@ import time
 import numpy as np
 import torch
 
-from ..reference import lm as ref_lm
 from ..traffic import requests as req_traffic
 from ..yardstick import work
-from . import weights
+from . import common, weights
 from .common import port_config
 from .spans import Spans
+
+#: The program's entries a serving cell traces where its configuration
+#: lists none: the expert FFN (K5) and prefill attention (K2).
+ENTRIES = [{"entry": "moe_gmm_ffn", "span": "moe_gmm"},
+           {"entry": "mha_flash", "span": "flash"}]
 
 
 class ServeCell:
@@ -36,6 +41,8 @@ class ServeCell:
         self.cell = cell
         self.wl = cell["workload"]
         self.m = dict(cell["config"]["model"], **(model or {}))
+        self.ref = common.reference(cell["config"])
+        self.entries = cell["config"].get("entries", ENTRIES)
         self.seed = seed % (1 << 63)
         self.device = device
         self.fault = fault
@@ -56,7 +63,7 @@ class ServeCell:
         cfg = port_config(self.m)
         dtype = torch.bfloat16 if self.m["dtype"] == "bfloat16" \
             else torch.float32
-        self.params = weights.make(self.m, self.seed, dev, dtype,
+        self.params = weights.make(self.ref, self.m, self.seed, dev, dtype,
                                    keep_f32=True)
         self.engine = ServeEngine(
             Model(cfg), self.params, max_len=max(self.lengths) + self.new
@@ -130,17 +137,8 @@ class ServeCell:
         return rec
 
     def trace_entries(self) -> None:
-        from repro_torch.kernels import ops
-
         self.spans.events = self.device.type == "cuda"
-        self.spans.wrap(ops, "moe_gmm_ffn", "moe_gmm", host=False,
-                        device=True, record=lambda a, k, out: (
-                            a[0].shape[0], a[2].shape[1], a[2].shape[2],
-                            a[1]))
-        self.spans.wrap(ops, "mha_flash", "flash", host=False, device=True,
-                        record=lambda a, k, out: (
-                            *a[0].shape, a[1].shape[1], a[1].shape[2],
-                            k.get("causal", True)))
+        common.trace_entries(self.spans, self.entries)
 
     def window(self, seconds: float) -> dict:
         t0 = time.perf_counter()
@@ -188,26 +186,11 @@ class ServeCell:
         ok = [b for b in self.batches if b["ok"]]
         prefill = [(b["first"] - b["sent"]) * 1e3 for b in ok]
         decode = [(b["done"] - b["first"]) * 1e3 for b in ok]
-        model_calls = ("prefill_call", "decode_call")
-        engine_host = []
-        for n, s, e in self.spans.host:
-            if n != "batch" or not w["t0"] <= s <= w["t1"]:
-                continue
-            inside = sum(b - a for m, a, b in self.spans.host
-                         if m in model_calls and s <= a <= e)
-            engine_host.append((e - s - inside) * 1e3)
-        calls = self.spans.calls.get("moe_gmm", [])
-        active = (torch.stack([(c[3] > 0).sum() for c in calls]).tolist()
-                  if calls else [])
         return {"tokens": self.served_tokens(),
                 "prefill_ms": prefill, "decode_ms": decode,
-                "engine_host_ms": engine_host,
-                "moe_gmm": [(r, d, f, a) for (r, d, f, _), a in
-                            zip(calls, active)],
-                "moe_gmm_ms": self.spans.device_ms("moe_gmm"),
-                "flash": self.spans.calls.get("flash", []),
-                "flash_ms": self.spans.device_ms("flash"),
-                "serve_flops": work.serve_flops, "model": self.m}
+                **common.entry_context(self.spans, self.entries),
+                "active_params": work.active_params(self.ref, self.m),
+                "model": self.m}
 
     # -- correctness ------------------------------------------------------------
     def sample(self) -> list[tuple[dict, int]]:
@@ -230,7 +213,7 @@ class ServeCell:
     def served(self, b: dict, c: int) -> list[int]:
         return [int(b["t1"][c, 0])] + [int(t) for t in b["outputs"][c]]
 
-    def gaps(self, mm=ref_lm.mm_f32, control=None) -> dict:
+    def gaps(self, control=None) -> dict:
         """The widest gap by which a served token's logit lies below the
         reference's best at its position, over the sample; with
         ``control``, the gap of the token the control's product puts
@@ -249,11 +232,11 @@ class ServeCell:
                     [b["prompts"][c], np.asarray(s[:-1], np.int32)])
                     for (b, c), s in zip(part, served)])
                 toks = torch.from_numpy(seq).to(self.device)
-                ref = ref_lm.logits_at(self.params, self.m, toks,
-                                       length - 1)
+                ref = self.ref.logits_at(self.params, self.m, toks,
+                                         length - 1)
                 if control is not None:
-                    lo = ref_lm.logits_at(self.params, self.m, toks,
-                                          length - 1, mm=control)
+                    lo = self.ref.logits_at(self.params, self.m, toks,
+                                            length - 1, mm=control)
                     chosen = lo.argmax(-1)
                     del lo
                 else:

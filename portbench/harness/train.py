@@ -6,9 +6,9 @@ feed (the program's prefetcher over the benchmark's token batches), its
 telemetry and its diagnosis, and drives the loop's own step through its
 first steps, recording the experts step 1 routed each token to.  The
 window then runs that same loop until ``seconds`` have passed and the
-step started last has finished.  Afterwards the plain reference follows
-the first steps from the same weights and batches, and takes step 1 once
-more routed as the program routed it.
+step started last has finished.  Afterwards the configuration's plain
+reference follows the first steps from the same weights and batches, and
+takes step 1 once more routed as the program routed it.
 """
 from __future__ import annotations
 
@@ -19,12 +19,15 @@ import time
 import torch
 
 from ..reference import adamw as ref_adamw
-from ..reference import lm as ref_lm
 from ..traffic import tokens as token_traffic
 from ..yardstick import work
-from . import weights
+from . import common, weights
 from .common import port_config
 from .spans import Spans
+
+#: The program's entries a training cell traces where its configuration
+#: lists none: the expert FFN (K5).
+ENTRIES = [{"entry": "moe_gmm_ffn", "span": "moe_gmm"}]
 
 
 class TrainCell:
@@ -39,6 +42,8 @@ class TrainCell:
         self.cell = cell
         self.wl = cell["workload"]
         self.m = dict(cell["config"]["model"], **(model or {}))
+        self.ref = common.reference(cell["config"])
+        self.entries = cell["config"].get("entries", ENTRIES)
         self.seed = seed % (1 << 63)
         self.device = device
         self.fault = fault
@@ -64,7 +69,7 @@ class TrainCell:
         self.B, self.S = wl["batch"], wl["seq"]
         cfg = port_config(m, **self.port_over)
         self.opt_cfg = AdamWConfig()
-        params = weights.make(m, self.seed, dev, torch.float32)
+        params = weights.make(self.ref, m, self.seed, dev, torch.float32)
         self.state = {"params": params, "opt": adamw_init(params)}
         step = make_train_step(Model(cfg), self.opt_cfg)
         if self.fault == "unchanged":
@@ -139,7 +144,7 @@ class TrainCell:
                                   seen.append(experts) or experts):
                     loss = self.one_step()
                 self.records["routes"] = dict(
-                    zip(ref_lm.moe_layer_keys(self.m), seen))
+                    zip(self.ref.moe_layer_keys(self.m), seen))
             else:
                 loss = self.one_step()
             self.times[f"step{k + 1}"] = time.perf_counter() - t
@@ -153,8 +158,8 @@ class TrainCell:
                 self.records["grads1"] = {p: v.cpu() / (1 - b1)
                                           for p, v in m.items()}
                 del m
-        p0 = weights.flat(weights.make(self.m, self.seed, self.device,
-                                       torch.float32))
+        p0 = weights.flat(weights.make(self.ref, self.m, self.seed,
+                                       self.device, torch.float32))
         p3 = weights.flat(self.state["params"])
         self.records["change_norms"] = dict(zip(p0, torch.stack(
             [(p3[k].float() - p0[k]).norm() for k in p0]).tolist()))
@@ -171,13 +176,8 @@ class TrainCell:
     def trace_entries(self) -> None:
         """Device spans around the program's public entries, and the
         shapes each call was given (traced runs)."""
-        from repro_torch.kernels import ops
-
         self.spans.events = self.dev_is_cuda
-        self.spans.wrap(ops, "moe_gmm_ffn", "moe_gmm", host=False,
-                        device=True, record=lambda a, k, out: (
-                            a[0].shape[0], a[2].shape[1], a[2].shape[2],
-                            a[1]))
+        common.trace_entries(self.spans, self.entries)
 
     def window(self, seconds: float) -> dict:
         t0 = time.perf_counter()
@@ -228,15 +228,10 @@ class TrainCell:
         return {"train_tokens_per_s": tokens / (w["t1"] - w["t0"])}
 
     def layer_context(self, w: dict) -> dict:
-        calls = self.spans.calls.get("moe_gmm", [])
-        active = (torch.stack([(c[3] > 0).sum() for c in calls]).tolist()
-                  if calls else [])
         return {"tokens": self.window_steps * self.B * self.S,
-                "moe_gmm": [(r, d, f, a) for (r, d, f, _), a in
-                            zip(calls, active)],
-                "moe_gmm_ms": self.spans.device_ms("moe_gmm"),
+                **common.entry_context(self.spans, self.entries),
                 "step_ms": self.spans.device_ms("train_step"),
-                "train_flops": work.train_flops,
+                "active_params": work.active_params(self.ref, self.m),
                 "model": self.m}
 
     # -- correctness ----------------------------------------------------------------
@@ -246,18 +241,19 @@ class TrainCell:
         return {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
 
     def _params(self) -> dict:
-        p = weights.flat(weights.make(self.m, self.seed, self.device,
-                                      torch.float32))
+        p = weights.flat(weights.make(self.ref, self.m, self.seed,
+                                      self.device, torch.float32))
         for v in p.values():
             v.requires_grad_(True)
         return p
 
-    def reference(self, mm=ref_lm.mm_f32) -> dict:
+    def reference(self, mm=None) -> dict:
         """The plain reference's first steps from the same weights and
         batches: the losses, step 1's routing and clipped gradient, and
         the change of the parameters after the last step, each leaf's norm
-        (``mm``: the products, float32 or a control's)."""
-        m = self.m
+        (``mm``: the products, the reference's float32 ``mm_f32`` or a
+        control's)."""
+        m, mm = self.m, mm or self.ref.mm_f32
         t0 = time.perf_counter()
         n = self.wl["check"]["reference_steps"]
         p = self._params()
@@ -265,9 +261,9 @@ class TrainCell:
         opt = ref_adamw.AdamWRun(ref_adamw.AdamW(), p)
         out: dict = {"losses": []}
         for k in range(n):
-            routing = ref_lm.Routing() if k == 0 else None
-            loss = ref_lm.loss(weights.unflat(p), m, self._batch(k), mm=mm,
-                               routing=routing)
+            routing = self.ref.Routing() if k == 0 else None
+            loss = self.ref.loss(weights.unflat(p), m, self._batch(k),
+                                 mm=mm, routing=routing)
             grads = torch.autograd.grad(loss, list(p.values()))
             out["losses"].append(float(loss.detach()))
             clipped = opt.update(p, dict(zip(p, grads)))
@@ -287,16 +283,16 @@ class TrainCell:
         slot's logit gap below the reference's own k-th best.  ``None``
         where ``routes`` does not route this step's every token in every
         MoE layer."""
-        keys = ref_lm.moe_layer_keys(self.m)
+        keys = self.ref.moe_layer_keys(self.m)
         rows = self.B * self.S
         if not routes or any(k not in routes or routes[k].shape[0] != rows
                              for k in keys):
             return None
         t0 = time.perf_counter()
         p = self._params()
-        routing = ref_lm.Routing(forced=routes)
-        loss = ref_lm.loss(weights.unflat(p), self.m, self._batch(0),
-                           routing=routing)
+        routing = self.ref.Routing(forced=routes)
+        loss = self.ref.loss(weights.unflat(p), self.m, self._batch(0),
+                             routing=routing)
         grads = torch.autograd.grad(loss, list(p.values()))
         clipped = ref_adamw.clip(dict(zip(p, grads)), ref_adamw.AdamW())
         del grads, p

@@ -5,9 +5,9 @@ from portbench.yardstick.work import bound_s, flash_work
 
 
 def read(ctx):
-    ms = ctx.get("flash_ms")
+    ms = ctx["device_ms"].get("flash")
     if not ms:
         return None
     need = sum(bound_s(flash_work(b, sq, sk, h, kv, d, causal))
-               for b, sq, h, d, sk, kv, causal in ctx["flash"])
+               for b, sq, h, d, sk, kv, causal in ctx["calls"]["flash"])
     return 100.0 * need / (sum(ms) * 1e-3)

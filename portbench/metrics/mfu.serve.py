@@ -5,5 +5,5 @@ from portbench.yardstick.work import PEAK_FLOPS, serve_flops
 
 
 def read(ctx):
-    return 100.0 * serve_flops(ctx["model"], ctx["tokens"]) / (
+    return 100.0 * serve_flops(ctx["active_params"], ctx["tokens"]) / (
         ctx["window_s"] * PEAK_FLOPS)

@@ -4,5 +4,5 @@ from portbench.yardstick.work import PEAK_FLOPS, train_flops
 
 
 def read(ctx):
-    return 100.0 * train_flops(ctx["model"], ctx["tokens"]) / (
+    return 100.0 * train_flops(ctx["active_params"], ctx["tokens"]) / (
         ctx["window_s"] * PEAK_FLOPS)

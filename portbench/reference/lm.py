@@ -23,6 +23,12 @@ Parameters are a dict tree ``{"embed", "final_norm", ["head"], "blocks":
 {slot key: {name: [n_blocks, ...]}}}``.  ``mm`` is the matrix product
 every projection goes through: :func:`mm_f32` (float32, TF32 off) or a
 control's lower-precision product.
+
+Beside the model, what the harness needs of a configuration that names
+this reference (``portbench/reference/__init__.py`` lists it): the weight
+tree (:func:`shapes`), how each leaf is made (:func:`init`,
+:func:`keeps_f32`) and the parameter count the model FLOPs read
+(:func:`param_count`).
 """
 from __future__ import annotations
 
@@ -31,8 +37,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
-
-from ..yardstick.work import head_dim, pattern
 
 LB_COEF = 0.01
 Z_COEF = 1e-3
@@ -68,6 +72,32 @@ def mm_fp8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wf = w.float()
     wq = wf + (fp8(wf) - wf).detach()
     return aq @ wq
+
+
+def pattern(m: dict) -> list[tuple[str, str | None]]:
+    """The repeating (mixer, ffn) slots of a decoder-only configuration."""
+    if m["family"] == "ssm":
+        return [("ssm", None)]
+    period = 1
+    if m.get("attn_period"):
+        period = math.lcm(period, m["attn_period"])
+    if m.get("moe_experts") and m.get("moe_period", 1) > 1:
+        period = math.lcm(period, m["moe_period"])
+    slots = []
+    for i in range(period):
+        mixer = "attn"
+        if m.get("attn_period"):
+            mixer = "attn" if i % m["attn_period"] == m["attn_offset"] \
+                else "ssm"
+        moe = m.get("moe_experts") and \
+            i % m.get("moe_period", 1) == m.get("moe_offset", 0) % m.get(
+                "moe_period", 1)
+        slots.append((mixer, "moe" if moe else "mlp"))
+    return slots
+
+
+def head_dim(m: dict) -> int:
+    return m.get("head_dim") or m["d_model"] // m["n_heads"]
 
 
 def slot_keys(m: dict) -> list[tuple[str, str]]:
@@ -351,3 +381,110 @@ def logits_at(params, m, tokens, first: int, mm=mm_f32):
     [B, S] (each position's prediction of the next token)."""
     x, _, _ = hidden(params, m, tokens, mm)
     return mm(x[:, first:], head(params, m))[..., :m["vocab"]]
+
+
+# -- the weight tree, how each leaf is made, the parameter count --------------
+
+#: Leaves served in float32 whatever the compute dtype (the model reads
+#: them in float32).
+KEEP_F32 = ("norm_scale", "final_norm", "inner_norm", "A_log", "dt_bias")
+ONES = ("norm_scale", "final_norm", "inner_norm", "D")
+ZEROS = ("bq", "bk", "bv", "conv_x_b", "conv_bc_b")
+
+
+def slot_shapes(m: dict, kind: str) -> dict[str, tuple]:
+    d = m["d_model"]
+    if kind == "attn":
+        h, kv, hd = m["n_heads"], m["n_kv_heads"], head_dim(m)
+        out = {"norm_scale": (d,), "wq": (d, h * hd), "wk": (d, kv * hd),
+               "wv": (d, kv * hd), "wo": (h * hd, d)}
+        if m.get("qkv_bias"):
+            out.update(bq=(h * hd,), bk=(kv * hd,), bv=(kv * hd,))
+        return out
+    if kind == "mlp":
+        f = m["d_ff"]
+        return {"norm_scale": (d,), "w_gate": (d, f), "w_up": (d, f),
+                "w_down": (f, d)}
+    if kind == "moe":
+        e, f = m["moe_experts"], m.get("moe_d_ff") or m["d_ff"]
+        return {"norm_scale": (d,), "router": (d, e), "w_gate": (e, d, f),
+                "w_up": (e, d, f), "w_down": (e, f, d)}
+    di = m.get("ssm_expand", 2) * d
+    h = di // m.get("ssm_head_dim", 64)
+    gn2 = 2 * m.get("ssm_groups", 1) * m["ssm_state"]
+    k = m.get("ssm_conv", 4)
+    return {"norm_scale": (d,), "wz": (d, di), "wx": (d, di),
+            "wbc": (d, gn2), "wdt": (d, h), "conv_x_w": (k, di),
+            "conv_x_b": (di,), "conv_bc_w": (k, gn2), "conv_bc_b": (gn2,),
+            "A_log": (h,), "D": (h,), "dt_bias": (h,), "inner_norm": (di,),
+            "out_proj": (di, d)}
+
+
+def shapes(m: dict) -> dict:
+    """The weight tree's shapes, in the order the leaves are drawn."""
+    vp, d, nb = vocab_padded(m), m["d_model"], n_blocks(m)
+    out: dict = {"embed": (vp, d), "final_norm": (d,), "blocks": {}}
+    if not m.get("tie_embeddings"):
+        out["head"] = (d, vp)
+    for key, kind in slot_keys(m):
+        out["blocks"][key] = {n: (nb, *s)
+                              for n, s in slot_shapes(m, kind).items()}
+    return out
+
+
+def std_of(m: dict, path: str) -> float:
+    name = path.rsplit("/", 1)[-1]
+    if name.startswith("conv"):
+        return 0.1
+    if name == "wo" or (name == "w_down" and path.split("/")[-2].endswith(
+            "_mlp")):
+        return 0.02 / math.sqrt(2 * m["n_layers"])
+    return 0.02
+
+
+def init(m: dict, path: str) -> float | str:
+    """How leaf ``path`` ("blocks/L0_attn/wq") is made: its normal draw's
+    std, or ``"ones"``, ``"zeros"``, ``"A_log"`` (log 1..H) or
+    ``"dt_bias"`` (the inverse softplus of a log-uniform dt)."""
+    name = path.rsplit("/", 1)[-1]
+    if name in ONES:
+        return "ones"
+    if name in ZEROS:
+        return "zeros"
+    if name in ("A_log", "dt_bias"):
+        return name
+    return std_of(m, path)
+
+
+def keeps_f32(path: str) -> bool:
+    """Leaf ``path`` is served in float32 whatever the compute dtype."""
+    return path.rsplit("/", 1)[-1] in KEEP_F32
+
+
+def param_count(m: dict, active_only: bool = False) -> int:
+    """Parameters (or those active per token), embeddings included."""
+    d, ff = m["d_model"], m.get("d_ff", 0)
+    hd = head_dim(m) if m.get("n_heads") else 0
+    n = m["vocab"] * d * (1 if m.get("tie_embeddings") else 2)
+    e_ff = m.get("moe_d_ff") or ff
+    di = m.get("ssm_expand", 2) * d
+    groups, state = m.get("ssm_groups", 1), m.get("ssm_state", 0)
+    ssm_heads = di // m.get("ssm_head_dim", 64)
+    conv_dim = di + 2 * groups * state
+    in_proj = 2 * di + 2 * groups * state + ssm_heads
+    attn = (d * m.get("n_heads", 0) * hd + 2 * d * m.get("n_kv_heads", 0) * hd
+            + m.get("n_heads", 0) * hd * d + d)
+    mlp = 3 * d * ff + d
+    experts = m.get("moe_top_k", 0) if active_only else m.get("moe_experts", 0)
+    moe = d * m.get("moe_experts", 0) + experts * 3 * d * e_ff + d
+    ssm = (d * in_proj + conv_dim * m.get("ssm_conv", 4) + conv_dim
+           + 3 * ssm_heads + di * d + di + d)
+    slots = pattern(m)
+    blocks = m["n_layers"] // len(slots)
+    for mixer, ffn in slots:
+        n += blocks * (attn if mixer == "attn" else ssm)
+        if ffn == "mlp":
+            n += blocks * mlp
+        elif ffn == "moe":
+            n += blocks * moe
+    return n + d

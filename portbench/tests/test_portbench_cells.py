@@ -1,18 +1,18 @@
-"""Every cell end to end on the host at cut widths: a sound run is
-correct, and each fault a cell can have, planted under the timed path,
-makes ``correct`` false."""
+"""Every cell of ``BENCHMARK.json`` end to end on the host at cut widths:
+a sound run is correct, and each fault its driver can have, planted under
+the timed path, makes ``correct`` false."""
 from __future__ import annotations
 
 import pytest
 
-from portbench.harness.common import is_correct
+from portbench.harness.common import benchmark, cell, is_correct
 from portbench.tests import smoke
 
-CELLS = ("granite_moe.train.solo", "jamba.serve.prompt", "jamba.serve.long")
-FAULTS = [("granite_moe.train.solo", "unchanged"),
-          ("granite_moe.train.solo", "half_batch"),
-          ("jamba.serve.prompt", "token"),
-          ("jamba.serve.long", "token")]
+CELLS = [w["name"] for w in benchmark()["workloads"]]
+#: The faults a cell of each driver can have.
+DRIVER_FAULTS = {"train": ("unchanged", "half_batch"), "serve": ("token",)}
+FAULTS = [(name, fault) for name in CELLS
+          for fault in DRIVER_FAULTS[cell(name)["workload"]["driver"]]]
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -28,7 +28,6 @@ def test_training_control_fails_where_the_program_passes(card, seed):
     import torch
 
     from portbench.harness.train import TrainCell, routed_numbers
-    from portbench.reference import lm as ref_lm
 
     cell = copy.deepcopy(common.cell("granite_moe.train.solo"))
     lim = cell["workload"]["limits"]
@@ -39,7 +38,7 @@ def test_training_control_fails_where_the_program_passes(card, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     sound = routed_numbers(run.records,
                            run.routed_step(run.records["routes"]))
-    ctl = run.reference(mm=ref_lm.mm_fp8)
+    ctl = run.reference(mm=run.ref.mm_fp8)
     control = routed_numbers(ctl, run.routed_step(ctl["routes"]))
     assert all(sound[k] <= lim[k] for k in ROUTED), sound
     assert any(control[k] > lim[k] for k in ROUTED), control
@@ -50,7 +49,6 @@ def test_serving_control_fails_where_the_program_passes(card):
     import torch
 
     from portbench.harness.serve import ServeCell
-    from portbench.reference import lm as ref_lm
 
     cell = copy.deepcopy(common.cell("jamba.serve.prompt"))
     lim = cell["workload"]["limits"]
@@ -61,6 +59,6 @@ def test_serving_control_fails_where_the_program_passes(card):
     run.free()
     torch.backends.cuda.matmul.allow_tf32 = False
     sound = run.gaps()
-    control = run.gaps(control=ref_lm.mm_fp8)
+    control = run.gaps(control=run.ref.mm_fp8)
     assert sound["gap_mean"] <= lim["token_gap_mean"], sound
     assert control["gap_mean"] > lim["token_gap_mean"], control

@@ -31,10 +31,8 @@ def readings(name: str, traced: bool) -> dict:
     builds it, and the program's spans of the window (read at once: the
     next session clears them)."""
     c = smoke.cell(name)
-    if c["workload"]["driver"] == "train":
-        run = TrainCell(c, 2_147_483_659, smoke.CPU, model=smoke.TRAIN_MODEL)
-    else:
-        run = ServeCell(c, 2_147_483_659, smoke.CPU, model=smoke.SERVE_MODEL)
+    drive = TrainCell if c["workload"]["driver"] == "train" else ServeCell
+    run = drive(c, 2_147_483_659, smoke.CPU, model=smoke.widths(c))
     run.setup()
     if traced:
         with profile(activities=[ProfilerActivity.CPU]):

@@ -6,14 +6,14 @@ from __future__ import annotations
 import pytest
 import torch
 
-from portbench.harness import weights
+from portbench.harness import common, weights
 from portbench.harness.common import port_config
 from portbench.reference import adamw as ref_adamw
-from portbench.reference import lm as ref_lm
 from portbench.tests import smoke
 from portbench.traffic import tokens as token_traffic
 
 CPU = smoke.CPU
+ref_lm = common.load("reference", "lm")
 
 
 def model(name: str, over: dict) -> dict:
@@ -28,7 +28,7 @@ def test_logits_and_loss_match_the_port(name, over):
     from repro_torch.models import Model
 
     m = model(name, over)
-    params = weights.make(m, 3, CPU, torch.float32)
+    params = weights.make(ref_lm, m, 3, CPU, torch.float32)
     batch = {k: torch.from_numpy(v) for k, v in
              token_traffic.batch_at(3, 0, 2, 48, m["vocab"]).items()}
     port = Model(port_config(m, remat=False))
@@ -86,7 +86,7 @@ def test_adamw_matches_the_port():
 
 def test_routing_to_its_own_choices_changes_nothing():
     m = model("granite_moe.train.solo", smoke.TRAIN_MODEL)
-    params = weights.make(m, 4, CPU, torch.float32)
+    params = weights.make(ref_lm, m, 4, CPU, torch.float32)
     batch = {k: torch.from_numpy(v) for k, v in
              token_traffic.batch_at(4, 0, 2, 32, m["vocab"]).items()}
     seen = ref_lm.Routing()

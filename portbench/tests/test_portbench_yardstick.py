@@ -1,18 +1,23 @@
 """The frozen arithmetic, pinned to numbers worked out when the benchmark
-was defined."""
+was defined (the parameter counts and layer pattern are the configuration's
+reference's, which the model FLOPs read)."""
 from __future__ import annotations
 
 import json
 
 import pytest
 
-from portbench.harness.common import BENCH
+from portbench.harness.common import BENCH, reference
 from portbench.yardstick import work
 
 
-def model(name: str) -> dict:
+def config(name: str) -> dict:
     with open(BENCH / "configs" / f"{name}.json") as f:
-        return json.load(f)["model"]
+        return json.load(f)
+
+
+def model(name: str) -> dict:
+    return config(name)["model"]
 
 
 @pytest.mark.parametrize("name,total,active", [
@@ -20,15 +25,17 @@ def model(name: str) -> dict:
     ("jamba_v0_1_52b_p1", 13_267_656_416, 3_402_653_408),
 ])
 def test_param_counts(name, total, active):
+    ref = reference(config(name))
     m = model(name)
-    assert work.param_count(m) == total
-    assert work.active_params(m) == active
+    assert ref.param_count(m) == total
+    assert work.active_params(ref, m) == active
 
 
 def test_model_flops():
-    m = model("granite_moe_1b_a400m")
-    assert work.train_flops(m, 4096) == 6.0 * 428_658_688 * 4096
-    assert work.serve_flops(m, 100) == 2.0 * 428_658_688 * 100
+    ref = reference(config("granite_moe_1b_a400m"))
+    n = work.active_params(ref, model("granite_moe_1b_a400m"))
+    assert work.train_flops(n, 4096) == 6.0 * 428_658_688 * 4096
+    assert work.serve_flops(n, 100) == 2.0 * 428_658_688 * 100
 
 
 def test_flash_work():
@@ -53,7 +60,9 @@ def test_gmm_work_and_bound():
 
 
 def test_pattern():
-    assert work.pattern(model("granite_moe_1b_a400m")) == [("attn", "moe")]
-    jamba = work.pattern(model("jamba_v0_1_52b_p1"))
+    ref = reference(config("granite_moe_1b_a400m"))
+    assert ref.pattern(model("granite_moe_1b_a400m")) == [("attn", "moe")]
+    jamba = reference(config("jamba_v0_1_52b_p1")).pattern(
+        model("jamba_v0_1_52b_p1"))
     assert [m for m, _ in jamba] == ["ssm"] * 4 + ["attn"] + ["ssm"] * 3
     assert [f for _, f in jamba] == ["mlp", "moe"] * 4

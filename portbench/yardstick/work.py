@@ -1,16 +1,16 @@
 """Work a call needs, counted from its shapes, and the card's peaks.
 
 Copies of the port's ``launch/roofline.py`` arithmetic (``flash_work``,
-``gmm_work``, ``model_flops_for`` and the parameter count it reads), taken
-as they stood when the benchmark was defined.  They read plain numbers and
-a configuration dict, never the program's objects.
+``gmm_work``, ``model_flops_for``), taken as they stood when the
+benchmark was defined.  They read plain numbers, never the program's
+objects.  The parameter count the model FLOPs read is the
+configuration's reference's (``param_count``), since it depends on the
+architecture.
 
 Peaks of one NVIDIA H100 SXM from NVIDIA's data sheet: 989 TFLOP/s dense
 bf16 on the tensor cores, 3.35 TB/s of HBM3.
 """
 from __future__ import annotations
-
-import math
 
 PEAK_FLOPS = 989e12     # dense bf16 / fp16 on the tensor cores, per GPU
 HBM_BW = 3.35e12        # bytes/s of HBM3 per GPU
@@ -57,70 +57,16 @@ def bound_s(work: dict) -> float:
 
 # -- model FLOPs -------------------------------------------------------------
 
-def pattern(m: dict) -> list[tuple[str, str | None]]:
-    """The repeating (mixer, ffn) slots of a decoder-only configuration."""
-    if m["family"] == "ssm":
-        return [("ssm", None)]
-    period = 1
-    if m.get("attn_period"):
-        period = math.lcm(period, m["attn_period"])
-    if m.get("moe_experts") and m.get("moe_period", 1) > 1:
-        period = math.lcm(period, m["moe_period"])
-    slots = []
-    for i in range(period):
-        mixer = "attn"
-        if m.get("attn_period"):
-            mixer = "attn" if i % m["attn_period"] == m["attn_offset"] \
-                else "ssm"
-        moe = m.get("moe_experts") and \
-            i % m.get("moe_period", 1) == m.get("moe_offset", 0) % m.get(
-                "moe_period", 1)
-        slots.append((mixer, "moe" if moe else "mlp"))
-    return slots
+def active_params(ref, m: dict) -> int:
+    """Parameters active per token, by the reference ``ref``'s count."""
+    return ref.param_count(m, active_only=bool(m.get("moe_experts")))
 
 
-def head_dim(m: dict) -> int:
-    return m.get("head_dim") or m["d_model"] // m["n_heads"]
-
-
-def param_count(m: dict, active_only: bool = False) -> int:
-    """Parameters (or those active per token), embeddings included."""
-    d, ff = m["d_model"], m.get("d_ff", 0)
-    hd = head_dim(m) if m.get("n_heads") else 0
-    n = m["vocab"] * d * (1 if m.get("tie_embeddings") else 2)
-    e_ff = m.get("moe_d_ff") or ff
-    di = m.get("ssm_expand", 2) * d
-    groups, state = m.get("ssm_groups", 1), m.get("ssm_state", 0)
-    ssm_heads = di // m.get("ssm_head_dim", 64)
-    conv_dim = di + 2 * groups * state
-    in_proj = 2 * di + 2 * groups * state + ssm_heads
-    attn = (d * m.get("n_heads", 0) * hd + 2 * d * m.get("n_kv_heads", 0) * hd
-            + m.get("n_heads", 0) * hd * d + d)
-    mlp = 3 * d * ff + d
-    experts = m.get("moe_top_k", 0) if active_only else m.get("moe_experts", 0)
-    moe = d * m.get("moe_experts", 0) + experts * 3 * d * e_ff + d
-    ssm = (d * in_proj + conv_dim * m.get("ssm_conv", 4) + conv_dim
-           + 3 * ssm_heads + di * d + di + d)
-    slots = pattern(m)
-    blocks = m["n_layers"] // len(slots)
-    for mixer, ffn in slots:
-        n += blocks * (attn if mixer == "attn" else ssm)
-        if ffn == "mlp":
-            n += blocks * mlp
-        elif ffn == "moe":
-            n += blocks * moe
-    return n + d
-
-
-def active_params(m: dict) -> int:
-    return param_count(m, active_only=bool(m.get("moe_experts")))
-
-
-def train_flops(m: dict, tokens: int) -> float:
+def train_flops(active: int, tokens: int) -> float:
     """6 N D, N the active parameters."""
-    return 6.0 * active_params(m) * tokens
+    return 6.0 * active * tokens
 
 
-def serve_flops(m: dict, tokens: int) -> float:
+def serve_flops(active: int, tokens: int) -> float:
     """2 N D over prompt and generated tokens."""
-    return 2.0 * active_params(m) * tokens
+    return 2.0 * active * tokens
